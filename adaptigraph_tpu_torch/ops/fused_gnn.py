@@ -1,0 +1,325 @@
+"""Whole-push GNN rollout: the kernel's wrapper and its plain PyTorch version
+(counterpart of ``adaptigraph_tpu/ops/fused_gnn.py::fused_rollout_chunk``).
+
+``fused_rollout_chunk`` runs one MPPI chunk's whole push-substep loop for a
+batch of samples: per substep it shifts the ``n_his`` history, rebuilds the
+radius∧topk graph from the newest frame (policy ``none``), runs the GNN
+(relation encoder, ``pstep`` message passing, motion head and clamp), records
+each sample at its own repeat and re-sticks the end-effector to the min (or
+masked mean) object y plus the gripper lift. The particle encoding is
+computed once per push (``state_dim == 0``).
+
+On CUDA tensors it launches the CUDA kernel in ``csrc/rollout_chunk.cu``; on
+CPU tensors it runs ``rollout_chunk_plain``, which computes the same function
+with batched tensor ops. Numerics follow the JAX kernel: products accumulate
+in float32 and every layer's output is rounded to ``compute_dtype`` (float32
+or bfloat16) where the JAX kernel rounds it; positions, distances and
+``pred = last + clamp(motion)`` stay float32.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from adaptigraph_tpu_torch.models.gnn import GNNConfig
+from adaptigraph_tpu_torch.ops.graph import BIG, pairwise_sq_dists, smallest_k
+
+N_WEIGHTS = 24
+_MAX_SMEM = 232448  # dynamic shared memory one block may use on Hopper
+
+
+def round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+def supports(cfg: GNNConfig):
+    """Configs the kernel computes (the JAX ``_supports`` plus the
+    ``state_dim == 0`` that hoists the particle encoder out of the loop)."""
+    return (
+        cfg.rel_particle_dim == 0
+        and cfg.rel_density_dim == 0
+        and cfg.density_dim == 0
+        and cfg.offset_dim == 0
+        and cfg.rel_attr_dim == 2
+        and cfg.rel_group_dim == 1
+        and cfg.rel_distance_dim == 3
+        and cfg.attr_dim == 2
+        and cfg.n_instance == 1
+        and cfg.state_dim == 0
+    )
+
+
+def weight_list(params, cfg: GNNConfig, compute_dtype):
+    """The 24 kernel weights in the JAX ``_weight_list`` order, contiguous,
+    in ``compute_dtype``: particle encoder (w, b) x3, relation encoder
+    (w, b) x3, relation propagator [W1, W2|W3, b], particle propagator
+    [Wa, Wb, b], motion head (w, b) x3."""
+    nf = cfg.nf_effect
+
+    def w(x):  # a fresh, aligned allocation, never a view of the parameters
+        return x.to(compute_dtype, copy=True).contiguous()
+
+    pe, re, nr = params["particle_encoder"], params["relation_encoder"], params["non_rigid_predictor"]
+    rp_w = params["relation_propagator"]["w"]
+    pp_w = params["particle_propagator"]["w"]
+    out = []
+    for layers in (pe, re):
+        for layer in layers:
+            out += [w(layer["w"]), w(layer["b"])]
+    out += [w(rp_w[:nf]), w(torch.cat([rp_w[nf:2 * nf], rp_w[2 * nf:]], dim=1)),
+            w(params["relation_propagator"]["b"])]
+    out += [w(pp_w[:nf]), w(pp_w[nf:]), w(params["particle_propagator"]["b"])]
+    for layer in nr:
+        out += [w(layer["w"]), w(layer["b"])]
+    return out
+
+
+def radius_threshold(adj_radius):
+    """radius² as the JAX kernel forms it: a double product rounded to float32."""
+    return float(np.float32(adj_radius * adj_radius))
+
+
+def chunk_inputs(obj0, kp, delta, repeat, physics_param, cfg: GNNConfig,
+                 compute_dtype, obj_mask=None):
+    """Assemble the kernel inputs (the JAX wrapper's l.660-691).
+
+    Returns ``pin`` (B, Np, Dp) in compute_dtype, the packed constant node
+    inputs ``[attrs | phys | action]``; ``sa`` (B, Np, 6) f32, ``[state0 |
+    action]`` with the eef rows from ``kp``/``delta`` and zero padding rows;
+    ``repeat`` (B,) int32; ``valid`` (B, Np) f32, per-sample row validity.
+    """
+    N, n_p, n_s = cfg.n_nodes, cfg.max_nobj, cfg.max_neef
+    Np = round_up(N, 8)
+    B = kp.shape[0]
+    dev = kp.device
+    f32 = torch.float32
+    if obj0.dim() == 2:
+        obj0 = obj0[None].expand(B, n_p, 3)
+    pad3 = torch.zeros(B, Np - N, 3, dtype=f32, device=dev)
+    state0 = torch.cat([obj0.to(f32), kp.to(f32), pad3], dim=1)
+    action = torch.cat([torch.zeros(B, n_p, 3, dtype=f32, device=dev), delta.to(f32), pad3], dim=1)
+    sa = torch.cat([state0, action], dim=-1).contiguous()
+    vobj = (obj_mask.to(f32) if obj_mask is not None
+            else torch.ones(B, n_p, dtype=f32, device=dev))
+    valid = torch.cat([vobj, torch.ones(B, n_s, dtype=f32, device=dev),
+                       torch.zeros(B, Np - N, dtype=f32, device=dev)], dim=1).contiguous()
+    attrs = torch.zeros(B, Np, 2, dtype=f32, device=dev)
+    attrs[:, :n_p, 0] = vobj
+    attrs[:, n_p:N, 1] = 1.0
+    phys = physics_param.to(f32)
+    if phys.dim() == 1:
+        phys = phys[None].expand(B, phys.shape[0])
+    phys_n = torch.cat([phys[:, None, :].expand(B, n_p, cfg.phys_dim),
+                        torch.zeros(B, Np - n_p, cfg.phys_dim, dtype=f32, device=dev)], dim=1)
+    parts = [attrs, phys_n] + ([action] if cfg.action_dim > 0 else [])
+    pin = torch.cat(parts, dim=-1).to(compute_dtype).contiguous()
+    return pin, sa, repeat.to(torch.int32).contiguous(), valid
+
+
+def rollout_chunk_plain(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_radius,
+                        max_repeat, gripper_lift=0.0, mean_y=False,
+                        compute_dtype=torch.bfloat16, stats=None):
+    """Plain PyTorch version of the kernel, on the inputs of ``chunk_inputs``.
+    Returns (B, max_nobj, 3) f32: each sample's object state at its own repeat.
+
+    ``stats`` (a dict) receives the work this batch needs: ``sample_steps``,
+    the substeps each sample runs up to its own repeat, and ``edges``, the
+    real edges summed over those substeps.
+    """
+    cd = compute_dtype
+    f32 = torch.float32
+
+    def rnd(x):  # round to the compute dtype, keep computing in f32
+        return x.to(cd).to(f32)
+
+    w = [t.to(f32) for t in weights]
+    pe, re, (rp_w1, rp_w23, rp_b), (pp_wa, pp_wb, pp_b), nr = (
+        w[0:6], w[6:12], w[12:15], w[15:18], w[18:24])
+
+    def mlp3(x, p, final_relu):
+        x = rnd(torch.relu(x @ p[0] + p[1]))
+        x = rnd(torch.relu(x @ p[2] + p[3]))
+        x = x @ p[4] + p[5]
+        return rnd(torch.relu(x) if final_relu else x)
+
+    B, Np = pin.shape[0], pin.shape[1]
+    N, n_p, nf, n_his = cfg.n_nodes, cfg.max_nobj, cfg.nf_effect, cfg.n_his
+    dev = pin.device
+    rows = torch.arange(Np, device=dev)
+    tool = (rows >= n_p) & (rows < N)
+    vbool = valid > 0
+    vobj = valid * (rows < n_p).to(f32)
+    attrs = torch.stack([vobj, tool.to(f32).expand(B, Np)], dim=-1)
+    g = vobj[..., None]
+    pair_ok = vbool[:, None, :] & ~(tool[:, None] & tool[None, :])[None]
+    thresh = radius_threshold(adj_radius)
+
+    penc = mlp3(pin.to(f32), pe, True)
+    part_base = rnd(penc @ pp_wa + pp_b)
+    state0, action = sa[..., :3], sa[..., 3:]
+    hs = [state0] * n_his
+    rec = state0[:, :n_p]
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    nh3 = n_his * 3
+    rmax = min(int(repeat.max()), max_repeat) if B else 0
+    for ai in range(1, rmax + 1):
+        last = hs[-1]
+        dis = torch.where(pair_ok, pairwise_sq_dists(last), torch.full_like(last[..., 0:1], BIG))
+        vals, idx = smallest_k(dis, K)
+        emask = (vals < thresh) & vbool[:, :, None]
+        if stats is not None:
+            live = repeat >= ai
+            stats["sample_steps"] = stats.get("sample_steps", 0) + int(live.sum())
+            stats["edges"] = stats.get("edges", 0) + int((emask.sum(dim=(1, 2)) * live).sum())
+
+        sn = rnd(torch.cat([hs[i + 1] - hs[i] for i in range(n_his - 1)] + [last], dim=-1))
+        node_g = torch.cat([sn, attrs, g], dim=-1)
+        T = node_g[:, :, None, :].expand(B, Np, K, node_g.shape[-1])
+        G = node_g[bidx, idx]
+        rel_in = torch.cat([T[..., nh3:nh3 + 2], G[..., nh3:nh3 + 2],
+                            torch.abs(T[..., nh3 + 2:] - G[..., nh3 + 2:]),
+                            rnd(T[..., :nh3] - G[..., :nh3])], dim=-1)
+        rel_base = rnd(mlp3(rel_in, re, True) @ rp_w1 + rp_b)
+
+        effect = penc
+        for _ in range(cfg.pstep):
+            rs = rnd(effect @ rp_w23)
+            recv, send = rs[..., :nf], rs[..., nf:]
+            msg = torch.relu(rnd(rnd(rel_base + recv[:, :, None]) + send[bidx, idx]))
+            agg = torch.where(emask[..., None], msg, torch.zeros_like(msg)).sum(dim=2)
+            effect = torch.relu(rnd(rnd(part_base + rnd(rnd(agg) @ pp_wb)) + effect))
+
+        motion = mlp3(effect[:, :n_p], nr, False)
+        pred = last[:, :n_p] + torch.clamp(motion, -cfg.motion_clamp, cfg.motion_clamp)
+        rec = torch.where((repeat == ai)[:, None, None], pred, rec)
+
+        vo = vobj[:, :n_p]
+        if mean_y:
+            ys = (pred[..., 1] * vo).sum(dim=1) / torch.clamp(vo.sum(dim=1), min=1.0)
+        else:
+            ys = torch.where(vo > 0, pred[..., 1], torch.full_like(vo, BIG)).amin(dim=1)
+        ys = ys + gripper_lift
+        cand = last[:, n_p:N] + action[:, n_p:N]
+        eef = torch.stack([cand[..., 0], ys[:, None].expand(B, N - n_p), cand[..., 2]], dim=-1)
+        nxt = torch.cat([pred, eef, torch.zeros(B, Np - N, 3, dtype=f32, device=dev)], dim=1)
+        hs = hs[1:] + [nxt]
+    return rec.contiguous()
+
+
+def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_radius,
+                       max_repeat, gripper_lift, mean_y, compute_dtype):
+    """Check every input against what the kernel takes, then launch it on the
+    current stream. Scratch and output come from ``torch.empty``."""
+    from adaptigraph_tpu_torch.ops import kernels
+
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    dev = pin.device
+    B, Np, Dp = pin.shape
+    N, n_p, nf = cfg.n_nodes, cfg.max_nobj, cfg.nf_effect
+    expect = {
+        "pin": (pin, (B, Np, Dp), compute_dtype),
+        "sa": (sa, (B, Np, 6), torch.float32),
+        "repeat": (repeat, (B,), torch.int32),
+        "valid": (valid, (B, Np), torch.float32),
+    }
+    shapes = _weight_shapes(cfg, Dp)
+    for i, (t, shape) in enumerate(zip(weights, shapes)):
+        expect[f"weight {i}"] = (t, shape, compute_dtype)
+    if len(weights) != N_WEIGHTS:
+        raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
+    for name, (t, shape, dtype) in expect.items():
+        if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor of shape {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    bf16 = compute_dtype == torch.bfloat16
+    step = 16 if bf16 else 4  # a tensor-core k-step is 16 wide; a float4 load 4
+    for width in (cfg.nf_particle, cfg.nf_relation, nf):
+        if width % step:
+            raise ValueError(f"the {compute_dtype} kernel needs layer widths divisible by "
+                             f"{step}, got {width}")
+    if bf16 and (cfg.nf_relation, nf) != (128, 128) or bf16 and cfg.relation_input_dim > 32:
+        # the tensor-core relation MLP keeps a 16 x 128 activation tile per warp in registers
+        raise ValueError("the bfloat16 kernel needs nf_relation = nf_effect = 128 and at most "
+                         f"32 relation inputs, got {cfg.nf_relation}, {nf}, "
+                         f"{cfg.relation_input_dim}")
+    for t in [pin] + list(weights):
+        if t.data_ptr() % 16:
+            raise ValueError("kernel inputs must be 16-byte aligned")
+    if Np < N or Np > 128 or K > Np:
+        raise ValueError(f"unsupported node padding Np={Np} for N={N}, K={K}")
+    lib = kernels.library()
+    dims = (Np, N, n_p, K, cfg.n_his, cfg.pstep, Dp, cfg.nf_particle, cfg.nf_relation, nf,
+            cfg.relation_input_dim)
+    smem = lib.rollout_chunk_smem_bytes(*dims, int(bf16))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"this config needs {smem} bytes of shared memory per block, "
+                         f"more than the {_MAX_SMEM} a Hopper block may use")
+    relbase = torch.empty(B, Np * K, nf, dtype=compute_dtype, device=dev)
+    penc = torch.empty(B, Np, nf, dtype=compute_dtype, device=dev)
+    # bf16 keeps the propagator base in shared memory
+    pbase = None if bf16 else torch.empty(B, Np, nf, dtype=compute_dtype, device=dev)
+    out = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev)
+    wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
+    rc = lib.rollout_chunk_launch(
+        pin.data_ptr(), sa.data_ptr(), repeat.data_ptr(), valid.data_ptr(), wptrs,
+        relbase.data_ptr(), penc.data_ptr(), pbase.data_ptr() if pbase is not None else None,
+        out.data_ptr(),
+        B, *dims, radius_threshold(adj_radius), float(gripper_lift), float(cfg.motion_clamp),
+        int(max_repeat), int(bool(mean_y)), int(bf16),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rollout_chunk kernel launch failed: "
+                           f"{lib.rollout_chunk_error_string(rc).decode()} ({rc})")
+    fused_rollout_chunk.launches += 1
+    return out
+
+
+def _weight_shapes(cfg: GNNConfig, Dp):
+    nfp, nfr, nf = cfg.nf_particle, cfg.nf_relation, cfg.nf_effect
+    rin = cfg.relation_input_dim
+    return [(Dp, nfp), (nfp,), (nfp, nfp), (nfp,), (nfp, nf), (nf,),
+            (rin, nfr), (nfr,), (nfr, nfr), (nfr,), (nfr, nf), (nf,),
+            (nf, nf), (nf, 2 * nf), (nf,),
+            (nf, nf), (nf, nf), (nf,),
+            (nf, nf), (nf,), (nf, nf), (nf,), (nf, 3), (3,)]
+
+
+def rollout_chunk(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_radius, max_repeat,
+                  gripper_lift=0.0, mean_y=False, compute_dtype=torch.bfloat16):
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    if pin.is_cuda:
+        return rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg, K, adj_radius,
+                                  max_repeat, gripper_lift, mean_y, compute_dtype)
+    if pin.device.type != "cpu":
+        raise ValueError(f"no rollout path for device {pin.device}")
+    return rollout_chunk_plain(pin, sa, repeat, valid, weights, cfg, K, adj_radius, max_repeat,
+                               gripper_lift, mean_y, compute_dtype)
+
+
+def fused_rollout_chunk(params, obj0, kp, delta, repeat, physics_param, cfg: GNNConfig,
+                        adj_radius, edge_topk, max_repeat=15, gripper_lift=0.0,
+                        compute_dtype=torch.bfloat16, obj_mask=None, mean_y=False):
+    """Run one MPPI chunk's whole substep loop (one kernel launch on CUDA).
+
+    obj0: (max_nobj, 3) or (B, max_nobj, 3) f32 object state; kp, delta:
+    (B, max_neef, 3) eef start keypoints and per-substep displacement;
+    repeat: (B,) integer substep counts; physics_param: (phys_dim,) or
+    (B, phys_dim); obj_mask: optional (B, max_nobj) bool per-sample object
+    validity; mean_y: re-stick the eef to the masked mean object y instead of
+    the min. ``params`` is the nested parameter dict or ``weight_list``'s
+    output. Returns (B, max_nobj, 3) f32.
+    """
+    if not supports(cfg):
+        raise ValueError(f"config not supported by the rollout kernel: {cfg}")
+    weights = (params if isinstance(params, (list, tuple))
+               else weight_list(params, cfg, compute_dtype))
+    pin, sa, rep, valid = chunk_inputs(obj0, kp, delta, repeat, physics_param, cfg,
+                                       compute_dtype, obj_mask)
+    return rollout_chunk(pin, sa, rep, valid, weights, cfg, int(edge_topk), adj_radius,
+                         int(max_repeat), gripper_lift, mean_y, compute_dtype)
+
+
+fused_rollout_chunk.launches = 0

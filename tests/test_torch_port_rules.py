@@ -1,0 +1,91 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package, its
+entry points default to the CUDA card, and its copied yaml files equal the
+originals."""
+
+import ast
+import inspect
+import os
+import subprocess
+import sys
+
+import pytest
+import yaml
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "adaptigraph_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "adaptigraph_tpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _port_modules():
+    mods = []
+    for path in _port_files():
+        if path.startswith(PKG):
+            rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+            mods.append(rel[:-len(".__init__")] if rel.endswith(".__init__") else rel)
+    return [m for m in mods if not m.endswith("__main__")]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_entry_points_default_to_cuda():
+    from adaptigraph_tpu_torch.cli import build_parser
+    from adaptigraph_tpu_torch.planning.mppi_solve import make_mppi_solver
+    from adaptigraph_tpu_torch.planning.physics_optimizer import (
+        PhysicsParamOnlineOptimizer, dynamics_error_population)
+
+    for fn in (make_mppi_solver, PhysicsParamOnlineOptimizer.__init__, dynamics_error_population):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    args = build_parser().parse_args(["demo-ppo", "--config", "rope", "--load_dir", "x"])
+    assert args.device == "cuda"
+
+
+@pytest.mark.parametrize("rel", ["dynamics/rope.yaml", "dynamics/granular.yaml",
+                                 "planning/rope.yaml", "planning/granular.yaml"])
+def test_copied_yaml_equals_original(rel):
+    with open(os.path.join(ROOT, "adaptigraph_tpu", "configs", rel)) as f:
+        want = yaml.safe_load(f)
+    with open(os.path.join(PKG, "configs", rel)) as f:
+        got = yaml.safe_load(f)
+    assert got == want
+
+
+@pytest.mark.parametrize("name", ["rope", "granular"])
+def test_planning_config_loads_like_jax(name):
+    from adaptigraph_tpu.utils.config import load_planning_config as jax_load
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    assert load_planning_config(name) == jax_load(name)

@@ -1,0 +1,142 @@
+"""The port's whole-push rollout (``fused_rollout_chunk`` on CPU tensors, i.e.
+the kernel's plain version) against the JAX rollout kernel in interpret mode
+and against the JAX per-substep XLA path; the cases of tests/test_fused.py."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adaptigraph_tpu.models.gnn import GNNConfig as JaxGNNConfig
+from adaptigraph_tpu.models.gnn import init_params
+from adaptigraph_tpu.ops.fused_gnn import fused_rollout_chunk as jax_chunk
+from adaptigraph_tpu.ops.graph import EdgeConfig as JaxEdgeConfig
+from adaptigraph_tpu.planning import forward as jax_forward
+from adaptigraph_tpu_torch.models.gnn import GNNConfig, params_from_numpy
+from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk
+from adaptigraph_tpu_torch.ops.graph import EdgeConfig
+from adaptigraph_tpu_torch.planning import forward
+
+torch.set_num_threads(2)
+
+
+def _configs(n_eef, **dyn):
+    kw = dict(n_his=4, max_nobj=24, max_neef=n_eef, nf_particle=32, nf_relation=32,
+              nf_effect=32, pstep=2)
+    ekw = dict(max_nobj=24, max_neef=n_eef, topk=6)
+    dkw = dict(n_his=4, push_length=0.1, sim_real_ratio=10.0, max_repeat=8, adj_thresh=0.6, **dyn)
+    jd = jax_forward.DynamicsConfig(gnn=JaxGNNConfig(**kw), edge=JaxEdgeConfig(**ekw), **dkw)
+    td = forward.DynamicsConfig(gnn=GNNConfig(**kw), edge=EdgeConfig(**ekw), **dkw)
+    return jd, td
+
+
+def _params(jd, seed):
+    p = jax.tree_util.tree_map(np.asarray, init_params(jax.random.PRNGKey(seed), jd.gnn))
+    return p, params_from_numpy(p, "cpu")
+
+
+def _actions(rng, B, L):
+    return np.stack([rng.uniform(-1, 0, (B, L)), rng.uniform(-1, 1, (B, L)),
+                     rng.uniform(-np.pi, np.pi, (B, L)), rng.uniform(2, 8, (B, L))],
+                    axis=-1).astype(np.float32)
+
+
+def _jax_chunks(jp, state, acts, phys, jd, cd):
+    """Drive the JAX kernel (interpret mode) the way forward.py's whole-chunk path does."""
+    B, L = acts.shape[:2]
+    decoded, repeat = jax_forward.decode_action(jnp.asarray(acts), jd.push_length)
+    obj = jnp.broadcast_to(jnp.asarray(state)[None], (B, jd.gnn.max_nobj, 3))
+    outs = []
+    for li in range(L):
+        kp, delta = jax.vmap(lambda d, th, yy: jax_forward._pusher_keypoints(jd, d, th, yy))(
+            decoded[:, li], jnp.asarray(acts[:, li, 2]), jnp.min(obj[..., 1], axis=1))
+        obj = jax_chunk(jp, obj, kp, delta, repeat[:, li], jnp.asarray(phys), jd.gnn,
+                        adj_radius=jd.adj_thresh, edge_topk=jd.edge.topk,
+                        max_repeat=jd.max_repeat,
+                        gripper_lift=0.01 * jd.sim_real_ratio if jd.gripper_enable else 0.0,
+                        compute_dtype=cd, samples_per_block=2, interpret=True)
+        outs.append(obj)
+    return np.asarray(jnp.stack(outs, axis=1))
+
+
+@pytest.mark.parametrize("case", ["point_pusher", "board_gripper"])
+def test_rollout_matches_jax(case):
+    if case == "point_pusher":
+        jd, td = _configs(1)
+        B, L, seed, phys = 8, 2, 0, np.asarray([0.5], np.float32)
+    else:
+        jd, td = _configs(5, pusher_offsets=(-0.05, -0.025, 0.0, 0.025, 0.05),
+                          gripper_enable=True)
+        B, L, seed, phys = 4, 1, 1, np.asarray([0.3], np.float32)
+    jp, tp = _params(jd, seed)
+    rng = np.random.RandomState(seed)
+    state = (rng.randn(24, 3) * 0.4).astype(np.float32)
+    acts = _actions(rng, B, L)
+    launches = fused_rollout_chunk.launches
+    got = forward.dynamics_rollout_batched(tp, torch.tensor(state), torch.tensor(acts),
+                                           torch.tensor(phys), td,
+                                           compute_dtype=torch.float32)["state_seqs"].numpy()
+    assert fused_rollout_chunk.launches == launches  # CPU tensors take the plain version
+    want_xla = jax_forward.dynamics_rollout_batched(
+        jp, jnp.asarray(state), jnp.asarray(acts), jnp.asarray(phys), jd, use_fused=False,
+        compute_dtype=jnp.float32, fused_substeps=False)["state_seqs"]
+    want_kernel = _jax_chunks(jp, state, acts, phys, jd, jnp.float32)
+    np.testing.assert_allclose(got, np.asarray(want_xla), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, want_kernel, rtol=2e-4, atol=2e-4)
+
+
+def test_masked_mean_y_per_sample_physics():
+    """dynamics_masked (per-sample point clouds, mean-y re-sticking, one physics
+    candidate per sample) against the JAX XLA dynamics_masked, at the graded
+    tolerance of tests/test_fused.py: the per-substep reduction-order noise of
+    two float32 implementations grows through the autoregressive loop."""
+    jd, td = _configs(1)
+    jp, tp = _params(jd, 3)
+    rng = np.random.RandomState(3)
+    B = 6
+    state = (rng.randn(B, 24, 3) * 0.4).astype(np.float32)
+    mask = np.zeros((B, 24), bool)
+    for i in range(B):
+        mask[i, :rng.randint(12, 25)] = True
+    state = state * mask[..., None]
+    phys = rng.rand(B, 1).astype(np.float32)
+    for length, atol in ((1.0, 2e-3), (4.0, 8e-3), (8.0, 3e-2)):
+        acts = np.stack([rng.uniform(-1, 0, B), rng.uniform(-1, 1, B),
+                         rng.uniform(-np.pi, np.pi, B), np.full(B, length)],
+                        axis=-1).astype(np.float32)
+        want = np.asarray(jax_forward.dynamics_masked(jp, jnp.asarray(state), jnp.asarray(mask),
+                                                      jnp.asarray(acts), jnp.asarray(phys), jd))
+        got = forward.dynamics_masked(tp, torch.tensor(state), torch.tensor(mask),
+                                      torch.tensor(acts), torch.tensor(phys), td,
+                                      compute_dtype=torch.float32).numpy()
+        m = mask[..., None]
+        np.testing.assert_allclose(got * m, want * m, atol=atol)
+
+
+def test_bf16_one_substep_matches_jax_kernel():
+    """bf16: both sides round every layer to bf16 at the same places; atol
+    0.05 as tests/test_fused.py allows bf16 against float32 positions."""
+    jd, td = _configs(1)
+    jd, td = dataclasses.replace(jd, max_repeat=1), dataclasses.replace(td, max_repeat=1)
+    jp, tp = _params(jd, 4)
+    rng = np.random.RandomState(4)
+    state = (rng.randn(24, 3) * 0.4).astype(np.float32)
+    acts = _actions(rng, 4, 1)
+    acts[..., 3] = 1.5
+    phys = np.asarray([0.5], np.float32)
+    want = _jax_chunks(jp, state, acts, phys, jd, jnp.bfloat16)
+    got = forward.dynamics_rollout_batched(tp, torch.tensor(state), torch.tensor(acts),
+                                           torch.tensor(phys), td,
+                                           compute_dtype=torch.bfloat16)["state_seqs"].numpy()
+    np.testing.assert_allclose(got, want, atol=0.05)
+
+
+def test_kernel_wrapper_rejects_unsupported_config():
+    cfg = GNNConfig(n_his=4, max_nobj=8, max_neef=1, nf_particle=8, nf_relation=8, nf_effect=8,
+                    density_dim=1)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_rollout_chunk({}, torch.zeros(8, 3), torch.zeros(1, 1, 3), torch.zeros(1, 1, 3),
+                            torch.ones(1), torch.zeros(1), cfg, 0.5, 4)
