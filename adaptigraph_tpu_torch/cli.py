@@ -3,12 +3,16 @@
 
     python -m adaptigraph_tpu_torch demo-ppo --config rope \\
         --load_dir fixtures/rope_demo --ckpt_dir fixtures/rope_demo
+    python -m adaptigraph_tpu_torch preprocess --config rope --data_dir <h5 dir> --prep_dir <dir>
+    python -m adaptigraph_tpu_torch train --config rope --prep_dir <dir> --out_dir <dir>
 
 Commands run on the CUDA card unless ``--device cpu`` is given.
 """
 
 import argparse
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -43,6 +47,41 @@ def _dyn_objects(config):
         surface_ratio=float(ds.get("connect_tool_surface_ratio", 1.0)),
     )
     return gnn_cfg, edge_cfg
+
+
+def _train_objects(config):
+    """dynamics config dict -> (GraphSpec, TrainHyper)."""
+    from adaptigraph_tpu_torch.dynamics.dataset import spec_from_config
+    from adaptigraph_tpu_torch.dynamics.train import TrainHyper
+
+    spec = spec_from_config(config)
+    tc = config["train_config"]
+    rand = config["dataset_config"].get("randomness", {})
+    # n_iters_per_epoch is a {train, valid} dict in the yaml files, or an int
+    ipe = tc.get("n_iters_per_epoch", 1000)
+    if isinstance(ipe, dict):
+        n_it_train, n_it_valid = int(ipe.get("train", 1000)), int(ipe.get("valid", 100))
+    else:
+        n_it_train, n_it_valid = int(ipe), int(tc.get("n_iters_per_epoch_valid", 100))
+    hyper = TrainHyper(
+        n_future=spec.n_future,
+        batch_size=tc.get("batch_size", 128),
+        n_epochs=tc.get("n_epochs", 100),
+        n_iters_train=n_it_train,
+        n_iters_valid=n_it_valid,
+        lr=float(tc.get("lr", 1e-3)),
+        use_augmentation=rand.get("use", True),
+        state_noise_train=rand.get("state_noise", {}).get("train", 0.05),
+        state_noise_valid=rand.get("state_noise", {}).get("valid", 0.0),
+        store_rest_state=spec.store_rest_state,
+        grad_clip_norm=float(tc.get("grad_clip_norm", 0.0)),
+    )
+    return spec, hyper
+
+
+def _phys_specs(config):
+    material = config["dataset_config"]["materials"][0]
+    return config["material_config"][material]["physics_params"]
 
 
 def _task_objects(task):
@@ -136,6 +175,73 @@ def cmd_demo_ppo(args):
     return est, err, err0
 
 
+def cmd_preprocess(args):
+    """Simulated h5 episodes -> training artifacts (needs ``h5py``)."""
+    from adaptigraph_tpu_torch.dynamics.preprocess import preprocess
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    config = load_dynamics_config(args.config)
+    dc = config["dataset_config"]
+    data_dir = args.data_dir or os.path.join(dc["data_dir"], dc["data_name"])
+    prep_dir = args.prep_dir or os.path.join(dc["prep_data_dir"], dc["data_name"])
+    filter_actions = None
+    if args.filter_file:
+        with open(args.filter_file) as f:
+            filter_actions = {k: list(v) for k, v in json.load(f).items()}
+    n = preprocess(data_dir, prep_dir, np.asarray(dc["eef"]["pos"], np.float32), dc["n_his"],
+                   dc["n_future"], dc["dist_thresh"], _phys_specs(config),
+                   store_rest_state=dc.get("store_rest_state", False),
+                   filter_actions=filter_actions)
+    print(f"preprocessed {n} episodes -> {prep_dir}")
+    return n
+
+
+def cmd_train(args):
+    """Train the GNN dynamics model on a preprocessed dataset."""
+    from adaptigraph_tpu_torch.dynamics.dataset import BatchLoader, DynDataset, PackedDataset
+    from adaptigraph_tpu_torch.dynamics.train import train
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    device = resolve_device(args.device)
+    config = load_dynamics_config(args.config)
+    gnn_cfg, edge_cfg = _dyn_objects(config)
+    spec, hyper = _train_objects(config)
+    over = {}
+    if args.epochs:
+        over["n_epochs"] = args.epochs
+    if args.iters:
+        over["n_iters_train"] = args.iters
+        over["n_iters_valid"] = max(1, args.iters // 10)
+    if args.batch_size:
+        over["batch_size"] = args.batch_size
+    hyper = dataclasses.replace(hyper, **over)
+    dc = config["dataset_config"]
+    prep_dir = args.prep_dir or os.path.join(dc["prep_data_dir"], dc["data_name"])
+    out_dir = args.out_dir or config["train_config"]["out_dir"]
+    ratio = dc["ratio"]
+    K = max(1, args.steps_per_call)
+    if args.slow_loader:
+        # per-sample assembly in worker processes
+        nw = args.num_workers
+        tr = BatchLoader(DynDataset(prep_dir, spec, "train", ratio), hyper.batch_size,
+                         num_workers=nw, stack_steps=K)
+        va = BatchLoader(DynDataset(prep_dir, spec, "valid", ratio), hyper.batch_size,
+                         num_workers=max(2, nw // 2) if nw else 0, stack_steps=K)
+    else:
+        tr = BatchLoader(PackedDataset(prep_dir, spec, "train", ratio, compact=True),
+                         hyper.batch_size, stack_steps=K)
+        va = BatchLoader(PackedDataset(prep_dir, spec, "valid", ratio, compact=True),
+                         hyper.batch_size, stack_steps=K)
+    try:
+        params, curves = train(gnn_cfg, edge_cfg, hyper, tr, va, out_dir, device=device,
+                               resume=args.resume)
+    finally:
+        tr.close()
+        va.close()
+    print(f"trained: final valid loss {curves['valid'][-1]:.6f} -> {out_dir}")
+    return params, curves
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="adaptigraph_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -147,6 +253,31 @@ def build_parser():
     dp.add_argument("--iterations", type=int, default=50)
     dp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     dp.set_defaults(fn=cmd_demo_ppo)
+
+    pr = sub.add_parser("preprocess", help="h5 episodes -> training artifacts")
+    pr.add_argument("--config", required=True)
+    pr.add_argument("--data_dir")
+    pr.add_argument("--prep_dir")
+    pr.add_argument("--filter_file", help="json {episode: [push numbers]} of pushes to drop")
+    pr.set_defaults(fn=cmd_preprocess)
+
+    t = sub.add_parser("train", help="train the GNN dynamics model")
+    t.add_argument("--config", required=True)
+    t.add_argument("--prep_dir")
+    t.add_argument("--out_dir")
+    t.add_argument("--epochs", type=int)
+    t.add_argument("--iters", type=int, help="train iters per epoch override")
+    t.add_argument("--batch_size", type=int)
+    t.add_argument("--num_workers", type=int, default=4,
+                   help="batch-assembly worker processes; only with --slow_loader")
+    t.add_argument("--steps_per_call", type=int, default=20,
+                   help="optimizer steps per stacked superbatch (run as a loop)")
+    t.add_argument("--slow_loader", action="store_true",
+                   help="per-sample batch assembly instead of PackedDataset")
+    t.add_argument("--resume", action="store_true",
+                   help="restore the latest params + optimizer state from out_dir")
+    t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    t.set_defaults(fn=cmd_train)
     return p
 
 

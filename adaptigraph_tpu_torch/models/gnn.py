@@ -117,6 +117,44 @@ def params_from_numpy(tree, device, dtype=torch.float32):
     return torch.tensor(np.asarray(tree)).to(device=device, dtype=dtype)
 
 
+def params_to_numpy(tree):
+    """Inverse of ``params_from_numpy``: the same nesting of float32 numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def _linear_init(generator, n_in, n_out):
+    # U(-1/sqrt(n_in), 1/sqrt(n_in)) for both W and b (torch nn.Linear's default,
+    # as in the JAX init_params)
+    bound = 1.0 / float(np.sqrt(n_in))
+
+    def uniform(*shape):
+        return (torch.rand(*shape, generator=generator, device=generator.device) * 2.0 - 1.0) * bound
+
+    return {"w": uniform(n_in, n_out), "b": uniform(n_out)}
+
+
+def _mlp3_init(generator, n_in, n_hidden, n_out):
+    return [_linear_init(generator, n_in, n_hidden), _linear_init(generator, n_hidden, n_hidden),
+            _linear_init(generator, n_hidden, n_out)]
+
+
+def init_params(generator, cfg: GNNConfig):
+    """A fresh parameter dict with the JAX ``init_params`` shapes, float32 on
+    the generator's device, drawn from ``generator`` (a ``torch.Generator``)."""
+    nf = cfg.nf_effect
+    return {
+        "particle_encoder": _mlp3_init(generator, cfg.particle_input_dim, cfg.nf_particle, nf),
+        "relation_encoder": _mlp3_init(generator, cfg.relation_input_dim, cfg.nf_relation, nf),
+        "particle_propagator": _linear_init(generator, 2 * nf, nf),
+        "relation_propagator": _linear_init(generator, 3 * nf, nf),
+        "non_rigid_predictor": _mlp3_init(generator, nf, nf, 3),
+    }
+
+
 def _linear(p, x):
     return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
 

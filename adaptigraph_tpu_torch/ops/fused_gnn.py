@@ -1,5 +1,9 @@
-"""Whole-push GNN rollout: the kernel's wrapper and its plain PyTorch version
-(counterpart of ``adaptigraph_tpu/ops/fused_gnn.py::fused_rollout_chunk``).
+"""The fused GNN kernels' wrappers and their plain PyTorch versions
+(counterpart of ``adaptigraph_tpu/ops/fused_gnn.py``): the whole-push
+rollout ``fused_rollout_chunk`` (K1, ``csrc/rollout_chunk.cu``) and the
+single-step forward with prebuilt edges ``fused_forward_batch`` (K2,
+``csrc/gnn_forward.cu``), which training differentiates through
+``ops/fused_gnn_train.py``.
 
 ``fused_rollout_chunk`` runs one MPPI chunk's whole push-substep loop for a
 batch of samples: per substep it shifts the ``n_his`` history, rebuilds the
@@ -9,12 +13,18 @@ each sample at its own repeat and re-sticks the end-effector to the min (or
 masked mean) object y plus the gripper lift. The particle encoding is
 computed once per push (``state_dim == 0``).
 
-On CUDA tensors it launches the CUDA kernel in ``csrc/rollout_chunk.cu``; on
-CPU tensors it runs ``rollout_chunk_plain``, which computes the same function
-with batched tensor ops. Numerics follow the JAX kernel: products accumulate
-in float32 and every layer's output is rounded to ``compute_dtype`` (float32
-or bfloat16) where the JAX kernel rounds it; positions, distances and
-``pred = last + clamp(motion)`` stay float32.
+``fused_forward_batch`` runs one GNN step for a batch whose edges were built
+outside (the training case): packed node inputs, (k, i)-ordered edge tables
+with ``k_used`` real slots, the relation and particle encoders, ``pstep``
+rounds of message passing, the motion head and ``pred = last +
+clamp(motion)``, with the raw motion as a second output.
+
+On CUDA tensors each launches its CUDA kernel; on CPU tensors it runs the
+plain version (``rollout_chunk_plain``, ``gnn_forward_plain``), which
+computes the same function with batched tensor ops. Numerics follow the JAX
+kernels: products accumulate in float32 and every layer's output is rounded
+to ``compute_dtype`` (float32 or bfloat16) where the JAX kernel rounds it;
+positions, distances and ``pred = last + clamp(motion)`` stay float32.
 """
 
 import ctypes
@@ -207,6 +217,14 @@ def rollout_chunk_plain(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_
     return rec.contiguous()
 
 
+def _check(expect, dev):
+    """Raise unless each named tensor is contiguous, of its shape and dtype, on dev."""
+    for name, (t, shape, dtype) in expect.items():
+        if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor of shape {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_radius,
                        max_repeat, gripper_lift, mean_y, compute_dtype):
     """Check every input against what the kernel takes, then launch it on the
@@ -229,10 +247,7 @@ def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_r
         expect[f"weight {i}"] = (t, shape, compute_dtype)
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor of shape {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check(expect, dev)
     bf16 = compute_dtype == torch.bfloat16
     step = 16 if bf16 else 4  # a tensor-core k-step is 16 wide; a float4 load 4
     for width in (cfg.nf_particle, cfg.nf_relation, nf):
@@ -323,3 +338,204 @@ def fused_rollout_chunk(params, obj0, kp, delta, repeat, physics_param, cfg: GNN
 
 
 fused_rollout_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# single-step forward with prebuilt edges (K2)
+# ---------------------------------------------------------------------------
+
+def pack_node_inputs(cfg: GNNConfig, state, action, physics, attrs, p_instance, compute_dtype):
+    """ONE packed node tensor ``[p_inputs | state_norm | attrs | g]`` padded to
+    Np rows -> ((B, Np, D) in compute_dtype, Dp), as the JAX
+    ``pack_node_inputs``. The training backward recomputes from the same
+    packing."""
+    N, n_p, n_s = cfg.n_nodes, cfg.max_nobj, cfg.max_neef
+    Np = round_up(N, 8)
+    B, n_his = state.shape[0], cfg.n_his
+    dev = state.device
+    state_norm = torch.cat([state[:, 1:] - state[:, :-1], state[:, -1:]], dim=1)
+    state_norm_f = state_norm.permute(0, 2, 1, 3).reshape(B, N, n_his * 3)
+    if physics.dim() == 2 and physics.shape[-1] == cfg.phys_dim:
+        phys_p = physics[:, None, :].expand(B, n_p, cfg.phys_dim)
+    else:
+        phys_p = physics.reshape(B, n_p, cfg.phys_dim)
+    phys_full = torch.cat([phys_p, phys_p.new_zeros(B, n_s, cfg.phys_dim)], dim=1)
+    parts = [attrs] + ([state_norm_f] if cfg.state_dim > 0 else []) + [phys_full]
+    if cfg.action_dim > 0:
+        parts.append(action)
+    p_inputs = torch.cat(parts, dim=-1)
+    g = torch.cat([p_instance, p_instance.new_zeros(B, n_s, cfg.n_instance)], dim=1)
+    nodes = torch.cat([p_inputs, state_norm_f, attrs, g], dim=-1)
+    nodes = torch.cat([nodes, nodes.new_zeros(B, Np - N, nodes.shape[-1])], dim=1)
+    return nodes.to(device=dev, dtype=compute_dtype).contiguous(), p_inputs.shape[-1]
+
+
+def pack_edge_tables(neighbors, nbr_mask, K, N, Np):
+    """neighbors/mask (B, N, >=K) -> flat (B, K*Np) tables in the kernels'
+    (k, i) row order, int32 senders and float32 mask; padded rows point at
+    node 0 with mask 0."""
+    B = neighbors.shape[0]
+    nbr = torch.zeros(B, K, Np, dtype=torch.int32, device=neighbors.device)
+    mask = torch.zeros(B, K, Np, dtype=torch.float32, device=neighbors.device)
+    nbr[:, :, :N] = neighbors[..., :K].transpose(1, 2).to(torch.int32)
+    mask[:, :, :N] = nbr_mask[..., :K].transpose(1, 2).to(torch.float32)
+    return nbr.reshape(B, K * Np), mask.reshape(B, K * Np)
+
+
+def pack_inputs(cfg: GNNConfig, state, action, physics, attrs, p_instance, neighbors, nbr_mask,
+                k_used, compute_dtype):
+    """All K2/K3 inputs of one step: (nodes, nbr, mask, last, Dp), ``last``
+    the newest state frame padded to (B, Np, 3) float32."""
+    N, Np = cfg.n_nodes, round_up(cfg.n_nodes, 8)
+    nodes, Dp = pack_node_inputs(cfg, state, action, physics, attrs, p_instance, compute_dtype)
+    nbr, mask = pack_edge_tables(neighbors, nbr_mask, k_used, N, Np)
+    last = torch.cat([state[:, -1], state.new_zeros(state.shape[0], Np - N, 3)], dim=1)
+    return nodes, nbr, mask, last.float().contiguous(), Dp
+
+
+def gnn_forward_plain(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype,
+                      want_motion=True):
+    """Plain PyTorch version of the kernel, on the packed inputs: nodes
+    (B, Np, D), nbr/mask (B, K*Np) in (k, i) order, last (B, Np, 3) f32.
+    Returns pred and the raw motion (or None), (B, max_nobj, 3) f32. Rounds
+    to ``compute_dtype`` where the JAX kernel casts; a masked slot adds
+    nothing, as the JAX kernel's -3e38 relation bias makes its message 0."""
+    cd, f32 = compute_dtype, torch.float32
+
+    def rnd(x):
+        return x.to(cd).to(f32)
+
+    w = [t.to(f32) for t in weights]
+    pe, re, (rp_w1, rp_w23, rp_b), (pp_wa, pp_wb, pp_b), nr = (
+        w[0:6], w[6:12], w[12:15], w[15:18], w[18:24])
+
+    def mlp3(x, p, final_relu):
+        x = rnd(torch.relu(x @ p[0] + p[1]))
+        x = rnd(torch.relu(x @ p[2] + p[3]))
+        x = x @ p[4] + p[5]
+        return rnd(torch.relu(x) if final_relu else x)
+
+    B, Np, D = nodes.shape
+    K = nbr.shape[1] // Np
+    nh3, nf, n_p = cfg.n_his * 3, cfg.nf_effect, cfg.max_nobj
+    Dp = D - nh3 - 3
+    x = nodes.to(f32)
+    idx = nbr.long().reshape(B, K, Np)
+    emask = (mask.reshape(B, K, Np) > 0)[..., None]
+    bidx = torch.arange(B, device=x.device)[:, None, None]
+    node_g = x[..., Dp:]
+    T = node_g[:, None].expand(B, K, Np, node_g.shape[-1])
+    G = node_g[bidx, idx]
+    rel_in = torch.cat([T[..., nh3:nh3 + 2], G[..., nh3:nh3 + 2],
+                        torch.abs(rnd(T[..., nh3 + 2:] - G[..., nh3 + 2:])),
+                        rnd(T[..., :nh3] - G[..., :nh3])], dim=-1)
+    penc = mlp3(x[..., :Dp], pe, True)
+    rel_base = rnd(mlp3(rel_in, re, True) @ rp_w1 + rp_b)
+    part_base = rnd(penc @ pp_wa + pp_b)
+    effect = penc
+    for _ in range(cfg.pstep):
+        rs = rnd(effect @ rp_w23)
+        recv, send = rs[..., :nf], rs[..., nf:]
+        msg = torch.relu(rnd(rnd(rel_base + recv[:, None]) + send[bidx, idx]))
+        agg = torch.where(emask, msg, torch.zeros_like(msg)).sum(dim=1)
+        effect = torch.relu(rnd(rnd(part_base + rnd(rnd(agg) @ pp_wb)) + effect))
+    motion = mlp3(effect[:, :n_p], nr, False)
+    pred = last[:, :n_p].to(f32) + torch.clamp(motion, -cfg.motion_clamp, cfg.motion_clamp)
+    return pred, (motion if want_motion else None)
+
+
+def check_gnn_inputs(nodes, nbr, mask, weights, cfg: GNNConfig, compute_dtype, extra=()):
+    """What the K2 and K3 kernels take: contiguous tensors of these shapes
+    and dtypes on one device, 24 weights, Np < 32768 and pstep >= 1.
+    Returns (B, Np, K, Dp)."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    if len(weights) != N_WEIGHTS:
+        raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
+    B, Np, D = nodes.shape
+    K = nbr.shape[1] // Np if nbr.dim() == 2 else 0
+    Dp = D - cfg.n_his * 3 - 3
+    if Np != round_up(cfg.n_nodes, 8) or Np >= 32768 or K < 1 or cfg.pstep < 1 or Dp < 1:
+        raise ValueError(f"unsupported shapes: nodes {tuple(nodes.shape)}, nbr "
+                         f"{tuple(nbr.shape)}, pstep {cfg.pstep}")
+    expect = {"nodes": (nodes, (B, Np, D), compute_dtype),
+              "nbr": (nbr, (B, K * Np), torch.int32),
+              "mask": (mask, (B, K * Np), torch.float32)}
+    for i, (t, shape) in enumerate(zip(weights, _weight_shapes(cfg, Dp))):
+        expect[f"weight {i}"] = (t, shape, compute_dtype)
+    expect.update(extra)
+    _check(expect, nodes.device)
+    return B, Np, K, Dp
+
+
+def gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype,
+                     want_motion=True):
+    """Check the inputs against what the kernel takes, then launch it on the
+    current stream. Activations and outputs come from ``torch.empty``.
+    Returns (pred, motion or None, acts): ``acts`` the two float32 tensors
+    holding every activation, which the training backward (K3) reads."""
+    from adaptigraph_tpu_torch.ops import kernels
+
+    B, Np, K, Dp = check_gnn_inputs(
+        nodes, nbr, mask, weights, cfg, compute_dtype,
+        {"last": (last, (nodes.shape[0], nodes.shape[1], 3), torch.float32)})
+    dev = nodes.device
+    lib = kernels.library()
+    nfp, nfr, nf, rin = cfg.nf_particle, cfg.nf_relation, cfg.nf_effect, cfg.relation_input_dim
+    smem = lib.gnn_forward_smem_bytes(Np, K)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{smem} bytes of shared memory per block, more than {_MAX_SMEM}")
+    node_a, edge_a = (
+        torch.empty(B * lib.gnn_forward_act_floats(Np, K, cfg.pstep, nfp, nfr, nf, rin, which),
+                    dtype=torch.float32, device=dev) for which in (0, 1))
+    n_p = cfg.max_nobj
+    pred = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev)
+    motion = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev) if want_motion else None
+    wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
+    rc = lib.gnn_forward_launch(
+        nodes.data_ptr(), nbr.data_ptr(), mask.data_ptr(), last.data_ptr(), wptrs,
+        node_a.data_ptr(), edge_a.data_ptr(), pred.data_ptr(),
+        motion.data_ptr() if motion is not None else None,
+        B, Np, cfg.n_nodes, n_p, K, cfg.n_his, cfg.pstep, Dp, nodes.shape[2], nfp, nfr, nf, rin,
+        float(cfg.motion_clamp), int(compute_dtype == torch.bfloat16),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gnn_forward kernel launch failed: {lib.gnn_error_string(rc).decode()} "
+                           f"({rc})")
+    gnn_forward.launches += 1
+    return pred, motion, (node_a, edge_a)
+
+
+def gnn_forward(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype, want_motion=True):
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    if nodes.is_cuda:
+        return gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg, compute_dtype,
+                                want_motion)[:2]
+    if nodes.device.type != "cpu":
+        raise ValueError(f"no forward path for device {nodes.device}")
+    return gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, compute_dtype, want_motion)
+
+
+gnn_forward.launches = 0
+
+
+def fused_forward_batch(params, graphs, cfg: GNNConfig, compute_dtype=torch.bfloat16, k_used=None,
+                        want_motion=True):
+    """One GNN step for a batch with prebuilt edges (the JAX
+    ``fused_forward_batch`` with ``build_edges=False``; one kernel launch on
+    CUDA). ``graphs``: state (B, n_his, N, 3), attrs, neighbors / nbr_mask
+    (B, N, >=k_used), action, p_instance, physics_param, as ``forward_batch``
+    takes them. ``k_used``: the real slots (``topk + max_neef``); the rest
+    must be masked. ``params`` is the nested parameter dict or
+    ``weight_list``'s output. Returns (pred, motion or None), (B, max_nobj,
+    3) f32."""
+    if not supports(cfg):
+        raise ValueError(f"config not supported by the forward kernel: {cfg}")
+    K = min(k_used or graphs["neighbors"].shape[-1], graphs["neighbors"].shape[-1])
+    weights = (params if isinstance(params, (list, tuple))
+               else weight_list(params, cfg, compute_dtype))
+    nodes, nbr, mask, last, _ = pack_inputs(
+        cfg, graphs["state"], graphs["action"], graphs["physics_param"], graphs["attrs"],
+        graphs["p_instance"], graphs["neighbors"], graphs["nbr_mask"], K, compute_dtype)
+    return gnn_forward(nodes, nbr, mask, last, weights, cfg, compute_dtype, want_motion)

@@ -1,11 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-At first use every ``csrc/*.cu`` is compiled for ``sm_90a`` with ``nvcc``
-(one process per source, all started together), linked into one shared
-library with a plain C interface, and loaded with ``ctypes``. The library
-goes to ``build/torch_kernels/`` beside the package, named by a hash of the
-sources and flags, so a changed source builds anew and an unchanged one is
-reused. Nothing here runs at import.
+At first use every ``csrc/*.cu`` (with the ``csrc/*.cuh`` it includes) is
+compiled for ``sm_90a`` with ``nvcc`` (one process per source, all started
+together), linked into one shared library with a plain C interface, and
+loaded with ``ctypes``. The library goes to ``build/torch_kernels/`` beside
+the package, named by a hash of the sources and flags, so a changed source
+builds anew and an unchanged one is reused. Nothing here runs at import.
 
 ``phase_clocks=True`` selects a second, profiling build of the same sources
 (``-DROLLOUT_PHASE_CLOCKS``) whose rollout kernel adds its blocks' SM cycles
@@ -34,6 +34,10 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def _nvcc():
     path = shutil.which("nvcc")
     if path is None:
@@ -59,7 +63,7 @@ def _digest(srcs, flags):
 
 
 def library_path(phase_clocks=False):
-    digest = _digest(sources(), _flags(phase_clocks))
+    digest = _digest(sources() + headers(), _flags(phase_clocks))
     return os.path.join(BUILD_DIR, f"libadaptigraph_kernels_{digest}.so")
 
 
@@ -117,4 +121,26 @@ def library(phase_clocks=False):
         + [I, I, I]                                   # max_repeat, mean_y, bf16
         + [I, P])                                     # device, stream
     lib.rollout_chunk_launch.restype = I
+    L = ctypes.c_longlong
+    lib.gnn_error_string.argtypes = [I]
+    lib.gnn_error_string.restype = ctypes.c_char_p
+    lib.gnn_forward_act_floats.argtypes = [I] * 8  # Np, K, pstep, nf_p, nf_r, nf, rel_in, which
+    lib.gnn_forward_act_floats.restype = L
+    lib.gnn_forward_smem_bytes.argtypes = [I, I]
+    lib.gnn_forward_smem_bytes.restype = I
+    lib.gnn_forward_launch.argtypes = (
+        [P, P, P, P, ctypes.POINTER(P), P, P, P, P]   # inputs, weights, activations, outputs
+        + [I] * 13                                    # B and the dims
+        + [F, I, I, P])                               # motion_clamp, bf16, device, stream
+    lib.gnn_forward_launch.restype = I
+    lib.gnn_train_bwd_scratch_floats.argtypes = [I] * 7  # Np, K, nf_p, nf_r, nf, rel_in, which
+    lib.gnn_train_bwd_scratch_floats.restype = L
+    lib.gnn_train_bwd_smem_bytes.argtypes = [I, I]
+    lib.gnn_train_bwd_smem_bytes.restype = I
+    lib.gnn_train_bwd_launch.argtypes = (
+        [P, P, P, P, ctypes.POINTER(P)]               # nodes, nbr, mask, dmot, weights
+        + [P] * 7 + [ctypes.POINTER(I)]               # activations, scratch, outputs, offsets
+        + [I] * 13                                    # B and the dims
+        + [I, P])                                     # device, stream
+    lib.gnn_train_bwd_launch.restype = I
     return lib

@@ -1,15 +1,22 @@
-"""Read checkpoints written by ``adaptigraph_tpu/utils/checkpoint.py``.
+"""Parameter checkpoints in the format of ``adaptigraph_tpu/utils/checkpoint.py``.
 
 A JAX checkpoint is an npz of ``leaf_0 .. leaf_{n-1}`` in the order JAX
 flattens the parameter dict (sorted keys; each layer is ``{b, w}``) plus
-``__treedef__``, a pickled JAX treedef. Unpickling that needs JAX, so it is
-ignored here: the fixed leaf order below rebuilds the same nested dict of
-numpy arrays. Writing checkpoints comes with the training slice.
+``__treedef__``, a pickled JAX treedef. Unpickling that needs JAX, so reading
+ignores it: the fixed leaf order below rebuilds the same nested dict of numpy
+arrays. Writing stores the treedef's bytes as JAX pickled them (they depend
+only on the nesting, which every material shares; ``utils/params_treedef.bin``
+holds them), so JAX ``load_pytree`` reads the port's parameter files.
+
+The optimizer state (``latest_optim.npz``: Adam's ``count``, ``mu_i`` and
+``nu_i`` in ``LEAF_ORDER``) is the port's own format, read by ``--resume``.
 """
 
 import os
 
 import numpy as np
+
+TREEDEF_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "params_treedef.bin")
 
 # JAX flatten order of the GNN parameter dict (sorted keys, b before w).
 _MLP3 = [(i, k) for i in range(3) for k in ("b", "w")]
@@ -28,6 +35,58 @@ def checkpoint_name(out_dir, epoch):
 
 def latest_name(out_dir):
     return os.path.join(out_dir, "checkpoints", "latest.npz")
+
+
+def optim_name(out_dir):
+    return os.path.join(out_dir, "checkpoints", "latest_optim.npz")
+
+
+def tree_leaves(tree):
+    """The parameter dict's leaves in ``LEAF_ORDER``."""
+    return [tree[mod][k] if i is None else tree[mod][i][k] for mod, i, k in LEAF_ORDER]
+
+
+def tree_from_leaves(leaves):
+    """Inverse of ``tree_leaves``."""
+    tree = {}
+    for (mod, i, k), leaf in zip(LEAF_ORDER, leaves):
+        if i is None:
+            tree.setdefault(mod, {})[k] = leaf
+        else:
+            tree.setdefault(mod, [{}, {}, {}])[i][k] = leaf
+    return tree
+
+
+def save_params(path, tree):
+    """Write a parameter dict of numpy arrays as JAX ``save_pytree`` does."""
+    treedef = np.fromfile(TREEDEF_PATH, dtype=np.uint8)
+    leaves = {f"leaf_{i}": np.asarray(x) for i, x in enumerate(tree_leaves(tree))}
+    np.savez(path, __treedef__=treedef, **leaves)
+
+
+def save_checkpoint(out_dir, epoch, params, opt_state=None):
+    """``latest.npz`` every epoch and ``model_{epoch+1}.npz`` at the JAX
+    package's cadence (every 10 epochs below 100, then every 100); the
+    optimizer state, a dict of ``count`` and the ``mu``/``nu`` leaf lists,
+    to ``latest_optim.npz``. Arrays are numpy."""
+    os.makedirs(os.path.join(out_dir, "checkpoints"), exist_ok=True)
+    if ((epoch + 1) < 100 and (epoch + 1) % 10 == 0) or (epoch + 1) % 100 == 0:
+        save_params(checkpoint_name(out_dir, epoch + 1), params)
+    save_params(latest_name(out_dir), params)
+    if opt_state is not None:
+        arrays = {"count": np.asarray(opt_state["count"], np.int32)}
+        for name in ("mu", "nu"):
+            arrays.update({f"{name}_{i}": np.asarray(x) for i, x in enumerate(opt_state[name])})
+        np.savez(optim_name(out_dir), **arrays)
+
+
+def load_optimizer(out_dir):
+    """The optimizer state ``save_checkpoint`` wrote, as numpy arrays."""
+    with np.load(optim_name(out_dir), allow_pickle=False) as z:
+        n = len(LEAF_ORDER)
+        return {"count": int(z["count"]),
+                "mu": [np.asarray(z[f"mu_{i}"]) for i in range(n)],
+                "nu": [np.asarray(z[f"nu_{i}"]) for i in range(n)]}
 
 
 def param_shapes(cfg):
@@ -61,10 +120,4 @@ def load_checkpoint(out_dir, epoch=None, cfg=None):
                 where = f"{mod}[{i}].{k}" if i is not None else f"{mod}.{k}"
                 raise ValueError(f"{path}: {where} has shape {leaf.shape}, "
                                  f"the config needs {shape}")
-    tree = {}
-    for (mod, i, k), leaf in zip(LEAF_ORDER, leaves):
-        if i is None:
-            tree.setdefault(mod, {})[k] = leaf
-        else:
-            tree.setdefault(mod, [{}, {}, {}])[i][k] = leaf
-    return tree
+    return tree_from_leaves(leaves)

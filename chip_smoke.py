@@ -17,11 +17,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
   4. ``demo-ppo`` through the port's CLI on the rope and granular fixtures,
      and the error curve it minimises, through the kernel and the plain
      version.
+  5. training: a synthetic rope dataset simulated in memory and written
+     through the port's ``preprocess`` (no h5). At B 128 on three inputs,
+     rope at the rope fixture's density (~1,000 real edges per sample, the
+     baseline), rope on a batch of the synthetic dataset (few valid objects
+     after FPS, ~40 real edges) and granular at its fixture's density
+     (fixture weights): the single-step forward kernel (K2) against its
+     plain version (float32 and bfloat16); the backward kernel (K3), from
+     K2's activations, against its plain versions (on the card and on the
+     CPU, and against a float64 plain version off its relu flips), plus a
+     rerun that must be bit-identical. One train step through the kernels
+     against the same step through the plain versions; K2, K3 and train-step
+     times; then the main path of this slice, ``python -m
+     adaptigraph_tpu_torch train --config rope`` (in process) for 300 steps
+     at batch 128, with the K2/K3 launch counts read around it, a falling
+     loss, the checkpoint read back, and the same run through the plain
+     versions, whose loss curves must agree.
 The last lines are the kernel table, the card line, and the ok line.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -37,6 +54,10 @@ PHASES = ("encoder", "graph", "relation", "projection", "aggregate", "update", "
           "restick")
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
+TRAIN_DIR = os.path.join(ROOT, "runs", "chip_smoke")  # gitignored; made anew each run
+B_TRAIN = 128
+TRAIN_ARGS = ["--epochs", "3", "--iters", "100", "--batch_size", str(B_TRAIN),
+              "--steps_per_call", "10"]
 
 
 def emit(**kw):
@@ -426,6 +447,608 @@ def phase_demo_ppo(dev):
             fail(f"demo-ppo on {name} out of bounds")
 
 
+# ---------------------------------------------------------------------------
+# training (K2, K3)
+# ---------------------------------------------------------------------------
+
+def phase_dataset():
+    """A synthetic rope dataset simulated in memory, preprocessed by the port
+    into TRAIN_DIR/prep (no h5 file is written or read)."""
+    from adaptigraph_tpu_torch.cli import _phys_specs
+    from adaptigraph_tpu_torch.dynamics.preprocess import preprocess_episodes
+    from adaptigraph_tpu_torch.sim.synthetic import SYNTH_EEF_OFFSETS, simulate_rope_dataset
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    config = load_dynamics_config("rope")
+    dc = config["dataset_config"]
+    t0 = time.time()
+    episodes = simulate_rope_dataset(n_episodes=32, n_pushes=4, seed=0)
+    prep = os.path.join(TRAIN_DIR, "prep")
+    n = preprocess_episodes(episodes, prep, SYNTH_EEF_OFFSETS, dc["n_his"], dc["n_future"],
+                            dc["dist_thresh"], _phys_specs(config))
+    emit(phase="dataset", episodes=n, pushes_per_episode=4, seconds=round(time.time() - t0, 2))
+    return config, prep
+
+
+def rope_train_objects(config):
+    from adaptigraph_tpu_torch.cli import _dyn_objects, _train_objects
+
+    gnn, edge = _dyn_objects(config)
+    spec, hyper = _train_objects(config)
+    return gnn, edge, spec, hyper
+
+
+def device_batches(config, prep, dev, n, seed):
+    """n training batches of B_TRAIN from the prepared dataset, expanded on
+    the card (as the trainer sees them before augmentation)."""
+    from adaptigraph_tpu_torch.dynamics.dataset import PackedDataset
+    from adaptigraph_tpu_torch.dynamics.train import expand_compact_batch
+
+    gnn, _, spec, _ = rope_train_objects(config)
+    ds = PackedDataset(prep, spec, "train", config["dataset_config"]["ratio"], compact=True)
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = ds.make_batch(rng.randint(0, len(ds), size=B_TRAIN), rng)
+        out.append(expand_compact_batch({k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+                                        gnn))
+    return out
+
+
+def step_inputs(batch, gnn, edge, params, cd):
+    """The K2/K3 inputs of a batch's first prediction: the packed nodes,
+    the edge tables built by the port from its last state, the padded last
+    state and the weights."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import pack_inputs, weight_list
+    from adaptigraph_tpu_torch.ops.graph import build_neighbor_graph_batch
+
+    state = batch["state"]
+    nbrs, mask = build_neighbor_graph_batch(state[:, -1], batch["state_mask"], batch["eef_mask"],
+                                            batch["adj_thresh"], edge)
+    nodes, nbr, msk, last, _ = pack_inputs(gnn, state, batch["action"], batch["physics_param"],
+                                           batch["attrs"], batch["p_instance"], nbrs, mask,
+                                           edge.topk + edge.max_neef, cd)
+    return nodes, nbr, msk, last, weight_list(params, gnn, cd)
+
+
+def fixture_batch(name, dev, B=B_TRAIN, seed=0, n_future=3):
+    """A full training batch (as ``expand_compact_batch`` gives it to the
+    trainer) at a fixture's density: the fixture's recorded points (rope: 95
+    in the 100 object slots; granular: 100) as an n_his-frame history with
+    0.005 of noise per frame, n_future frames moving a tenth of the way per
+    frame toward the state recorded after the push, and the tool rows (rope's
+    pusher, granular's 5-point board) beside them, moving 0.01 along x per
+    frame; edges are built by the trainer from the planning config's radius.
+    Returns (batch, tcfg, fixture weights)."""
+    tcfg, params = material(name, dev)[:2]
+    gnn = tcfg.dcfg.gnn
+    with np.load(os.path.join(ROOT, "fixtures", f"{name}_demo", "interaction_000.npz")) as z:
+        s0, s1 = z["state_init"].astype(np.float32), z["state_real"].astype(np.float32)
+    n_p, N, n_his, n_obj = gnn.max_nobj, gnn.n_nodes, gnn.n_his, len(s0)
+    n_t, F = N - n_p, n_his + n_future
+    rng = np.random.RandomState(seed)
+    frac = np.r_[np.zeros(n_his), np.arange(1, n_future + 1) / 10][None, :, None, None]
+    obj = np.zeros((B, F, n_p, 3), np.float32)
+    obj[:, :, :n_obj] = s0 + frac * (s1 - s0) + rng.randn(B, F, n_obj, 3) * 0.005
+    step = np.array([0.01, 0.0, 0.0], np.float32)
+    tool = (s0.mean(0) + np.stack([np.linspace(-0.2, 0.2, n_t), np.zeros(n_t), np.full(n_t, 0.6)], -1)
+            + np.arange(F)[:, None, None] * step)  # (F, n_t, 3)
+    full = np.zeros((F, N, 3), np.float32)
+    full[:, n_p:] = tool
+    act = np.zeros((N, 3), np.float32)
+    act[n_p:] = step
+    real = np.arange(n_p) < n_obj
+    attrs = np.zeros((N, 2), np.float32)
+    attrs[:n_p, 0], attrs[n_p:, 1] = real, 1
+
+    def t(a, per_sample=False):  # one array for every sample unless per_sample
+        a = a if per_sample else np.broadcast_to(a, (B,) + a.shape)
+        return torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    state = np.concatenate([obj[:, :n_his], np.broadcast_to(full[:n_his, n_p:], (B, n_his, n_t, 3))], 2)
+    batch = {"state": t(state, True), "state_future": t(obj[:, n_his:], True),
+             "action": t(act), "eef_future": t(full[n_his:]),
+             "action_future": t(np.broadcast_to(act, (n_future, N, 3))), "attrs": t(attrs),
+             "p_instance": t(real[:, None]),
+             "obj_mask": torch.tensor(real, device=dev).expand(B, n_p),
+             "state_mask": torch.tensor(np.r_[real, np.ones(n_t, bool)], device=dev).expand(B, N),
+             "eef_mask": (torch.arange(N, device=dev) >= n_p).expand(B, N),
+             "physics_param": t(rng.rand(B, gnn.phys_dim), True),
+             "adj_thresh": torch.full((B,), tcfg.dcfg.adj_thresh, device=dev)}
+    return batch, tcfg, params
+
+
+def input_cases(config, synth_batch, dev, cd):
+    """K2/K3 inputs (fixture weights) at each density the smoke checks: rope
+    at the fixture's density (the baseline), rope on a batch of the
+    synthetic dataset (the CLI run's data) and granular at its fixture's
+    density. Yields (name, inputs, gnn config)."""
+    for name in ("rope", "granular"):
+        batch, tcfg, params = fixture_batch(name, dev)
+        yield name, step_inputs(batch, tcfg.dcfg.gnn, tcfg.dcfg.edge, params, cd), tcfg.dcfg.gnn
+        if name == "rope":
+            gnn, edge = rope_train_objects(config)[:2]
+            yield ("rope synthetic", step_inputs(synth_batch, gnn, edge, params, cd), gnn)
+
+
+def real_edges(msk):
+    return float((msk > 0).sum()) / msk.shape[0]
+
+
+def phase_forward_kernel(config, synth_batch, dev):
+    """K2 against its plain version on the same inputs (``input_cases``):
+    float32 at 2e-4 (tests/test_fused.py's bound); bfloat16 at 2% of the
+    plain version's largest |motion|, about five bf16 steps of it (the JAX
+    tests allow 0.05, as large as a push's motion; a kernel that returned
+    no motion would pass that)."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda, gnn_forward_plain
+
+    errs, ok_all = {}, True
+    for cd in (torch.float32, torch.bfloat16):
+        for name, args, cfg in input_cases(config, synth_batch, dev, cd):
+            pred, mot, _ = gnn_forward_cuda(*args, cfg, cd)
+            torch.cuda.synchronize()
+            want_pred, want_mot = gnn_forward_plain(*args, cfg, cd)
+            err = max(float((pred - want_pred).abs().max()), float((mot - want_mot).abs().max()))
+            max_mot = float(want_mot.abs().max())
+            tol = 2e-4 if cd == torch.float32 else 0.02 * max_mot
+            ok = bool(torch.isfinite(pred).all() and torch.isfinite(mot).all() and err <= tol)
+            ok_all &= ok
+            errs[(name, str(cd).split(".")[-1])] = err
+            emit(phase="forward_kernel_check", case=name, dtype=str(cd).split(".")[-1],
+                 B=args[0].shape[0], K=args[1].shape[1] // args[0].shape[1],
+                 real_edges_per_sample=real_edges(args[2]), max_abs_err=err,
+                 plain_max_abs_motion=max_mot, tol=tol, ok=ok)
+    if not ok_all:
+        fail("the forward kernel disagrees with its plain version (see forward_kernel_check)")
+    return errs[("rope", "float32")]
+
+
+def rel_norm(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+# the relu layer whose units are each weight gradient's last-axis columns
+# (weight_list order; the relation propagator's [W2 | W3] has two per unit)
+GRAD_LAYER = ["pe0", "pe0", "pe1", "pe1", "pe2", "pe2", "re0", "re0", "re1", "re1", "re2", "re2",
+              "msg", "msg", "msg", "eff", "eff", "eff", "nr0", "nr0", "nr1", "nr1", None, None]
+# a relu of the kernel may go the other way than float64's only where the
+# float64 pre-activation is within this share of the sum of its absolute
+# terms (float32's rounding, carried through the layers before it, reaches
+# ~700 x 2^-24 there on the granular fixture)
+FLIP_MARGIN = 2.0 ** -12
+
+
+def kernel_relu_outputs(acts, msk, cfg):
+    """K2's relu outputs, read from its activations (this mirrors their
+    layout, ``act_bufs`` in csrc/gnn_common.cuh), per relu layer as the
+    plain version's ``taps`` list them: node layers (B, Np, F), edge layers
+    on the real edges in the kernel's order (by sample, receiver, slot),
+    (E, F)."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import round_up
+
+    nf, nfp, nfr, P = cfg.nf_effect, cfg.nf_particle, cfg.nf_relation, cfg.pstep
+    B, Np = msk.shape[0], round_up(cfg.n_nodes, 8)
+    K = msk.shape[1] // Np
+
+    def split(buf, rows, widths):
+        out, at = [], 0
+        for w in widths:
+            out.append(buf[:, at:at + rows * w].view(B, rows, w))
+            at += rows * w
+        return out
+
+    node = split(acts[0].view(B, -1), Np, [nfp, nfp] + [nf] * (P + 1) + [nf, 2 * nf] + [nf] * P
+                 + [nf, nf])
+    edge = split(acts[1].view(B, -1), Np * K, [cfg.relation_input_dim, nfr, nfr, nf, nf] + [nf] * P)
+    n_real = (msk > 0).sum(1)
+    real = torch.arange(Np * K, device=msk.device)[None] < n_real[:, None]
+    effs = node[2:P + 3]
+    return {"pe0": [node[0]], "pe1": [node[1]], "pe2": [effs[0]], "re0": [edge[1][real]],
+            "re1": [edge[2][real]], "re2": [edge[3][real]], "msg": [t[real] for t in edge[5:]],
+            "eff": effs[1:], "nr0": [node[-2]], "nr1": [node[-1]]}
+
+
+def relu_flips(taps, kernel_out, msk, cfg):
+    """Per relu layer, the units where the kernel's relu went the other way
+    than the float64 plain version's on some real row; and the largest
+    |z| / (sum of |terms|) of float64 at such a row."""
+    B, N = msk.shape[0], cfg.n_nodes
+    Np = kernel_out["pe0"][0].shape[1]
+    K = msk.shape[1] // Np
+    edges = (msk.view(B, K, Np) > 0).permute(0, 2, 1)  # (B, receiver, slot): the kernel's order
+    units, worst = {}, 0.0
+    for name, entries in taps.items():
+        hit = None
+        for (z, terms, _), k in zip(entries, kernel_out[name]):
+            if z.dim() == 4:
+                z, terms = z.permute(0, 2, 1, 3)[edges], terms.permute(0, 2, 1, 3)[edges]
+            else:
+                z, terms, k = (t[:, :N].flatten(0, 1) for t in (z, terms, k))
+            flip = (k > 0) != (z > 0)
+            hit = flip.any(0) if hit is None else hit | flip.any(0)
+            if flip.any():
+                worst = max(worst, float((z.abs() / terms.clamp(min=1e-300))[flip].max()))
+        units[name] = hit
+    return units, worst
+
+
+def phase_backward_kernel(config, synth_batch, dev):
+    """K3 against its plain version on the same inputs (f32, ``input_cases``),
+    reading the activations of a K2 launch on them; a rerun must be
+    bit-identical. The node cotangents and every weight gradient must lie
+    within 5e-4 of a plain version relative to its norm. A ReLU whose input
+    lies within float32 rounding of 0 may fall on either side in two correct
+    float32 versions, and one such flip moves a whole gradient column; so
+    each tensor is held to the nearer of two plain versions that sum in
+    different orders (on the card and on the CPU). So that a drift to one
+    side is still caught, every tensor must also lie within 5e-4 of a
+    float64 plain version, without the columns of the relu units where the
+    kernel's relu (read from K2's activations) went the other way than
+    float64's; each such flip must lie within FLIP_MARGIN of 0. Returns the
+    rope case's max abs error against the plain version on the card."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
+
+    errs, ok_all = {}, True
+    for name, (nodes, nbr, msk, last, w), cfg in input_cases(config, synth_batch, dev,
+                                                              torch.float32):
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        dmot = torch.randn(nodes.shape[0], nodes.shape[1], 3, generator=g, device=dev) * 1e-2
+        dmot[:, cfg.max_nobj:] = 0
+        acts = gnn_forward_cuda(nodes, nbr, msk, last, w, cfg, torch.float32)[2]
+        got = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts)
+        again = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts)
+        torch.cuda.synchronize()
+        identical = bool(torch.equal(got[0], again[0])
+                         and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
+        taps = {}
+        refs = {"plain": gnn_train_bwd_plain(nodes, nbr, msk, dmot, w, cfg),
+                "plain_cpu": gnn_train_bwd_plain(nodes.cpu(), nbr.cpu(), msk.cpu(), dmot.cpu(),
+                                                 [t.cpu() for t in w], cfg),
+                "f64": gnn_train_bwd_plain(nodes.double(), nbr, msk, dmot.double(),
+                                           [t.double() for t in w], cfg, taps=taps)}
+        flips, flip_margin = relu_flips(taps, kernel_relu_outputs(acts, msk, cfg), msk, cfg)
+        del taps
+        flat = {k: [v[0]] + v[1] for k, v in refs.items()}
+        rows, worst, worst64, max_abs = [], 0.0, 0.0, 0.0
+        for i, a in enumerate([got[0]] + got[1]):
+            p, c, x = flat["plain"][i], flat["plain_cpu"][i].to(dev), flat["f64"][i]
+            r = min(rel_norm(a, p), rel_norm(a, c))
+            layer = None if i == 0 else GRAD_LAYER[i - 1]
+            keep = torch.ones(a.shape[-1], dtype=torch.bool, device=dev)
+            if layer is not None:
+                keep = ~flips[layer].repeat(a.shape[-1] // flips[layer].numel())
+            r64 = rel_norm(a[..., keep], x[..., keep])
+            worst, worst64 = max(worst, r), max(worst64, r64)
+            max_abs = max(max_abs, float((a - p).abs().max()))
+            rows.append({"name": "dnodes" if i == 0 else f"grad{i - 1}",
+                         "rel_vs_plain": rel_norm(a, p), "rel_vs_plain_cpu": rel_norm(a, c),
+                         "max_abs_vs_plain": float((a - p).abs().max()),
+                         "kernel_rel_vs_f64": rel_norm(a, x), "plain_rel_vs_f64": rel_norm(p, x),
+                         "plain_cpu_rel_vs_f64": rel_norm(c, x),
+                         "flip_columns": int((~keep).sum()), "kernel_rel_vs_f64_off_flips": r64})
+        ok = bool(identical and worst <= 5e-4 and worst64 <= 5e-4 and flip_margin <= FLIP_MARGIN
+                  and all(torch.isfinite(t).all() for t in [got[0]] + got[1]))
+        ok_all &= ok
+        errs[name] = max_abs
+        # where the tensor farthest from the plain version on the card differs:
+        # the share of its absolute difference in its largest last-axis column
+        far = max(range(len(rows)), key=lambda i: rows[i]["rel_vs_plain"])
+        diff = ([got[0]] + got[1])[far] - flat["plain"][far]
+        cols = diff.abs().reshape(-1, diff.shape[-1]).sum(0)
+        emit(phase="backward_kernel_check", case=name, B=nodes.shape[0],
+             real_edges_per_sample=real_edges(msk), rerun_bit_identical=identical,
+             worst_rel_vs_nearer_plain=worst, worst_rel_vs_f64_off_flips=worst64,
+             max_abs_err=max_abs,
+             tol="5e-4 of the norm: of the nearer plain version, and of float64 off the flips",
+             relu_flip_units={k: int(v.sum()) for k, v in flips.items()},
+             largest_flip_margin=flip_margin, flip_margin_tol=FLIP_MARGIN,
+             farthest_from_plain=rows[far]["name"], its_top_column=int(cols.argmax()),
+             its_top_column_share=float(cols.max() / cols.sum().clamp(min=1e-30)), rows=rows,
+             ok=ok)
+    if not ok_all:
+        fail("the backward kernel disagrees with its plain versions (see backward_kernel_check)")
+    return errs["rope"]
+
+
+def plain_kernels():
+    """The plain versions in place of K2 and K3, on the card."""
+    from contextlib import ExitStack
+
+    from adaptigraph_tpu_torch.ops import fused_gnn, fused_gnn_train
+
+    def forward(nodes, nbr, mask, last, weights, cfg):
+        return (*fused_gnn.gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, torch.float32),
+                None)
+
+    def backward(nodes, nbr, mask, dmot, weights, cfg, acts):
+        return fused_gnn_train.gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg)
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(fused_gnn_train, "train_forward", forward))
+    stack.enter_context(mock.patch.object(fused_gnn_train, "gnn_train_bwd", backward))
+    return stack
+
+
+def phase_train_step(config, synth_batch, dev):
+    """One optimizer step (augmentation on, the same draws) through the
+    kernels and through the plain versions from the same weights, on the
+    rope batch at the fixture's density and on the synthetic one: the loss
+    within rtol 1e-5 and the gradients within 5e-4 of the norm. Adam's
+    first step moves a weight by ~lr * sign(grad), so a gradient element
+    near 0 may take either sign: the updated weights must agree within 1e-6
+    but for at most 0.1% of them, and those within 2 lr."""
+    gnn, edge, _, hyper = rope_train_objects(config)
+    for name, batch in (("rope", fixture_batch("rope", dev)[0]), ("rope synthetic", synth_batch)):
+        check_train_step(name, gnn, edge, hyper, batch, dev)
+
+
+def check_train_step(name, gnn, edge, hyper, batch, dev):
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+
+    base = ckpt.tree_leaves(init_params(torch.Generator().manual_seed(0), gnn))
+    results = []
+    for use_plain in (False, True):
+        leaves = [p.to(dev).clone().requires_grad_(True) for p in base]
+        state = train.adam_init(leaves)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        grads = {}
+        real = train.adam_step
+
+        def spy(lv, gr, st, *a, **k):
+            grads["g"] = [x.clone() for x in gr]
+            return real(lv, gr, st, *a, **k)
+
+        with mock.patch.object(train, "adam_step", spy):
+            if use_plain:
+                with plain_kernels():
+                    loss = train.make_train_step(gnn, edge, hyper)(leaves, state, batch, gen)
+            else:
+                loss = train.make_train_step(gnn, edge, hyper)(leaves, state, batch, gen)
+        results.append((float(loss), grads["g"], [p.detach() for p in leaves]))
+    (lk, gk, pk), (lp, gp, pp) = results
+    grad_rel = max(rel_norm(a, b) for a, b in zip(gk, gp))
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(pk, pp)])
+    frac = float((diff > 1e-6).double().mean())
+    ok = (abs(lk - lp) <= 1e-5 * abs(lp) and grad_rel <= 5e-4 and frac <= 1e-3
+          and float(diff.max()) <= 2 * hyper.lr + 1e-6)
+    emit(phase="train_step_check", case=name, loss_kernel=lk, loss_plain=lp,
+         grad_worst_rel=grad_rel, param_max_abs_diff=float(diff.max()), param_frac_over_1e6=frac,
+         ok=bool(ok))
+    if not ok:
+        fail("the kernel train step disagrees with the plain one (see train_step_check)")
+
+
+def gnn_work(gnn, nodes, nbr, msk, weights, backward):
+    """(operations, bytes) of K2 (or K3) on these inputs: the matmul FLOPs on
+    the N real rows and the real edges, the forward's once, K3 two products
+    per layer of them (dX = dY W^T, dW = X^T dY); the bytes of each input
+    read once and each output written once, the activations that K2 writes
+    and K3 reads counted on the N real rows and the real edges."""
+    N, n_p, nf, P = gnn.n_nodes, gnn.max_nobj, gnn.nf_effect, gnn.pstep
+    nfp, nfr, rin = gnn.nf_particle, gnn.nf_relation, gnn.relation_input_dim
+    B, Np, Dp = nodes.shape[0], nodes.shape[1], nodes.shape[2] - gnn.n_his * 3 - 3
+    E = float((msk > 0).sum())
+    node = (Dp * nfp + nfp * nfp + nfp * nf + nf * nf + P * (nf * 2 * nf + nf * nf)
+            + 2 * nf * nf)
+    edge = rin * nfr + nfr * nfr + nfr * nf + nf * nf
+    fwd = 2 * (B * N * node + B * n_p * nf * 3 + E * edge)
+    acts = 4 * (B * N * (2 * nfp + (P + 1) * nf + 3 * nf + P * nf + 2 * nf)
+                + E * (rin + 2 * nfr + 2 * nf + P * nf))
+    nbytes = acts + sum(t.numel() * t.element_size() for t in [nodes, nbr, msk] + list(weights))
+    if backward:  # + dmot in, dnodes and the weight gradients out
+        return 2 * fwd, nbytes + B * Np * 3 * 4 + nodes.numel() * 4 + sum(t.numel() * 4 for t in weights)
+    return fwd, nbytes + B * Np * 3 * 4 + B * n_p * 3 * 4 * 2  # + last in, pred and motion out
+
+
+def bound(ops, nbytes, peak):
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_train_kernels(config, synth_batches, dev, R=9):
+    """K2 and K3 per launch at the main path's shapes (rope, B 128, f32,
+    weights from ``init_params``), each repetition on another batch; the
+    plain versions on the same inputs; the bounds; and the bare train step.
+    The baseline is the rope batches at the fixture's density
+    (``fixture_batch``, R seeds); the same numbers on the synthetic
+    dataset's batches (the CLI run's data) are reported beside them."""
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda, gnn_forward_plain
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+
+    gnn, edge, _, hyper = rope_train_objects(config)
+    f32 = torch.float32
+    params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
+    leaves = [p.clone().requires_grad_(True) for p in ckpt.tree_leaves(params)]
+    step = train.make_train_step(gnn, edge, hyper)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def times(batches):
+        ins = [step_inputs(b, gnn, edge, params, f32) for b in batches]
+        dmots, acts = [], []
+        for nodes, nbr, msk, last, w in ins:
+            d = torch.randn(nodes.shape[0], nodes.shape[1], 3, device=dev) * 1e-2
+            d[:, gnn.max_nobj:] = 0
+            dmots.append(d)
+            acts.append(gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, f32)[2])
+
+        def fwd_args(r):
+            return ins[r % R] + (gnn, f32)
+
+        def bwd_args(r):  # the kernel's inputs, K2's activations last
+            nodes, nbr, msk, _, w = ins[r % R]
+            return nodes, nbr, msk, dmots[r % R], w, gnn, acts[r % R]
+
+        def bwd_plain(*args):  # recomputes the forward, as the TPU kernel does
+            return gnn_train_bwd_plain(*args[:6])
+
+        gnn_train_bwd_cuda(*bwd_args(0))  # warm-up
+        out = {}
+        for name, kern, plain, args, back in (
+                ("k2", gnn_forward_cuda, gnn_forward_plain, fwd_args, False),
+                ("k3", gnn_train_bwd_cuda, bwd_plain, bwd_args, True)):
+            ms = median_ms(kern, args, 9)
+            plain_ms = median_ms(plain, args, 5)
+            nodes, nbr, msk, _, w = ins[0]
+            ops, nbytes = gnn_work(gnn, nodes, nbr, msk, w, back)
+            b_ms, b_by = bound(ops, nbytes, PEAK_FLOPS[f32])
+            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             gflop_per_launch=ops / 1e9, real_edges_per_sample=real_edges(msk))
+        acts.clear()
+        state = train.adam_init(leaves)
+        step(leaves, state, batches[0], gen)
+        out["step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
+                                   lambda r: (batches[r % R],), 9)
+        with plain_kernels():
+            out["plain_step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
+                                             lambda r: (batches[r % R],), 5)
+        return out
+
+    dense = [fixture_batch("rope", dev, seed=20 + r)[0] for r in range(R)]
+    out = times(dense)
+    emit(phase="train_kernel_time", data="rope fixture density", **out)
+    emit(phase="train_kernel_time", data="synthetic dataset", **times(synth_batches[:R]))
+    profile_step(step, leaves, train.adam_init(leaves), dense, gen)
+    return out
+
+
+def profile_step(step, leaves, state, batches, gen, n=5):
+    """Where a bare train step's device time goes: ``torch.profiler`` over n
+    steps, device time per step by kernel name (device events only: a CPU
+    op's entry repeats the time of the kernels it launched), and the
+    device's busy share of the wall time (both under the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for r in range(n):
+            step(leaves, state, batches[r % len(batches)], gen)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    emit(phase="train_step_profile", steps=n, wall_ms_per_step=wall / n * 1e3,
+         device_ms_per_step=busy, device_busy_share=busy / (wall / n * 1e3),
+         top=[{"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / n,
+               "calls_per_step": e.count / n} for e in top])
+
+
+CURVE_RTOL = 0.02  # kernel vs plain run, each epoch's mean train and valid loss
+CURVE_SPREADS = 3  # ... or within this many times the float32 spread of the curves
+
+
+def cli_train(prep, tag, plain=False, nudge=False):
+    """The CLI's train command into TRAIN_DIR/<tag>, through the kernels or
+    (``plain``) the plain versions; with ``nudge``, from initial weights
+    each one float32 step nearer 0. Returns (params, curves, seconds,
+    argv)."""
+    from contextlib import ExitStack
+
+    from adaptigraph_tpu_torch.cli import main
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+
+    init = train.init_params
+
+    def nudged(generator, cfg):
+        return ckpt.tree_from_leaves([torch.nextafter(p, torch.zeros_like(p))
+                                      for p in ckpt.tree_leaves(init(generator, cfg))])
+
+    argv = ["train", "--config", "rope", "--prep_dir", prep,
+            "--out_dir", os.path.join(TRAIN_DIR, tag)] + TRAIN_ARGS
+    with ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_kernels())
+        if nudge:
+            stack.enter_context(mock.patch.object(train, "init_params", nudged))
+        t0 = time.time()
+        params, curves = main(argv)
+    return params, curves, time.time() - t0, argv
+
+
+def phase_train(config, prep, dev):
+    """The main path of this slice: the CLI's train command on the synthetic
+    dataset, 3 epochs of 100 steps at batch 128 (superbatches of 10), with
+    K2/K3 launch counts read around it (3 + 3 per train step, 3 K2 per
+    validation step), a falling train loss and the checkpoint read back.
+
+    Then the same run with the plain versions in place of the kernels, on
+    the card (no kernel launch): its train and validation curves must agree
+    with the kernels' at every epoch, within CURVE_RTOL or within
+    CURVE_SPREADS times the spread that float32 rounding alone gives the
+    curve there. Two runs that differ only in rounding drift apart over
+    hundreds of Adam steps, and the clean validation loss (one held-out
+    episode, ~1% of the train loss) moves with the drift; the spread is
+    measured by the same two runs from initial weights one float32 step
+    apart: the larger of |kernel - kernel'| and |plain - plain'|."""
+    from adaptigraph_tpu_torch.cli import load_params
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+    from adaptigraph_tpu_torch.utils.metrics import read_metrics
+
+    gnn = rope_train_objects(config)[0]
+    out = os.path.join(TRAIN_DIR, "out")
+    gnn_forward.launches = 0
+    gnn_train_bwd.launches = 0
+    params, curves, secs, argv = cli_train(prep, "out")
+    k2, k3 = gnn_forward.launches, gnn_train_bwd.launches
+    epochs = [m for m in read_metrics(os.path.join(out, "metrics.jsonl")) if m["tag"] == "epoch"]
+    train_steps = sum(m["train_steps"] for m in epochs)
+    valid_steps = 10 * len(epochs)  # n_iters_valid 10 per epoch, one superbatch of 10
+    last = epochs[-1]
+    back = load_params(out, gnn, dev)
+    same = all(torch.equal(a, b.to(a.device))
+               for a, b in zip(ckpt.tree_leaves(back), ckpt.tree_leaves(params)))
+    # the train loss (state noise 0.05 on the history) must fall
+    falling = curves["train"][-1] < curves["train"][0]
+    launches_ok = k3 == 3 * train_steps and k2 == 3 * (train_steps + valid_steps)
+
+    kernel_nudged = cli_train(prep, "out_nudged", nudge=True)[1]
+    before = gnn_forward.launches + gnn_train_bwd.launches
+    _, plain, plain_secs, _ = cli_train(prep, "out_plain", plain=True)
+    plain_nudged = cli_train(prep, "out_plain_nudged", plain=True, nudge=True)[1]
+    plain_launches = gnn_forward.launches + gnn_train_bwd.launches - before
+    agree, curve_check = plain_launches == 0, {}
+    for k in ("train", "valid"):
+        K, P = np.array(curves[k]), np.array(plain[k])
+        spread = np.maximum(np.abs(K - np.array(kernel_nudged[k])),
+                            np.abs(P - np.array(plain_nudged[k])))
+        tol = np.maximum(CURVE_RTOL * np.abs(P), CURVE_SPREADS * spread)
+        agree &= bool((np.abs(K - P) <= tol).all())
+        curve_check[k] = {"kernel": curves[k], "plain": plain[k],
+                          "kernel_nudged": kernel_nudged[k], "plain_nudged": plain_nudged[k],
+                          "abs_diff": np.abs(K - P).tolist(), "spread": spread.tolist(),
+                          "tol": tol.tolist()}
+    ok = bool(falling and launches_ok and same and agree and np.isfinite(curves["train"]).all()
+              and np.isfinite(curves["valid"]).all())
+    emit(phase="train", argv=argv[1:], seconds=round(secs, 2), train_steps=train_steps,
+         valid_steps=valid_steps, k2_launches=k2, k3_launches=k3,
+         k2_per_train_step=(k2 - 3 * valid_steps) / train_steps, k3_per_train_step=k3 / train_steps,
+         train_loss=curves["train"], valid_loss=curves["valid"], curves=curve_check,
+         curve_rtol=CURVE_RTOL, curve_spreads=CURVE_SPREADS, plain_runs_launches=plain_launches,
+         plain_seconds=round(plain_secs, 2),
+         ms_per_step_cli=last["train_seconds"] / last["train_steps"] * 1e3,
+         checkpoint_read_back_equal=same, ok=ok)
+    if not ok:
+        fail("the train run failed its checks (see the train line)")
+    return k2, k3
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -449,13 +1072,27 @@ def main():
     emit(phase="kernel_time", **timing)
     launches = phase_solve(rope, dev)
     phase_demo_ppo(dev)
-    emit(kernels=[{
-        "name": "rollout_chunk", "route": "cuda",
-        "source": "adaptigraph_tpu_torch/csrc/rollout_chunk.cu",
-        "replaces": "adaptigraph_tpu/ops/fused_gnn.py:479",
-        "launches": launches, "max_abs_err": main_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": None}])
+
+    config, prep = phase_dataset()
+    batches = device_batches(config, prep, dev, 9, seed=11)
+    k2_err = phase_forward_kernel(config, batches[0], dev)
+    k3_err = phase_backward_kernel(config, batches[1], dev)
+    phase_train_step(config, batches[2], dev)
+    ttime = time_train_kernels(config, batches, dev)
+    k2_launches, k3_launches = phase_train(config, prep, dev)
+
+    def row(name, source, replaces, n, err, t):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+
+    emit(kernels=[
+        row("rollout_chunk", "adaptigraph_tpu_torch/csrc/rollout_chunk.cu",
+            "adaptigraph_tpu/ops/fused_gnn.py:479", launches, main_err, timing),
+        row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
+            "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
+        row("gnn_train_bwd", "adaptigraph_tpu_torch/csrc/gnn_train_bwd.cu",
+            "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"])])
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

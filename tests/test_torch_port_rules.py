@@ -63,14 +63,16 @@ def test_no_jax_import_in_source(path):
 
 def test_entry_points_default_to_cuda():
     from adaptigraph_tpu_torch.cli import build_parser
+    from adaptigraph_tpu_torch.dynamics.train import train
     from adaptigraph_tpu_torch.planning.mppi_solve import make_mppi_solver
     from adaptigraph_tpu_torch.planning.physics_optimizer import (
         PhysicsParamOnlineOptimizer, dynamics_error_population)
 
-    for fn in (make_mppi_solver, PhysicsParamOnlineOptimizer.__init__, dynamics_error_population):
+    for fn in (make_mppi_solver, PhysicsParamOnlineOptimizer.__init__, dynamics_error_population,
+               train):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    args = build_parser().parse_args(["demo-ppo", "--config", "rope", "--load_dir", "x"])
-    assert args.device == "cuda"
+    for argv in (["demo-ppo", "--config", "rope", "--load_dir", "x"], ["train", "--config", "rope"]):
+        assert build_parser().parse_args(argv).device == "cuda"
 
 
 @pytest.mark.parametrize("rel", ["dynamics/rope.yaml", "dynamics/granular.yaml",
