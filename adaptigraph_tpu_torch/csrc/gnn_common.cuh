@@ -10,12 +10,13 @@
 //   tables and grouped by receiver (slot order within a receiver); the
 //   backward also groups them by sender. Sums over a node's edges run in that
 //   order, so a launch is deterministic: no atomics anywhere.
-// - forward_body: the JAX kernel's arithmetic (ops/fused_gnn.py::_kernel with
-//   prebuilt edges) up to the motion head's hidden layers, rounding to the
-//   compute dtype T wherever the JAX kernel casts. Activations are kept in
-//   float32 buffers (already rounded), edge-sized ones on real edges only,
-//   each in its own place (act_bufs), so the backward reads them as the
-//   forward left them.
+// - forward_body: the JAX kernel's arithmetic (ops/fused_gnn.py::_kernel) up
+//   to the motion head's hidden layers, rounding to the compute dtype T
+//   wherever the JAX kernel casts. Activations are kept in float32 buffers
+//   (already rounded), edge-sized ones on real edges only: for training each
+//   in its own place per sample (act_bufs), so the backward reads them as the
+//   forward left them; for a forward alone in one reused scratch per resident
+//   block (scratch_bufs).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +24,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "edge_build.cuh"
 
 namespace gnn {
 
@@ -188,12 +191,14 @@ __device__ inline int build_edges(const int* nbr, const float* mask, int Np, int
   return E;
 }
 
-// Shared memory of a block: the gemm tiles, then the edge lists.
+// Shared memory of a block: the gemm tiles, then the edge lists; with
+// `radius`, also the (Np, K) sender table and per-row counts that the
+// in-kernel graph build (edge_build.cuh) fills.
 struct Smem {
-  size_t off, soff, er, es, sl, total;
+  size_t off, soff, er, es, sl, nbr, cnt, total;
 };
 
-__host__ __device__ inline Smem smem_layout(int Np, int K, bool senders) {
+__host__ __device__ inline Smem smem_layout(int Np, int K, bool senders, bool radius = false) {
   const size_t emax = (size_t)Np * K;
   Smem s;
   size_t at = (size_t)kGemmFloats * 4;
@@ -202,17 +207,22 @@ __host__ __device__ inline Smem smem_layout(int Np, int K, bool senders) {
   s.er = at;   at = align16(at + emax * 2);
   s.es = at;   at = align16(at + emax * 2);
   s.sl = at;   at = align16(at + (senders ? emax * 4 : 0));
+  s.nbr = at;  at = align16(at + (radius ? emax * 2 : 0));
+  s.cnt = at;  at = align16(at + (radius ? Np * 4 : 0));
   s.total = at;
   return s;
 }
 
 // Where the forward keeps its activations (float32, rounded to T). Edge
-// buffers hold real-edge rows; the pstep buffers advance by *_step floats per
-// round.
+// buffers hold real-edge rows. Round t of message passing reads effect slot
+// t % eff_slots and writes slot (t + 1) % eff_slots; the aggregate and the
+// messages advance by agg_step and ms_step floats per round; ms may be null
+// (a forward alone keeps no messages).
 struct FwdBufs {
   float *rel_in, *re_h1, *re_h2, *r_enc, *rel_base, *ms;
   float *pe_h1, *pe_h2, *effs, *pb, *rs, *aggs, *nr_h1, *nr_h2;
   size_t eff_step, agg_step, ms_step;
+  int eff_slots;
 };
 
 // The forward's activations of one sample, every one kept for the backward
@@ -253,6 +263,44 @@ __host__ __device__ inline FwdBufs act_bufs(const Dims& d, float* node_acts, flo
   f.ms = ae;
   f.eff_step = f.agg_step = nN * nf;
   f.ms_step = eN * nf;
+  f.eff_slots = d.pstep + 1;
+  return f;
+}
+
+// A forward alone: the scratch of one resident block, reused by each sample
+// it runs. Node buffers pe_h1, pe_h2, two effect slots, pb, rs (2 nf), one
+// aggregate, nr_h1, nr_h2; edge buffers X, Y (each as wide as the widest of
+// the layers that share it) and rel_base: rel_in and re_h2 in X, re_h1 and
+// r_enc in Y, so no layer's output overwrites its input. No messages.
+__host__ __device__ inline size_t scratch_node_floats(const Dims& d) {
+  return (size_t)d.Np * (2 * d.nf_p + 2 * d.nf + d.nf + 2 * d.nf + d.nf + 2 * d.nf);
+}
+
+__host__ __device__ inline size_t scratch_edge_floats(const Dims& d) {
+  return (size_t)d.Np * d.K * (imax(d.rel_in, d.nf_r) + imax(d.nf_r, d.nf) + d.nf);
+}
+
+__host__ __device__ inline FwdBufs scratch_bufs(const Dims& d, float* node_s, float* edge_s,
+                                                int slot) {
+  const size_t nN = d.Np, eN = (size_t)d.Np * d.K, nf = d.nf;
+  float* at = node_s + (size_t)slot * scratch_node_floats(d);
+  FwdBufs f;
+  f.pe_h1 = at; at += nN * d.nf_p;
+  f.pe_h2 = at; at += nN * d.nf_p;
+  f.effs = at;  at += nN * nf * 2;
+  f.pb = at;    at += nN * nf;
+  f.rs = at;    at += nN * 2 * nf;
+  f.aggs = at;  at += nN * nf;
+  f.nr_h1 = at; at += nN * nf;
+  f.nr_h2 = at;
+  float* ae = edge_s + (size_t)slot * scratch_edge_floats(d);
+  f.rel_in = f.re_h2 = ae;  ae += eN * imax(d.rel_in, d.nf_r);
+  f.re_h1 = f.r_enc = ae;   ae += eN * imax(d.nf_r, d.nf);
+  f.rel_base = ae;
+  f.ms = nullptr;
+  f.eff_step = nN * nf;
+  f.agg_step = f.ms_step = 0;
+  f.eff_slots = 2;
   return f;
 }
 
@@ -288,10 +336,10 @@ __device__ void forward_body(const Dims& d, const T* nodes, const T* const* w, i
   dense<T>(Np, nf, nf, f.effs, nf, w[kPpWa], w[kPpB], f.pb, false, sm);
 
   for (int t = 0; t < d.pstep; ++t) {
-    const float* eff = f.effs + t * f.eff_step;
-    float* eff_next = f.effs + (t + 1) * f.eff_step;
+    const float* eff = f.effs + (t % f.eff_slots) * f.eff_step;
+    float* eff_next = f.effs + ((t + 1) % f.eff_slots) * f.eff_step;
     float* agg = f.aggs + t * f.agg_step;
-    float* ms = f.ms + t * f.ms_step;
+    float* ms = f.ms ? f.ms + t * f.ms_step : nullptr;
     float* rs = f.rs;
     // [recv | send] projections
     gemm(Np, 2 * nf, nf, eff, (size_t)nf, (size_t)1, w[kRpW23], (size_t)(2 * nf), (size_t)1, sm,
@@ -304,7 +352,7 @@ __device__ void forward_body(const Dims& d, const T* nodes, const T* const* w, i
       for (int e = off[i]; e < off[i + 1]; ++e) {
         const float send = rs[(size_t)es[e] * 2 * nf + nf + c];
         const float v = fmaxf(rnd<T>(rnd<T>(f.rel_base[(size_t)e * nf + c] + recv) + send), 0.f);
-        ms[(size_t)e * nf + c] = v;
+        if (ms) ms[(size_t)e * nf + c] = v;
         acc += v;
       }
       agg[(size_t)i * nf + c] = rnd<T>(acc);
@@ -318,7 +366,7 @@ __device__ void forward_body(const Dims& d, const T* nodes, const T* const* w, i
            eff_next[at] = fmaxf(rnd<T>(rnd<T>(pb[at] + rnd<T>(c)) + eff[at]), 0.f);
          });
   }
-  const float* eff = f.effs + d.pstep * f.eff_step;
+  const float* eff = f.effs + (d.pstep % f.eff_slots) * f.eff_step;
   dense<T>(Np, nf, nf, eff, nf, w[kNr0w], w[kNr0b], f.nr_h1, true, sm);
   dense<T>(Np, nf, nf, f.nr_h1, nf, w[kNr1w], w[kNr1b], f.nr_h2, true, sm);
 }

@@ -1,11 +1,19 @@
-// Single-step GNN forward with prebuilt edges, one thread block per sample.
+// Single-step GNN forward, one thread block per sample at a time.
 //
 // Replaces the TPU kernel adaptigraph_tpu/ops/fused_gnn.py::_kernel as
-// fused_forward_batch launches it with prebuilt edge tables (the training
-// forward; the in-kernel edge build is not ported here). Per sample: the
-// relation features of the real edges, the relation and particle encoders,
-// pstep rounds of message passing with the hoisted rel_base / part_base
-// terms, the motion head, pred = last + clip(motion), and the raw motion.
+// fused_forward_batch launches it, in both of its edge modes:
+// - prebuilt edges (K2; training, and the planning step of the tool edge
+//   policies): (k, i)-ordered sender and mask tables;
+// - the in-kernel radius-and-topk build (K2e, build_edges=True; the per-substep
+//   MPPI step of policy none, _edges_stacked): the graph of the newest frame,
+//   built by edge_build.cuh's routine, the one the whole-push rollout
+//   (rollout_chunk.cu) runs, into the same edge lists, so K2e on a state gives
+//   K2's result on the tables that the plain graph build makes of it, bit for
+//   bit.
+// Per sample: the relation features of the real edges, the relation and
+// particle encoders, pstep rounds of message passing with the hoisted rel_base
+// / part_base terms, the motion head, pred = last + clip(motion), and the raw
+// motion.
 //
 // What bounds it on an H100: arithmetic. At rope width (N 101, nf 128,
 // pstep 3) the node-level products are ~50 MFLOP per sample against a few KB
@@ -16,11 +24,22 @@
 // bf16 inputs and weights and rounds every layer's output to bf16 where the
 // JAX kernel casts, so its activations are exact bf16 values kept in float32.
 // Only real edges are computed (masked slots add exact zeros in the JAX
-// kernel). Activations live in two global tensors from the wrapper, every
-// one kept (gnn_common.cuh's act_bufs): a block's node and edge tensors do
-// not fit in shared memory beside the gemm tiles, and the training backward
-// (gnn_train_bwd.cu) reads them instead of recomputing the forward. The
-// tensor cores are later work.
+// kernel). A block's node and edge activations do not fit in shared memory
+// beside the gemm tiles, so they live in global buffers from the wrapper:
+// - training (keep): every activation of every sample in its own place
+//   (act_bufs), one block per sample; the backward (gnn_train_bwd.cu) reads
+//   them instead of recomputing the forward;
+// - a forward alone: one scratch per resident block (scratch_bufs), the grid
+//   no larger than the blocks the card holds at once, each block looping over
+//   samples; so the scratch does not grow with the batch (the planning batch
+//   is 2,000) and no message is written.
+// The tensor cores are later work.
+//
+// Profiling builds (ops/kernels.py variants; the counterpart of the JAX
+// profiling copy scripts/profile_kernel_parts.py) change only the in-kernel
+// graph: -DGNN_ABLATE_NO_EDGE gives every row i < Np the K senders
+// (i + k) mod Np, every slot real (no distance work); -DGNN_ABLATE_NO_GATHER
+// makes every edge's sender its receiver (no gather), on the graph built.
 
 #include "gnn_common.cuh"
 
@@ -30,61 +49,111 @@ using namespace gnn;
 
 struct Params {
   const void* nodes;   // (B, Np, D) compute dtype
-  const int* nbr;      // (B, K*Np) senders, (k, i) order
+  const int* nbr;      // (B, K*Np) senders, (k, i) order; null: build in the kernel
   const float* mask;   // (B, K*Np)
   const float* last;   // (B, Np, 3)
   const void* w[kNumWeights];
-  float* node_acts;    // B x act_node_floats
-  float* edge_acts;    // B x act_edge_floats
+  float* node_acts;    // keep: B x act_node_floats; else grid x scratch_node_floats
+  float* edge_acts;    // keep: B x act_edge_floats; else grid x scratch_edge_floats
   float* pred;         // (B, n_p, 3)
   float* motion;       // (B, n_p, 3) or null
   Dims d;
   float motion_clamp;
+  float thresh;        // radius², for the in-kernel build
+  int B, keep;
 };
+
+// The in-kernel graph of sample b's newest frame into off/er/es (K2e).
+__device__ int build_radius_edges(const Params& p, const Smem& L, unsigned char* smem, int b,
+                                  int* off, short* er, short* es) {
+  const Dims& d = p.d;
+  const int Np = d.Np, K = d.K;
+#ifdef GNN_ABLATE_NO_EDGE
+  for (int idx = threadIdx.x; idx < Np * K; idx += blockDim.x) {
+    const int i = idx / K, k = idx % K;
+    er[idx] = (short)i;
+    es[idx] = (short)((i + k) % Np);
+  }
+  for (int i = threadIdx.x; i <= Np; i += blockDim.x) off[i] = i * K;
+  __syncthreads();
+  const int E = Np * K;
+#else
+  short* nbr = reinterpret_cast<short*>(smem + L.nbr);
+  int* cnt = reinterpret_cast<int*>(smem + L.cnt);
+  edges::radius_topk(p.last + (size_t)b * Np * 3, nullptr, Np, d.N, d.n_p, K, p.thresh, nbr, cnt);
+  const int E = edges::compact_edges(cnt, nbr, Np, K, off, er, es);
+#endif
+#ifdef GNN_ABLATE_NO_GATHER
+  for (int e = threadIdx.x; e < E; e += blockDim.x) es[e] = er[e];
+  __syncthreads();
+#endif
+  return E;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gnn_forward_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Dims d = p.d;
-  const int b = blockIdx.x, Np = d.Np, nf = d.nf;
-  const Smem L = smem_layout(Np, d.K, false);
+  const int Np = d.Np, nf = d.nf;
+  const Smem L = smem_layout(Np, d.K, false, p.nbr == nullptr);
   float* sm = reinterpret_cast<float*>(smem);
   int* off = reinterpret_cast<int*>(smem + L.off);
   short* er = reinterpret_cast<short*>(smem + L.er);
   short* es = reinterpret_cast<short*>(smem + L.es);
-
-  const T* nodes = static_cast<const T*>(p.nodes) + (size_t)b * Np * d.D;
-  const int E = build_edges(p.nbr + (size_t)b * d.K * Np, p.mask + (size_t)b * d.K * Np, Np, d.K,
-                            off, er, es, nullptr, nullptr);
-
-  const FwdBufs f = act_bufs(d, p.node_acts, p.edge_acts, b);
   const T* w[kNumWeights];
   for (int i = 0; i < kNumWeights; ++i) w[i] = static_cast<const T*>(p.w[i]);
-  forward_body<T>(d, nodes, w, E, off, er, es, f, sm);
 
-  // motion head's last layer (no relu), the clamp and the position update
-  const float* last = p.last + (size_t)b * Np * 3;
-  float* pred = p.pred + (size_t)b * d.n_p * 3;
-  float* motion = p.motion ? p.motion + (size_t)b * d.n_p * 3 : nullptr;
-  const T* bias = w[kNr2b];
-  const float clamp = p.motion_clamp;
-  gemm(d.n_p, 3, nf, f.nr_h2, (size_t)nf, (size_t)1, w[kNr2w], (size_t)3, (size_t)1, sm,
-       [&](int m, int n, float c) {
-         const float mot = rnd<T>(c + ld(bias + n));
-         if (motion) motion[m * 3 + n] = mot;
-         pred[m * 3 + n] = last[m * 3 + n] + fminf(fmaxf(mot, -clamp), clamp);
-       });
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const T* nodes = static_cast<const T*>(p.nodes) + (size_t)b * Np * d.D;
+    const int E = p.nbr ? build_edges(p.nbr + (size_t)b * d.K * Np, p.mask + (size_t)b * d.K * Np,
+                                      Np, d.K, off, er, es, nullptr, nullptr)
+                        : build_radius_edges(p, L, smem, b, off, er, es);
+    const FwdBufs f = p.keep ? act_bufs(d, p.node_acts, p.edge_acts, b)
+                             : scratch_bufs(d, p.node_acts, p.edge_acts, blockIdx.x);
+    forward_body<T>(d, nodes, w, E, off, er, es, f, sm);
+
+    // motion head's last layer (no relu), the clamp and the position update
+    const float* last = p.last + (size_t)b * Np * 3;
+    float* pred = p.pred + (size_t)b * d.n_p * 3;
+    float* motion = p.motion ? p.motion + (size_t)b * d.n_p * 3 : nullptr;
+    const T* bias = w[kNr2b];
+    const float clamp = p.motion_clamp;
+    gemm(d.n_p, 3, nf, f.nr_h2, (size_t)nf, (size_t)1, w[kNr2w], (size_t)3, (size_t)1, sm,
+         [&](int m, int n, float c) {
+           const float mot = rnd<T>(c + ld(bias + n));
+           if (motion) motion[m * 3 + n] = mot;
+           pred[m * 3 + n] = last[m * 3 + n] + fminf(fmaxf(mot, -clamp), clamp);
+         });
+  }
+}
+
+// Blocks in the grid: one per sample with `keep`, else at most the blocks the
+// card runs at once (each needs a scratch slot).
+template <typename T>
+int grid_blocks(int B, int keep, size_t smem, int device, int* out) {
+  if (keep) { *out = B; return 0; }
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaFuncSetAttribute(gnn_forward_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gnn_forward_kernel<T>, kThreads,
+                                                        smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int resident = imax(per_sm, 1) * sms;
+  *out = B < resident ? B : resident;
+  return 0;
 }
 
 template <typename T>
-int launch(const Params& p, int B, int device, cudaStream_t stream) {
+int launch(const Params& p, int grid, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_layout(p.d.Np, p.d.K, false).total;
+  const size_t smem = smem_layout(p.d.Np, p.d.K, false, p.nbr == nullptr).total;
   err = cudaFuncSetAttribute(gnn_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (B > 0) gnn_forward_kernel<T><<<B, kThreads, smem, stream>>>(p);
+  if (p.B > 0) gnn_forward_kernel<T><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -92,24 +161,43 @@ int launch(const Params& p, int B, int device, cudaStream_t stream) {
 
 extern "C" {
 
-// Activation floats per sample: which 0 = node buffers, 1 = edge buffers.
+// Activation floats per sample (keep) or per block (a forward alone, keep 0):
+// which 0 = node buffers, 1 = edge buffers.
 long long gnn_forward_act_floats(int Np, int K, int pstep, int nf_p, int nf_r, int nf, int rel_in,
-                                 int which) {
+                                 int which, int keep) {
   Dims d{};
   d.Np = Np; d.K = K; d.pstep = pstep; d.nf_p = nf_p; d.nf_r = nf_r; d.nf = nf; d.rel_in = rel_in;
-  return (long long)(which == 0 ? act_node_floats(d) : act_edge_floats(d));
+  if (keep) return (long long)(which == 0 ? act_node_floats(d) : act_edge_floats(d));
+  return (long long)(which == 0 ? scratch_node_floats(d) : scratch_edge_floats(d));
 }
 
-int gnn_forward_smem_bytes(int Np, int K) { return (int)smem_layout(Np, K, false).total; }
+// Shared memory of a block; `radius` for the in-kernel graph build.
+int gnn_forward_smem_bytes(int Np, int K, int radius) {
+  return (int)smem_layout(Np, K, false, radius != 0).total;
+}
+
+// The grid a launch of B samples uses (its number of scratch slots when keep
+// is 0); returns a CUDA error code, 0 on success.
+int gnn_forward_grid(int B, int Np, int K, int radius, int keep, int bf16_mode, int device,
+                     int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_layout(Np, K, false, radius != 0).total;
+  return bf16_mode ? grid_blocks<bf16>(B, keep, smem, device, blocks)
+                   : grid_blocks<float>(B, keep, smem, device, blocks);
+}
 
 const char* gnn_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-// Launch on `stream` without synchronising; returns cudaGetLastError().
+// Launch on `stream` without synchronising; returns cudaGetLastError(). With
+// nbr null the graph is built in the kernel from `last` with radius² thresh
+// (mask unused). `grid` from gnn_forward_grid.
 int gnn_forward_launch(const void* nodes, const void* nbr, const void* mask, const void* last,
                        const void* const* weights, void* node_acts, void* edge_acts,
                        void* pred, void* motion, int B, int Np, int N, int n_p, int K, int n_his,
                        int pstep, int Dp, int D, int nf_p, int nf_r, int nf, int rel_in,
-                       float motion_clamp, int bf16_mode, int device, void* stream) {
+                       float motion_clamp, float thresh, int keep, int grid, int bf16_mode,
+                       int device, void* stream) {
   Params p;
   p.nodes = nodes;
   p.nbr = static_cast<const int*>(nbr);
@@ -122,8 +210,11 @@ int gnn_forward_launch(const void* nodes, const void* nbr, const void* mask, con
   p.motion = static_cast<float*>(motion);
   p.d = Dims{Np, N, n_p, K, n_his, pstep, Dp, D, nf_p, nf_r, nf, rel_in};
   p.motion_clamp = motion_clamp;
+  p.thresh = thresh;
+  p.B = B;
+  p.keep = keep;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_mode ? launch<bf16>(p, B, device, s) : launch<float>(p, B, device, s);
+  return bf16_mode ? launch<bf16>(p, grid, device, s) : launch<float>(p, grid, device, s);
 }
 
 }  // extern "C"

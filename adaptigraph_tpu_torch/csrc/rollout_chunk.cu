@@ -36,9 +36,8 @@
 //   as it does the per-push particle encoding (B*Np*nf) and, in float32, the
 //   propagator base (bf16 keeps that in shared memory).
 //
-// Distances are x, y, z squared and summed in that order with round-to-nearest
-// intrinsics (no fused multiply-add), so they equal the plain version's bit for
-// bit and the top-k picks agree; ties go to the smallest sender index.
+// The graph is edge_build.cuh's, shared with gnn_forward.cu: distances equal
+// the plain version's bit for bit, ties go to the smallest sender index.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -47,6 +46,8 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+
+#include "edge_build.cuh"
 
 namespace {
 
@@ -66,7 +67,6 @@ constexpr int kNumWeights = 24;
 enum Phase { kEncoder, kGraph, kRelation, kProjection, kAggregate, kUpdate, kHead, kRestick,
              kPhases };
 constexpr float kBig = 1e10f;
-constexpr int kColsPerLane = 4;                        // top-k: Np <= 128 senders per row
 constexpr unsigned kFull = 0xffffffffu;
 
 // Per compute dtype: the threads per block, the column padding of matmul
@@ -591,7 +591,7 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, 1) rollout_chunk_kernel(cons
   short* ER = reinterpret_cast<short*>(smem + L.er);
 
   constexpr int kThr = Cfg<T>::kThreads, kWrp = kThr / 32;
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x, tid = threadIdx.x;
   const int Np = d.Np, N = d.N, n_p = d.n_p, K = d.K, n_his = d.n_his, nf = d.nf_e;
   const int nh3 = n_his * 3, frame = Np * 3, n_slots = n_his + 1;
   const int npr = round_to(Np, Cfg<T>::kRowPad);
@@ -670,70 +670,9 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, 1) rollout_chunk_kernel(cons
       SN[idx] = rnd<T>(v);
     }
 
-    // ---- radius-and-topk graph: one warp per valid receiver i, the squared
-    // distances to the senders j = lane + 32q in registers; each round takes
-    // the row minimum, ties to the smallest index, and retires it ----
-    for (int i = warp; i < Np; i += kWrp) {
-      int cnt = 0;
-      if (VALID[i] > 0.f) {
-        const bool tool_i = i >= n_p && i < N;
-        unsigned dist[kColsPerLane];  // bit patterns: distances are >= 0, so they order alike
-#pragma unroll
-        for (int q = 0; q < kColsPerLane; ++q) {
-          const int j = lane + 32 * q;
-          float v = kBig;  // invalid and tool-tool pairs
-          if (j < Np && VALID[j] > 0.f && !(tool_i && j >= n_p && j < N)) {
-            const float dx = __fsub_rn(last[i * 3 + 0], last[j * 3 + 0]);
-            const float dy = __fsub_rn(last[i * 3 + 1], last[j * 3 + 1]);
-            const float dz = __fsub_rn(last[i * 3 + 2], last[j * 3 + 2]);
-            v = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-          }
-          dist[q] = j < Np ? __float_as_uint(v) : 0x7f800000u;  // +inf: no such column
-        }
-        for (int k = 0; k < K; ++k) {
-          unsigned v = dist[0];
-          int qa = 0;
-#pragma unroll
-          for (int q = 1; q < kColsPerLane; ++q)
-            if (dist[q] < v) { v = dist[q]; qa = q; }
-          const unsigned vmin = __reduce_min_sync(kFull, v);
-          const int arg = (int)__reduce_min_sync(
-              kFull, v == vmin ? (unsigned)(lane + 32 * qa) : 0xffffffffu);
-          if (!(__uint_as_float(vmin) < p.thresh)) break;  // the rest are farther: masked slots
-          if (lane == 0) NBR[i * K + k] = (short)arg;
-          if (arg == lane + 32 * qa) {
-#pragma unroll
-            for (int q = 0; q < kColsPerLane; ++q)
-              if (q == qa) dist[q] = __float_as_uint(kBig);
-          }
-          cnt = k + 1;
-        }
-      }
-      if (lane == 0) CNT[i] = cnt;
-    }
-    __syncthreads();
-
-    // ---- compact the edge list: OFF = exclusive prefix sum of CNT ----
-    if (warp == 0) {
-      int run = 0;
-      for (int base = 0; base < Np; base += 32) {
-        const int i = base + lane;
-        const int c = (i < Np) ? CNT[i] : 0;
-        int incl = c;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int t = __shfl_up_sync(kFull, incl, o);
-          if (lane >= o) incl += t;
-        }
-        if (i < Np) OFF[i] = run + incl - c;
-        run += __shfl_sync(kFull, incl, 31);
-      }
-      if (lane == 0) OFF[Np] = run;
-    }
-    __syncthreads();
-    for (int i = tid; i < Np; i += kThr)
-      for (int k = 0; k < CNT[i]; ++k) ER[OFF[i] + k] = (short)i;
-    __syncthreads();
-    const int E = OFF[Np];
+    // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
+    edges::radius_topk(last, VALID, Np, N, n_p, K, p.thresh, NBR, CNT);
+    const int E = edges::compact_edges(CNT, NBR, Np, K, OFF, ER, nullptr);
     clk.mark(kGraph);
 
     // ---- relation encoder + rel_base over real edges ----

@@ -1,9 +1,10 @@
 """The fused GNN kernels' wrappers and their plain PyTorch versions
 (counterpart of ``adaptigraph_tpu/ops/fused_gnn.py``): the whole-push
 rollout ``fused_rollout_chunk`` (K1, ``csrc/rollout_chunk.cu``) and the
-single-step forward with prebuilt edges ``fused_forward_batch`` (K2,
-``csrc/gnn_forward.cu``), which training differentiates through
-``ops/fused_gnn_train.py``.
+single-step forward ``fused_forward_batch`` (``csrc/gnn_forward.cu``), with
+prebuilt edges (K2, which training differentiates through
+``ops/fused_gnn_train.py``) or with its radius∧topk graph built in the kernel
+(K2e, ``build_edges=True``).
 
 ``fused_rollout_chunk`` runs one MPPI chunk's whole push-substep loop for a
 batch of samples: per substep it shifts the ``n_his`` history, rebuilds the
@@ -13,15 +14,18 @@ each sample at its own repeat and re-sticks the end-effector to the min (or
 masked mean) object y plus the gripper lift. The particle encoding is
 computed once per push (``state_dim == 0``).
 
-``fused_forward_batch`` runs one GNN step for a batch whose edges were built
-outside (the training case): packed node inputs, (k, i)-ordered edge tables
-with ``k_used`` real slots, the relation and particle encoders, ``pstep``
-rounds of message passing, the motion head and ``pred = last +
-clamp(motion)``, with the raw motion as a second output.
+``fused_forward_batch`` runs one GNN step for a batch: packed node inputs,
+(k, i)-ordered edge tables with ``k_used`` real slots (K2; built outside, as
+training and the tool edge policies build them) or the graph of the newest
+frame built in the kernel (K2e; policy ``none``, all object slots valid, the
+per-substep MPPI step), the relation and particle encoders, ``pstep`` rounds
+of message passing, the motion head and ``pred = last + clamp(motion)``,
+with the raw motion as a second output.
 
 On CUDA tensors each launches its CUDA kernel; on CPU tensors it runs the
-plain version (``rollout_chunk_plain``, ``gnn_forward_plain``), which
-computes the same function with batched tensor ops. Numerics follow the JAX
+plain version (``rollout_chunk_plain``, ``gnn_forward_plain``,
+``gnn_forward_edges_plain``), which computes the same function with batched
+tensor ops. Numerics follow the JAX
 kernels: products accumulate in float32 and every layer's output is rounded
 to ``compute_dtype`` (float32 or bfloat16) where the JAX kernel rounds it;
 positions, distances and ``pred = last + clamp(motion)`` stay float32.
@@ -389,8 +393,15 @@ def pack_inputs(cfg: GNNConfig, state, action, physics, attrs, p_instance, neigh
     N, Np = cfg.n_nodes, round_up(cfg.n_nodes, 8)
     nodes, Dp = pack_node_inputs(cfg, state, action, physics, attrs, p_instance, compute_dtype)
     nbr, mask = pack_edge_tables(neighbors, nbr_mask, k_used, N, Np)
-    last = torch.cat([state[:, -1], state.new_zeros(state.shape[0], Np - N, 3)], dim=1)
-    return nodes, nbr, mask, last.float().contiguous(), Dp
+    return nodes, nbr, mask, pad_last(cfg, state), Dp
+
+
+def pad_last(cfg: GNNConfig, state):
+    """The newest frame of ``state`` (B, n_his, N, 3), padded to (B, Np, 3)
+    float32."""
+    Np = round_up(cfg.n_nodes, 8)
+    last = state[:, -1].float()
+    return torch.cat([last, last.new_zeros(last.shape[0], Np - cfg.n_nodes, 3)], dim=1).contiguous()
 
 
 def gnn_forward_plain(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype,
@@ -444,23 +455,27 @@ def gnn_forward_plain(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_d
     return pred, (motion if want_motion else None)
 
 
-def check_gnn_inputs(nodes, nbr, mask, weights, cfg: GNNConfig, compute_dtype, extra=()):
-    """What the K2 and K3 kernels take: contiguous tensors of these shapes
-    and dtypes on one device, 24 weights, Np < 32768 and pstep >= 1.
-    Returns (B, Np, K, Dp)."""
+def check_gnn_inputs(nodes, nbr, mask, weights, cfg: GNNConfig, compute_dtype, extra=(), K=None):
+    """What the K2, K2e and K3 kernels take: contiguous tensors of these
+    shapes and dtypes on one device, 24 weights, Np < 32768 and pstep >= 1;
+    with ``nbr`` None (K2e: the graph built in the kernel, ``K`` slots), no
+    tables and Np <= 128 (a warp's four columns per lane). Returns (B, Np, K,
+    Dp)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
     B, Np, D = nodes.shape
-    K = nbr.shape[1] // Np if nbr.dim() == 2 else 0
+    if nbr is not None:
+        K = nbr.shape[1] // Np if nbr.dim() == 2 else 0
     Dp = D - cfg.n_his * 3 - 3
-    if Np != round_up(cfg.n_nodes, 8) or Np >= 32768 or K < 1 or cfg.pstep < 1 or Dp < 1:
+    if (Np != round_up(cfg.n_nodes, 8) or Np >= 32768 or K < 1 or cfg.pstep < 1 or Dp < 1
+            or nbr is None and (Np > 128 or K > Np)):
         raise ValueError(f"unsupported shapes: nodes {tuple(nodes.shape)}, nbr "
-                         f"{tuple(nbr.shape)}, pstep {cfg.pstep}")
-    expect = {"nodes": (nodes, (B, Np, D), compute_dtype),
-              "nbr": (nbr, (B, K * Np), torch.int32),
-              "mask": (mask, (B, K * Np), torch.float32)}
+                         f"{None if nbr is None else tuple(nbr.shape)}, K {K}, pstep {cfg.pstep}")
+    expect = {"nodes": (nodes, (B, Np, D), compute_dtype)}
+    if nbr is not None:
+        expect.update(nbr=(nbr, (B, K * Np), torch.int32), mask=(mask, (B, K * Np), torch.float32))
     for i, (t, shape) in enumerate(zip(weights, _weight_shapes(cfg, Dp))):
         expect[f"weight {i}"] = (t, shape, compute_dtype)
     expect.update(extra)
@@ -468,50 +483,72 @@ def check_gnn_inputs(nodes, nbr, mask, weights, cfg: GNNConfig, compute_dtype, e
     return B, Np, K, Dp
 
 
-def gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype,
-                     want_motion=True):
-    """Check the inputs against what the kernel takes, then launch it on the
-    current stream. Activations and outputs come from ``torch.empty``.
-    Returns (pred, motion or None, acts): ``acts`` the two float32 tensors
-    holding every activation, which the training backward (K3) reads."""
-    from adaptigraph_tpu_torch.ops import kernels
-
+def launch_forward(lib, nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype,
+                   want_motion, keep_acts, K=None, adj_radius=None):
+    """Check the inputs against what the kernel takes, then launch the
+    single-step forward of library ``lib`` on the current stream, counting
+    nothing (the callers count). With ``nbr`` None the kernel builds the
+    radius∧topk graph (``K`` slots, ``adj_radius``) itself. With
+    ``keep_acts`` every activation of every sample is kept for the training
+    backward, one block per sample; without, each resident block reuses one
+    scratch (a forward alone). Activations and outputs come from
+    ``torch.empty``. Returns (pred, motion or None, acts)."""
     B, Np, K, Dp = check_gnn_inputs(
         nodes, nbr, mask, weights, cfg, compute_dtype,
-        {"last": (last, (nodes.shape[0], nodes.shape[1], 3), torch.float32)})
+        {"last": (last, (nodes.shape[0], nodes.shape[1], 3), torch.float32)}, K=K)
     dev = nodes.device
-    lib = kernels.library()
+    radius = nbr is None
     nfp, nfr, nf, rin = cfg.nf_particle, cfg.nf_relation, cfg.nf_effect, cfg.relation_input_dim
-    smem = lib.gnn_forward_smem_bytes(Np, K)
+    smem = lib.gnn_forward_smem_bytes(Np, K, int(radius))
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory per block, more than {_MAX_SMEM}")
+    bf16 = int(compute_dtype == torch.bfloat16)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    grid = ctypes.c_int(0)
+    rc = lib.gnn_forward_grid(B, Np, K, int(radius), int(keep_acts), bf16, index, ctypes.byref(grid))
+    if rc != 0:
+        raise RuntimeError(f"gnn_forward grid query failed: {lib.gnn_error_string(rc).decode()}")
     node_a, edge_a = (
-        torch.empty(B * lib.gnn_forward_act_floats(Np, K, cfg.pstep, nfp, nfr, nf, rin, which),
+        torch.empty(grid.value * lib.gnn_forward_act_floats(Np, K, cfg.pstep, nfp, nfr, nf, rin,
+                                                             which, int(keep_acts)),
                     dtype=torch.float32, device=dev) for which in (0, 1))
     n_p = cfg.max_nobj
     pred = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev)
     motion = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev) if want_motion else None
     wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
     rc = lib.gnn_forward_launch(
-        nodes.data_ptr(), nbr.data_ptr(), mask.data_ptr(), last.data_ptr(), wptrs,
-        node_a.data_ptr(), edge_a.data_ptr(), pred.data_ptr(),
+        nodes.data_ptr(), None if radius else nbr.data_ptr(), None if radius else mask.data_ptr(),
+        last.data_ptr(), wptrs, node_a.data_ptr(), edge_a.data_ptr(), pred.data_ptr(),
         motion.data_ptr() if motion is not None else None,
         B, Np, cfg.n_nodes, n_p, K, cfg.n_his, cfg.pstep, Dp, nodes.shape[2], nfp, nfr, nf, rin,
-        float(cfg.motion_clamp), int(compute_dtype == torch.bfloat16),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(cfg.motion_clamp), radius_threshold(adj_radius) if radius else 0.0,
+        int(keep_acts), grid.value, bf16, index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gnn_forward kernel launch failed: {lib.gnn_error_string(rc).decode()} "
                            f"({rc})")
-    gnn_forward.launches += 1
     return pred, motion, (node_a, edge_a)
 
 
+def gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype,
+                     want_motion=True, keep_acts=True):
+    """Launch K2 (prebuilt edges) on the current stream. Returns (pred,
+    motion or None, acts): with ``keep_acts``, ``acts`` the two float32
+    tensors holding every activation, which the training backward (K3)
+    reads; without, a scratch that holds nothing afterwards."""
+    from adaptigraph_tpu_torch.ops import kernels
+
+    out = launch_forward(kernels.library(), nodes, nbr, mask, last, weights, cfg, compute_dtype,
+                         want_motion, keep_acts)
+    gnn_forward.launches += 1
+    return out
+
+
 def gnn_forward(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype, want_motion=True):
-    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    """K2 on CUDA tensors (a forward alone: no activations kept), its plain
+    version on CPU tensors."""
     if nodes.is_cuda:
         return gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg, compute_dtype,
-                                want_motion)[:2]
+                                want_motion, keep_acts=False)[:2]
     if nodes.device.type != "cpu":
         raise ValueError(f"no forward path for device {nodes.device}")
     return gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, compute_dtype, want_motion)
@@ -520,21 +557,103 @@ def gnn_forward(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype, 
 gnn_forward.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# single-step forward with the graph built in the kernel (K2e)
+# ---------------------------------------------------------------------------
+
+def radius_edge_tables(last, cfg: GNNConfig, K, adj_radius, ablate=None):
+    """The graph that K2e builds, as K2's (B, K*Np) tables in (k, i) order:
+    per receiver the K valid senders nearest to it in ``last`` (B, Np, 3)
+    f32, all N rows valid, tool-tool pairs excluded, the self-edge kept, an
+    edge where the squared distance is below float32(adj_radius²), ties to
+    the smaller sender (the JAX ``_edges_stacked``). ``ablate``, the parts
+    that the profiling builds switch off: ``"no_edge"`` gives every row the
+    senders (i + k) mod Np, every slot real; ``"no_gather"`` makes every
+    sender its receiver, on the graph built; ``"mlp_only"`` both."""
+    B, Np = last.shape[:2]
+    N, n_p, dev = cfg.n_nodes, cfg.max_nobj, last.device
+    rows = torch.arange(Np, device=dev)
+    if ablate in ("no_edge", "mlp_only"):
+        nbr = ((rows[None] + torch.arange(K, device=dev)[:, None]) % Np).expand(B, K, Np)
+        mask = torch.ones(B, K, Np, dtype=torch.bool, device=dev)
+    else:
+        valid = rows < N
+        tool = (rows >= n_p) & valid
+        pair_ok = valid[None, :] & ~(tool[:, None] & tool[None, :])
+        dis = torch.where(pair_ok, pairwise_sq_dists(last.float()), BIG)
+        vals, idx = smallest_k(dis, K)
+        mask = ((vals < radius_threshold(adj_radius)) & valid[None, :, None]).transpose(1, 2)
+        nbr = idx.transpose(1, 2)
+    if ablate in ("no_gather", "mlp_only"):
+        nbr = rows.expand(B, K, Np)
+    return (nbr.reshape(B, K * Np).to(torch.int32).contiguous(),
+            mask.reshape(B, K * Np).to(torch.float32).contiguous())
+
+
+def gnn_forward_edges_plain(nodes, last, weights, cfg: GNNConfig, compute_dtype, K, adj_radius,
+                            want_motion=True, ablate=None):
+    """Plain PyTorch version of K2e (and of its profiling builds with
+    ``ablate``): K2's plain version on the graph ``radius_edge_tables``
+    builds in-line."""
+    nbr, mask = radius_edge_tables(last, cfg, K, adj_radius, ablate)
+    return gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, compute_dtype, want_motion)
+
+
+def gnn_forward_edges_cuda(nodes, last, weights, cfg: GNNConfig, compute_dtype, K, adj_radius,
+                           want_motion=True):
+    """Launch K2e (a forward alone) on the current stream. Returns (pred,
+    motion or None)."""
+    from adaptigraph_tpu_torch.ops import kernels
+
+    out = launch_forward(kernels.library(), nodes, None, None, last, weights, cfg, compute_dtype,
+                         want_motion, False, K, adj_radius)
+    gnn_forward_edges.launches += 1
+    return out[:2]
+
+
+def gnn_forward_edges(nodes, last, weights, cfg: GNNConfig, compute_dtype, K, adj_radius,
+                      want_motion=True):
+    """K2e on CUDA tensors, its plain version on CPU tensors."""
+    if nodes.is_cuda:
+        return gnn_forward_edges_cuda(nodes, last, weights, cfg, compute_dtype, K, adj_radius,
+                                      want_motion)
+    if nodes.device.type != "cpu":
+        raise ValueError(f"no forward path for device {nodes.device}")
+    return gnn_forward_edges_plain(nodes, last, weights, cfg, compute_dtype, K, adj_radius,
+                                   want_motion)
+
+
+gnn_forward_edges.launches = 0
+
+
 def fused_forward_batch(params, graphs, cfg: GNNConfig, compute_dtype=torch.bfloat16, k_used=None,
-                        want_motion=True):
-    """One GNN step for a batch with prebuilt edges (the JAX
-    ``fused_forward_batch`` with ``build_edges=False``; one kernel launch on
-    CUDA). ``graphs``: state (B, n_his, N, 3), attrs, neighbors / nbr_mask
-    (B, N, >=k_used), action, p_instance, physics_param, as ``forward_batch``
-    takes them. ``k_used``: the real slots (``topk + max_neef``); the rest
-    must be masked. ``params`` is the nested parameter dict or
-    ``weight_list``'s output. Returns (pred, motion or None), (B, max_nobj,
-    3) f32."""
+                        want_motion=True, build_edges=False, adj_radius=None, edge_topk=None):
+    """One GNN step for a batch (the JAX ``fused_forward_batch``; one kernel
+    launch on CUDA). ``graphs``: state (B, n_his, N, 3), attrs, action,
+    p_instance, physics_param, as ``forward_batch`` takes them, and with
+    prebuilt edges (K2) neighbors / nbr_mask (B, N, >=k_used); ``k_used``:
+    the real slots (``topk + max_neef``), the rest must be masked. With
+    ``build_edges`` (K2e) the radius∧topk graph of the newest frame is built
+    in the kernel: ``edge_topk`` slots, radius ``adj_radius``, policy
+    ``none`` with all object slots valid (see ``radius_edge_tables``).
+    ``params`` is the nested parameter dict or ``weight_list``'s output. The
+    JAX ``samples_per_block`` and ``interpret`` are TPU notions with no
+    counterpart here: a block runs one sample at a time. Returns (pred,
+    motion or None), (B, max_nobj, 3) f32."""
     if not supports(cfg):
         raise ValueError(f"config not supported by the forward kernel: {cfg}")
-    K = min(k_used or graphs["neighbors"].shape[-1], graphs["neighbors"].shape[-1])
     weights = (params if isinstance(params, (list, tuple))
                else weight_list(params, cfg, compute_dtype))
+    if build_edges:
+        if adj_radius is None or edge_topk is None:
+            raise ValueError("build_edges needs adj_radius and edge_topk")
+        nodes, _ = pack_node_inputs(cfg, graphs["state"], graphs["action"],
+                                    graphs["physics_param"], graphs["attrs"],
+                                    graphs["p_instance"], compute_dtype)
+        last = pad_last(cfg, graphs["state"])
+        return gnn_forward_edges(nodes, last, weights, cfg, compute_dtype, int(edge_topk),
+                                 adj_radius, want_motion)
+    K = min(k_used or graphs["neighbors"].shape[-1], graphs["neighbors"].shape[-1])
     nodes, nbr, mask, last, _ = pack_inputs(
         cfg, graphs["state"], graphs["action"], graphs["physics_param"], graphs["attrs"],
         graphs["p_instance"], graphs["neighbors"], graphs["nbr_mask"], K, compute_dtype)

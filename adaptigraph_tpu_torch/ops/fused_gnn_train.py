@@ -195,7 +195,7 @@ def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts):
     lib = kernels.library()
     nfp, nfr, nf, rin = cfg.nf_particle, cfg.nf_relation, cfg.nf_effect, cfg.relation_input_dim
     for which, a in enumerate(acts):
-        n = B * lib.gnn_forward_act_floats(Np, K, cfg.pstep, nfp, nfr, nf, rin, which)
+        n = B * lib.gnn_forward_act_floats(Np, K, cfg.pstep, nfp, nfr, nf, rin, which, 1)
         if a.dtype != f32 or a.device != dev or a.numel() != n or not a.is_contiguous():
             raise ValueError(f"activations {which}: expected {n} contiguous float32 on {dev}, "
                              f"got {a.numel()} {a.dtype} on {a.device}")

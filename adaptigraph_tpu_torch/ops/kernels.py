@@ -7,10 +7,15 @@ loaded with ``ctypes``. The library goes to ``build/torch_kernels/`` beside
 the package, named by a hash of the sources and flags, so a changed source
 builds anew and an unchanged one is reused. Nothing here runs at import.
 
-``phase_clocks=True`` selects a second, profiling build of the same sources
-(``-DROLLOUT_PHASE_CLOCKS``) whose rollout kernel adds its blocks' SM cycles
-per phase into a buffer set with ``rollout_chunk_set_phase_clocks``; the
-port's own calls use the normal build.
+A ``variant`` other than the normal build (``None``) is a profiling build of
+the same sources, which the port's own calls never use:
+
+- ``"phase_clocks"`` (``-DROLLOUT_PHASE_CLOCKS``): the rollout kernel adds its
+  blocks' SM cycles per phase into a buffer set with
+  ``rollout_chunk_set_phase_clocks``;
+- ``"no_edge"``, ``"no_gather"`` and ``"mlp_only"`` (both): the single-step
+  forward with its in-kernel graph ablated (``csrc/gnn_forward.cu``, built
+  alone), the parts switched off in ``profiling/kernel_parts.py``.
 """
 
 import ctypes
@@ -27,11 +32,20 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-PHASE_CLOCK_FLAGS = ["-DROLLOUT_PHASE_CLOCKS"]
+# variant -> (extra flags, the one source it builds or None for all)
+VARIANTS = {
+    None: ([], None),
+    "phase_clocks": (["-DROLLOUT_PHASE_CLOCKS"], None),
+    "no_edge": (["-DGNN_ABLATE_NO_EDGE"], "gnn_forward.cu"),
+    "no_gather": (["-DGNN_ABLATE_NO_GATHER"], "gnn_forward.cu"),
+    "mlp_only": (["-DGNN_ABLATE_NO_EDGE", "-DGNN_ABLATE_NO_GATHER"], "gnn_forward.cu"),
+}
 
 
-def sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def sources(variant=None):
+    only = VARIANTS[variant][1]
+    return sorted(p for p in glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  if only is None or os.path.basename(p) == only)
 
 
 def headers():
@@ -49,8 +63,8 @@ def _nvcc():
     return path
 
 
-def _flags(phase_clocks):
-    return NVCC_FLAGS + (PHASE_CLOCK_FLAGS if phase_clocks else [])
+def _flags(variant):
+    return NVCC_FLAGS + VARIANTS[variant][0]
 
 
 def _digest(srcs, flags):
@@ -62,26 +76,26 @@ def _digest(srcs, flags):
     return h.hexdigest()[:16]
 
 
-def library_path(phase_clocks=False):
-    digest = _digest(sources() + headers(), _flags(phase_clocks))
+def library_path(variant=None):
+    digest = _digest(sources(variant) + headers(), _flags(variant))
     return os.path.join(BUILD_DIR, f"libadaptigraph_kernels_{digest}.so")
 
 
-def build(phase_clocks=False):
+def build(variant=None):
     """Compile and link the kernels if the library for these sources is not
     there yet. Returns its path; raises with nvcc's stderr on a failure.
     ptxas' register and spill report goes to ``<library>.ptxas.txt``."""
-    out = library_path(phase_clocks)
+    out = library_path(variant)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in sources():
+        for src in sources(variant):
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             procs.append((src, obj, subprocess.Popen(
-                [nvcc, *_flags(phase_clocks), "-c", src, "-o", obj],
+                [nvcc, *_flags(variant), "-c", src, "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         reports = []
         for src, _, proc in procs:
@@ -102,12 +116,27 @@ def build(phase_clocks=False):
 
 
 @functools.lru_cache(maxsize=None)
-def library(phase_clocks=False):
-    """The loaded kernel library (built at first use), with every entry's
-    argument and return types declared."""
-    lib = ctypes.CDLL(build(phase_clocks))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if phase_clocks:
+def library(variant=None):
+    """The loaded kernel library of a build variant (built at first use),
+    with every entry's argument and return types declared."""
+    lib = ctypes.CDLL(build(variant))
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.gnn_error_string.argtypes = [I]
+    lib.gnn_error_string.restype = ctypes.c_char_p
+    lib.gnn_forward_act_floats.argtypes = [I] * 9  # Np, K, pstep, nf_p, nf_r, nf, rel_in, which, keep
+    lib.gnn_forward_act_floats.restype = L
+    lib.gnn_forward_smem_bytes.argtypes = [I, I, I]  # Np, K, radius
+    lib.gnn_forward_smem_bytes.restype = I
+    lib.gnn_forward_grid.argtypes = [I] * 7 + [ctypes.POINTER(I)]  # B, Np, K, radius, keep, bf16, device
+    lib.gnn_forward_grid.restype = I
+    lib.gnn_forward_launch.argtypes = (
+        [P, P, P, P, ctypes.POINTER(P), P, P, P, P]   # inputs, weights, activations, outputs
+        + [I] * 13                                    # B and the dims
+        + [F, F, I, I, I, I, P])                      # clamp, thresh, keep, grid, bf16, device, stream
+    lib.gnn_forward_launch.restype = I
+    if VARIANTS[variant][1] is not None:  # a build of the forward alone
+        return lib
+    if variant == "phase_clocks":
         lib.rollout_chunk_set_phase_clocks.argtypes = [P]
         lib.rollout_chunk_set_phase_clocks.restype = None
     lib.rollout_chunk_smem_bytes.argtypes = [I] * 12  # dims, bf16
@@ -121,18 +150,6 @@ def library(phase_clocks=False):
         + [I, I, I]                                   # max_repeat, mean_y, bf16
         + [I, P])                                     # device, stream
     lib.rollout_chunk_launch.restype = I
-    L = ctypes.c_longlong
-    lib.gnn_error_string.argtypes = [I]
-    lib.gnn_error_string.restype = ctypes.c_char_p
-    lib.gnn_forward_act_floats.argtypes = [I] * 8  # Np, K, pstep, nf_p, nf_r, nf, rel_in, which
-    lib.gnn_forward_act_floats.restype = L
-    lib.gnn_forward_smem_bytes.argtypes = [I, I]
-    lib.gnn_forward_smem_bytes.restype = I
-    lib.gnn_forward_launch.argtypes = (
-        [P, P, P, P, ctypes.POINTER(P), P, P, P, P]   # inputs, weights, activations, outputs
-        + [I] * 13                                    # B and the dims
-        + [F, I, I, P])                               # motion_clamp, bf16, device, stream
-    lib.gnn_forward_launch.restype = I
     lib.gnn_train_bwd_scratch_floats.argtypes = [I] * 7  # Np, K, nf_p, nf_r, nf, rel_in, which
     lib.gnn_train_bwd_scratch_floats.restype = L
     lib.gnn_train_bwd_smem_bytes.argtypes = [I, I]

@@ -1,10 +1,18 @@
 """Batched forward dynamics for MPPI and physics identification (counterpart
 of ``adaptigraph_tpu/planning/forward.py``).
 
-Both entry points run each look-ahead step's whole push through
-``ops.fused_gnn.fused_rollout_chunk``: one kernel launch per step on CUDA,
-its plain version on the CPU. Only edge policy ``none`` (rope, granular) is
-ported; the tool policies need the single-step kernel of the cloth slice.
+``dynamics_rollout_batched`` advances a chunk of samples push by push, on
+the JAX branches with ``use_fused``: for edge policy ``none`` (rope,
+granular) each look-ahead step's whole push in one launch of the rollout
+kernel (K1, ``fused_rollout_chunk``) or, per substep, one launch of the
+single-step forward with its graph built in the kernel (K2e); for the tool
+policies (cloth) per substep the graph built by ``ops.graph`` and one launch
+of the single-step forward on it (K2). ``dynamics_masked`` (physics
+identification) runs K1 and takes policy ``none`` only. On CPU tensors every
+kernel is replaced by its plain version, so the JAX ``use_fused=False``
+branch has no switch of its own here. The JAX ``_spb_for`` (samples per
+kernel block, and its ``ADAPTIGRAPH_SPB`` variable) sizes TPU blocks and has
+no counterpart: a CUDA block runs one sample at a time.
 """
 
 import dataclasses
@@ -12,8 +20,9 @@ import dataclasses
 import torch
 
 from adaptigraph_tpu_torch.models.gnn import GNNConfig
-from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk, weight_list
-from adaptigraph_tpu_torch.ops.graph import EdgeConfig
+from adaptigraph_tpu_torch.ops.fused_gnn import (fused_forward_batch, fused_rollout_chunk,
+                                                 weight_list)
+from adaptigraph_tpu_torch.ops.graph import EdgeConfig, build_neighbor_graph_batch
 from adaptigraph_tpu_torch.planning.actions import decode_action
 
 
@@ -65,37 +74,91 @@ def pusher_keypoints(cfg: DynamicsConfig, decoded, theta, y):
     return kp, delta[:, None].expand(B, n_eef, 3)
 
 
-def _require_policy_none(cfg: DynamicsConfig):
-    if cfg.edge.policy != "none":
-        raise NotImplementedError(
-            f"edge policy {cfg.edge.policy!r} needs the single-step kernel (cloth slice)")
-
-
 def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: DynamicsConfig,
-                             compute_dtype=torch.bfloat16):
-    """MPPI forward model for one chunk of samples.
+                             compute_dtype=torch.bfloat16, fused_substeps=True):
+    """MPPI forward model for one chunk of samples (the JAX
+    ``dynamics_rollout_batched`` with ``use_fused`` and ``dynamic_substeps``).
 
     state (max_nobj, 3) object particles (all valid); action_seqs (B, L, 4);
     physics_param (phys_dim,). ``params`` is the nested parameter dict or
-    ``weight_list``'s output in ``compute_dtype``. Returns ``state_seqs``
-    (B, L, max_nobj, 3) and the decoded ``action_seqs`` (B, L, 4).
+    ``weight_list``'s output in ``compute_dtype``. Branches, as the JAX
+    function's:
+
+    - policy ``none`` with ``fused_substeps``: each look-ahead step's whole
+      push in one K1 launch;
+    - policy ``none`` without it: per substep one K2e launch, the graph built
+      in the kernel;
+    - a tool policy: per substep the graph built by
+      ``build_neighbor_graph_batch`` and one K2 launch on its ``topk +
+      max_neef`` real slots.
+
+    Per-substep branches run to the chunk's largest repeat, at most
+    ``max_repeat`` (the one host read of a look-ahead step), and record each
+    sample at its own repeat. Returns ``state_seqs`` (B, L, max_nobj, 3) and
+    the decoded ``action_seqs`` (B, L, 4).
     """
-    _require_policy_none(cfg)
-    gnn = cfg.gnn
+    gnn, edge = cfg.gnn, cfg.edge
+    n_p, N = gnn.max_nobj, gnn.n_nodes
     B, L = action_seqs.shape[0], action_seqs.shape[1]
+    dev = action_seqs.device
     decoded, repeat = decode_action(action_seqs, cfg.push_length)
     weights = (params if isinstance(params, (list, tuple))
                else weight_list(params, gnn, compute_dtype))
-    obj = state[None].expand(B, gnn.max_nobj, 3)
+    kernel_edges = edge.policy == "none"
+
+    def obj_y(obj):
+        return obj[..., 1].mean(dim=1) if cfg.use_mean_y else obj[..., 1].amin(dim=1)
+
+    obj = state[None].expand(B, n_p, 3)
     outs = []
+    if kernel_edges and fused_substeps:
+        for li in range(L):
+            kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
+            obj = fused_rollout_chunk(
+                weights, obj, kp, delta, repeat[:, li], physics_param, gnn,
+                adj_radius=float(cfg.adj_thresh), edge_topk=edge.topk,
+                max_repeat=cfg.max_repeat, gripper_lift=cfg.gripper_lift,
+                compute_dtype=compute_dtype, mean_y=cfg.use_mean_y)
+            outs.append(obj)
+        return {"state_seqs": torch.stack(outs, dim=1), "action_seqs": decoded}
+
+    if kernel_edges:
+        def fwd(g):
+            return fused_forward_batch(weights, g, gnn, compute_dtype, want_motion=False,
+                                       build_edges=True, adj_radius=float(cfg.adj_thresh),
+                                       edge_topk=edge.topk)[0]
+    else:
+        def fwd(g):
+            return fused_forward_batch(weights, g, gnn, compute_dtype, want_motion=False,
+                                       k_used=edge.topk + edge.max_neef)[0]
+
+    f32 = torch.float32
+    is_tool = torch.arange(N, device=dev) >= n_p
+    state_mask = torch.ones(B, N, dtype=torch.bool, device=dev)
+    eef_mask = is_tool.expand(B, N)
+    attrs = torch.stack([~is_tool, is_tool], dim=-1).to(f32).expand(B, N, 2)
+    graph = {"attrs": attrs, "p_instance": torch.ones(B, n_p, 1, device=dev),
+             "physics_param": physics_param.to(f32).expand(B, *physics_param.shape)}
     for li in range(L):
-        y = obj[..., 1].mean(dim=1) if cfg.use_mean_y else obj[..., 1].amin(dim=1)
-        kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], y)
-        obj = fused_rollout_chunk(
-            weights, obj, kp, delta, repeat[:, li], physics_param, gnn,
-            adj_radius=float(cfg.adj_thresh), edge_topk=cfg.edge.topk,
-            max_repeat=cfg.max_repeat, gripper_lift=cfg.gripper_lift,
-            compute_dtype=compute_dtype, mean_y=cfg.use_mean_y)
+        kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
+        hist = torch.cat([obj, kp], dim=1)[:, None].expand(B, gnn.n_his, N, 3)
+        action = torch.cat([torch.zeros(B, n_p, 3, device=dev), delta], dim=1)
+        graph["action"] = action
+        rec = obj
+        n_steps = min(int(repeat[:, li].max()), cfg.max_repeat) if B else 0
+        for ai in range(1, n_steps + 1):
+            graph["state"] = hist
+            if not kernel_edges:
+                graph["neighbors"], graph["nbr_mask"] = build_neighbor_graph_batch(
+                    hist[:, -1], state_mask, eef_mask, cfg.adj_thresh, edge)
+            pred = fwd(graph)
+            rec = torch.where((repeat[:, li] == ai)[:, None, None], pred, rec)
+            # the eef advances by its delta, re-stuck to the object height
+            y = obj_y(pred) + cfg.gripper_lift
+            eef = hist[:, -1, n_p:] + action[:, n_p:]
+            eef = torch.stack([eef[..., 0], y[:, None].expand_as(eef[..., 1]), eef[..., 2]], dim=-1)
+            hist = torch.cat([hist[:, 1:], torch.cat([pred, eef], dim=1)[:, None]], dim=1)
+        obj = rec
         outs.append(obj)
     return {"state_seqs": torch.stack(outs, dim=1), "action_seqs": decoded}
 
@@ -109,7 +172,10 @@ def dynamics_masked(params, state_init, state_mask, actions, physics_params,
     state_init (B, max_nobj, 3); state_mask (B, max_nobj) bool; actions (B, 4);
     physics_params (B, phys_dim) or (phys_dim,). Returns (B, max_nobj, 3).
     """
-    _require_policy_none(cfg)
+    if cfg.edge.policy != "none":
+        raise NotImplementedError(
+            f"dynamics_masked with edge policy {cfg.edge.policy!r} is not ported yet "
+            "(ROADMAP.md: dynamics_masked for the tool policies)")
     B = state_init.shape[0]
     if physics_params.dim() == 1:
         physics_params = physics_params[None].expand(B, physics_params.shape[0])

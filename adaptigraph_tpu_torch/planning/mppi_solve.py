@@ -1,10 +1,13 @@
 """MPPI solve on one device (counterpart of ``adaptigraph_tpu/planning/mppi_solve.py``).
 
 One solve iteration samples ``n_sample`` action sequences, orders them by
-their summed push repeats, rolls them out ``n_sample_chunk`` at a time (one
-rollout-kernel launch per chunk and look-ahead step on CUDA), scores each
-chunk with the reward, and applies the softmax update and argmax. Nothing in
-a solve waits for the host; the best sequence is tracked on the device.
+their summed push repeats, rolls them out ``n_sample_chunk`` at a time
+through ``dynamics_rollout_batched`` (on CUDA, for edge policy ``none`` one
+rollout-kernel launch per chunk and look-ahead step; for the tool policies,
+cloth, one single-step-forward launch per chunk and substep, with one host
+read of the chunk's largest repeat per look-ahead step), scores each chunk
+with the reward, and applies the softmax update and argmax. The best
+sequence is tracked on the device.
 """
 
 import dataclasses

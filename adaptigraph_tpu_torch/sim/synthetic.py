@@ -10,6 +10,9 @@ dataset can be built and preprocessed in memory; ``gen_rope_episode`` stores
 the same episode as h5 push files plus ``property_params.json``, the schema
 of ``sim.io``. Both draw from ``rng`` in the JAX package's order, so a seed
 gives the JAX generator's episodes.
+
+``cloth_sheet`` is a flat cloth state for planning at the cloth config's
+width, where the repository has no cloth data.
 """
 
 import os
@@ -136,3 +139,14 @@ def gen_rope_dataset(out_dir, n_episodes=8, n_pushes=4, seed=0, n_particles=60):
         stiffness = rng.uniform(0.0, 1.0)
         gen_rope_episode(os.path.join(out_dir, f"{e:06d}"), n_pushes, stiffness, rng, n_particles)
     return out_dir
+
+
+def cloth_sheet(seed, nx=10, nz=10, spacing=0.3, jitter=0.02):
+    """A flat nx x nz sheet of particles (x, 0, z) at ``spacing`` sim units,
+    centred on the origin, each moved by ``jitter`` x a normal draw from
+    ``numpy.random.RandomState(seed)`` -> (nx * nz, 3) float32."""
+    rng = np.random.RandomState(seed)
+    x, z = np.meshgrid((np.arange(nx) - (nx - 1) / 2) * spacing,
+                       (np.arange(nz) - (nz - 1) / 2) * spacing, indexing="ij")
+    sheet = np.stack([x.ravel(), np.zeros(nx * nz), z.ravel()], -1)
+    return (sheet + rng.randn(nx * nz, 3) * jitter).astype(np.float32)

@@ -33,6 +33,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
      at batch 128, with the K2/K3 launch counts read around it, a falling
      loss, the checkpoint read back, and the same run through the plain
      versions, whose loss curves must agree.
+  6. the single-step forward with its graph built in the kernel (K2e): at
+     rope and granular width (fixture weights, B 2000) against its plain
+     version in f32 and bf16 and, in f32, bit for bit against K2 on the
+     tables of the plain graph build; its time, bound and device memory.
+  7. the per-substep rope path: a solve's 20,000 samples (10 sorted chunks)
+     through ``dynamics_rollout_batched(fused_substeps=False)`` against K1,
+     f32 within the graded bound, bf16 timed with its K2e launches counted.
+  8. the cloth solve (``make_mppi_solver`` on the cloth task at its
+     published width, weights from ``init_params``, a synthetic sheet): a
+     warm-up and three timed solves with their K2 launches counted, and one
+     f32 chunk against the plain versions.
+  9. ``profiling/kernel_parts.py`` (K4): the four builds of K2e with parts
+     switched off, each against its plain version, timed (at the JAX
+     script's states and at states packed so that every row fills its K
+     slots), and the shares of K2e's time they give.
 The last lines are the kernel table, the card line, and the ok line.
 """
 
@@ -161,20 +176,21 @@ def k1_work(gnn, pin, sa, weights, out, stats, B):
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    """Build the kernels and, at the same time, their profiling build (the
-    per-phase SM-cycle counters of ``kernel_phases``)."""
+    """Build the kernels and, at the same time, their profiling builds (the
+    per-phase SM-cycle counters of ``kernel_phases`` and the ablations of
+    ``kernel_parts``), one nvcc process per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from adaptigraph_tpu_torch.ops import kernels
 
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        path, _ = pool.map(kernels.build, (False, True))
+    with ThreadPoolExecutor(len(kernels.VARIANTS)) as pool:
+        path = list(pool.map(kernels.build, kernels.VARIANTS))[0]
     kernels.library()
     with open(path + ".ptxas.txt") as f:
         ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=round(time.time() - t0, 2), library=os.path.relpath(path, ROOT),
-         ptxas=ptxas)
+         variants=[v for v in kernels.VARIANTS if v], ptxas=ptxas)
 
 
 def run_both(mat, dev, cd, B, n_steps, masked, seed=0, stats=None):
@@ -316,7 +332,7 @@ def time_kernel(rope, dev):
     # where a block's time goes: SM cycles per phase, summed over the blocks,
     # from one launch of the profiling build
     clocks = torch.zeros(B_CHUNK, len(PHASES), dtype=torch.int64, device=dev)
-    prof = kernels.library(phase_clocks=True)
+    prof = kernels.library("phase_clocks")
     prof.rollout_chunk_set_phase_clocks(clocks.data_ptr())
     with mock.patch.object(kernels, "library", lambda: prof):
         rollout_chunk_cuda(*inputs(100))
@@ -445,6 +461,433 @@ def phase_demo_ppo(dev):
              plain_curve_argmin=float(grid[np.argmin(plain_curve), 0]), ok=ok)
         if not ok:
             fail(f"demo-ppo on {name} out of bounds")
+
+
+# ---------------------------------------------------------------------------
+# the per-substep forward (K2e), its profiling copy (K4), cloth planning (K2)
+# ---------------------------------------------------------------------------
+
+def substep_inputs(mat, B, seed, dev, cd):
+    """K2e's inputs at the first substep of B pushes drawn from the task's
+    action limits: the fixture state with 0.005 of noise per sample and
+    history frame, the eef rows at each push's start and their action.
+    Returns (packed nodes in cd, newest frame (B, Np, 3) f32, weights in cd,
+    the graph dict that ``fused_forward_batch`` takes)."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import pack_node_inputs, pad_last, weight_list
+    from adaptigraph_tpu_torch.planning.actions import decode_action
+    from adaptigraph_tpu_torch.planning.forward import pusher_keypoints
+
+    tcfg, params, state = mat[:3]
+    dcfg = tcfg.dcfg
+    gnn = dcfg.gnn
+    n_p, N, n_his = gnn.max_nobj, gnn.n_nodes, gnn.n_his
+    rng = np.random.RandomState(seed)
+    lo, hi = tcfg.action_lower_lim, tcfg.action_upper_lim
+    act = torch.tensor(rng.uniform(lo, hi, (B, 4)).astype(np.float32), device=dev)
+    decoded, _ = decode_action(act, dcfg.push_length)
+    obj = torch.tensor(state + rng.randn(B, n_his, n_p, 3).astype(np.float32) * 0.005, device=dev)
+    kp, delta = pusher_keypoints(dcfg, decoded, act[:, 2], obj[:, -1, :, 1].amin(1))
+    hist = torch.cat([obj, kp[:, None].expand(B, n_his, N - n_p, 3)], dim=2).contiguous()
+    is_tool = torch.arange(N, device=dev) >= n_p
+    graph = {"state": hist,
+             "action": torch.cat([torch.zeros(B, n_p, 3, device=dev), delta], dim=1),
+             "attrs": torch.stack([~is_tool, is_tool], -1).float().expand(B, N, 2),
+             "p_instance": torch.ones(B, n_p, 1, device=dev),
+             "physics_param": torch.full((B, gnn.phys_dim), 0.5, device=dev)}
+    nodes, _ = pack_node_inputs(gnn, graph["state"], graph["action"], graph["physics_param"],
+                                graph["attrs"], graph["p_instance"], cd)
+    return nodes, pad_last(gnn, hist), weight_list(params, gnn, cd), graph
+
+
+def forward_work(gnn, nodes, msk, weights, outputs):
+    """(operations, bytes) of a forward alone (K2e, K2 in planning, K4) on
+    these inputs: the matmul FLOPs on the N real rows and the real edges of
+    ``msk``; each input read once (nodes, the newest frame, weights, and
+    the tables where given) and each output written once; no activations."""
+    N, n_p, nf, P = gnn.n_nodes, gnn.max_nobj, gnn.nf_effect, gnn.pstep
+    nfp, nfr, rin = gnn.nf_particle, gnn.nf_relation, gnn.relation_input_dim
+    B, Np, Dp = nodes.shape[0], nodes.shape[1], nodes.shape[2] - gnn.n_his * 3 - 3
+    E = float((msk > 0).sum())
+    node = (Dp * nfp + nfp * nfp + nfp * nf + nf * nf + P * (nf * 2 * nf + nf * nf)
+            + 2 * nf * nf)
+    edge = rin * nfr + nfr * nfr + nfr * nf + nf * nf
+    ops = 2 * (B * N * node + B * n_p * nf * 3 + E * edge)
+    nbytes = (sum(t.numel() * t.element_size() for t in [nodes] + list(weights))
+              + B * Np * 3 * 4 + outputs * B * n_p * 3 * 4)
+    return ops, nbytes
+
+
+def peak_mb(fn):
+    """Device memory that fn() allocates at its peak, above what was
+    allocated before it, in MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def phase_edges_kernel(rope, gran, dev):
+    """K2e against its plain version on the same inputs (``substep_inputs``,
+    fixture weights, B 2000): rope width (K 10) and granular width (K 20),
+    float32 at 2e-4 and bfloat16 at 2% of the plain version's largest
+    |motion|, as K2 is held. In float32 it must also equal K2 bit for bit on
+    the tables that the plain graph build (``radius_edge_tables``) makes of
+    the same state, and K2 equal itself with training's activations kept.
+    Returns the rope bfloat16 error (the main path's dtype)."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import (gnn_forward_cuda, gnn_forward_edges_cuda,
+                                                     gnn_forward_edges_plain, radius_edge_tables)
+
+    errs, ok_all = {}, True
+    for name, mat in (("rope", rope), ("granular", gran)):
+        dcfg = mat[0].dcfg
+        gnn, K, adj = dcfg.gnn, dcfg.edge.topk, dcfg.adj_thresh
+        for cd in (torch.float32, torch.bfloat16):
+            nodes, last, w, _ = substep_inputs(mat, B_CHUNK, 7, dev, cd)
+            pred, mot = gnn_forward_edges_cuda(nodes, last, w, gnn, cd, K, adj)
+            torch.cuda.synchronize()
+            want_pred, want_mot = gnn_forward_edges_plain(nodes, last, w, gnn, cd, K, adj)
+            err = max(float((pred - want_pred).abs().max()), float((mot - want_mot).abs().max()))
+            max_mot = float(want_mot.abs().max())
+            tol = 2e-4 if cd == torch.float32 else 0.02 * max_mot
+            ok = bool(torch.isfinite(pred).all() and torch.isfinite(mot).all() and err <= tol)
+            nbr, msk = radius_edge_tables(last, gnn, K, adj)
+            extra = {}
+            if cd == torch.float32:
+                k2 = gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, cd, keep_acts=False)
+                k2_keep = gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, cd, keep_acts=True)
+                differ = ((k2[0] != pred) | (k2[1] != mot)).flatten(1).any(1)
+                keep_same = bool(torch.equal(k2[0], k2_keep[0]) and torch.equal(k2[1], k2_keep[1]))
+                first = int(differ.nonzero()[0, 0]) if differ.any() else None
+                extra = dict(k2_bit_identical=first is None, first_differing_sample=first,
+                             k2_keep_acts_bit_identical=keep_same)
+                if first is not None:
+                    extra.update(k2e_pred=pred[first].tolist(), k2_pred=k2[0][first].tolist())
+                ok = ok and first is None and keep_same
+            ok_all &= ok
+            errs[(name, str(cd).split(".")[-1])] = err
+            emit(phase="edges_kernel_check", case=name, dtype=str(cd).split(".")[-1], B=B_CHUNK,
+                 K=K, real_edges_per_sample=real_edges(msk), max_abs_err=err,
+                 plain_max_abs_motion=max_mot, tol=tol, ok=ok, **extra)
+    if not ok_all:
+        fail("K2e disagrees with its plain version or with K2 (see edges_kernel_check)")
+    return errs[("rope", "bfloat16")]
+
+
+def time_edges_kernel(rope, dev):
+    """K2e per launch at the main path's shapes (rope, B 2000, bf16, no
+    motion), CUDA events, median of 7 on other inputs each; its plain
+    version; the bound; and the device memory it takes beside K2's on the
+    same graph with training's activations kept."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import (gnn_forward_cuda, gnn_forward_edges_cuda,
+                                                     gnn_forward_edges_plain, radius_edge_tables)
+
+    dcfg, cd = rope[0].dcfg, torch.bfloat16
+    const = (dcfg.gnn, cd, dcfg.edge.topk, dcfg.adj_thresh, False)
+    ins = [substep_inputs(rope, B_CHUNK, 100 + r, dev, cd)[:3] for r in range(7)]
+    gnn_forward_edges_cuda(*ins[0], *const)  # warm-up
+    ms = median_ms(lambda *a: gnn_forward_edges_cuda(*a, *const), lambda r: ins[r], 7)
+    plain_ms = median_ms(lambda *a: gnn_forward_edges_plain(*a, *const), lambda r: ins[r], 3)
+    nodes, last, w = ins[0]
+    nbr, msk = radius_edge_tables(last, dcfg.gnn, dcfg.edge.topk, dcfg.adj_thresh)
+    mem = peak_mb(lambda: gnn_forward_edges_cuda(nodes, last, w, *const))
+    mem_keep = peak_mb(lambda: gnn_forward_cuda(nodes, nbr, msk, last, w, dcfg.gnn, cd,
+                                                want_motion=False, keep_acts=True))
+    ops, nbytes = forward_work(dcfg.gnn, nodes, msk, w, outputs=1)
+    b_ms, b_by = bound(ops, nbytes, PEAK_FLOPS[cd])
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, gflop_per_launch=ops / 1e9,
+                real_edges_per_sample=real_edges(msk), peak_mb=mem, k2_keep_acts_peak_mb=mem_keep)
+
+
+def phase_substep_solve(rope, dev):
+    """One rope solve's worth of samples (20,000 from the sampler, sorted by
+    repeat, 10 chunks of 2,000) through ``dynamics_rollout_batched`` per
+    substep (K2e) and whole-push (K1). float32: every sample's final state
+    within the graded whole-push bound of K1's. bfloat16 (the main path of
+    this phase, timed, K2e launches counted from 0): against float32 K1, the
+    median per-sample error within 25% of bf16 K1's, as ``check_bf16_push``
+    holds K1. The K2e launches must be the sum over chunks of min(largest
+    repeat, max_repeat), with no K1 launch."""
+    from adaptigraph_tpu_torch.ops import fused_gnn
+    from adaptigraph_tpu_torch.ops.fused_gnn import weight_list
+    from adaptigraph_tpu_torch.planning.actions import decode_action, sample_action_seq
+    from adaptigraph_tpu_torch.planning.forward import dynamics_rollout_batched
+    from adaptigraph_tpu_torch.planning.mppi_solve import sort_by_repeat
+
+    tcfg, params, state = rope[:3]
+    dcfg, mcfg = tcfg.dcfg, tcfg.mcfg
+    lo = torch.tensor(tcfg.action_lower_lim, device=dev)
+    hi = torch.tensor(tcfg.action_upper_lim, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    act0 = ((lo + hi) / 2)[None].expand(mcfg.n_look_ahead, 4)
+    acts = sort_by_repeat(sample_action_seq(g, act0, lo, hi, mcfg.n_sample, iter_index=0,
+                                            noise_level=mcfg.noise_level,
+                                            push_length=mcfg.push_length), mcfg.push_length)
+    chunks = acts.split(mcfg.n_sample_chunk)
+    rep = decode_action(acts, mcfg.push_length)[1]
+    steps = sum(min(int(r.max()), dcfg.max_repeat) for c in rep.split(mcfg.n_sample_chunk)
+                for r in c.T)
+    obj, phys = torch.tensor(state, device=dev), torch.tensor([0.5], device=dev)
+
+    def run(cd, fused):
+        w = weight_list(params, dcfg.gnn, cd)
+        return torch.cat([dynamics_rollout_batched(w, obj, c, phys, dcfg, compute_dtype=cd,
+                                                   fused_substeps=fused)["state_seqs"][:, -1]
+                          for c in chunks])
+
+    def timed(cd, fused):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = run(cd, fused)
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    keep = torch.ones_like(acts[:, 0, :1, None], dtype=torch.bool)
+    sub32, sub32_ms = timed(torch.float32, False)
+    k1_32, k1_32_ms = timed(torch.float32, True)
+    err32 = per_sample_err(sub32, k1_32, keep)
+    last_rep = rep[:, -1].cpu().numpy()
+    tols = np.array([graded(min(int(r), dcfg.max_repeat)) for r in last_rep])
+    fused_gnn.gnn_forward_edges.launches = 0
+    fused_gnn.fused_rollout_chunk.launches = 0
+    sub16, sub16_ms = timed(torch.bfloat16, False)
+    launches, k1_launches = fused_gnn.gnn_forward_edges.launches, fused_gnn.fused_rollout_chunk.launches
+    k1_16, k1_16_ms = timed(torch.bfloat16, True)
+    e_sub, e_k1 = per_sample_err(sub16, k1_32, keep), per_sample_err(k1_16, k1_32, keep)
+    ratio = float(np.median(e_sub) / np.median(e_k1))
+    apart16 = per_sample_err(sub16, k1_16, keep)
+    ok = bool(torch.isfinite(sub32).all() and torch.isfinite(sub16).all()
+              and (err32 <= tols).all() and abs(ratio - 1) <= 0.25
+              and launches == steps and k1_launches == 0)
+    emit(phase="substep_solve", n_sample=mcfg.n_sample, chunks=len(chunks),
+         repeat_mean=float(rep.float().mean()), k2e_launches=launches, expected_launches=steps,
+         k1_launches_in_substep_run=k1_launches, f32_max_abs_err_vs_k1=float(err32.max()),
+         f32_p99_abs_err_vs_k1=float(np.quantile(err32, 0.99)), f32_tol="graded by repeat",
+         bf16_vs_f32_k1_median=float(np.median(e_sub)), bf16_k1_vs_f32_k1_median=float(np.median(e_k1)),
+         median_ratio=ratio, bf16_max_abs_diff_vs_k1_bf16=float(apart16.max()),
+         bf16_share_of_samples_equal_to_k1=float((apart16 == 0).mean()),
+         f32_share_of_samples_equal_to_k1=float((err32 == 0).mean()), ms_substep_bf16=sub16_ms, ms_k1_bf16=k1_16_ms,
+         ms_substep_f32=sub32_ms, ms_k1_f32=k1_32_ms, ok=ok)
+    if not ok:
+        fail("the per-substep rope rollout failed its checks (see the substep_solve line)")
+    return launches
+
+
+def cloth_setup(dev):
+    """The cloth task at its published width (checked), weights from
+    ``init_params`` seeded 0, the state a 10 x 10 sheet at 0.3 sim units with
+    seeded jitter, and the target the same sheet shifted."""
+    from adaptigraph_tpu_torch.cli import _task_objects
+    from adaptigraph_tpu_torch.models.gnn import init_params, params_from_numpy, params_to_numpy
+    from adaptigraph_tpu_torch.sim.synthetic import cloth_sheet
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    tcfg, _ = _task_objects(load_planning_config("cloth"))
+    d, m = tcfg.dcfg, tcfg.mcfg
+    published = (d.gnn.n_nodes, d.edge.topk, d.gnn.nf_effect, d.gnn.pstep, d.adj_thresh,
+                 d.max_repeat, d.gripper_enable, d.edge.policy, m.n_sample, m.n_sample_chunk)
+    if published != (101, 5, 128, 3, 0.75, 10, True, "tools_all", 20000, 2000):
+        fail(f"cloth config is not the published width: {published}")
+    params = params_from_numpy(params_to_numpy(init_params(torch.Generator().manual_seed(0), d.gnn)),
+                               dev)
+    state = cloth_sheet(0)
+    return tcfg, params, state, state + np.array([0.6, 0.0, 0.3], np.float32)
+
+
+def time_cloth_step(tcfg, params, state, dev):
+    """One substep of the cloth solve's tool branch at its shapes (B 2000,
+    bf16, the sheet with 0.005 of noise per sample and frame): the graph
+    build (``build_neighbor_graph_batch``, contact-gated tools_all) and K2
+    on its ``topk + max_neef`` slots, a forward alone (no activations kept),
+    held against its plain version on the first input within 2% of the
+    plain version's largest |motion| (K2's bf16 limit); CUDA events, median
+    of 7 on other actions each; K2's plain version and bound."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda, gnn_forward_plain, pack_inputs
+    from adaptigraph_tpu_torch.ops.graph import build_neighbor_graph_batch
+
+    dcfg, cd = tcfg.dcfg, torch.bfloat16
+    gnn, edge = dcfg.gnn, dcfg.edge
+    N, n_p = gnn.n_nodes, gnn.max_nobj
+    tool = (torch.arange(N, device=dev) >= n_p).expand(B_CHUNK, N)
+    every = torch.ones(B_CHUNK, N, dtype=torch.bool, device=dev)
+    steps = [substep_inputs((tcfg, params, state), B_CHUNK, 200 + r, dev, cd) for r in range(7)]
+    graphs, w = [st[3] for st in steps], steps[0][2]
+
+    def build(g):
+        return build_neighbor_graph_batch(g["state"][:, -1], every, tool, dcfg.adj_thresh, edge)
+
+    def k2_inputs(g):
+        nodes, nbr, msk, last, _ = pack_inputs(gnn, g["state"], g["action"], g["physics_param"],
+                                               g["attrs"], g["p_instance"], *build(g),
+                                               edge.topk + edge.max_neef, cd)
+        return nodes, nbr, msk, last, w
+
+    ins = [k2_inputs(g) for g in graphs]
+    pred, mot = gnn_forward_cuda(*ins[0], gnn, cd, True, keep_acts=False)[:2]
+    torch.cuda.synchronize()
+    want_pred, want_mot = gnn_forward_plain(*ins[0], gnn, cd)
+    err = max(float((pred - want_pred).abs().max()), float((mot - want_mot).abs().max()))
+    tol = 0.02 * float(want_mot.abs().max())
+    check_ok = bool(torch.isfinite(pred).all() and torch.isfinite(mot).all() and err <= tol)
+    const = (gnn, cd, False)
+    gnn_forward_cuda(*ins[0], *const, keep_acts=False)  # warm-up
+    ms = median_ms(lambda *a: gnn_forward_cuda(*a, *const, keep_acts=False), lambda r: ins[r], 7)
+    plain_ms = median_ms(lambda *a: gnn_forward_plain(*a, *const), lambda r: ins[r], 3)
+    graph_ms = median_ms(build, lambda r: (graphs[r],), 7)
+    nodes, nbr, msk = ins[0][:3]
+    ops, nbytes = forward_work(gnn, nodes, msk, w, outputs=1)
+    b_ms, b_by = bound(ops, nbytes + nbr.numel() * 4 + msk.numel() * 4, PEAK_FLOPS[cd])
+    return dict(k2_ms=ms, k2_plain_ms=plain_ms, k2_bound_ms=b_ms, k2_bound_by=b_by,
+                k2_gflop_per_launch=ops / 1e9, real_edges_per_sample=real_edges(msk),
+                graph_build_ms=graph_ms, k2_bf16_max_abs_err=err, k2_bf16_tol=tol,
+                k2_bf16_ok=check_ok)
+
+
+def phase_cloth_solve(dev):
+    """The cloth solve through ``make_mppi_solver`` (bf16, 20,000 samples in
+    chunks of 2,000; per substep the contact-gated tools_all graph and one
+    K2 launch): one warm-up and three timed solves, K2 launches counted from
+    0 and held to the sum over chunks of min(largest repeat, max_repeat),
+    every reward finite. Then one float32 chunk through the kernels against
+    the same chunk through the plain versions on the card, held to the
+    graded whole-push bound."""
+    from adaptigraph_tpu_torch.ops import fused_gnn
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_plain
+    from adaptigraph_tpu_torch.planning import mppi_solve
+    from adaptigraph_tpu_torch.planning.actions import decode_action, sample_action_seq
+    from adaptigraph_tpu_torch.planning.closed_loop import make_reward_fn
+
+    tcfg, params, state, target = cloth_setup(dev)
+    dcfg, mcfg = tcfg.dcfg, tcfg.mcfg
+    expected, finite = [0], []
+    real_rollout = mppi_solve.dynamics_rollout_batched
+    reward = make_reward_fn(tcfg, target, dev)
+
+    def rollout(*a, **k):  # counts the substeps each chunk needs
+        rep = decode_action(a[2], dcfg.push_length)[1]
+        expected[0] += sum(min(int(r.max()), dcfg.max_repeat) for r in rep.T)
+        return real_rollout(*a, **k)
+
+    def reward_fn(*a):
+        r = reward(*a)
+        finite.append(torch.isfinite(r).all())
+        return r
+
+    solve = mppi_solve.make_mppi_solver(dcfg, mcfg, reward_fn, tcfg.action_lower_lim,
+                                        tcfg.action_upper_lim, device=dev)
+    act0 = np.tile((tcfg.action_lower_lim + tcfg.action_upper_lim) / 2, (mcfg.n_look_ahead, 1))
+    phys = np.array([0.5], np.float32)
+
+    def run(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return solve(params, state, act0, g, phys)
+
+    with mock.patch.object(mppi_solve, "dynamics_rollout_batched", rollout):
+        run(0)  # warm-up
+        torch.cuda.synchronize()
+        expected[0] = 0
+        fused_gnn.gnn_forward.launches = 0
+        others = fused_gnn.gnn_forward_edges.launches + fused_gnn.fused_rollout_chunk.launches
+        t0 = time.time()
+        results = [run(seed) for seed in (1, 2, 3)]
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    launches = fused_gnn.gnn_forward.launches
+    others = fused_gnn.gnn_forward_edges.launches + fused_gnn.fused_rollout_chunk.launches - others
+    all_finite = bool(torch.stack(finite).all())
+
+    # one float32 chunk: kernels against plain versions, on the card
+    lo = torch.tensor(tcfg.action_lower_lim, device=dev)
+    hi = torch.tensor(tcfg.action_upper_lim, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    act0_t = ((lo + hi) / 2)[None].expand(mcfg.n_look_ahead, 4)
+    chunk = mppi_solve.sort_by_repeat(sample_action_seq(g, act0_t, lo, hi, mcfg.n_sample_chunk,
+                                                        noise_level=mcfg.noise_level,
+                                                        push_length=mcfg.push_length),
+                                      mcfg.push_length)
+    obj, ph = torch.tensor(state, device=dev), torch.tensor(phys, device=dev)
+
+    def chunk_run():
+        w = fused_gnn.weight_list(params, dcfg.gnn, torch.float32)
+        out = real_rollout(w, obj, chunk, ph, dcfg, compute_dtype=torch.float32)["state_seqs"]
+        return out[:, -1], reward(out, chunk, obj)
+
+    def plain(nodes, nbr, mask, last, weights, cfg, cd, want_motion=True):
+        return gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, cd, want_motion)
+
+    got, got_r = chunk_run()
+    with mock.patch.object(fused_gnn, "gnn_forward", plain):
+        want, want_r = chunk_run()
+    keep = torch.ones_like(got[:, :1, :1], dtype=torch.bool)
+    err = per_sample_err(got, want, keep)
+    rep = decode_action(chunk, mcfg.push_length)[1][:, -1].cpu().numpy()
+    tols = np.array([graded(min(int(r), dcfg.max_repeat)) for r in rep])
+    step = time_cloth_step(tcfg, params, state, dev)
+    ok = bool(launches == expected[0] and others == 0 and all_finite and step["k2_bf16_ok"]
+              and all(torch.isfinite(r["best_reward"]) for r in results)
+              and (err <= tols).all() and torch.isfinite(got_r).all())
+    emit(phase="cloth_solve", n_sample=mcfg.n_sample, n_sample_chunk=mcfg.n_sample_chunk,
+         solves=3, ms_per_solve=secs / 3 * 1e3, k2_launches=launches,
+         expected_launches=expected[0], other_kernel_launches=others,
+         launches_per_solve=launches / 3, rewards_finite=all_finite,
+         best_rewards=[float(r["best_reward"]) for r in results],
+         f32_chunk_max_abs_err=float(err.max()), f32_chunk_p99_abs_err=float(np.quantile(err, 0.99)),
+         f32_chunk_reward_max_abs_diff=float((got_r - want_r).abs().max()),
+         f32_tol="graded by repeat", **step, ok=ok)
+    if not ok:
+        fail("the cloth solve failed its checks (see the cloth_solve line)")
+    return launches, step
+
+
+def phase_kernel_parts(dev):
+    """K4: ``python -m adaptigraph_tpu_torch.profiling.kernel_parts``'s run
+    (each variant at the JAX script's shapes, B 2000, bf16, a warm-up and 7
+    CUDA-event timings) with its launches counted from 0; then each variant
+    against its plain version on the same inputs, at 2% of the plain
+    version's largest |motion| (K2e's bf16 bound); the shares of the edge
+    build, the gather and the MLPs in K2e's time. The same timings at
+    states packed so that every row fills its K slots (``state_scale``
+    0.05): there the ablations change the parts and not the edge count."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import radius_edge_tables
+    from adaptigraph_tpu_torch.profiling import kernel_parts as kp
+
+    kp.variant_cuda.launches = dict.fromkeys(kp.VARIANTS, 0)
+    ms = kp.profile(dev, reps=7)
+    launches = dict(kp.variant_cuda.launches)
+    dense_ms = kp.profile(dev, reps=7, state_scale=0.05)
+    dense_edges = real_edges(radius_edge_tables(kp.make_inputs(dev, state_scale=0.05)[1], kp.GNN,
+                                                kp.TOPK, kp.ADJ)[1])
+    nodes, last, w = kp.make_inputs(dev)
+    n_p = kp.GNN.max_nobj
+    rows, ok_all = {}, True
+    for v in kp.VARIANTS:
+        got = kp.variant_cuda(v, nodes, last, w)
+        torch.cuda.synchronize()
+        want = kp.variant_plain(v, nodes, last, w)
+        err = float((got - want).abs().max())
+        tol = 0.02 * float((want - last[:, :n_p]).abs().max())
+        ok = bool(torch.isfinite(got).all() and err <= tol)
+        ok_all &= ok
+        plain_ms = median_ms(lambda *a: kp.variant_plain(v, *a), lambda r: (nodes, last, w), 3)
+        rows[v] = dict(ms=ms[v], plain_ms=plain_ms, launches=launches[v], max_abs_err=err, tol=tol,
+                       ok=ok)
+    msk = radius_edge_tables(last, kp.GNN, kp.TOPK, kp.ADJ)[1]
+    ops, nbytes = forward_work(kp.GNN, nodes, msk, w, outputs=1)
+    b_ms, b_by = bound(ops, nbytes, PEAK_FLOPS[torch.bfloat16])
+    emit(phase="kernel_parts", B=kp.B, variants=rows, shares=kp.shares(ms),
+         real_edges_per_sample=real_edges(msk), no_edge_edges_per_sample=kp.TOPK * nodes.shape[1],
+         dense_state_ms=dense_ms, dense_state_shares=kp.shares(dense_ms),
+         dense_state_real_edges_per_sample=dense_edges, bound_ms=b_ms, bound_by=b_by, ok=ok_all)
+    if not ok_all:
+        fail("a K4 variant disagrees with its plain version (see the kernel_parts line)")
+    return dict(ms=ms["full"], plain_ms=rows["full"]["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                launches=sum(launches.values()), max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                variants={v: {k: r[k] for k in ("ms", "plain_ms", "launches", "max_abs_err")}
+                          for v, r in rows.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -833,12 +1276,9 @@ def gnn_work(gnn, nodes, nbr, msk, weights, backward):
     and K3 reads counted on the N real rows and the real edges."""
     N, n_p, nf, P = gnn.n_nodes, gnn.max_nobj, gnn.nf_effect, gnn.pstep
     nfp, nfr, rin = gnn.nf_particle, gnn.nf_relation, gnn.relation_input_dim
-    B, Np, Dp = nodes.shape[0], nodes.shape[1], nodes.shape[2] - gnn.n_his * 3 - 3
+    B, Np = nodes.shape[0], nodes.shape[1]
     E = float((msk > 0).sum())
-    node = (Dp * nfp + nfp * nfp + nfp * nf + nf * nf + P * (nf * 2 * nf + nf * nf)
-            + 2 * nf * nf)
-    edge = rin * nfr + nfr * nfr + nfr * nf + nf * nf
-    fwd = 2 * (B * N * node + B * n_p * nf * 3 + E * edge)
+    fwd = forward_work(gnn, nodes, msk, weights, outputs=0)[0]
     acts = 4 * (B * N * (2 * nfp + (P + 1) * nf + 3 * nf + P * nf + 2 * nf)
                 + E * (rin + 2 * nfr + 2 * nf + P * nf))
     nbytes = acts + sum(t.numel() * t.element_size() for t in [nodes, nbr, msk] + list(weights))
@@ -1073,6 +1513,13 @@ def main():
     launches = phase_solve(rope, dev)
     phase_demo_ppo(dev)
 
+    k2e_err = phase_edges_kernel(rope, material("granular", dev), dev)
+    k2e_time = time_edges_kernel(rope, dev)
+    emit(phase="edges_kernel_time", **k2e_time)
+    k2e_launches = phase_substep_solve(rope, dev)
+    k2_cloth_launches, cloth_step = phase_cloth_solve(dev)
+    parts = phase_kernel_parts(dev)
+
     config, prep = phase_dataset()
     batches = device_batches(config, prep, dev, 9, seed=11)
     k2_err = phase_forward_kernel(config, batches[0], dev)
@@ -1089,10 +1536,19 @@ def main():
     emit(kernels=[
         row("rollout_chunk", "adaptigraph_tpu_torch/csrc/rollout_chunk.cu",
             "adaptigraph_tpu/ops/fused_gnn.py:479", launches, main_err, timing),
-        row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
-            "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
+        dict(row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
+                 "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
+             launches_cloth_solve=k2_cloth_launches, ms_cloth_solve=cloth_step["k2_ms"],
+             plain_ms_cloth_solve=cloth_step["k2_plain_ms"],
+             bound_ms_cloth_solve=cloth_step["k2_bound_ms"],
+             max_abs_err_cloth_solve=cloth_step["k2_bf16_max_abs_err"]),
         row("gnn_train_bwd", "adaptigraph_tpu_torch/csrc/gnn_train_bwd.cu",
-            "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"])])
+            "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"]),
+        row("gnn_forward_edges", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
+            "adaptigraph_tpu/ops/fused_gnn.py:115", k2e_launches, k2e_err, k2e_time),
+        dict(row("kernel_parts", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
+                 "scripts/profile_kernel_parts.py:43", parts["launches"], parts["max_abs_err"],
+                 parts), variants=parts["variants"])])
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -50,8 +50,10 @@ def test_policy_none_matches_jax(duplicates, radius):
 
 
 def test_other_policies_raise():
-    cfg = EdgeConfig(max_nobj=4, max_neef=1, topk=2, policy="tools_all")
+    """Every policy of the JAX package is ported (tests/test_torch_graph_policies.py);
+    a policy it does not know raises, as the JAX graph construction does."""
+    cfg = EdgeConfig(max_nobj=4, max_neef=1, topk=2, policy="tools_some")
     x = torch.zeros(1, 5, 3)
     m = torch.ones(1, 5, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="tools_all"):
+    with pytest.raises(ValueError, match="tools_some"):
         build_neighbor_graph_batch(x, m, m, 0.5, cfg)

@@ -76,7 +76,8 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("rel", ["dynamics/rope.yaml", "dynamics/granular.yaml",
-                                 "planning/rope.yaml", "planning/granular.yaml"])
+                                 "dynamics/cloth.yaml", "planning/rope.yaml",
+                                 "planning/granular.yaml", "planning/cloth.yaml"])
 def test_copied_yaml_equals_original(rel):
     with open(os.path.join(ROOT, "adaptigraph_tpu", "configs", rel)) as f:
         want = yaml.safe_load(f)
@@ -85,9 +86,47 @@ def test_copied_yaml_equals_original(rel):
     assert got == want
 
 
-@pytest.mark.parametrize("name", ["rope", "granular"])
+@pytest.mark.parametrize("name", ["rope", "granular", "cloth"])
 def test_planning_config_loads_like_jax(name):
     from adaptigraph_tpu.utils.config import load_planning_config as jax_load
     from adaptigraph_tpu_torch.utils.config import load_planning_config
 
     assert load_planning_config(name) == jax_load(name)
+
+
+def _shipped_planning_configs():
+    return sorted(f[:-5] for f in os.listdir(os.path.join(PKG, "configs", "planning"))
+                  if f.endswith(".yaml"))
+
+
+@pytest.mark.parametrize("name", _shipped_planning_configs())
+def test_planning_config_reads_only_the_port_copies(monkeypatch, name):
+    """Every planning config the port ships names a dynamics file of the
+    JAX package; the port reads its own copy instead, and no file under
+    adaptigraph_tpu/."""
+    from adaptigraph_tpu_torch.utils import config
+
+    read = []
+    real = config.load_yaml
+    monkeypatch.setattr(config, "load_yaml", lambda path: read.append(path) or real(path))
+    task = config.load_planning_config(name)
+    assert task["config"].startswith("adaptigraph_tpu/configs/dynamics/")
+    own = os.path.join(PKG, "configs") + os.sep
+    assert [os.path.abspath(p).startswith(own) for p in read] == [True, True], read
+    assert os.path.basename(read[1]) == os.path.basename(task["config"])
+
+
+def test_missing_dynamics_copy_is_an_error(tmp_path):
+    """A planning config naming a JAX dynamics file that the port has no copy
+    of fails, naming the file, instead of reading the JAX package's."""
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    with open(os.path.join(PKG, "configs", "planning", "rope.yaml")) as f:
+        plan = yaml.safe_load(f)
+    plan["task_config"]["config"] = "adaptigraph_tpu/configs/dynamics/softbody.yaml"
+    path = tmp_path / "softbody_planning.yaml"
+    path.write_text(yaml.safe_dump(plan))
+    assert os.path.exists(os.path.join(ROOT, "adaptigraph_tpu", "configs", "dynamics",
+                                       "softbody.yaml"))
+    with pytest.raises(FileNotFoundError, match="softbody.yaml"):
+        load_planning_config(str(path))
