@@ -5,6 +5,7 @@
         --load_dir fixtures/rope_demo --ckpt_dir fixtures/rope_demo
     python -m adaptigraph_tpu_torch preprocess --config rope --data_dir <h5 dir> --prep_dir <dir>
     python -m adaptigraph_tpu_torch train --config rope --prep_dir <dir> --out_dir <dir>
+    python -m adaptigraph_tpu_torch rollout --config rope --prep_dir <dir> --out_dir <dir>
 
 Commands run on the CUDA card unless ``--device cpu`` is given.
 """
@@ -242,6 +243,66 @@ def cmd_train(args):
     return params, curves
 
 
+def cmd_rollout(args):
+    """Autoregressive rollout evaluation of a checkpoint: per-push error
+    curves, their median and IQR, ``summary.json`` and, where cv2 and
+    matplotlib import, a video and a plot, under ``<out_dir>/rollout``."""
+    from adaptigraph_tpu_torch.dynamics.dataset import spec_from_config
+    from adaptigraph_tpu_torch.dynamics.rollout import rollout_dataset
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    device = resolve_device(args.device)
+    config = load_dynamics_config(args.config)
+    gnn_cfg, edge_cfg = _dyn_objects(config)
+    spec = spec_from_config(config)
+    dc = config["dataset_config"]
+    prep_dir = args.prep_dir or os.path.join(dc["prep_data_dir"], dc["data_name"])
+    out_dir = args.out_dir or config["train_config"]["out_dir"]
+    params = load_params(out_dir, gnn_cfg, device, args.epoch)
+    roll_dir = os.path.join(out_dir, "rollout")
+    # the held-out slice (default 2%), clamped to the train split's end so
+    # that a wide --eval_frac never evaluates trained episodes; a fresh prep
+    # dir is evaluated whole with --all_episodes
+    frac = 0.02 if args.eval_frac is None else args.eval_frac
+    eval_lo = 1.0 - frac
+    if args.all_episodes:
+        eval_lo = 0.0
+    else:
+        train_hi = float(dc.get("ratio", {}).get("train", [0, 0.98])[1])
+        if eval_lo < train_hi:
+            print(f"warning: --eval_frac {frac} overlaps the train split "
+                  f"[0, {train_hi}]; clamping eval slice to [{train_hi}, 1.0]"
+                  " (use --all_episodes for a fresh prep dir)")
+            eval_lo = train_hi
+    stats = rollout_dataset(params, spec, gnn_cfg, edge_cfg, prep_dir, phase_ratio=(eval_lo, 1.0),
+                            out_dir=roll_dir, keep_prev_fps=args.keep_prev_fps)
+    med = stats["median"]
+    if len(med):
+        from adaptigraph_tpu_torch.utils.viz import plot_error_curves
+
+        try:
+            plot_error_curves(stats, os.path.join(roll_dir, "error_median_iqr.png"))
+        except ImportError as e:
+            print(f"error plot not written: {e}")
+    per_push = stats.get("per_push", [])
+    summary = {
+        "n_pushes": len(per_push),
+        "median_last_step": float(med[-1]) if len(med) else None,
+        "median_mean": float(np.mean(med)) if len(med) else None,
+        "push_final_median": (float(np.median([e[-1] for e in per_push if len(e)]))
+                              if per_push else None),
+    }
+    # strict JSON: a NaN median is written as null
+    summary = {k: (None if isinstance(v, float) and not np.isfinite(v) else v)
+               for k, v in summary.items()}
+    os.makedirs(roll_dir, exist_ok=True)
+    with open(os.path.join(roll_dir, "summary.json"), "w") as f:
+        json.dump(summary, f)
+    print(f"rollout: {len(per_push)} pushes, "
+          f"median error @last step {med[-1] if len(med) else float('nan'):.5f}")
+    return stats, summary
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="adaptigraph_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -278,6 +339,21 @@ def build_parser():
                    help="restore the latest params + optimizer state from out_dir")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     t.set_defaults(fn=cmd_train)
+
+    r = sub.add_parser("rollout", help="autoregressive rollout evaluation")
+    r.add_argument("--config", required=True)
+    r.add_argument("--prep_dir")
+    r.add_argument("--out_dir")
+    r.add_argument("--epoch", type=int)
+    r.add_argument("--eval_frac", type=float,
+                   help="held-out episode fraction to evaluate (default 0.02; clamped to the "
+                        "train split's end)")
+    r.add_argument("--all_episodes", action="store_true",
+                   help="evaluate the whole prep dir (a fresh test set never trained on)")
+    r.add_argument("--keep_prev_fps", action="store_true",
+                   help="reuse the first push's FPS indices for all pushes in an episode")
+    r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    r.set_defaults(fn=cmd_rollout)
     return p
 
 

@@ -151,10 +151,11 @@ def multi_step_loss(params, batch, gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, n_f
     return total
 
 
-def fused_train_fn(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig):
-    """The differentiable fused forward for training (float32, the JAX
-    trainer's default)."""
-    return make_fused_train_forward(gnn_cfg, edge_cfg.topk + edge_cfg.max_neef)
+def fused_train_fn(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, compute_dtype=None):
+    """The differentiable fused forward for training in ``compute_dtype``
+    (float32 or bfloat16; None means float32, the JAX trainer's default)."""
+    return make_fused_train_forward(gnn_cfg, edge_cfg.topk + edge_cfg.max_neef,
+                                    compute_dtype or torch.float32)
 
 
 def adam_init(leaves):
@@ -182,11 +183,14 @@ def adam_step(leaves, grads, state, lr, clip_norm=0.0):
         p.add_(-lr * ((mu / c1) / (torch.sqrt(nu / c2) + eps)))
 
 
-def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper):
+def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
     """``step(leaves, opt_state, batch, generator) -> loss``: one optimizer
-    step in place on the parameter leaves (``LEAF_ORDER``, requiring grad)
-    and the Adam state."""
-    fused_fn = fused_train_fn(gnn_cfg, edge_cfg)
+    step in place on the parameter leaves (``LEAF_ORDER``, float32,
+    requiring grad) and the Adam state, through ``fused_fn``
+    (``fused_train_fn``'s function; None builds the float32 one). The
+    parameters, the Adam state, the loss and the gradients stay float32
+    whatever dtype ``fused_fn`` computes in."""
+    fused_fn = fused_fn or fused_train_fn(gnn_cfg, edge_cfg)
 
     def step(leaves, opt_state, batch, generator):
         batch = expand_compact_batch(batch, gnn_cfg)
@@ -202,9 +206,10 @@ def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper)
     return step
 
 
-def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper):
-    """``evaluate(leaves, batch, generator) -> loss`` with the validation noise."""
-    fused_fn = fused_train_fn(gnn_cfg, edge_cfg)
+def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
+    """``evaluate(leaves, batch, generator) -> loss`` with the validation
+    noise, through ``fused_fn`` (None: the float32 one)."""
+    fused_fn = fused_fn or fused_train_fn(gnn_cfg, edge_cfg)
 
     @torch.no_grad()
     def evaluate(leaves, batch, generator):

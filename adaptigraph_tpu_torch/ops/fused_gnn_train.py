@@ -1,8 +1,8 @@
 """The differentiable single-step GNN forward for training (counterpart of
 ``adaptigraph_tpu/ops/fused_gnn_train.py``).
 
-``make_fused_train_forward(cfg, k_used)`` returns ``f(params, state, action,
-physics, attrs, p_instance, neighbors, nbr_mask) -> pred``, a
+``make_fused_train_forward(cfg, k_used, compute_dtype)`` returns ``f(params,
+state, action, physics, attrs, p_instance, neighbors, nbr_mask) -> pred``, a
 ``torch.autograd.Function`` whose forward is the K2 kernel (``want_motion``,
 its activations kept) and whose backward is the K3 kernel
 (``csrc/gnn_train_bwd.cu``: from K2's activations, where the TPU kernel
@@ -13,8 +13,13 @@ splits, the physics sum (one value per sample) or per-particle physics, the
 state-history chain rule, and ``d_state[:, -1, :n_p] += d_pred``.
 ``neighbors`` and ``nbr_mask`` get no gradient. On CPU tensors both kernels
 are replaced by their plain versions (``gnn_forward_plain``,
-``gnn_train_bwd_plain``). Training computes in float32, as the JAX trainer
-does; the bfloat16 backward is not ported.
+``gnn_train_bwd_plain``).
+
+Both kernels compute in ``compute_dtype``, float32 (the default, what the
+JAX trainer passes when given none) or bfloat16: the packed nodes and the
+weights go in in that dtype, and every layer and every cotangent is rounded
+to it where the JAX kernels cast; the gradients come back in float32, the
+parameters' dtype.
 """
 
 import ctypes
@@ -28,13 +33,23 @@ from adaptigraph_tpu_torch.ops.fused_gnn import (N_WEIGHTS, _MAX_SMEM, _weight_s
 from adaptigraph_tpu_torch.utils.checkpoint import tree_from_leaves, tree_leaves
 
 
-def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=None):
-    """Plain PyTorch version of the backward kernel (float32), step by step
-    as ``_train_bwd_kernel``: recompute the forward on the packed inputs,
-    then back from ``dmot`` (B, Np, 3), the raw-motion cotangent. Returns
-    dnodes (B, Np, D) and the 24 weight gradients in ``weight_list`` order
-    and shapes. Given float64 inputs it computes in float64 (a reference for
-    the float32 rounding of the kernel and of this version).
+def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=None,
+                        compute_dtype=torch.float32):
+    """Plain PyTorch version of the backward kernel, step by step as
+    ``_train_bwd_kernel``: recompute the forward on the packed inputs, then
+    back from ``dmot`` (B, Np, 3), the raw-motion cotangent. Returns dnodes
+    (B, Np, D) and the 24 weight gradients in ``weight_list`` order and
+    shapes, float32. Given float64 inputs it computes in float64 (a
+    reference for the float32 rounding of the kernel and of this version).
+
+    With ``compute_dtype`` bfloat16 it computes in float32 and rounds to
+    bfloat16 wherever the JAX kernel casts to its compute dtype: the
+    recomputed forward as K2 rounds it, ``dmot`` on entry, every cotangent
+    product but the particle inputs' (which stays float32), the residual
+    sums, the receiver and sender sums of the message cotangents, and the
+    propagator-base cotangents, summed over the rounds in float32 and cast
+    once. Weight gradients and the node cotangents of the relation features
+    are float32 sums of those values.
 
     With a dict ``taps``, it also records the pre-activations of every relu
     layer ("pe0", "pe1", "pe2", "re0", "re1", "re2", "msg", "eff", "nr0",
@@ -44,6 +59,11 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     float32 versions, which moves its column of the layer's weight
     gradient."""
     f32 = torch.float64 if nodes.dtype == torch.float64 else torch.float32
+    bf16 = compute_dtype == torch.bfloat16
+
+    def rnd(v):  # the JAX kernel's .astype(cd)
+        return v.to(torch.bfloat16).to(f32) if bf16 else v
+
     (pe0w, pe0b, pe1w, pe1b, pe2w, pe2b, re0w, re0b, re1w, re1b, re2w, re2b,
      rp_w1, rp_w23, rp_b, pp_wa, pp_wb, pp_b,
      nr0w, nr0b, nr1w, nr1b, nr2w, nr2b) = [t.to(f32) for t in weights]
@@ -64,8 +84,8 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     def scatter(d):  # (B, K, Np, F) -> (B, Np, F)
         return torch.einsum("bkin,bkif->bnf", onehot, d)
 
-    def relu(v):
-        return torch.relu(v)
+    def relu(v):  # the layer's output, in the compute dtype
+        return rnd(torch.relu(v))
 
     def pos(v):
         return (v > 0).to(f32)
@@ -90,9 +110,9 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     node_g = x[..., Dp:]
     T = node_g[:, None].expand(B, K, Np, node_g.shape[-1])
     G = gather(node_g)
-    gdiff = T[..., nh3 + 2:] - G[..., nh3 + 2:]
+    gdiff = rnd(T[..., nh3 + 2:] - G[..., nh3 + 2:])
     rel_in = torch.cat([T[..., nh3:nh3 + 2], G[..., nh3:nh3 + 2], gdiff.abs(),
-                        T[..., :nh3] - G[..., :nh3]], dim=-1)
+                        rnd(T[..., :nh3] - G[..., :nh3])], dim=-1)
     p_in = x[..., :Dp]
     pe_h1 = relu(lin("pe0", p_in, pe0w, pe0b, node_rows))
     pe_h2 = relu(lin("pe1", pe_h1, pe1w, pe1b, node_rows))
@@ -100,19 +120,19 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     re_h1 = relu(lin("re0", rel_in, re0w, re0b, emask))
     re_h2 = relu(lin("re1", re_h1, re1w, re1b, emask))
     r_enc = relu(lin("re2", re_h2, re2w, re2b, emask))
-    rel_base = r_enc @ rp_w1 + rp_b
-    part_base = p_enc @ pp_wa + pp_b
+    rel_base = rnd(r_enc @ rp_w1 + rp_b)
+    part_base = rnd(p_enc @ pp_wa + pp_b)
     effs, ms, aggs = [p_enc], [], []
     for _ in range(cfg.pstep):
         eff = effs[-1]
-        rs = eff @ rp_w23
-        z = tap("msg", rel_base + rs[..., :nf][:, None] + gather(rs[..., nf:]),
+        rs = rnd(eff @ rp_w23)
+        z = tap("msg", rnd(rnd(rel_base + rs[..., :nf][:, None]) + gather(rs[..., nf:])),
                 lambda: (r_enc.abs() @ rp_w1.abs() + rp_b.abs()
                          + (eff.abs() @ rp_w23.abs()[:, :nf])[:, None]
                          + gather(eff.abs() @ rp_w23.abs()[:, nf:])), emask)
         m = torch.where(emask, relu(z), 0.0)
-        agg = m.sum(1)
-        z = tap("eff", part_base + agg @ pp_wb + eff,
+        agg = rnd(m.sum(1))
+        z = tap("eff", rnd(rnd(part_base + rnd(agg @ pp_wb)) + eff),
                 lambda: p_enc.abs() @ pp_wa.abs() + pp_b.abs() + agg @ pp_wb.abs() + eff.abs(),
                 node_rows)
         effs.append(relu(z))
@@ -122,14 +142,14 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     nr_h2 = relu(lin("nr1", nr_h1, nr1w, nr1b, node_rows))
 
     # ---- backward ----
-    dmot = dmot.to(f32)
+    dmot = rnd(dmot.to(f32))
     g = {}
     g["nr2w"], g["nr2b"] = dW(nr_h2, dmot), db(dmot)
-    d_h2 = (dmot @ nr2w.T) * pos(nr_h2)
+    d_h2 = rnd(dmot @ nr2w.T) * pos(nr_h2)
     g["nr1w"], g["nr1b"] = dW(nr_h1, d_h2), db(d_h2)
-    d_h1 = (d_h2 @ nr1w.T) * pos(nr_h1)
+    d_h1 = rnd(d_h2 @ nr1w.T) * pos(nr_h1)
     g["nr0w"], g["nr0b"] = dW(effs[-1], d_h1), db(d_h1)
-    d_eff = d_h1 @ nr0w.T
+    d_eff = rnd(d_h1 @ nr0w.T)
 
     d_pb = torch.zeros_like(p_enc)
     d_rb = torch.zeros_like(rel_base)
@@ -139,33 +159,34 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
         d_pre = d_eff * pos(effs[t + 1])
         d_pb = d_pb + d_pre
         g_wb = g_wb + dW(aggs[t], d_pre)
-        d_agg = d_pre @ pp_wb.T
+        d_agg = rnd(d_pre @ pp_wb.T)
         d_m = d_agg[:, None] * pos(ms[t])
         d_rb = d_rb + d_m
-        d_rs = torch.cat([d_m.sum(1), scatter(d_m)], dim=-1)
+        d_rs = rnd(torch.cat([d_m.sum(1), scatter(d_m)], dim=-1))
         g_w23 = g_w23 + dW(effs[t], d_rs)
-        d_eff = d_pre + d_rs @ rp_w23.T
+        d_eff = rnd(d_pre + rnd(d_rs @ rp_w23.T))
+    d_pb, d_rb = rnd(d_pb), rnd(d_rb)  # summed in float32, cast once
     g["ppwb"], g["rpw23"] = g_wb, g_w23
     g["ppb"], g["ppwa"] = db(d_pb), dW(p_enc, d_pb)
-    d_p_enc = d_eff + d_pb @ pp_wa.T
+    d_p_enc = rnd(d_eff + rnd(d_pb @ pp_wa.T))
     g["rpb"], g["rpw1"] = db(d_rb), dW(r_enc, d_rb)
-    d_r_enc = d_rb @ rp_w1.T
+    d_r_enc = rnd(d_rb @ rp_w1.T)
 
     d3 = d_r_enc * pos(r_enc)
     g["re2w"], g["re2b"] = dW(re_h2, d3), db(d3)
-    d2 = (d3 @ re2w.T) * pos(re_h2)
+    d2 = rnd(d3 @ re2w.T) * pos(re_h2)
     g["re1w"], g["re1b"] = dW(re_h1, d2), db(d2)
-    d1 = (d2 @ re1w.T) * pos(re_h1)
+    d1 = rnd(d2 @ re1w.T) * pos(re_h1)
     g["re0w"], g["re0b"] = dW(rel_in, d1), db(d1)
-    d_rel_in = d1 @ re0w.T
+    d_rel_in = rnd(d1 @ re0w.T)
 
     dp3 = d_p_enc * pos(p_enc)
     g["pe2w"], g["pe2b"] = dW(pe_h2, dp3), db(dp3)
-    dp2 = (dp3 @ pe2w.T) * pos(pe_h2)
+    dp2 = rnd(dp3 @ pe2w.T) * pos(pe_h2)
     g["pe1w"], g["pe1b"] = dW(pe_h1, dp2), db(dp2)
-    dp1 = (dp2 @ pe1w.T) * pos(pe_h1)
+    dp1 = rnd(dp2 @ pe1w.T) * pos(pe_h1)
     g["pe0w"], g["pe0b"] = dW(p_in, dp1), db(dp1)
-    d_p_in = dp1 @ pe0w.T
+    d_p_in = dp1 @ pe0w.T  # float32, as the JAX kernel leaves it
 
     # d|x| with abs'(0) = 1, the JAX convention (torch.abs's autograd gives 0)
     sg = torch.where(gdiff < 0, -1.0, 1.0)
@@ -180,16 +201,19 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     return dnodes, [g[k] for k in order]
 
 
-def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts):
+def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts,
+                       compute_dtype=torch.float32):
     """Check the inputs against what the kernel takes, then launch it (and
-    the per-sample gradient sum) on the current stream. ``acts``: the
-    activations that the float32 forward kernel wrote for the same nodes,
-    edges and weights (``gnn_forward_cuda``'s third output); the kernel
-    reads them where the TPU kernel recomputes the forward."""
+    the per-sample gradient sum) on the current stream. ``nodes`` and
+    ``weights`` in ``compute_dtype``, ``dmot`` float32. ``acts``: the
+    activations that the forward kernel wrote in the same dtype for the same
+    nodes, edges and weights (``gnn_forward_cuda``'s third output, float32
+    buffers); the kernel reads them where the TPU kernel recomputes the
+    forward. Returns float32 node cotangents and gradients."""
     from adaptigraph_tpu_torch.ops import kernels
 
     f32 = torch.float32
-    B, Np, K, Dp = check_gnn_inputs(nodes, nbr, mask, weights, cfg, f32,
+    B, Np, K, Dp = check_gnn_inputs(nodes, nbr, mask, weights, cfg, compute_dtype,
                                     {"dmot": (dmot, (nodes.shape[0], nodes.shape[1], 3), f32)})
     dev = nodes.device
     lib = kernels.library()
@@ -220,7 +244,8 @@ def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts):
         acts[0].data_ptr(), acts[1].data_ptr(), node_s.data_ptr(), edge_s.data_ptr(),
         dnodes.data_ptr(), partial.data_ptr(), grads.data_ptr(), goff,
         B, Np, cfg.n_nodes, cfg.max_nobj, K, cfg.n_his, cfg.pstep, Dp, nodes.shape[2], nfp, nfr, nf,
-        rin, dev.index if dev.index is not None else torch.cuda.current_device(),
+        rin, int(compute_dtype == torch.bfloat16),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gnn_train_bwd kernel launch failed: "
@@ -229,25 +254,26 @@ def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts):
     return dnodes, [grads[o:o + n].view(s) for o, n, s in zip(offs, sizes, shapes)]
 
 
-def train_forward(nodes, nbr, mask, last, weights, cfg: GNNConfig):
-    """The float32 forward with the raw motion, and what its backward needs:
-    (pred, motion, acts). On CUDA tensors the kernel, whose activations
-    ``acts`` the backward kernel reads; on CPU tensors the plain version and
-    ``acts`` None (the plain backward recomputes the forward)."""
+def train_forward(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype=torch.float32):
+    """The forward with the raw motion, and what its backward needs: (pred,
+    motion, acts). On CUDA tensors the kernel, whose activations ``acts``
+    the backward kernel reads; on CPU tensors the plain version and ``acts``
+    None (the plain backward recomputes the forward)."""
     if nodes.is_cuda:
-        return gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg, torch.float32)
-    pred, motion = gnn_forward(nodes, nbr, mask, last, weights, cfg, torch.float32)
+        return gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg, compute_dtype)
+    pred, motion = gnn_forward(nodes, nbr, mask, last, weights, cfg, compute_dtype)
     return pred, motion, None
 
 
-def gnn_train_bwd(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts):
+def gnn_train_bwd(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts,
+                  compute_dtype=torch.float32):
     """The kernel on CUDA tensors (reading ``acts``), its plain version on
     CPU tensors."""
     if nodes.is_cuda:
-        return gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg, acts)
+        return gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg, acts, compute_dtype)
     if nodes.device.type != "cpu":
         raise ValueError(f"no backward path for device {nodes.device}")
-    return gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg)
+    return gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg, compute_dtype=compute_dtype)
 
 
 gnn_train_bwd.launches = 0
@@ -278,14 +304,13 @@ class _FusedStep(torch.autograd.Function):
     """pred = f(params, state, action, physics, attrs, p_instance, edges)."""
 
     @staticmethod
-    def forward(ctx, cfg, k_used, state, action, physics, attrs, p_instance, neighbors, nbr_mask,
-                *leaves):
-        f32 = torch.float32
-        weights = weight_list(tree_from_leaves(leaves), cfg, f32)
+    def forward(ctx, cfg, k_used, cd, state, action, physics, attrs, p_instance, neighbors,
+                nbr_mask, *leaves):
+        weights = weight_list(tree_from_leaves(leaves), cfg, cd)
         nodes, nbr, mask, last, Dp = pack_inputs(cfg, state, action, physics, attrs, p_instance,
-                                                 neighbors, nbr_mask, k_used, f32)
-        pred, motion, acts = train_forward(nodes, nbr, mask, last, weights, cfg)
-        ctx.cfg, ctx.Dp = cfg, Dp
+                                                 neighbors, nbr_mask, k_used, cd)
+        pred, motion, acts = train_forward(nodes, nbr, mask, last, weights, cfg, cd)
+        ctx.cfg, ctx.Dp, ctx.cd = cfg, Dp, cd
         ctx.physics_shape = physics.shape
         ctx.dtypes = [t.dtype for t in (state, action, physics, attrs, p_instance)]
         ctx.save_for_backward(nodes, nbr, mask, motion, *(acts or (None, None)), *weights)
@@ -302,7 +327,7 @@ class _FusedStep(torch.autograd.Function):
         # the last-state passthrough live outside the kernel
         dmot = d_pred.float() * (motion.abs() < cfg.motion_clamp).float()
         dmot_pad = torch.cat([dmot, dmot.new_zeros(B, Np - n_p, 3)], dim=1).contiguous()
-        dnodes, grads = gnn_train_bwd(nodes, nbr, mask, dmot_pad, weights, cfg, acts)
+        dnodes, grads = gnn_train_bwd(nodes, nbr, mask, dmot_pad, weights, cfg, acts, ctx.cd)
         dnodes = dnodes[:, :N]
         d_p_inputs, d_node_g = dnodes[..., :Dp], dnodes[..., Dp:]
         # packed columns: p_inputs = [attrs | phys | action], node_g = [state_norm | attrs | g]
@@ -325,19 +350,22 @@ class _FusedStep(torch.autograd.Function):
         leaves = tree_leaves(grads_to_tree(grads, cfg))
         outs = [d_state, d_action, d_physics, d_attrs, d_p_instance]
         outs = [o.to(dt) for o, dt in zip(outs, ctx.dtypes)]
-        return (None, None, *outs, None, None, *leaves)
+        return (None, None, None, *outs, None, None, *leaves)
 
 
-def make_fused_train_forward(cfg: GNNConfig, k_used):
-    """The differentiable fused forward (float32): ``f(params, state, action,
-    physics, attrs, p_instance, neighbors, nbr_mask) -> pred (B, max_nobj,
-    3)``, with ``params`` the nested parameter dict. ``k_used`` must be
-    ``topk + max_neef`` (the real slot count)."""
+def make_fused_train_forward(cfg: GNNConfig, k_used, compute_dtype=torch.float32):
+    """The differentiable fused forward in ``compute_dtype`` (float32 or
+    bfloat16): ``f(params, state, action, physics, attrs, p_instance,
+    neighbors, nbr_mask) -> pred (B, max_nobj, 3)`` float32, with ``params``
+    the nested parameter dict (float32; its gradients are float32).
+    ``k_used`` must be ``topk + max_neef`` (the real slot count)."""
     if not supports(cfg):
         raise ValueError(f"config not supported by the training kernels: {cfg}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
 
     def f(params, state, action, physics, attrs, p_instance, neighbors, nbr_mask):
-        return _FusedStep.apply(cfg, int(k_used), state, action, physics, attrs, p_instance,
-                                neighbors, nbr_mask, *tree_leaves(params))
+        return _FusedStep.apply(cfg, int(k_used), compute_dtype, state, action, physics, attrs,
+                                p_instance, neighbors, nbr_mask, *tree_leaves(params))
 
     return f

@@ -158,6 +158,6 @@ def library(variant=None):
         [P, P, P, P, ctypes.POINTER(P)]               # nodes, nbr, mask, dmot, weights
         + [P] * 7 + [ctypes.POINTER(I)]               # activations, scratch, outputs, offsets
         + [I] * 13                                    # B and the dims
-        + [I, P])                                     # device, stream
+        + [I, I, P])                                  # bf16, device, stream
     lib.gnn_train_bwd_launch.restype = I
     return lib

@@ -8,7 +8,9 @@ kernel (K1, ``fused_rollout_chunk``) or, per substep, one launch of the
 single-step forward with its graph built in the kernel (K2e); for the tool
 policies (cloth) per substep the graph built by ``ops.graph`` and one launch
 of the single-step forward on it (K2). ``dynamics_masked`` (physics
-identification) runs K1 and takes policy ``none`` only. On CPU tensors every
+identification) runs K1 for policy ``none`` and, for the tool policies, the
+JAX per-sample rollout with per-sample masks, per substep the graph build and
+one float32 K2 launch. On CPU tensors every
 kernel is replaced by its plain version, so the JAX ``use_fused=False``
 branch has no switch of its own here. The JAX ``_spb_for`` (samples per
 kernel block, and its ``ADAPTIGRAPH_SPB`` variable) sizes TPU blocks and has
@@ -132,35 +134,49 @@ def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: Dyn
             return fused_forward_batch(weights, g, gnn, compute_dtype, want_motion=False,
                                        k_used=edge.topk + edge.max_neef)[0]
 
-    f32 = torch.float32
     is_tool = torch.arange(N, device=dev) >= n_p
-    state_mask = torch.ones(B, N, dtype=torch.bool, device=dev)
-    eef_mask = is_tool.expand(B, N)
-    attrs = torch.stack([~is_tool, is_tool], dim=-1).to(f32).expand(B, N, 2)
-    graph = {"attrs": attrs, "p_instance": torch.ones(B, n_p, 1, device=dev),
-             "physics_param": physics_param.to(f32).expand(B, *physics_param.shape)}
+    graph = {"attrs": torch.stack([~is_tool, is_tool], dim=-1).float().expand(B, N, 2),
+             "p_instance": torch.ones(B, n_p, 1, device=dev),
+             "physics_param": physics_param.float().expand(B, *physics_param.shape)}
+    node_mask = None if kernel_edges else torch.ones(B, N, dtype=torch.bool, device=dev)
     for li in range(L):
         kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
-        hist = torch.cat([obj, kp], dim=1)[:, None].expand(B, gnn.n_his, N, 3)
-        action = torch.cat([torch.zeros(B, n_p, 3, device=dev), delta], dim=1)
-        graph["action"] = action
-        rec = obj
-        n_steps = min(int(repeat[:, li].max()), cfg.max_repeat) if B else 0
-        for ai in range(1, n_steps + 1):
-            graph["state"] = hist
-            if not kernel_edges:
-                graph["neighbors"], graph["nbr_mask"] = build_neighbor_graph_batch(
-                    hist[:, -1], state_mask, eef_mask, cfg.adj_thresh, edge)
-            pred = fwd(graph)
-            rec = torch.where((repeat[:, li] == ai)[:, None, None], pred, rec)
-            # the eef advances by its delta, re-stuck to the object height
-            y = obj_y(pred) + cfg.gripper_lift
-            eef = hist[:, -1, n_p:] + action[:, n_p:]
-            eef = torch.stack([eef[..., 0], y[:, None].expand_as(eef[..., 1]), eef[..., 2]], dim=-1)
-            hist = torch.cat([hist[:, 1:], torch.cat([pred, eef], dim=1)[:, None]], dim=1)
-        obj = rec
+        obj = _push_substeps(fwd, obj, kp, delta, repeat[:, li], graph, cfg, obj_y, node_mask)
         outs.append(obj)
     return {"state_seqs": torch.stack(outs, dim=1), "action_seqs": decoded}
+
+
+def _push_substeps(fwd, obj, kp, delta, repeat, graph, cfg: DynamicsConfig, obj_y, node_mask):
+    """One push of every sample, substep by substep, to the batch's largest
+    repeat (at most ``max_repeat``): the history starts as the object state
+    (B, max_nobj, 3) and the eef keypoints kp repeated; per substep
+    ``fwd(graph)`` predicts the objects (with ``node_mask`` (B, N), the
+    graph is built first by ``build_neighbor_graph_batch`` on the newest
+    frame; None: ``fwd`` builds it), each sample's state is recorded at its
+    own repeat, and the eef advances by delta, re-stuck to ``obj_y`` of the
+    prediction plus the gripper lift. ``graph`` holds the step's other
+    inputs (attrs, p_instance, physics_param). Returns the recorded states."""
+    gnn = cfg.gnn
+    n_p, B = gnn.max_nobj, obj.shape[0]
+    hist = torch.cat([obj, kp], dim=1)[:, None].expand(B, gnn.n_his, gnn.n_nodes, 3)
+    action = torch.cat([torch.zeros(B, n_p, 3, device=obj.device), delta], dim=1)
+    eef_mask = (torch.arange(gnn.n_nodes, device=obj.device) >= n_p).expand(B, gnn.n_nodes)
+    graph = dict(graph, action=action)
+    rec = obj
+    n_steps = min(int(repeat.max()), cfg.max_repeat) if B else 0
+    for ai in range(1, n_steps + 1):
+        graph["state"] = hist
+        if node_mask is not None:
+            graph["neighbors"], graph["nbr_mask"] = build_neighbor_graph_batch(
+                hist[:, -1], node_mask, eef_mask, cfg.adj_thresh, cfg.edge)
+        pred = fwd(graph)
+        rec = torch.where((repeat == ai)[:, None, None], pred, rec)
+        # the eef advances by its delta, re-stuck to the object height
+        y = obj_y(pred) + cfg.gripper_lift
+        eef = hist[:, -1, n_p:] + action[:, n_p:]
+        eef = torch.stack([eef[..., 0], y[:, None].expand_as(eef[..., 1]), eef[..., 2]], dim=-1)
+        hist = torch.cat([hist[:, 1:], torch.cat([pred, eef], dim=1)[:, None]], dim=1)
+    return rec
 
 
 def dynamics_masked(params, state_init, state_mask, actions, physics_params,
@@ -171,21 +187,60 @@ def dynamics_masked(params, state_init, state_mask, actions, physics_params,
 
     state_init (B, max_nobj, 3); state_mask (B, max_nobj) bool; actions (B, 4);
     physics_params (B, phys_dim) or (phys_dim,). Returns (B, max_nobj, 3).
+
+    Policy ``none``: one K1 launch in ``compute_dtype`` (the JAX ``use_fused``
+    branch). A tool policy: the JAX ``_single_sample_rollout`` for every
+    sample at once, to the largest repeat: per substep the graph of the
+    newest frame on the sample's valid objects and the tools, then the
+    float32 single-step forward on it (K2, ``topk + max_neef`` slots), which
+    is what the JAX XLA forward computes; ``compute_dtype`` is not used, and
+    ``params`` given as ``weight_list``'s output must be float32.
     """
-    if cfg.edge.policy != "none":
-        raise NotImplementedError(
-            f"dynamics_masked with edge policy {cfg.edge.policy!r} is not ported yet "
-            "(ROADMAP.md: dynamics_masked for the tool policies)")
     B = state_init.shape[0]
     if physics_params.dim() == 1:
         physics_params = physics_params[None].expand(B, physics_params.shape[0])
     mcfg = dataclasses.replace(cfg, use_mean_y=True)
     decoded, repeat = decode_action(actions[:, None, :], cfg.push_length)
     m = state_mask.to(torch.float32)
-    y0 = (state_init[..., 1] * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
-    kp, delta = pusher_keypoints(mcfg, decoded[:, 0], actions[:, 2], y0)
+
+    def obj_y(obj):  # the masked mean object y
+        return (obj[..., 1] * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+
+    kp, delta = pusher_keypoints(mcfg, decoded[:, 0], actions[:, 2], obj_y(state_init))
+    if cfg.edge.policy != "none":
+        return _masked_tool_push(params, state_init, state_mask, kp, delta, repeat[:, 0],
+                                 physics_params, mcfg, obj_y)
     return fused_rollout_chunk(
         params, state_init, kp, delta, repeat[:, 0], physics_params, cfg.gnn,
         adj_radius=float(cfg.adj_thresh), edge_topk=cfg.edge.topk,
         max_repeat=cfg.max_repeat, gripper_lift=cfg.gripper_lift,
         compute_dtype=compute_dtype, obj_mask=state_mask, mean_y=True)
+
+
+def _masked_tool_push(params, state_init, state_mask, kp, delta, repeat, physics_params,
+                      cfg: DynamicsConfig, obj_y):
+    """``dynamics_masked`` for a tool policy: per-sample object validity in
+    the graph build, attrs and p_instance, the float32 forward."""
+    gnn, edge = cfg.gnn, cfg.edge
+    f32 = torch.float32
+    if isinstance(params, (list, tuple)):
+        if any(w.dtype != f32 for w in params):
+            raise ValueError("dynamics_masked with a tool policy runs the float32 forward: "
+                             "pass the parameter dict or float32 weights")
+        weights = params
+    else:
+        weights = weight_list(params, gnn, f32)
+    B, n_p, n_eef = state_init.shape[0], gnn.max_nobj, gnn.max_neef
+    valid = state_mask.to(f32)
+    tools = torch.ones(B, n_eef, device=valid.device)
+    attrs = torch.stack([torch.cat([valid, torch.zeros_like(tools)], 1),  # [object, tool]
+                         torch.cat([torch.zeros_like(valid), tools], 1)], dim=-1)
+    graph = {"attrs": attrs, "p_instance": valid[..., None],
+             "physics_param": physics_params.to(f32)}
+    node_mask = torch.cat([state_mask.bool(), tools.bool()], dim=1)
+
+    def fwd(g):
+        return fused_forward_batch(weights, g, gnn, f32, want_motion=False,
+                                   k_used=edge.topk + edge.max_neef)[0]
+
+    return _push_substeps(fwd, state_init.to(f32), kp, delta, repeat, graph, cfg, obj_y, node_mask)

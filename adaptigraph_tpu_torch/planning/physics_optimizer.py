@@ -3,7 +3,8 @@
 
 Each generation of candidate parameters is evaluated in one batched call:
 ``dynamics_error_population`` flattens (candidates x interactions) into one
-``dynamics_masked`` batch, which is one rollout-kernel launch on CUDA. The
+``dynamics_masked`` batch: on CUDA one rollout-kernel launch for edge policy
+``none``, one single-step-forward launch per substep for a tool policy. The
 search itself is host-side numpy: CMA-ES for multi-dimensional parameters, a
 GP surrogate with expected-improvement proposals for one-dimensional ones
 (own copies of the JAX package's numpy classes).
@@ -17,7 +18,6 @@ import numpy as np
 import torch
 
 from adaptigraph_tpu_torch.ops.costs import masked_chamfer
-from adaptigraph_tpu_torch.ops.fused_gnn import weight_list
 from adaptigraph_tpu_torch.planning.forward import DynamicsConfig, dynamics_masked
 
 PARAM_LO, PARAM_HI = -0.2, 1.2
@@ -250,7 +250,7 @@ class PhysicsParamOnlineOptimizer:
             raise RuntimeError("PhysicsParamOnlineOptimizer: device='cuda' but no CUDA "
                                "device is available")
         self.cfg = cfg
-        self.weights = weight_list(model_params, cfg.gnn, compute_dtype)
+        self.params = model_params
         self.compute_dtype = compute_dtype
         self.phys_dim = phys_dim
         self.save_dir = save_dir
@@ -314,7 +314,7 @@ class PhysicsParamOnlineOptimizer:
         inter["valid"] = (np.arange(Ipad) < I)
         if Ppad != P:
             cand = cand[np.arange(Ppad) % P]
-        err = dynamics_error_population(self.weights, inter, cand, self.cfg, self.device,
+        err = dynamics_error_population(self.params, inter, cand, self.cfg, self.device,
                                         self.compute_dtype)
         return err.cpu().numpy()[:P]
 

@@ -48,6 +48,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
      switched off, each against its plain version, timed (at the JAX
      script's states and at states packed so that every row fills its K
      slots), and the shares of K2e's time they give.
+ 10. bfloat16 training: K3 in bf16 against its plain bf16 version on the
+     three inputs of phase 5 (``backward_kernel_bf16``), one bf16 train step
+     against a plain one, K3 bf16 and bare bf16 step times, and 300 bf16
+     steps through ``make_train_step(fused_fn=fused_train_fn(..., bf16))``
+     in the CLI's loop from the float32 run's initial weights, with its
+     K2/K3 launches counted (``train_bf16``).
+ 11. the rollout evaluator, ``python -m adaptigraph_tpu_torch rollout
+     --config rope --all_episodes`` in process on the synthetic dataset, with
+     the float32 run's checkpoint and with the rope fixture's weights, each
+     against the same evaluator through the plain forward, K2 launches
+     counted (``rollout``).
+ 12. ``dynamics_masked`` on the cloth config (B 2000, float32, per-sample
+     masks, actions and physics) against the plain version, K2 launches
+     counted (``masked_tools``).
 The last lines are the kernel table, the card line, and the ok line.
 """
 
@@ -754,7 +768,6 @@ def phase_cloth_solve(dev):
     the same chunk through the plain versions on the card, held to the
     graded whole-push bound."""
     from adaptigraph_tpu_torch.ops import fused_gnn
-    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_plain
     from adaptigraph_tpu_torch.planning import mppi_solve
     from adaptigraph_tpu_torch.planning.actions import decode_action, sample_action_seq
     from adaptigraph_tpu_torch.planning.closed_loop import make_reward_fn
@@ -816,11 +829,8 @@ def phase_cloth_solve(dev):
         out = real_rollout(w, obj, chunk, ph, dcfg, compute_dtype=torch.float32)["state_seqs"]
         return out[:, -1], reward(out, chunk, obj)
 
-    def plain(nodes, nbr, mask, last, weights, cfg, cd, want_motion=True):
-        return gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, cd, want_motion)
-
     got, got_r = chunk_run()
-    with mock.patch.object(fused_gnn, "gnn_forward", plain):
+    with plain_forward():
         want, want_r = chunk_run()
     keep = torch.ones_like(got[:, :1, :1], dtype=torch.bool)
     err = per_sample_err(got, want, keep)
@@ -1197,18 +1207,93 @@ def phase_backward_kernel(config, synth_batch, dev):
     return errs["rope"]
 
 
+# K3 bf16 against its plain bf16 version, of the norm: a rounding step that
+# is missed or misplaced moves a tensor by ~1e-3, far above this
+BF16_ROUNDING_TOL = 1e-5
+
+
+def phase_backward_kernel_bf16(config, synth_batch, dev):
+    """K3 in bfloat16 against its plain bf16 version on the same inputs
+    (``input_cases`` packed in bf16), reading the activations of a bf16 K2
+    launch on them; a rerun must be bit-identical. The node cotangents and
+    each of the 24 weight gradients must lie within ``BF16_ROUNDING_TOL`` of
+    their norm (so within 2e-2) of a plain bf16 version, where the bf16
+    rounding points show, and no farther from the float32 K3 (on the float32
+    packing of the same batch and weights) than 1.25 times the plain bf16
+    version is. As in float32 (``phase_backward_kernel``), a relu input
+    within rounding of 0 may fall on either side in two correct versions
+    and move a whole gradient column, so each tensor is held to the nearer
+    of two plain versions (on the card and on the CPU), and its distance
+    from float32 to 1.25 times the farther one's. Returns the rope case's
+    max abs error against the plain version on the card."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs, ok_all = {}, True
+    for (name, a32, cfg), (_, a16, _) in zip(input_cases(config, synth_batch, dev, f32),
+                                             input_cases(config, synth_batch, dev, bf16)):
+        nodes, nbr, msk, last, w = a16
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        dmot = torch.randn(nodes.shape[0], nodes.shape[1], 3, generator=g, device=dev) * 1e-2
+        dmot[:, cfg.max_nobj:] = 0
+        acts = gnn_forward_cuda(nodes, nbr, msk, last, w, cfg, bf16)[2]
+        got = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts, bf16)
+        again = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts, bf16)
+        torch.cuda.synchronize()
+        identical = bool(torch.equal(got[0], again[0])
+                         and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
+        del acts, again
+        acts32 = gnn_forward_cuda(*a32, cfg, f32)[2]
+        ref32 = gnn_train_bwd_cuda(a32[0], a32[1], a32[2], dmot, a32[4], cfg, acts32)
+        del acts32
+        plain = gnn_train_bwd_plain(nodes, nbr, msk, dmot, w, cfg, compute_dtype=bf16)
+        plain_cpu = gnn_train_bwd_plain(nodes.cpu(), nbr.cpu(), msk.cpu(), dmot.cpu(),
+                                        [t.cpu() for t in w], cfg, compute_dtype=bf16)
+        rows, worst, worst_ratio, max_abs = [], 0.0, 0.0, 0.0
+        tensors = zip([got[0]] + got[1], [plain[0]] + plain[1], [plain_cpu[0]] + plain_cpu[1],
+                      [ref32[0]] + ref32[1])
+        for i, (a, p, c, x) in enumerate(tensors):
+            c = c.to(dev)
+            r = min(rel_norm(a, p), rel_norm(a, c))
+            ratio = rel_norm(a, x) / max(rel_norm(p, x), rel_norm(c, x), 1e-30)
+            worst, worst_ratio = max(worst, r), max(worst_ratio, ratio)
+            max_abs = max(max_abs, float((a - p).abs().max()))
+            rows.append({"name": "dnodes" if i == 0 else f"grad{i - 1}",
+                         "rel_vs_plain": rel_norm(a, p), "rel_vs_plain_cpu": rel_norm(a, c),
+                         "kernel_rel_vs_f32_k3": rel_norm(a, x), "plain_rel_vs_f32_k3": rel_norm(p, x),
+                         "plain_cpu_rel_vs_f32_k3": rel_norm(c, x)})
+        ok = bool(identical and worst <= BF16_ROUNDING_TOL and worst_ratio <= 1.25
+                  and all(torch.isfinite(t).all() for t in [got[0]] + got[1]))
+        ok_all &= ok
+        errs[name] = max_abs
+        emit(phase="backward_kernel_bf16_check", case=name, B=nodes.shape[0],
+             real_edges_per_sample=real_edges(msk), rerun_bit_identical=identical,
+             worst_rel_vs_nearer_plain=worst, worst_f32_error_ratio_vs_plain=worst_ratio,
+             max_abs_err=max_abs,
+             tol=f"{BF16_ROUNDING_TOL:g} of the norm of the nearer plain bf16 version (inside "
+                 "2e-2); error against float32 K3 at most 1.25x the plain versions'",
+             rows=rows, ok=ok)
+    if not ok_all:
+        fail("the bf16 backward kernel disagrees with its plain versions "
+             "(see backward_kernel_bf16_check)")
+    return errs["rope"]
+
+
 def plain_kernels():
     """The plain versions in place of K2 and K3, on the card."""
     from contextlib import ExitStack
 
     from adaptigraph_tpu_torch.ops import fused_gnn, fused_gnn_train
 
-    def forward(nodes, nbr, mask, last, weights, cfg):
-        return (*fused_gnn.gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, torch.float32),
+    def forward(nodes, nbr, mask, last, weights, cfg, compute_dtype=torch.float32):
+        return (*fused_gnn.gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, compute_dtype),
                 None)
 
-    def backward(nodes, nbr, mask, dmot, weights, cfg, acts):
-        return fused_gnn_train.gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg)
+    def backward(nodes, nbr, mask, dmot, weights, cfg, acts, compute_dtype=torch.float32):
+        return fused_gnn_train.gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg,
+                                                   compute_dtype=compute_dtype)
 
     stack = ExitStack()
     stack.enter_context(mock.patch.object(fused_gnn_train, "train_forward", forward))
@@ -1219,17 +1304,21 @@ def plain_kernels():
 def phase_train_step(config, synth_batch, dev):
     """One optimizer step (augmentation on, the same draws) through the
     kernels and through the plain versions from the same weights, on the
-    rope batch at the fixture's density and on the synthetic one: the loss
-    within rtol 1e-5 and the gradients within 5e-4 of the norm. Adam's
-    first step moves a weight by ~lr * sign(grad), so a gradient element
-    near 0 may take either sign: the updated weights must agree within 1e-6
-    but for at most 0.1% of them, and those within 2 lr."""
+    rope batch at the fixture's density and on the synthetic one. float32:
+    the loss within rtol 1e-5 and the gradients within 5e-4 of the norm.
+    Adam's first step moves a weight by ~lr * sign(grad), so a gradient
+    element near 0 may take either sign: the updated weights must agree
+    within 1e-6 but for at most 0.1% of them, and those within 2 lr.
+    bfloat16 (``fused_train_fn(..., bfloat16)``, each version in bf16): the
+    loss within 1e-2 relative and the gradients within 2e-2 of the norm."""
     gnn, edge, _, hyper = rope_train_objects(config)
-    for name, batch in (("rope", fixture_batch("rope", dev)[0]), ("rope synthetic", synth_batch)):
-        check_train_step(name, gnn, edge, hyper, batch, dev)
+    for cd in (torch.float32, torch.bfloat16):
+        for name, batch in (("rope", fixture_batch("rope", dev)[0]),
+                            ("rope synthetic", synth_batch)):
+            check_train_step(name, gnn, edge, hyper, batch, dev, cd)
 
 
-def check_train_step(name, gnn, edge, hyper, batch, dev):
+def check_train_step(name, gnn, edge, hyper, batch, dev, cd):
     from adaptigraph_tpu_torch.dynamics import train
     from adaptigraph_tpu_torch.models.gnn import init_params
     from adaptigraph_tpu_torch.utils import checkpoint as ckpt
@@ -1248,43 +1337,76 @@ def check_train_step(name, gnn, edge, hyper, batch, dev):
             grads["g"] = [x.clone() for x in gr]
             return real(lv, gr, st, *a, **k)
 
+        step = train.make_train_step(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
         with mock.patch.object(train, "adam_step", spy):
             if use_plain:
                 with plain_kernels():
-                    loss = train.make_train_step(gnn, edge, hyper)(leaves, state, batch, gen)
+                    loss = step(leaves, state, batch, gen)
             else:
-                loss = train.make_train_step(gnn, edge, hyper)(leaves, state, batch, gen)
+                loss = step(leaves, state, batch, gen)
         results.append((float(loss), grads["g"], [p.detach() for p in leaves]))
     (lk, gk, pk), (lp, gp, pp) = results
     grad_rel = max(rel_norm(a, b) for a, b in zip(gk, gp))
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(pk, pp)])
     frac = float((diff > 1e-6).double().mean())
-    ok = (abs(lk - lp) <= 1e-5 * abs(lp) and grad_rel <= 5e-4 and frac <= 1e-3
-          and float(diff.max()) <= 2 * hyper.lr + 1e-6)
-    emit(phase="train_step_check", case=name, loss_kernel=lk, loss_plain=lp,
+    if cd == torch.float32:
+        ok = (abs(lk - lp) <= 1e-5 * abs(lp) and grad_rel <= 5e-4 and frac <= 1e-3
+              and float(diff.max()) <= 2 * hyper.lr + 1e-6)
+    else:
+        ok = abs(lk - lp) <= 1e-2 * abs(lp) and grad_rel <= 2e-2 and np.isfinite(lk)
+    emit(phase="train_step_check", case=name, dtype=str(cd).split(".")[-1], loss_kernel=lk,
+         loss_plain=lp,
          grad_worst_rel=grad_rel, param_max_abs_diff=float(diff.max()), param_frac_over_1e6=frac,
          ok=bool(ok))
     if not ok:
         fail("the kernel train step disagrees with the plain one (see train_step_check)")
 
 
-def gnn_work(gnn, nodes, nbr, msk, weights, backward):
-    """(operations, bytes) of K2 (or K3) on these inputs: the matmul FLOPs on
-    the N real rows and the real edges, the forward's once, K3 two products
-    per layer of them (dX = dY W^T, dW = X^T dY); the bytes of each input
-    read once and each output written once, the activations that K2 writes
-    and K3 reads counted on the N real rows and the real edges."""
-    N, n_p, nf, P = gnn.n_nodes, gnn.max_nobj, gnn.nf_effect, gnn.pstep
+def gnn_work(gnn, nodes, nbr, msk, weights):
+    """K2's work on these inputs: (the matmul FLOPs on the N real rows and
+    the real edges, the bytes of the tables and weights read once, the
+    activation values that K2 keeps for training and K3 reads, counted on
+    the N real rows and the real edges)."""
+    N, nf, P = gnn.n_nodes, gnn.nf_effect, gnn.pstep
     nfp, nfr, rin = gnn.nf_particle, gnn.nf_relation, gnn.relation_input_dim
-    B, Np = nodes.shape[0], nodes.shape[1]
+    B = nodes.shape[0]
     E = float((msk > 0).sum())
     fwd = forward_work(gnn, nodes, msk, weights, outputs=0)[0]
-    acts = 4 * (B * N * (2 * nfp + (P + 1) * nf + 3 * nf + P * nf + 2 * nf)
-                + E * (rin + 2 * nfr + 2 * nf + P * nf))
-    nbytes = acts + sum(t.numel() * t.element_size() for t in [nodes, nbr, msk] + list(weights))
-    if backward:  # + dmot in, dnodes and the weight gradients out
-        return 2 * fwd, nbytes + B * Np * 3 * 4 + nodes.numel() * 4 + sum(t.numel() * 4 for t in weights)
-    return fwd, nbytes + B * Np * 3 * 4 + B * n_p * 3 * 4 * 2  # + last in, pred and motion out
+    acts = (B * N * (2 * nfp + (P + 1) * nf + 3 * nf + P * nf + 2 * nf)
+            + E * (rin + 2 * nfr + 2 * nf + P * nf))
+    return fwd, sum(t.numel() * t.element_size() for t in [nodes, nbr, msk] + list(weights)), acts
+
+
+def k2_train_bound(gnn, nodes, nbr, msk, weights, peak):
+    """K2 with training's activations kept: its operations; the bytes of its
+    inputs (+ last) read once, pred, motion and the float32 activations
+    written once."""
+    fwd, nbytes, acts = gnn_work(gnn, nodes, nbr, msk, weights)
+    B, Np = nodes.shape[:2]
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound(fwd, nbytes + B * Np * 3 * 4 + B * gnn.max_nobj * 3 * 4 * 2 + 4 * acts,
+                          peak)), gflop_per_launch=fwd / 1e9)
+
+
+def k3_bound(gnn, nodes, nbr, msk, weights, peak):
+    """K3's bound: the lesser of two designs of the same function. One reads
+    the forward's activations, kept in the compute dtype, and does two
+    products per layer (dX = dY W^T, dW = X^T dY); the other recomputes the
+    forward, as the TPU kernel does (three products per layer, no
+    activation bytes). Both read the inputs (nodes, tables, dmot, weights)
+    once and write dnodes and the float32 weight gradients once. Also the
+    bound of the present design (two products, K2's float32 activations)
+    and the bytes of those activations."""
+    fwd, nbytes, acts = gnn_work(gnn, nodes, nbr, msk, weights)
+    B, Np = nodes.shape[:2]
+    io = nbytes + B * Np * 3 * 4 + nodes.numel() * 4 + sum(t.numel() * 4 for t in weights)
+    keep = bound(2 * fwd, io + acts * nodes.element_size(), peak)
+    recompute = bound(3 * fwd, io, peak)
+    (ms, by), design = min((keep, "keeps the activations in the compute dtype"),
+                           (recompute, "recomputes the forward"))
+    return dict(bound_ms=ms, bound_by=by, bound_design=design,
+                bound_ms_present_design=bound(2 * fwd, io + 4 * acts, peak)[0],
+                activation_bytes_per_launch=4 * acts, gflop_per_launch=2 * fwd / 1e9)
 
 
 def bound(ops, nbytes, peak):
@@ -1294,8 +1416,10 @@ def bound(ops, nbytes, peak):
 
 def time_train_kernels(config, synth_batches, dev, R=9):
     """K2 and K3 per launch at the main path's shapes (rope, B 128, f32,
-    weights from ``init_params``), each repetition on another batch; the
-    plain versions on the same inputs; the bounds; and the bare train step.
+    weights from ``init_params``), each repetition on another batch; K3 in
+    bfloat16 on the bf16 packing of the same batches (``k3_bf16``); the
+    plain versions on the same inputs; the bounds; and the bare train step,
+    float32 and bfloat16.
     The baseline is the rope batches at the fixture's density
     (``fixture_batch``, R seeds); the same numbers on the synthetic
     dataset's batches (the CLI run's data) are reported beside them."""
@@ -1306,21 +1430,24 @@ def time_train_kernels(config, synth_batches, dev, R=9):
     from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
     gnn, edge, _, hyper = rope_train_objects(config)
-    f32 = torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
     params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
     leaves = [p.clone().requires_grad_(True) for p in ckpt.tree_leaves(params)]
     step = train.make_train_step(gnn, edge, hyper)
+    step16 = train.make_train_step(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, bf16))
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
 
     def times(batches):
         ins = [step_inputs(b, gnn, edge, params, f32) for b in batches]
-        dmots, acts = [], []
-        for nodes, nbr, msk, last, w in ins:
+        ins16 = [step_inputs(b, gnn, edge, params, bf16) for b in batches]
+        dmots, acts, acts16 = [], [], []
+        for (nodes, nbr, msk, last, w), i16 in zip(ins, ins16):
             d = torch.randn(nodes.shape[0], nodes.shape[1], 3, device=dev) * 1e-2
             d[:, gnn.max_nobj:] = 0
             dmots.append(d)
             acts.append(gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, f32)[2])
+            acts16.append(gnn_forward_cuda(*i16, gnn, bf16)[2])
 
         def fwd_args(r):
             return ins[r % R] + (gnn, f32)
@@ -1329,26 +1456,40 @@ def time_train_kernels(config, synth_batches, dev, R=9):
             nodes, nbr, msk, _, w = ins[r % R]
             return nodes, nbr, msk, dmots[r % R], w, gnn, acts[r % R]
 
+        def bwd16_args(r):
+            nodes, nbr, msk, _, w = ins16[r % R]
+            return nodes, nbr, msk, dmots[r % R], w, gnn, acts16[r % R], bf16
+
         def bwd_plain(*args):  # recomputes the forward, as the TPU kernel does
             return gnn_train_bwd_plain(*args[:6])
 
+        def bwd16_plain(*args):
+            return gnn_train_bwd_plain(*args[:6], compute_dtype=bf16)
+
         gnn_train_bwd_cuda(*bwd_args(0))  # warm-up
         out = {}
-        for name, kern, plain, args, back in (
-                ("k2", gnn_forward_cuda, gnn_forward_plain, fwd_args, False),
-                ("k3", gnn_train_bwd_cuda, bwd_plain, bwd_args, True)):
+        for name, kern, plain, args, work in (
+                ("k2", gnn_forward_cuda, gnn_forward_plain, fwd_args, k2_train_bound),
+                ("k3", gnn_train_bwd_cuda, bwd_plain, bwd_args, k3_bound)):
             ms = median_ms(kern, args, 9)
             plain_ms = median_ms(plain, args, 5)
             nodes, nbr, msk, _, w = ins[0]
-            ops, nbytes = gnn_work(gnn, nodes, nbr, msk, w, back)
-            b_ms, b_by = bound(ops, nbytes, PEAK_FLOPS[f32])
-            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             gflop_per_launch=ops / 1e9, real_edges_per_sample=real_edges(msk))
+            out[name] = dict(ms=ms, plain_ms=plain_ms, real_edges_per_sample=real_edges(msk),
+                             **work(gnn, nodes, nbr, msk, w, PEAK_FLOPS[f32]))
+        gnn_train_bwd_cuda(*bwd16_args(0))  # warm-up of the bf16 build
+        nodes, nbr, msk, _, w = ins16[0]
+        out["k3_bf16"] = dict(ms=median_ms(gnn_train_bwd_cuda, bwd16_args, 7),
+                              plain_ms=median_ms(bwd16_plain, bwd16_args, 5),
+                              **k3_bound(gnn, nodes, nbr, msk, w, PEAK_FLOPS[bf16]))
         acts.clear()
+        acts16.clear()
         state = train.adam_init(leaves)
         step(leaves, state, batches[0], gen)
         out["step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
                                    lambda r: (batches[r % R],), 9)
+        step16(leaves, state, batches[0], gen)
+        out["step_bf16_ms"] = median_ms(lambda b: step16(leaves, state, b, gen),
+                                        lambda r: (batches[r % R],), 9)
         with plain_kernels():
             out["plain_step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
                                              lambda r: (batches[r % R],), 5)
@@ -1391,33 +1532,51 @@ CURVE_RTOL = 0.02  # kernel vs plain run, each epoch's mean train and valid loss
 CURVE_SPREADS = 3  # ... or within this many times the float32 spread of the curves
 
 
-def cli_train(prep, tag, plain=False, nudge=False):
+def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32):
     """The CLI's train command into TRAIN_DIR/<tag>, through the kernels or
     (``plain``) the plain versions; with ``nudge``, from initial weights
-    each one float32 step nearer 0. Returns (params, curves, seconds,
-    argv)."""
+    each one float32 step nearer 0; with ``cd`` bfloat16, its train and
+    eval steps built by ``make_train_step`` / ``make_eval_step`` with
+    ``fused_fn=fused_train_fn(..., bfloat16)`` (the CLI has no dtype
+    option). Returns (params, curves, seconds, argv, the loss of every
+    train step)."""
     from contextlib import ExitStack
 
     from adaptigraph_tpu_torch.cli import main
     from adaptigraph_tpu_torch.dynamics import train
     from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
-    init = train.init_params
+    init, make_step, make_eval = train.init_params, train.make_train_step, train.make_eval_step
+    losses = []
 
     def nudged(generator, cfg):
         return ckpt.tree_from_leaves([torch.nextafter(p, torch.zeros_like(p))
                                       for p in ckpt.tree_leaves(init(generator, cfg))])
 
+    def step_recorded(gnn, edge, hyper):
+        step = make_step(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
+
+        def recorded(*a):
+            losses.append(step(*a))
+            return losses[-1]
+
+        return recorded
+
+    def eval_step(gnn, edge, hyper):
+        return make_eval(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
+
     argv = ["train", "--config", "rope", "--prep_dir", prep,
             "--out_dir", os.path.join(TRAIN_DIR, tag)] + TRAIN_ARGS
     with ExitStack() as stack:
+        stack.enter_context(mock.patch.object(train, "make_train_step", step_recorded))
+        stack.enter_context(mock.patch.object(train, "make_eval_step", eval_step))
         if plain:
             stack.enter_context(plain_kernels())
         if nudge:
             stack.enter_context(mock.patch.object(train, "init_params", nudged))
         t0 = time.time()
         params, curves = main(argv)
-    return params, curves, time.time() - t0, argv
+    return params, curves, time.time() - t0, argv, torch.stack(losses).cpu().numpy()
 
 
 def phase_train(config, prep, dev):
@@ -1445,7 +1604,7 @@ def phase_train(config, prep, dev):
     out = os.path.join(TRAIN_DIR, "out")
     gnn_forward.launches = 0
     gnn_train_bwd.launches = 0
-    params, curves, secs, argv = cli_train(prep, "out")
+    params, curves, secs, argv, losses = cli_train(prep, "out")
     k2, k3 = gnn_forward.launches, gnn_train_bwd.launches
     epochs = [m for m in read_metrics(os.path.join(out, "metrics.jsonl")) if m["tag"] == "epoch"]
     train_steps = sum(m["train_steps"] for m in epochs)
@@ -1458,9 +1617,9 @@ def phase_train(config, prep, dev):
     falling = curves["train"][-1] < curves["train"][0]
     launches_ok = k3 == 3 * train_steps and k2 == 3 * (train_steps + valid_steps)
 
-    kernel_nudged = cli_train(prep, "out_nudged", nudge=True)[1]
+    _, kernel_nudged, _, _, nudged_losses = cli_train(prep, "out_nudged", nudge=True)
     before = gnn_forward.launches + gnn_train_bwd.launches
-    _, plain, plain_secs, _ = cli_train(prep, "out_plain", plain=True)
+    _, plain, plain_secs, _, _ = cli_train(prep, "out_plain", plain=True)
     plain_nudged = cli_train(prep, "out_plain_nudged", plain=True, nudge=True)[1]
     plain_launches = gnn_forward.launches + gnn_train_bwd.launches - before
     agree, curve_check = plain_launches == 0, {}
@@ -1486,7 +1645,204 @@ def phase_train(config, prep, dev):
          checkpoint_read_back_equal=same, ok=ok)
     if not ok:
         fail("the train run failed its checks (see the train line)")
+    return k2, k3, losses, nudged_losses
+
+
+def phase_train_bf16(prep, f32_losses, f32_nudged_losses, last=50):
+    """The bfloat16 training path: 300 steps of the CLI's loop through
+    ``make_train_step(fused_fn=fused_train_fn(..., bfloat16))`` (and its
+    eval step) on the synthetic dataset, from the float32 run's initial
+    weights, data order and augmentation draws, with the K2/K3 launch counts
+    read around it. The loss must stay finite and fall, and its mean over
+    the last 50 steps lie within the float32 nudged-run spread of the
+    float32 run's (the two float32 runs' last-50 means), widened by 5% of
+    the float32 run's mean on each side."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.utils.metrics import read_metrics
+
+    gnn_forward.launches = 0
+    gnn_train_bwd.launches = 0
+    _, curves, secs, argv, losses = cli_train(prep, "out_bf16", cd=torch.bfloat16)
+    k2, k3 = gnn_forward.launches, gnn_train_bwd.launches
+    train_steps, valid_steps = len(losses), 10 * len(curves["train"])
+    m16, m32, m32n = (float(np.mean(x[-last:])) for x in (losses, f32_losses, f32_nudged_losses))
+    epoch = [m for m in read_metrics(os.path.join(TRAIN_DIR, "out_bf16", "metrics.jsonl"))
+             if m["tag"] == "epoch"][-1]
+    lo, hi = min(m32, m32n) - 0.05 * m32, max(m32, m32n) + 0.05 * m32
+    ok = bool(np.isfinite(losses).all() and curves["train"][-1] < curves["train"][0]
+              and lo <= m16 <= hi and k3 == 3 * train_steps and k2 == 3 * (train_steps + valid_steps))
+    emit(phase="train_bf16", argv=argv[1:], fused_fn="fused_train_fn(..., torch.bfloat16)",
+         seconds=round(secs, 2), train_steps=train_steps, valid_steps=valid_steps,
+         k2_launches=k2, k3_launches=k3, train_loss=curves["train"], valid_loss=curves["valid"],
+         last50_mean_bf16=m16, last50_mean_f32=m32, last50_mean_f32_nudged=m32n,
+         band=[lo, hi], ms_per_step_cli=epoch["train_seconds"] / epoch["train_steps"] * 1e3, ok=ok)
+    if not ok:
+        fail("the bf16 train run failed its checks (see the train_bf16 line)")
     return k2, k3
+
+
+# ---------------------------------------------------------------------------
+# the rollout evaluator (K2) and dynamics_masked for the tool policies (K2)
+# ---------------------------------------------------------------------------
+
+def plain_forward():
+    """K2's plain version in place of the kernel, on the card."""
+    from adaptigraph_tpu_torch.ops import fused_gnn
+
+    def plain(nodes, nbr, mask, last, weights, cfg, cd, want_motion=True):
+        return fused_gnn.gnn_forward_plain(nodes, nbr, mask, last, weights, cfg, cd, want_motion)
+
+    return mock.patch.object(fused_gnn, "gnn_forward", plain)
+
+
+def phase_rollout(config, prep, dev):
+    """The rollout evaluator through the CLI, ``rollout --config rope
+    --all_episodes`` in process on the synthetic dataset (full rope width, B
+    the number of pushes, up to 100 steps, one graph build and one float32
+    K2 launch per step): with the float32 CLI run's checkpoint, then with
+    the rope fixture's weights (copied under TRAIN_DIR, so nothing is written
+    into fixtures/). Each run's K2 launches are counted from 0, and each
+    per-push error curve is held against the same evaluator with K2's plain
+    version: step 1 within 2e-4, the median over pushes within 1% at every
+    step. Then K2 and the graph build at the batched run's shapes (CUDA
+    events, median of 7 on one mid-rollout step), K2's plain version and its
+    bound. Returns (K2 launches of the first run, timing)."""
+    from adaptigraph_tpu_torch.cli import load_params, main
+    from adaptigraph_tpu_torch.dynamics import rollout
+    from adaptigraph_tpu_torch.dynamics.dataset import spec_from_config
+    from adaptigraph_tpu_torch.ops.fused_gnn import (gnn_forward, gnn_forward_cuda,
+                                                     gnn_forward_plain, pack_inputs, weight_list)
+    from adaptigraph_tpu_torch.ops.graph import build_neighbor_graph_batch
+
+    gnn, edge = rope_train_objects(config)[:2]
+    spec = spec_from_config(config)
+    fixture = os.path.join(TRAIN_DIR, "rollout_fixture")
+    shutil.copytree(os.path.join(ROOT, "fixtures", "rope_demo", "checkpoints"),
+                    os.path.join(fixture, "checkpoints"))
+    real_forward = rollout.fused_forward_batch
+    steps = []  # the first run's steps at its widest batch
+
+    def spy(weights, graph, *a, **k):
+        B = graph["state"].shape[0]
+        if first_launches is None and (not steps or B >= steps[0]["state"].shape[0]):
+            if steps and B > steps[0]["state"].shape[0]:
+                steps.clear()
+            steps.append({key: v.clone() for key, v in graph.items()})
+        return real_forward(weights, graph, *a, **k)
+
+    runs, ok_all, first_launches = {}, True, None
+    for tag, out in (("trained", os.path.join(TRAIN_DIR, "out")), ("fixture", fixture)):
+        argv = ["rollout", "--config", "rope", "--prep_dir", prep, "--out_dir", out,
+                "--all_episodes"]
+        torch.cuda.synchronize()
+        gnn_forward.launches = 0
+        t0 = time.time()
+        with mock.patch.object(rollout, "fused_forward_batch", spy):
+            stats, summary = main(argv)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = gnn_forward.launches
+        if first_launches is None:
+            first_launches = launches
+        with plain_forward():
+            plain = rollout.rollout_dataset(load_params(out, gnn, dev), spec, gnn, edge, prep,
+                                            phase_ratio=(0.0, 1.0))
+        got, want = stats["per_push"], plain["per_push"]
+        step1 = max(abs(float(a[0]) - float(b[0])) for a, b in zip(got, want))
+        med_rel = np.abs(stats["median"] - plain["median"]) / np.abs(plain["median"])
+        ok = bool(len(got) == len(want) == summary["n_pushes"] > 0 and step1 <= 2e-4
+                  and (med_rel <= 0.01).all() and np.isfinite(stats["median"]).all()
+                  and launches > 0)
+        ok_all &= ok
+        runs[tag] = dict(summary=summary, seconds=round(secs, 2), k2_launches=launches,
+                         steps=len(stats["median"]), ms_per_k2_launch_cli=secs / launches * 1e3,
+                         step1_max_abs_diff_vs_plain=step1,
+                         median_max_rel_diff_vs_plain=float(med_rel.max()),
+                         median=stats["median"].tolist(), plain_median=plain["median"].tolist(),
+                         ok=ok)
+
+    # K2 and the graph build at the batched run's shapes, on its middle step
+    g = steps[len(steps) // 2]
+    w = weight_list(load_params(os.path.join(TRAIN_DIR, "out"), gnn, dev), gnn, torch.float32)
+    B = g["state"].shape[0]
+    nodes, nbr, msk, last, _ = pack_inputs(gnn, g["state"], g["action"], g["physics_param"],
+                                           g["attrs"], g["p_instance"], g["neighbors"],
+                                           g["nbr_mask"], edge.topk + edge.max_neef, torch.float32)
+    const = (w, gnn, torch.float32, False)
+    ms = median_ms(lambda *a: gnn_forward_cuda(*a, *const, keep_acts=False),
+                   lambda r: (nodes, nbr, msk, last), 7)
+    plain_ms = median_ms(lambda *a: gnn_forward_plain(*a, *const), lambda r: (nodes, nbr, msk, last), 3)
+    tool = (torch.arange(gnn.n_nodes, device=dev) >= gnn.max_nobj).expand(B, gnn.n_nodes)
+    state_mask = torch.cat([g["attrs"][:, :gnn.max_nobj, 0] > 0, tool[:, gnn.max_nobj:]], dim=1)
+    graph_ms = median_ms(lambda s: build_neighbor_graph_batch(s, state_mask, tool,
+                                                              float(np.mean(spec.adj_radius_range)),
+                                                              edge),
+                         lambda r: (g["state"][:, -1],), 7)
+    ops, nbytes = forward_work(gnn, nodes, msk, w, outputs=1)
+    b_ms, b_by = bound(ops, nbytes + nbr.numel() * 4 + msk.numel() * 4, PEAK_FLOPS[torch.float32])
+    timing = dict(B=B, k2_ms=ms, k2_plain_ms=plain_ms, k2_bound_ms=b_ms, k2_bound_by=b_by,
+                  k2_gflop_per_launch=ops / 1e9, real_edges_per_sample=real_edges(msk),
+                  graph_build_ms=graph_ms)
+    emit(phase="rollout", runs=runs, **timing, ok=ok_all)
+    if not ok_all:
+        fail("the rollout evaluator failed its checks (see the rollout line)")
+    return first_launches, timing
+
+
+def phase_masked_tools(dev):
+    """``dynamics_masked`` on the cloth config (contact-gated tools_all,
+    gripper lift, published width), B 2000 pushes of the sheet with 0.005 of
+    noise, per-sample masks (50-100 of the 100 object slots valid), actions
+    from the task's limits and physics; weights from ``init_params``;
+    float32, one graph build and one K2 launch per substep to the largest
+    repeat. K2's launches are counted from 0 and must be min(largest
+    repeat, max_repeat), with no other kernel; each sample's valid objects
+    against the same call with K2's plain version, within the float32
+    whole-push bound graded by its repeat. Returns (launches, ms)."""
+    from adaptigraph_tpu_torch.ops import fused_gnn
+    from adaptigraph_tpu_torch.planning.actions import decode_action
+    from adaptigraph_tpu_torch.planning.forward import dynamics_masked
+
+    tcfg, params, state, _ = cloth_setup(dev)
+    dcfg = tcfg.dcfg
+    n_p, B = dcfg.gnn.max_nobj, B_CHUNK
+    rng = np.random.RandomState(6)
+    counts = rng.randint(n_p // 2, n_p + 1, B)
+    mask = torch.tensor(np.arange(n_p)[None] < counts[:, None], device=dev)
+    s0 = torch.tensor(state[None] + rng.randn(B, n_p, 3).astype(np.float32) * 0.005,
+                      device=dev) * mask[..., None]
+    act = torch.tensor(rng.uniform(tcfg.action_lower_lim, tcfg.action_upper_lim,
+                                   (B, 4)).astype(np.float32), device=dev)
+    phys = torch.tensor(rng.uniform(0, 1, (B, 1)).astype(np.float32), device=dev)
+    w = fused_gnn.weight_list(params, dcfg.gnn, torch.float32)
+    args = (w, s0, mask, act, phys, dcfg)
+    dynamics_masked(*args)  # warm-up
+    torch.cuda.synchronize()
+    fused_gnn.gnn_forward.launches = 0
+    others = fused_gnn.gnn_forward_edges.launches + fused_gnn.fused_rollout_chunk.launches
+    t0 = time.time()
+    got = dynamics_masked(*args)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    launches = fused_gnn.gnn_forward.launches
+    others = fused_gnn.gnn_forward_edges.launches + fused_gnn.fused_rollout_chunk.launches - others
+    with plain_forward():
+        want = dynamics_masked(*args)
+    repeat = decode_action(act[:, None], dcfg.push_length)[1][:, 0].cpu().numpy()
+    expected = min(int(repeat.max()), dcfg.max_repeat)
+    err = per_sample_err(got, want, mask[..., None])
+    tols = np.array([graded(min(int(r), dcfg.max_repeat)) for r in repeat])
+    ok = bool(torch.isfinite(got).all() and (err <= tols).all() and launches == expected
+              and others == 0)
+    emit(phase="masked_tools", B=B, policy=dcfg.edge.policy, k2_launches=launches,
+         expected_launches=expected, other_kernel_launches=others, ms=ms,
+         ms_per_substep=ms / max(launches, 1), max_abs_err=float(err.max()),
+         p99_abs_err=float(np.quantile(err, 0.99)), tol="graded by repeat",
+         repeat_mean=float(repeat.mean()), ok=ok)
+    if not ok:
+        fail("dynamics_masked on cloth failed its checks (see the masked_tools line)")
+    return launches, ms / max(launches, 1), float(err.max())
 
 
 def main():
@@ -1524,9 +1880,13 @@ def main():
     batches = device_batches(config, prep, dev, 9, seed=11)
     k2_err = phase_forward_kernel(config, batches[0], dev)
     k3_err = phase_backward_kernel(config, batches[1], dev)
+    k3_bf16_err = phase_backward_kernel_bf16(config, batches[1], dev)
     phase_train_step(config, batches[2], dev)
     ttime = time_train_kernels(config, batches, dev)
-    k2_launches, k3_launches = phase_train(config, prep, dev)
+    k2_launches, k3_launches, losses, nudged_losses = phase_train(config, prep, dev)
+    k2_bf16_launches, k3_bf16_launches = phase_train_bf16(prep, losses, nudged_losses)
+    k2_rollout_launches, rollout_time = phase_rollout(config, prep, dev)
+    k2_masked_launches, masked_ms, masked_err = phase_masked_tools(dev)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1541,9 +1901,22 @@ def main():
              launches_cloth_solve=k2_cloth_launches, ms_cloth_solve=cloth_step["k2_ms"],
              plain_ms_cloth_solve=cloth_step["k2_plain_ms"],
              bound_ms_cloth_solve=cloth_step["k2_bound_ms"],
-             max_abs_err_cloth_solve=cloth_step["k2_bf16_max_abs_err"]),
-        row("gnn_train_bwd", "adaptigraph_tpu_torch/csrc/gnn_train_bwd.cu",
-            "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"]),
+             max_abs_err_cloth_solve=cloth_step["k2_bf16_max_abs_err"],
+             launches_train_bf16=k2_bf16_launches,
+             launches_rollout=k2_rollout_launches, ms_rollout=rollout_time["k2_ms"],
+             plain_ms_rollout=rollout_time["k2_plain_ms"],
+             bound_ms_rollout=rollout_time["k2_bound_ms"],
+             launches_masked_tools=k2_masked_launches,
+             ms_per_substep_masked_tools=masked_ms, max_abs_err_masked_tools=masked_err),
+        dict(row("gnn_train_bwd", "adaptigraph_tpu_torch/csrc/gnn_train_bwd.cu",
+                 "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"]),
+             ms_bf16=ttime["k3_bf16"]["ms"], plain_ms_bf16=ttime["k3_bf16"]["plain_ms"],
+             bound_ms_bf16=ttime["k3_bf16"]["bound_ms"],
+             bound_by_bf16=ttime["k3_bf16"]["bound_by"],
+             bound_design_bf16=ttime["k3_bf16"]["bound_design"],
+             bound_ms_present_design_bf16=ttime["k3_bf16"]["bound_ms_present_design"],
+             max_abs_err_bf16=k3_bf16_err,
+             launches_bf16=k3_bf16_launches),
         row("gnn_forward_edges", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
             "adaptigraph_tpu/ops/fused_gnn.py:115", k2e_launches, k2e_err, k2e_time),
         dict(row("kernel_parts", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",

@@ -75,6 +75,17 @@ def test_entry_points_default_to_cuda():
         assert build_parser().parse_args(argv).device == "cuda"
 
 
+def test_rollout_command_defaults_to_cuda(monkeypatch):
+    """``rollout`` runs on the card unless ``--device cpu``: without a card it
+    stops before reading anything."""
+    from adaptigraph_tpu_torch.cli import build_parser, main
+
+    assert build_parser().parse_args(["rollout", "--config", "rope"]).device == "cuda"
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["rollout", "--config", "rope", "--prep_dir", "missing", "--out_dir", "missing"])
+
+
 @pytest.mark.parametrize("rel", ["dynamics/rope.yaml", "dynamics/granular.yaml",
                                  "dynamics/cloth.yaml", "planning/rope.yaml",
                                  "planning/granular.yaml", "planning/cloth.yaml"])

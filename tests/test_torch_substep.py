@@ -182,7 +182,9 @@ def test_substeps_run_to_the_chunk_max_repeat(policy):
 
 def test_tools_all_weight_list_and_masked_refusal():
     """The tool branch takes ``weight_list``'s output as the solver passes
-    it; ``dynamics_masked`` still refuses a tool policy, naming its ROADMAP item."""
+    it; ``dynamics_masked`` no longer refuses a tool policy: it takes the
+    parameter dict and float32 weights alike, and refuses only weights in
+    another dtype (its tool branch is the float32 forward)."""
     jd, td = _configs("tools_all", gripper_enable=True)
     tp = _params(4)[1]
     rng = np.random.RandomState(4)
@@ -193,9 +195,10 @@ def test_tools_all_weight_list_and_masked_refusal():
     w = fused_gnn.weight_list(tp, CFG, torch.float32)
     b = forward.dynamics_rollout_batched(w, state, acts, phys, td, compute_dtype=torch.float32)
     assert torch.equal(a["state_seqs"], b["state_seqs"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward.dynamics_masked(tp, state[None].expand(B, 20, 3), torch.ones(B, 20, dtype=bool),
-                                acts[:, 0], phys, td)
+    masked = (state[None].expand(B, 20, 3), torch.ones(B, 20, dtype=bool), acts[:, 0], phys, td)
+    assert torch.equal(forward.dynamics_masked(tp, *masked), forward.dynamics_masked(w, *masked))
+    with pytest.raises(ValueError, match="float32"):
+        forward.dynamics_masked(fused_gnn.weight_list(tp, CFG, torch.bfloat16), *masked)
 
 
 def _cloth_task(jax_side):
