@@ -1,22 +1,45 @@
 // Building blocks shared by the single-step GNN forward (gnn_forward.cu, K2)
-// and its training backward (gnn_train_bwd.cu, K3): one thread block per
-// sample, float32 arithmetic on the CUDA cores.
+// and its training backward (gnn_train_bwd.cu, K3): one thread block of two
+// warpgroups per sample.
 //
-// - gemm: a 64 x 64 output tile at a time, 32-deep k chunks staged in shared
-//   memory, 4 x 4 outputs per thread; operands are strided views, so the same
-//   routine computes X @ W, dY @ W^T and X^T @ dY. Each output is the sum of
-//   its products in k order, handed to an epilogue functor.
+// - layer_tc and wgrad_tc, the tensor-core layer routine: every product but
+//   the three below, Y = X W (the forward and the backward's
+//   dX = dY W^T, from weights packed once per launch in PyTorch) and
+//   dW = X^T dY (the backward's weight gradients, reduced over the rows).
+//   bfloat16 runs on wgmma (m64n64k16, float32 accumulators: the JAX
+//   kernel's bf16 dots with preferred_element_type=float32); float32 runs on
+//   wgmma m64n64k8 tf32 with each operand split into two TF32 parts, hi·hi
+//   + hi·lo + lo·hi ("3xTF32", ~2^-21 relative per product, where plain TF32
+//   keeps ~3 digits): the activations (or X^T) are split in registers and
+//   fed as wgmma's register operand, the weights' parts come packed (or dY's
+//   chunk is split and transposed in shared memory, as tf32 B must be
+//   K-major). A layer's weight (or, in float32, a 128- or 64-row slice of
+//   its hi and lo parts) is staged in shared memory once per call;
+//   128-row activation tiles (dW: 64- or 32-row chunks of both operands) come
+//   in by cp.async, double-buffered, so one tile's loads overlap the previous
+//   tile's products. The epilogue runs from the accumulator registers, two
+//   adjacent columns at a time, and redoes as float32 FMA chains the few
+//   outputs whose bf16 rounding or relu the tensor cores' truncated sums
+//   could decide otherwise than a float32 matmul (Redo); weight gradients
+//   come with their bias gradients (column sums of the staged cotangent
+//   tiles).
+// - gemm, the CUDA-core product, for the narrow products: the motion head's
+//   last layer (3 outputs: its forward, dW and dX) and the particle encoder's
+//   first layer on the packed p_inputs (its forward, dW and dX), whose rows
+//   are not 16-byte aligned. re0 runs on the tensor cores: the relation
+//   inputs are kept with a row stride of a multiple of 8 (rel_in_ld).
 // - the real edges of a sample, compacted from the (k, i)-ordered prebuilt
 //   tables and grouped by receiver (slot order within a receiver); the
 //   backward also groups them by sender. Sums over a node's edges run in that
-//   order, so a launch is deterministic: no atomics anywhere.
+//   order, and every product and column sum in a fixed order, so a launch is
+//   deterministic: no atomics anywhere.
 // - forward_body: the JAX kernel's arithmetic (ops/fused_gnn.py::_kernel) up
 //   to the motion head's hidden layers, rounding to the compute dtype T
-//   wherever the JAX kernel casts. Activations are kept in float32 buffers
-//   (already rounded), edge-sized ones on real edges only: for training each
-//   in its own place per sample (act_bufs), so the backward reads them as the
-//   forward left them; for a forward alone in one reused scratch per resident
-//   block (scratch_bufs).
+//   wherever the JAX kernel casts. Activations are kept in T (exact: every
+//   kept value is already rounded to T), edge-sized ones on real edges only:
+//   for training each in its own place per sample (act_bufs), so the
+//   backward reads them as the forward left them; for a forward alone in one
+//   reused scratch per resident block (scratch_bufs).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,17 +47,18 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "edge_build.cuh"
+#include "mma.cuh"
 
 namespace gnn {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kLd = kBM + 4;                 // staged tile row stride (floats), 16-byte aligned
-constexpr int kGemmFloats = 2 * kBK * kLd;
+constexpr int kThreads = 256;                // two warpgroups
+constexpr int kBM = 64, kBN = 64, kBK = 32;  // CUDA-core gemm tiles
+constexpr int kLd = kBM + 4;                 // its staged tile row stride (floats), 16-byte aligned
 constexpr int kNumWeights = 24;
 
 // weight_list order (ops/fused_gnn.py::weight_list)
@@ -46,15 +70,133 @@ enum W {
   kNr0w, kNr0b, kNr1w, kNr1b, kNr2w, kNr2b,
 };
 
+// The layers whose products run on the tensor cores, in the order of the
+// packed weights (ops/fused_gnn.py::TC_LAYERS)
+enum Tc { kTcPe1, kTcPe2, kTcRe1, kTcRe2, kTcRpW1, kTcRpW23, kTcPpWa, kTcPpWb, kTcNr0, kTcNr1,
+          kTcRe0, kNumTc };
+// ... and each one's weight in weight_list
+__host__ __device__ constexpr int tc_weight(int l) {
+  return l == kTcPe1 ? kPe1w : l == kTcPe2 ? kPe2w : l == kTcRe1 ? kRe1w : l == kTcRe2 ? kRe2w
+       : l == kTcRpW1 ? kRpW1 : l == kTcRpW23 ? kRpW23 : l == kTcPpWa ? kPpWa
+       : l == kTcPpWb ? kPpWb : l == kTcNr0 ? kNr0w : l == kTcNr1 ? kNr1w : kRe0w;
+}
+
 struct Dims {
   int Np, N, n_p, K, n_his, pstep, Dp, D, nf_p, nf_r, nf, rel_in;
 };
 
+// The row stride of the relation inputs (and of their cotangents): rel_in
+// rounded up to 8, the columns past rel_in zero, so the tensor cores' 16-byte
+// copies can read their rows.
+__host__ __device__ inline int rel_in_ld(const Dims& d) { return (d.rel_in + 7) / 8 * 8; }
+
+// The weights of a launch in T: the 24 of weight_list (the biases and the
+// CUDA-core layers read them), and each tensor-core layer's packed matrix,
+// the rows of its product's B^T zero-padded to a depth of round16 (and to a
+// multiple of 8 rows): the forward's W^T (nout, round16(kin)), the
+// backward's W (kin, round16(nout)).
+// float32: hi and lo, the TF32 parts; bfloat16: hi the weight, lo null.
+template <typename T>
+struct Weights {
+  const T* w[kNumWeights];
+  const T* hi[kNumTc];
+  const T* lo[kNumTc];
+};
+
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) / 16 * 16; }
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Eight consecutive elements (16-byte aligned: 32 bytes of float32, 16 of
+// bf16) as floats, so an elementwise pass has one load in flight per eight
+// values instead of one per value.
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void ld8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void st8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void st8(bf16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Two consecutive elements (8-byte aligned float32, 4-byte aligned bf16):
+// the layer routine's epilogues take the two adjacent columns that a
+// thread's accumulator fragment holds together.
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldg2(const bf16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Profiling builds (-DGNN_PHASE_CLOCKS, ops/kernels.py's "phase_clocks"
+// variant): GNN_PHASE(k) ends phase k of a block, adding the SM cycles since
+// the previous mark to counter k of the buffer that the kernel's file sets
+// (gnn_*_set_phase_clocks). The normal build has no counters.
+#ifdef GNN_PHASE_CLOCKS
+#define GNN_PHASE(k) ::gnn::phase_mark(k)
+static __device__ unsigned long long* g_phase_clocks;  // per source file
+__device__ inline void phase_mark(int k) {
+  __shared__ long long last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const long long now = clock64();
+    if (k >= 0) atomicAdd(g_phase_clocks + k, (unsigned long long)(now - last));
+    last = now;
+  }
+  __syncthreads();
+}
+// Inside the layer routine, thread 0's cycles go to counters 13 (staging:
+// issuing the copies and waiting for them), 14 (the products) and 15 (the
+// epilogue), summed over every call.
+#define GNN_SUB_START(t) long long t = clock64()
+#define GNN_SUB(k, t) ::gnn::sub_mark(k, t)
+__device__ inline void sub_mark(int k, long long& t) {
+  if (threadIdx.x == 0) {
+    const long long now = clock64();
+    atomicAdd(g_phase_clocks + k, (unsigned long long)(now - t));
+    t = now;
+  }
+}
+#else
+#define GNN_PHASE(k)
+#define GNN_SUB_START(t)
+#define GNN_SUB(k, t)
+#endif
 
 // Round to the compute dtype and back (the JAX kernel's .astype(cd)).
 template <typename T> __device__ __forceinline__ float rnd(float x);
@@ -122,17 +264,607 @@ __device__ void gemm(int M, int N, int Kd, const TA* A, size_t sam, size_t sak, 
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core layer routine
+// ---------------------------------------------------------------------------
+//
+// Shared memory (tc, 1,024-aligned), bfloat16:
+//   layer_tc: the weight, up to 128 rows x 256 deep as four 64-column
+//   swizzled blocks (64 KB), then two 128 x 64 activation tiles (32 KB);
+//   wgrad_tc: two stages of X and dY, each 64 rows x 128 columns (64 KB).
+// float32:
+//   layer_tc (wgmma tf32, A from registers): a slice of nc = 128 (depth <=
+//   128) or 64 (depth <= 256) weight rows, hi and lo, K-major in 32-float
+//   swizzled column blocks (2 x 64 KB), then two 128 x 32 activation tiles of
+//   row stride 36 (36 KB);
+//   wgrad_tc (wgmma tf32, A = X^T from registers): two stages of X and dY,
+//   each 32 rows x 128 columns of row stride 136 (68 KB), then dY's chunk
+//   transposed into TF32 hi and lo parts (2 x 16 KB).
+// The strides keep each warp's fragment loads on 32 different banks.
+constexpr int kTcRows = 128;                 // rows of a block tile: 2 warpgroups x 64, 8 warps x 16
+constexpr int kW16Bytes = 128 * 256 * 2;
+constexpr int kA32Ld = 36, kG32Ld = 136;
+constexpr int kW32Floats = 128 * 128;        // nc x round16(K) for either slice width
+// wgrad_tc's 256 floats of bias sums, past its tiles; in float32 its
+// transposed TF32 parts of dY (2 x 16 KB) lie past the chunks
+constexpr int kRedOff16 = 72 * 1024, kB32Off = 68 * 1024, kRedOff32 = 100 * 1024;
+
+template <typename T> __host__ __device__ constexpr size_t tc_bytes();
+template <> __host__ __device__ constexpr size_t tc_bytes<bf16>() {
+  return kW16Bytes + 2 * kTcRows * 64 * 2;
+}
+template <> __host__ __device__ constexpr size_t tc_bytes<float>() {
+  return 2 * kW32Floats * 4 + 2 * kTcRows * kA32Ld * 4;
+}
+// gemm's two staged tiles and colsum's scratch reuse the tensor-core tiles
+static_assert(2 * kBK * kLd * 4 <= tc_bytes<bf16>() && 2 * kBK * kLd * 4 <= tc_bytes<float>() &&
+                  8 * kThreads * 4 <= tc_bytes<bf16>(),
+              "the CUDA-core tiles must fit in the tensor-core tiles' space");
+
+// Outputs redone as float32 FMA chains. The tensor cores truncate their
+// float32 sums (alignment and normalisation round toward zero), so a
+// product's value can lie some float32 ulps from the FMA chain in k order
+// that a float32 matmul on the CUDA cores computes (the plain versions'
+// arithmetic, and that of this kernel's CUDA-core versions). Where that
+// decides something, the layer routine redoes the output as that chain from
+// X in global memory and the weight (redo_pairs): each epilogue says which of its
+// values decide (decides()): in bfloat16, a value rounded to bf16 that lies
+// within kMidUlps float32 ulps of a rounding midpoint, and a relu input
+// within zero_share<T>() of its terms' sum of 0. The decisions are a
+// function of the data: a rerun is bit-identical.
+constexpr int kMidUlps = 256;
+template <typename T>
+__host__ __device__ constexpr float zero_share() {
+  return std::is_same<T, float>::value ? 1.0f / 65536 : 1.0f / 4096;
+}
+
+// Whether value v of an epilogue decides a bf16 rounding (rnd: v is rounded
+// to T) or, with a relu, the relu near 0 (terms: the sum of its terms'
+// magnitudes).
+template <typename T>
+__device__ __forceinline__ bool decides(float v, bool rnd, bool relu, float terms) {
+  if (relu && fabsf(v) < zero_share<T>() * terms) return true;
+  if (std::is_same<T, float>::value || !rnd || (relu && v < 0.f)) return false;
+  return abs(static_cast<int>(__float_as_uint(v) & 0xFFFFu) - 0x8000) <= kMidUlps;
+}
+
+// Where the layer routine redoes outputs from. float32: the weight as
+// weight_list holds it, element (n, k) of the product's B^T at
+// w[n * sn + k * sk] (the packed TF32 parts sum to it only within 2^-22);
+// bfloat16 redoes from the packed weight as staged in shared memory, which
+// is exact. w null: nothing is redone.
+template <typename T>
+struct Redo {
+  const T* w;
+  int sn, sk;
+};
+
+// sum_k x[k] w[k * sk], k < K, one FMA after another in k order (not
+// inlined: the elementwise passes call it rarely)
+template <typename T>
+__device__ __noinline__ float fma_chain(const T* x, const T* w, size_t sk, int K) {
+  float s = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) s = fmaf(ld(x + k), ld(w + k * sk), s);
+  return s;
+}
+
+// The chains of outputs n and n + 1 of row x (global memory, 16-byte
+// aligned, zero from K to the next multiple of 8): bfloat16 from rows r and
+// r + 1 of the weight slice that layer_tc staged (Ws, swizzled as stage_sw
+// leaves it), 8 at a time in k order; float32 from r's weight.
+static __device__ __noinline__ void chain2(const bf16* x, const bf16* Ws, int r, int K, float& s0,
+                                           float& s1) {
+  float a = 0.f, b = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 8) {
+    const bf16* blk = Ws + (k >> 6) * 128 * 64;
+    const int c = (k & 63) >> 3;
+    float xv[8], w0[8], w1[8];
+    ld8(x + k, xv);
+    ld8(blk + r * 64 + ((c ^ (r & 7)) << 3), w0);
+    ld8(blk + (r + 1) * 64 + ((c ^ ((r + 1) & 7)) << 3), w1);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) a = fmaf(xv[q], w0[q], a), b = fmaf(xv[q], w1[q], b);
+  }
+  s0 = a, s1 = b;
+}
+static __device__ __noinline__ void chain2(const float* x, const float* w, int sn, int sk, int K,
+                                    float& s0, float& s1) {
+  float a = 0.f, b = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float xv = x[k];
+    a = fmaf(xv, w[(size_t)k * sk], a);
+    b = fmaf(xv, w[sn + (size_t)k * sk], b);
+  }
+  s0 = a, s1 = b;
+}
+
+// After a tile's epilogue: each pair of outputs whose bit j is set in
+// `flags` (row r + 8 (j & 1), columns n = nb + 64 (j >> 4) + 8 ((j & 15) >> 1)
+// and n + 1, as the accumulator fragments hold them) is redone by
+// chain(m, n, s0, s1) and given to epi again: an epilogue writes only its
+// own positions, so the second call replaces the first.
+template <typename Chain, typename Epi>
+__device__ inline void redo_pairs(unsigned flags, int r, int nb, Chain chain, Epi& epi) {
+  for (; flags != 0; flags &= flags - 1) {
+    const int j = __ffs(flags) - 1;
+    const int m = r + 8 * (j & 1), n = nb + 64 * (j >> 4) + 8 * ((j & 15) >> 1);
+    float s0, s1;
+    chain(m, n, s0, s1);
+    epi(m, n, s0, s1);
+  }
+}
+
+// Rows [r0, r0 + R) and columns [c0, c0 + 64 CB) of src (row stride ld
+// elements; rows >= rlim and columns >= clim read as zero; clim, ld and c0
+// multiples of 8) into CB column blocks of R rows x 64, swizzled (mma.cuh),
+// by cp.async. Every thread calls it; nothing waits.
+__device__ inline void stage_sw(bf16* dst, const bf16* src, int ld, int r0, int R, int rlim, int c0,
+                                int CB, int clim) {
+  const int n = R * CB * 8;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int c = idx & 7, r = (idx >> 3) % R, cb = (idx >> 3) / R;
+    const int gr = r0 + r, gc = c0 + cb * 64 + c * 8;
+    const bool ok = gr < rlim && gc < clim;
+    tc::cp_async16(dst + (size_t)cb * R * 64 + r * 64 + ((c ^ (r & 7)) << 3),
+                   ok ? src + (size_t)gr * ld + gc : src, ok);
+  }
+}
+
+// Rows [r0, r0 + R) and columns [c0, c0 + C) of src into dst, row stride dld
+// floats (zero beyond rlim / clim; C, clim, ld and c0 multiples of 4).
+__device__ inline void stage_pad(float* dst, int dld, const float* src, int ld, int r0, int R,
+                                 int rlim, int c0, int C, int clim) {
+  const int cpr = C / 4, n = R * cpr;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int r = idx / cpr, c = (idx % cpr) * 4;
+    const int gr = r0 + r, gc = c0 + c;
+    const bool ok = gr < rlim && gc < clim;
+    tc::cp_async16(dst + r * dld + c, ok ? src + (size_t)gr * ld + gc : src, ok);
+  }
+}
+
+// Y(m, n) = sum_k X(m, k) P(n, k) for m < M, n < N, k < K: X (M, K) of row
+// stride ldx, P the packed weight (N, round16(K)) (lo: float32's second TF32
+// part). epi(m, n, c0, c1) receives every output from the registers, the
+// two adjacent columns n (even) and n + 1 at once; it may read and write
+// those positions of other buffers but not X, and returns whether a value
+// decides something (decides()): then, with rd.w, it receives the pair again
+// redone as FMA chains. Every thread calls it; it ends with a barrier (or
+// returns at once when M is 0). K <= 256; ldx and N multiples of 8, and K
+// too unless X is zero from column K to the next multiple of 8 (the relation
+// inputs, rel_in_ld).
+template <typename Epi>
+__device__ void layer_tc(int M, int N, int K, const bf16* X, int ldx, const bf16* P, const bf16*,
+                         unsigned char* tcs, Redo<bf16> rd, Epi epi) {
+  const int Kp = round16(K), kbn = (Kp + 63) / 64;  // 64-deep blocks
+  bf16* Ws = reinterpret_cast<bf16*>(tcs);
+  bf16* As = reinterpret_cast<bf16*>(tcs + kW16Bytes);
+  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const int steps = (M + kTcRows - 1) / kTcRows * kbn;
+  if (steps == 0) return;
+  GNN_SUB_START(tt);
+  for (int n0 = 0; n0 < N; n0 += 128) {
+    const bool two = N - n0 > 64;  // the slice's second 64 columns hold outputs
+    stage_sw(Ws, P, Kp, n0, 128, N, 0, kbn, Kp);
+    stage_sw(As, X, ldx, 0, kTcRows, M, 0, 1, K);
+    tc::cp_async_commit();
+    float acc[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      const int m0 = s / kbn * kTcRows, kb = s % kbn;
+      if (s + 1 < steps) {
+        const int s1 = s + 1;
+        stage_sw(As + (s1 & 1) * kTcRows * 64, X, ldx, s1 / kbn * kTcRows, kTcRows, M,
+                 s1 % kbn * 64, 1, K);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      tc::fence_proxy_async();
+      __syncthreads();
+      GNN_SUB(13, tt);
+      const bf16* A = As + (s & 1) * kTcRows * 64 + wg * 64 * 64;
+      const bf16* Bk = Ws + kb * 128 * 64;
+      // a warpgroup whose 64 rows all lie past M has no products to do
+      const int ksteps = m0 + wg * 64 < M ? imin(4, (K - kb * 64 + 15) / 16) : 0;
+      // Each k16 step into fresh accumulators, added to acc by rounded float32
+      // adds: carried through the tensor cores, the sum truncates toward zero
+      // at every step, which flips the bf16 rounding of the outputs far more
+      // often than a float32 FMA chain does.
+      for (int ks = 0; ks < ksteps; ++ks) {
+        float t[2][32];
+        const uint64_t da = tc::desc_sw128(A + ks * 16, 16, 1024);
+        tc::wgmma_fence();
+        tc::wgmma_m64n64k16<0, 0>(t[0], da, tc::desc_sw128(Bk + ks * 16, 16, 1024), 0);
+        if (two)
+          tc::wgmma_m64n64k16<0, 0>(t[1], da, tc::desc_sw128(Bk + 64 * 64 + ks * 16, 16, 1024), 0);
+        tc::wgmma_commit();
+        tc::wgmma_wait0();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          acc[0][i] += t[0][i];
+          if (two) acc[1][i] += t[1][i];
+        }
+      }
+      GNN_SUB(14, tt);
+      if (kb == kbn - 1) {
+        const int r = m0 + wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
+        unsigned flags = 0;
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const int m = r + 8 * ((i & 3) >> 1);
+            const int n = n0 + nb * 64 + 8 * (i >> 2) + 2 * (wt & 3);
+            if (m < M && n < N && epi(m, n, acc[nb][i], acc[nb][i + 1]))
+              flags |= 1u << (nb * 16 + (i >> 1));
+            acc[nb][i] = acc[nb][i + 1] = 0.f;
+          }
+        if (rd.w != nullptr)
+          redo_pairs(flags, r, n0 + 2 * (wt & 3), [&](int m, int n, float& s0, float& s1) {
+            chain2(X + (size_t)m * ldx, Ws, n - n0, K, s0, s1);
+          }, epi);
+      }
+      __syncthreads();
+      GNN_SUB(15, tt);
+    }
+  }
+}
+
+template <typename Epi>
+__device__ void layer_tc(int M, int N, int K, const float* X, int ldx, const float* Ph,
+                         const float* Pl, unsigned char* tcs, Redo<float> rd, Epi epi) {
+  // the weight slice's hi and lo parts, K-major and swizzled (32-float column
+  // blocks of nc rows; staged as bf16 pairs, the same bytes), then the A tiles
+  const int Kp = round16(K), nc = Kp <= 128 ? 128 : 64;
+  bf16* Sh = reinterpret_cast<bf16*>(tcs);
+  bf16* Sl = reinterpret_cast<bf16*>(tcs + kW32Floats * 4);
+  float* As = reinterpret_cast<float*>(tcs + 2 * kW32Floats * 4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const int kcn = (K + 31) / 32, steps = (M + kTcRows - 1) / kTcRows * kcn;
+  if (steps == 0) return;
+  GNN_SUB_START(tt);
+  for (int n0 = 0; n0 < N; n0 += nc) {
+    const int halves = imin(nc, N - n0) > 64 ? 2 : 1;
+    stage_sw(Sh, reinterpret_cast<const bf16*>(Ph), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp);
+    stage_sw(Sl, reinterpret_cast<const bf16*>(Pl), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp);
+    stage_pad(As, kA32Ld, X, ldx, 0, kTcRows, M, 0, 32, K);
+    tc::cp_async_commit();
+    float acc[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      const int m0 = s / kcn * kTcRows, kc = s % kcn;
+      if (s + 1 < steps) {
+        const int s1 = s + 1;
+        stage_pad(As + (s1 & 1) * kTcRows * kA32Ld, kA32Ld, X, ldx, s1 / kcn * kTcRows, kTcRows, M,
+                  s1 % kcn * 32, 32, K);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      tc::fence_proxy_async();
+      __syncthreads();
+      GNN_SUB(13, tt);
+      const float* A = As + (s & 1) * kTcRows * kA32Ld + (warp * 16 + g) * kA32Ld + t;
+      // a warpgroup whose 64 rows all lie past M has no products to do
+      const int ksteps = m0 + wg * 64 < M ? imin(4, (K - kc * 32 + 7) / 8) : 0;
+      const bf16* bh = Sh + kc * nc * 64;  // this 32-float column block
+      const bf16* bl = Sl + kc * nc * 64;
+      for (int kk = 0; kk < ksteps; ++kk) {
+        // A split in registers; the two small cross terms, then the large
+        // one, into fresh accumulators added to acc by float32 adds: the
+        // tensor cores' float32 sums truncate, and carried through the 48
+        // products of a 128-deep layer they gave ~9e-7 of the result and
+        // more of the forward's relu flips against float64
+        uint32_t ah[4], al[4];
+        tc::split_tf32(A[kk * 8], ah[0], al[0]);
+        tc::split_tf32(A[8 * kA32Ld + kk * 8], ah[1], al[1]);
+        tc::split_tf32(A[kk * 8 + 4], ah[2], al[2]);
+        tc::split_tf32(A[8 * kA32Ld + kk * 8 + 4], ah[3], al[3]);
+        float d[2][32];
+        tc::wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < halves) {
+            const uint64_t dh = tc::desc_sw128(bh + h * 64 * 64 + kk * 16, 16, 1024);
+            const uint64_t dl = tc::desc_sw128(bl + h * 64 * 64 + kk * 16, 16, 1024);
+            tc::wgmma_m64n64k8_tf32(d[h], al, dh, 0);
+            tc::wgmma_m64n64k8_tf32(d[h], ah, dl, 1);
+            tc::wgmma_m64n64k8_tf32(d[h], ah, dh, 1);
+          }
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait0();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          acc[0][i] += d[0][i];
+          if (halves > 1) acc[1][i] += d[1][i];
+        }
+      }
+      GNN_SUB(14, tt);
+      if (kc == kcn - 1) {
+        const int r = m0 + wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
+        unsigned flags = 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const int m = r + 8 * ((i & 3) >> 1);
+            const int n = n0 + h * 64 + 8 * (i >> 2) + 2 * (wt & 3);
+            if (m < M && n < N && epi(m, n, acc[h][i], acc[h][i + 1]))
+              flags |= 1u << (h * 16 + (i >> 1));
+            acc[h][i] = acc[h][i + 1] = 0.f;
+          }
+        if (rd.w != nullptr)
+          redo_pairs(flags, r, n0 + 2 * (wt & 3), [&](int m, int n, float& s0, float& s1) {
+            chain2(X + (size_t)m * ldx, rd.w + (size_t)n * rd.sn, rd.sn, rd.sk, K, s0, s1);
+          }, epi);
+      }
+      __syncthreads();
+      GNN_SUB(15, tt);
+    }
+  }
+}
+
+// wgrad_tc's bias sums: thread t holds column n0 + (t % 128) of row half
+// t / 128; bsum gets the first half plus the second.
+__device__ inline void bias_halves(float bs, int n0, int Nout, float* red, float* bsum) {
+  red[threadIdx.x] = bs;
+  __syncthreads();
+  const int n = n0 + threadIdx.x;
+  if (threadIdx.x < 128 && n < Nout) bsum[n] = red[threadIdx.x] + red[128 + threadIdx.x];
+  __syncthreads();
+}
+
+// G(m, n) = sum_r X(r, m) Y(r, n) for m < Kin <= 128, n < Nout, r < R (the
+// rows in order of their 64- or 32-row chunks; rows past R read as zero, so
+// padded rows never reach a sum): X (R, Kin) and Y (R, Nout) of row strides
+// ldx, ldy, Nout multiples of 8. epi(m, n, c0, c1) receives every output,
+// columns n (even) and n + 1 at once. With bsum,
+// also the column sums of Y (the bias gradient), bsum[n] = sum_r Y(r, n),
+// from the staged tiles: each thread sums one column over half of each
+// chunk's rows, chunk after chunk, then the two halves are added (a fixed
+// order: a rerun is bit-identical). Every thread calls it; it ends with a
+// barrier.
+template <typename Epi>
+__device__ void wgrad_tc(int Kin, int Nout, int R, const bf16* X, int ldx, const bf16* Y, int ldy,
+                         unsigned char* tcs, float* bsum, Epi epi) {
+  bf16* Xs = reinterpret_cast<bf16*>(tcs);  // per stage two 64 x 64 column blocks
+  bf16* Ys = Xs + 2 * 128 * 64;
+  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const int steps = (R + 63) / 64;
+  const bool mine = wg * 64 < Kin;  // this warpgroup's 64 rows of G hold outputs
+  float* red = reinterpret_cast<float*>(tcs + kRedOff16);
+  GNN_SUB_START(tt);
+  for (int n0 = 0; n0 < Nout; n0 += 128) {
+    float bs = 0.f;  // column n0 + wt over rows wg * 32 .. + 32 of each chunk
+    const bool two = Nout - n0 > 64;
+    if (steps > 0) {
+      stage_sw(Xs, X, ldx, 0, 64, R, 0, 2, Kin);
+      stage_sw(Ys, Y, ldy, 0, 64, R, n0, 2, Nout);
+      tc::cp_async_commit();
+    }
+    float acc[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      if (s + 1 < steps) {
+        const int st = (s + 1) & 1;
+        stage_sw(Xs + st * 128 * 64, X, ldx, (s + 1) * 64, 64, R, 0, 2, Kin);
+        stage_sw(Ys + st * 128 * 64, Y, ldy, (s + 1) * 64, 64, R, n0, 2, Nout);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      tc::fence_proxy_async();
+      __syncthreads();
+      GNN_SUB(13, tt);
+      if (bsum != nullptr) {
+        const bf16* col = Ys + (s & 1) * 128 * 64 + (wt >> 6) * 64 * 64 + (wt & 7);
+        const int c = (wt & 63) >> 3;
+#pragma unroll 8
+        for (int r = wg * 32; r < wg * 32 + 32; ++r) bs += ld(col + r * 64 + ((c ^ (r & 7)) << 3));
+      }
+      if (mine) {
+        const bf16* A = Xs + (s & 1) * 128 * 64 + wg * 64 * 64;
+        const bf16* Bk = Ys + (s & 1) * 128 * 64;
+        tc::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t da = tc::desc_sw128(A + ks * 16 * 64, 1024, 1024);
+          const int accumulate = s > 0 || ks > 0;
+          tc::wgmma_m64n64k16<1, 1>(acc[0], da, tc::desc_sw128(Bk + ks * 16 * 64, 1024, 1024),
+                                    accumulate);
+          if (two)
+            tc::wgmma_m64n64k16<1, 1>(acc[1], da,
+                                      tc::desc_sw128(Bk + 64 * 64 + ks * 16 * 64, 1024, 1024),
+                                      accumulate);
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait0();
+      }
+      __syncthreads();
+      GNN_SUB(14, tt);
+    }
+    if (mine) {
+      const int r = wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int m = r + 8 * ((i & 3) >> 1);
+          const int n = n0 + nb * 64 + 8 * (i >> 2) + 2 * (wt & 3);
+          if (m < Kin && n < Nout) epi(m, n, acc[nb][i], acc[nb][i + 1]);
+        }
+    }
+    if (bsum != nullptr) bias_halves(bs, n0, Nout, red, bsum);
+    GNN_SUB(15, tt);
+  }
+  __syncthreads();
+}
+
+template <typename Epi>
+__device__ void wgrad_tc(int Kin, int Nout, int R, const float* X, int ldx, const float* Y, int ldy,
+                         unsigned char* tcs, float* bsum, Epi epi) {
+  // per stage a 32-row chunk of X and of dY (row stride kG32Ld); then dY's
+  // chunk transposed, split into TF32 hi and lo, K-major and swizzled (128
+  // rows n x 32 floats r each): wgmma takes tf32 B only K-major
+  float* Xs = reinterpret_cast<float*>(tcs);
+  float* Ys = Xs + 2 * 32 * kG32Ld;
+  float* Bh = reinterpret_cast<float*>(tcs + kB32Off);
+  float* Bl = Bh + 128 * 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const int steps = (R + 31) / 32;
+  const bool mine = wg * 64 < Kin;  // this warpgroup's 64 rows of G hold outputs
+  float* red = reinterpret_cast<float*>(tcs + kRedOff32);
+  GNN_SUB_START(tt);
+  for (int n0 = 0; n0 < Nout; n0 += 128) {
+    const int halves = Nout - n0 > 64 ? 2 : 1;
+    float bs = 0.f;  // column n0 + wt over rows wg * 16 .. + 16 of each chunk
+    if (steps > 0) {
+      stage_pad(Xs, kG32Ld, X, ldx, 0, 32, R, 0, 128, Kin);
+      stage_pad(Ys, kG32Ld, Y, ldy, 0, 32, R, n0, 128, Nout);
+      tc::cp_async_commit();
+    }
+    float acc[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      if (s + 1 < steps) {
+        const int st = (s + 1) & 1;
+        stage_pad(Xs + st * 32 * kG32Ld, kG32Ld, X, ldx, (s + 1) * 32, 32, R, 0, 128, Kin);
+        stage_pad(Ys + st * 32 * kG32Ld, kG32Ld, Y, ldy, (s + 1) * 32, 32, R, n0, 128, Nout);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();
+      GNN_SUB(13, tt);
+      const float* Yc = Ys + (s & 1) * 32 * kG32Ld;
+      if (bsum != nullptr) {
+#pragma unroll
+        for (int r = wg * 16; r < wg * 16 + 16; ++r) bs += Yc[r * kG32Ld + wt];
+      }
+      for (int idx = threadIdx.x; idx < 32 * 128; idx += kThreads) {
+        const int n = idx & 127, r = idx >> 7;
+        uint32_t hi, lo;
+        tc::split_tf32(Yc[r * kG32Ld + n], hi, lo);
+        const int at = n * 32 + ((((r >> 2) ^ (n & 7))) << 2) + (r & 3);
+        Bh[at] = __uint_as_float(hi);
+        Bl[at] = __uint_as_float(lo);
+      }
+      tc::fence_proxy_async();
+      __syncthreads();
+      if (mine) {
+        // A = X^T from registers: (m, k) = X(r = k, m), split in registers
+        const float* A = Xs + (s & 1) * 32 * kG32Ld + t * kG32Ld + warp * 16 + g;
+        const bf16* bh = reinterpret_cast<const bf16*>(Bh);
+        const bf16* bl = reinterpret_cast<const bf16*>(Bl);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int o = kk * 8 * kG32Ld, o4 = o + 4 * kG32Ld;
+          uint32_t ah[4], al[4];
+          tc::split_tf32(A[o], ah[0], al[0]);
+          tc::split_tf32(A[o + 8], ah[1], al[1]);
+          tc::split_tf32(A[o4], ah[2], al[2]);
+          tc::split_tf32(A[o4 + 8], ah[3], al[3]);
+          tc::wgmma_fence();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (h < halves) {
+              const uint64_t dh = tc::desc_sw128(bh + h * 64 * 64 + kk * 16, 16, 1024);
+              const uint64_t dl = tc::desc_sw128(bl + h * 64 * 64 + kk * 16, 16, 1024);
+              tc::wgmma_m64n64k8_tf32(acc[h], al, dh, 1);
+              tc::wgmma_m64n64k8_tf32(acc[h], ah, dl, 1);
+              tc::wgmma_m64n64k8_tf32(acc[h], ah, dh, 1);
+            }
+          }
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait0();
+      }
+      __syncthreads();
+      GNN_SUB(14, tt);
+    }
+    if (mine) {
+      const int r = wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int m = r + 8 * ((i & 3) >> 1);
+          const int n = n0 + h * 64 + 8 * (i >> 2) + 2 * (wt & 3);
+          if (m < Kin && n < Nout) epi(m, n, acc[h][i], acc[h][i + 1]);
+        }
+    }
+    if (bsum != nullptr) bias_halves(bs, n0, Nout, red, bsum);
+    GNN_SUB(15, tt);
+  }
+  __syncthreads();
+}
+
+// out[n] = sum over m < M of Y[m * ldy + n], n < N: P = min(8, kThreads / N)
+// parts of consecutive rows, each summed in row order, then the parts in
+// order (a fixed order: a rerun is bit-identical). red: 8 * N floats of
+// scratch. Every thread calls it; it ends with a barrier.
+template <typename TY>
+__device__ void colsum(int M, int N, const TY* Y, int ldy, float* out, float* red) {
+  const int P = imax(1, imin(8, kThreads / N)), per = (M + P - 1) / P;
+  for (int idx = threadIdx.x; idx < P * N; idx += kThreads) {
+    const int n = idx % N, p = idx / N, m1 = imin(M, (p + 1) * per);
+    float s = 0.f;
+#pragma unroll 8
+    for (int m = p * per; m < m1; ++m) s += ld(Y + (size_t)m * ldy + n);
+    red[p * N + n] = s;
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += kThreads) {
+    float s = 0.f;
+    for (int p = 0; p < P; ++p) s += red[p * N + n];
+    out[n] = s;
+  }
+  __syncthreads();
+}
+
 // Y = act(X @ W + b) rounded to T, for M rows: X (M, Kin) row stride ldx,
-// W (Kin, Nout) and b (Nout) in the compute dtype, Y (M, Nout) dense.
+// Y (M, Nout) dense. On the CUDA cores (W (Kin, Nout) of weight_list):
 template <typename T, typename TX>
 __device__ void dense(int M, int Kin, int Nout, const TX* X, int ldx, const T* Wt, const T* bias,
-                      float* Y, bool relu, float* sm) {
+                      T* Y, bool relu, float* sm) {
   gemm(M, Nout, Kin, X, (size_t)ldx, (size_t)1, Wt, (size_t)Nout, (size_t)1, sm,
        [&](int m, int n, float c) {
          float v = c + ld(bias + n);
          if (relu) v = fmaxf(v, 0.f);
-         Y[(size_t)m * Nout + n] = rnd<T>(v);
+         st(Y + (size_t)m * Nout + n, rnd<T>(v));
        });
+}
+
+// ... and on the tensor cores (tensor-core layer l of the packed weights;
+// with `redo`, the outputs that decide something are redone, from
+// weight_list's W (Kin, Nout) in float32):
+template <typename T>
+__device__ void dense_tc(int M, int Kin, int Nout, const T* X, int ldx, const Weights<T>& w, int l,
+                         const T* bias, T* Y, bool relu, bool redo, unsigned char* tcs) {
+  const Redo<T> rd{redo ? w.w[tc_weight(l)] : nullptr, 1, Nout};
+  layer_tc(M, Nout, Kin, X, ldx, w.hi[l], w.lo[l], tcs, rd, [&](int m, int n, float c0, float c1) {
+    const float2 b = ld2(bias + n);
+    const float v0 = c0 + b.x, v1 = c1 + b.y;
+    const bool again = decides<T>(v0, true, relu, fabsf(c0) + fabsf(b.x)) ||
+                       decides<T>(v1, true, relu, fabsf(c1) + fabsf(b.y));
+    st2(Y + (size_t)m * Nout + n, rnd<T>(relu ? fmaxf(v0, 0.f) : v0),
+        rnd<T>(relu ? fmaxf(v1, 0.f) : v1));
+    return again;
+  });
 }
 
 // The real edges of one sample (mask > 0 and a sender inside [0, Np)),
@@ -169,11 +901,12 @@ __device__ inline int build_edges(const int* nbr, const float* mask, int Np, int
   }
   __syncthreads();
   const int E = off[Np];
-  if (sl != nullptr) {
-    for (int j = threadIdx.x; j < Np; j += kThreads) {
+  if (sl != nullptr) {  // one warp per sender, 32 edges per ballot
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int j = warp; j < Np; j += kThreads / 32) {
       int c = 0;
-      for (int e = 0; e < E; ++e) c += (es[e] == j);
-      soff[j + 1] = c;
+      for (int e = lane; e - lane < E; e += 32) c += __popc(__ballot_sync(~0u, e < E && es[e] == j));
+      if (lane == 0) soff[j + 1] = c;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -181,27 +914,33 @@ __device__ inline int build_edges(const int* nbr, const float* mask, int Np, int
       for (int j = 0; j < Np; ++j) soff[j + 1] += soff[j];
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < Np; j += kThreads) {
+    for (int j = warp; j < Np; j += kThreads / 32) {
       int at = soff[j];
-      for (int e = 0; e < E; ++e)
-        if (es[e] == j) sl[at++] = e;
+      for (int e = lane; e - lane < E; e += 32) {
+        const bool hit = e < E && es[e] == j;
+        const unsigned m = __ballot_sync(~0u, hit);
+        if (hit) sl[at + __popc(m & ((1u << lane) - 1))] = e;
+        at += __popc(m);
+      }
     }
     __syncthreads();
   }
   return E;
 }
 
-// Shared memory of a block: the gemm tiles, then the edge lists; with
-// `radius`, also the (Np, K) sender table and per-row counts that the
-// in-kernel graph build (edge_build.cuh) fills.
+// Shared memory of a block, from a 1,024-aligned base (align_smem): the
+// tensor-core tiles (which the CUDA-core gemm tiles and the column sums'
+// scratch reuse), then the edge lists; with `radius`, also the (Np, K) sender
+// table and per-row counts that the in-kernel graph build (edge_build.cuh)
+// fills. `total` includes the 1,024 bytes the alignment may skip.
 struct Smem {
   size_t off, soff, er, es, sl, nbr, cnt, total;
 };
 
-__host__ __device__ inline Smem smem_layout(int Np, int K, bool senders, bool radius = false) {
+__host__ __device__ inline Smem smem_layout(int Np, int K, bool senders, bool radius, bool bf16_mode) {
   const size_t emax = (size_t)Np * K;
   Smem s;
-  size_t at = (size_t)kGemmFloats * 4;
+  size_t at = bf16_mode ? tc_bytes<bf16>() : tc_bytes<float>();
   s.off = at;  at = align16(at + (Np + 1) * 4);
   s.soff = at; at = align16(at + (senders ? (Np + 1) * 4 : 0));
   s.er = at;   at = align16(at + emax * 2);
@@ -209,43 +948,51 @@ __host__ __device__ inline Smem smem_layout(int Np, int K, bool senders, bool ra
   s.sl = at;   at = align16(at + (senders ? emax * 4 : 0));
   s.nbr = at;  at = align16(at + (radius ? emax * 2 : 0));
   s.cnt = at;  at = align16(at + (radius ? Np * 4 : 0));
-  s.total = at;
+  s.total = at + 1024;
   return s;
 }
 
-// Where the forward keeps its activations (float32, rounded to T). Edge
-// buffers hold real-edge rows. Round t of message passing reads effect slot
+__device__ inline unsigned char* align_smem(unsigned char* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// Where the forward keeps its activations (in T). Edge buffers hold
+// real-edge rows. Round t of message passing reads effect slot
 // t % eff_slots and writes slot (t + 1) % eff_slots; the aggregate and the
-// messages advance by agg_step and ms_step floats per round; ms may be null
+// messages advance by agg_step and ms_step elements per round; ms may be null
 // (a forward alone keeps no messages).
+template <typename T>
 struct FwdBufs {
-  float *rel_in, *re_h1, *re_h2, *r_enc, *rel_base, *ms;
-  float *pe_h1, *pe_h2, *effs, *pb, *rs, *aggs, *nr_h1, *nr_h2;
+  T *rel_in, *re_h1, *re_h2, *r_enc, *rel_base, *ms;
+  T *pe_h1, *pe_h2, *effs, *pb, *rs, *aggs, *nr_h1, *nr_h2;
   size_t eff_step, agg_step, ms_step;
   int eff_slots;
 };
 
 // The forward's activations of one sample, every one kept for the backward
-// (the forward writes them, the backward reads them): node buffers pe_h1,
-// pe_h2, effs (pstep + 1), pb, rs (2 nf), aggs (pstep), nr_h1, nr_h2; edge
-// buffers rel_in, re_h1, re_h2, r_enc, rel_base, ms (pstep), sized for every
-// slot and written on the real edges. chip_smoke.py's kernel_relu_outputs
-// reads this layout.
-__host__ __device__ inline size_t act_node_floats(const Dims& d) {
+// (the forward writes them, the backward reads them), in elements of T: node
+// buffers pe_h1, pe_h2, effs (pstep + 1), pb, rs (2 nf), aggs (pstep), nr_h1,
+// nr_h2; edge buffers rel_in, re_h1, re_h2, r_enc, rel_base, ms (pstep),
+// sized for every slot and written on the real edges. gnn_forward.cu's
+// gnn_forward_act_offsets exports where each buffer starts
+// (ops/fused_gnn.py::act_layout).
+__host__ __device__ inline size_t act_node_elems(const Dims& d) {
   const size_t nf = d.nf;
   return (size_t)d.Np * (2 * d.nf_p + (d.pstep + 1) * nf + nf + 2 * nf + d.pstep * nf + 2 * nf);
 }
 
-__host__ __device__ inline size_t act_edge_floats(const Dims& d) {
-  return (size_t)d.Np * d.K * (d.rel_in + 2 * d.nf_r + 2 * d.nf + d.pstep * d.nf);
+__host__ __device__ inline size_t act_edge_elems(const Dims& d) {
+  return (size_t)d.Np * d.K * (rel_in_ld(d) + 2 * d.nf_r + 2 * d.nf + d.pstep * d.nf);
 }
 
-// Sample b's activation buffers in the two scratch tensors.
-__host__ __device__ inline FwdBufs act_bufs(const Dims& d, float* node_acts, float* edge_acts,
-                                            int b) {
+// Sample b's activation buffers in the two tensors.
+template <typename T>
+__host__ __device__ inline FwdBufs<T> act_bufs(const Dims& d, void* node_acts, void* edge_acts,
+                                               int b) {
   const size_t nN = d.Np, eN = (size_t)d.Np * d.K, nf = d.nf;
-  float* at = node_acts + (size_t)b * act_node_floats(d);
-  FwdBufs f;
+  T* at = static_cast<T*>(node_acts) + (size_t)b * act_node_elems(d);
+  FwdBufs<T> f;
   f.pe_h1 = at; at += nN * d.nf_p;
   f.pe_h2 = at; at += nN * d.nf_p;
   f.effs = at;  at += nN * nf * (d.pstep + 1);
@@ -254,8 +1001,8 @@ __host__ __device__ inline FwdBufs act_bufs(const Dims& d, float* node_acts, flo
   f.aggs = at;  at += nN * nf * d.pstep;
   f.nr_h1 = at; at += nN * nf;
   f.nr_h2 = at;
-  float* ae = edge_acts + (size_t)b * act_edge_floats(d);
-  f.rel_in = ae;   ae += eN * d.rel_in;
+  T* ae = static_cast<T*>(edge_acts) + (size_t)b * act_edge_elems(d);
+  f.rel_in = ae;   ae += eN * rel_in_ld(d);
   f.re_h1 = ae;    ae += eN * d.nf_r;
   f.re_h2 = ae;    ae += eN * d.nf_r;
   f.r_enc = ae;    ae += eN * nf;
@@ -272,19 +1019,20 @@ __host__ __device__ inline FwdBufs act_bufs(const Dims& d, float* node_acts, flo
 // aggregate, nr_h1, nr_h2; edge buffers X, Y (each as wide as the widest of
 // the layers that share it) and rel_base: rel_in and re_h2 in X, re_h1 and
 // r_enc in Y, so no layer's output overwrites its input. No messages.
-__host__ __device__ inline size_t scratch_node_floats(const Dims& d) {
+__host__ __device__ inline size_t scratch_node_elems(const Dims& d) {
   return (size_t)d.Np * (2 * d.nf_p + 2 * d.nf + d.nf + 2 * d.nf + d.nf + 2 * d.nf);
 }
 
-__host__ __device__ inline size_t scratch_edge_floats(const Dims& d) {
-  return (size_t)d.Np * d.K * (imax(d.rel_in, d.nf_r) + imax(d.nf_r, d.nf) + d.nf);
+__host__ __device__ inline size_t scratch_edge_elems(const Dims& d) {
+  return (size_t)d.Np * d.K * (imax(rel_in_ld(d), d.nf_r) + imax(d.nf_r, d.nf) + d.nf);
 }
 
-__host__ __device__ inline FwdBufs scratch_bufs(const Dims& d, float* node_s, float* edge_s,
-                                                int slot) {
+template <typename T>
+__host__ __device__ inline FwdBufs<T> scratch_bufs(const Dims& d, void* node_s, void* edge_s,
+                                                   int slot) {
   const size_t nN = d.Np, eN = (size_t)d.Np * d.K, nf = d.nf;
-  float* at = node_s + (size_t)slot * scratch_node_floats(d);
-  FwdBufs f;
+  T* at = static_cast<T*>(node_s) + (size_t)slot * scratch_node_elems(d);
+  FwdBufs<T> f;
   f.pe_h1 = at; at += nN * d.nf_p;
   f.pe_h2 = at; at += nN * d.nf_p;
   f.effs = at;  at += nN * nf * 2;
@@ -293,8 +1041,8 @@ __host__ __device__ inline FwdBufs scratch_bufs(const Dims& d, float* node_s, fl
   f.aggs = at;  at += nN * nf;
   f.nr_h1 = at; at += nN * nf;
   f.nr_h2 = at;
-  float* ae = edge_s + (size_t)slot * scratch_edge_floats(d);
-  f.rel_in = f.re_h2 = ae;  ae += eN * imax(d.rel_in, d.nf_r);
+  T* ae = static_cast<T*>(edge_s) + (size_t)slot * scratch_edge_elems(d);
+  f.rel_in = f.re_h2 = ae;  ae += eN * imax(rel_in_ld(d), d.nf_r);
   f.re_h1 = f.r_enc = ae;   ae += eN * imax(d.nf_r, d.nf);
   f.rel_base = ae;
   f.ms = nullptr;
@@ -306,69 +1054,142 @@ __host__ __device__ inline FwdBufs scratch_bufs(const Dims& d, float* node_s, fl
 
 // The JAX kernel's forward for one sample (prebuilt edges), up to the motion
 // head's second hidden layer: nodes (Np, D) = [p_inputs (Dp) | state_norm
-// (nh3) | attrs (2) | g (1)] in T; w the 24 weights in T.
+// (nh3) | attrs (2) | g (1)] in T. smem: the block's aligned shared memory.
 template <typename T>
-__device__ void forward_body(const Dims& d, const T* nodes, const T* const* w, int E, const int* off,
-                             const short* er, const short* es, const FwdBufs& f, float* sm) {
-  const int nh3 = d.n_his * 3, nf = d.nf, rin = d.rel_in, Np = d.Np, D = d.D, Dp = d.Dp;
-  // relation inputs [T_attrs | G_attrs | |T_g - G_g| | T_sn - G_sn], differences in T
-  for (int idx = threadIdx.x; idx < E * rin; idx += kThreads) {
-    const int e = idx / rin, c = idx % rin;
-    const T* gi = nodes + (size_t)er[e] * D + Dp;
-    const T* gj = nodes + (size_t)es[e] * D + Dp;
-    float v;
-    if (c < 2) v = ld(gi + nh3 + c);
-    else if (c < 4) v = ld(gj + nh3 + c - 2);
-    else if (c == 4) v = fabsf(rnd<T>(ld(gi + nh3 + 2) - ld(gj + nh3 + 2)));
-    else v = rnd<T>(ld(gi + c - 5) - ld(gj + c - 5));
-    f.rel_in[(size_t)e * rin + c] = v;
+__device__ void forward_body(const Dims& d, const T* nodes, const Weights<T>& W, int E,
+                             const int* off, const short* er, const short* es, const FwdBufs<T>& f,
+                             unsigned char* smem) {
+  const int nh3 = d.n_his * 3, nf = d.nf, rin = d.rel_in, rld = rel_in_ld(d), Np = d.Np;
+  const int D = d.D, Dp = d.Dp;
+  const T* const* w = W.w;
+  float* sm = reinterpret_cast<float*>(smem);
+  // Outputs that decide a rounding or a relu are redone (Redo) in float32,
+  // and in bfloat16 where the activations are kept for the backward
+  // (training, where the backward's gradients depend on each decision): a
+  // bf16 forward alone (planning at B 2,000) keeps the tensor cores' sums,
+  // whose error lies within bf16's own, and skips the redos' cost.
+  const bool redo = std::is_same<T, float>::value || f.ms != nullptr;
+  // relation inputs [T_attrs | G_attrs | |T_g - G_g| | T_sn - G_sn], differences
+  // in T, row stride rld (zeros past rin)
+  {
+    const T* __restrict__ nd = nodes;
+    T* __restrict__ ri = f.rel_in;
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < E * rld; idx += kThreads) {
+      const int e = idx / rld, c = idx % rld;
+      const T* gi = nd + (size_t)er[e] * D + Dp;
+      const T* gj = nd + (size_t)es[e] * D + Dp;
+      float v;
+      if (c < 2) v = ld(gi + nh3 + c);
+      else if (c < 4) v = ld(gj + nh3 + c - 2);
+      else if (c == 4) v = fabsf(rnd<T>(ld(gi + nh3 + 2) - ld(gj + nh3 + 2)));
+      else if (c < rin) v = rnd<T>(ld(gi + c - 5) - ld(gj + c - 5));
+      else v = 0.f;
+      st(ri + (size_t)e * rld + c, v);
+    }
   }
   __syncthreads();
+  GNN_PHASE(0);
   // relation encoder (relu after every layer) and the hoisted relation term
-  dense<T>(E, rin, d.nf_r, f.rel_in, rin, w[kRe0w], w[kRe0b], f.re_h1, true, sm);
-  dense<T>(E, d.nf_r, d.nf_r, f.re_h1, d.nf_r, w[kRe1w], w[kRe1b], f.re_h2, true, sm);
-  dense<T>(E, d.nf_r, nf, f.re_h2, d.nf_r, w[kRe2w], w[kRe2b], f.r_enc, true, sm);
-  dense<T>(E, nf, nf, f.r_enc, nf, w[kRpW1], w[kRpB], f.rel_base, false, sm);
+  dense_tc<T>(E, rin, d.nf_r, f.rel_in, rld, W, kTcRe0, w[kRe0b], f.re_h1, true, redo, smem);
+  GNN_PHASE(1);
+  dense_tc<T>(E, d.nf_r, d.nf_r, f.re_h1, d.nf_r, W, kTcRe1, w[kRe1b], f.re_h2, true, redo, smem);
+  dense_tc<T>(E, d.nf_r, nf, f.re_h2, d.nf_r, W, kTcRe2, w[kRe2b], f.r_enc, true, redo, smem);
+  dense_tc<T>(E, nf, nf, f.r_enc, nf, W, kTcRpW1, w[kRpB], f.rel_base, false, redo, smem);
+  GNN_PHASE(2);
   // particle encoder and the hoisted propagator term
   dense<T>(Np, Dp, d.nf_p, nodes, D, w[kPe0w], w[kPe0b], f.pe_h1, true, sm);
-  dense<T>(Np, d.nf_p, d.nf_p, f.pe_h1, d.nf_p, w[kPe1w], w[kPe1b], f.pe_h2, true, sm);
-  dense<T>(Np, d.nf_p, nf, f.pe_h2, d.nf_p, w[kPe2w], w[kPe2b], f.effs, true, sm);
-  dense<T>(Np, nf, nf, f.effs, nf, w[kPpWa], w[kPpB], f.pb, false, sm);
+  GNN_PHASE(3);
+  dense_tc<T>(Np, d.nf_p, d.nf_p, f.pe_h1, d.nf_p, W, kTcPe1, w[kPe1b], f.pe_h2, true, redo, smem);
+  dense_tc<T>(Np, d.nf_p, nf, f.pe_h2, d.nf_p, W, kTcPe2, w[kPe2b], f.effs, true, redo, smem);
+  dense_tc<T>(Np, nf, nf, f.effs, nf, W, kTcPpWa, w[kPpB], f.pb, false, redo, smem);
+  GNN_PHASE(4);
 
   for (int t = 0; t < d.pstep; ++t) {
-    const float* eff = f.effs + (t % f.eff_slots) * f.eff_step;
-    float* eff_next = f.effs + ((t + 1) % f.eff_slots) * f.eff_step;
-    float* agg = f.aggs + t * f.agg_step;
-    float* ms = f.ms ? f.ms + t * f.ms_step : nullptr;
-    float* rs = f.rs;
+    const T* eff = f.effs + (t % f.eff_slots) * f.eff_step;
+    T* eff_next = f.effs + ((t + 1) % f.eff_slots) * f.eff_step;
+    T* agg = f.aggs + t * f.agg_step;
+    T* ms = f.ms ? f.ms + t * f.ms_step : nullptr;
+    T* rs = f.rs;
     // [recv | send] projections
-    gemm(Np, 2 * nf, nf, eff, (size_t)nf, (size_t)1, w[kRpW23], (size_t)(2 * nf), (size_t)1, sm,
-         [&](int m, int n, float c) { rs[(size_t)m * 2 * nf + n] = rnd<T>(c); });
-    // messages relu(rel_base + recv_i + send_j), summed over each receiver's edges
-    for (int idx = threadIdx.x; idx < Np * nf; idx += kThreads) {
-      const int i = idx / nf, c = idx % nf;
-      const float recv = rs[(size_t)i * 2 * nf + c];
-      float acc = 0.f;
-      for (int e = off[i]; e < off[i + 1]; ++e) {
-        const float send = rs[(size_t)es[e] * 2 * nf + nf + c];
-        const float v = fmaxf(rnd<T>(rnd<T>(f.rel_base[(size_t)e * nf + c] + recv) + send), 0.f);
-        if (ms) ms[(size_t)e * nf + c] = v;
-        acc += v;
+    layer_tc(Np, 2 * nf, nf, eff, nf, W.hi[kTcRpW23], W.lo[kTcRpW23], smem,
+             Redo<T>{redo ? w[kRpW23] : nullptr, 1, 2 * nf}, [&](int m, int n, float c0, float c1) {
+               st2(rs + (size_t)m * 2 * nf + n, rnd<T>(c0), rnd<T>(c1));
+               return decides<T>(c0, true, false, 0.f) || decides<T>(c1, true, false, 0.f);
+             });
+    GNN_PHASE(5);
+    // messages relu(rel_base + recv_i + send_j), summed over each receiver's
+    // edges in slot order; eight channels per thread. float32: a message
+    // whose relu input lies within zero_share of its terms' sum of 0 is
+    // redone from FMA chains of its three products (bf16: its terms are
+    // bf16 outputs of the layer routine, decided there)
+    {
+      const T* __restrict__ w1 = w[kRpW1];
+      const T* __restrict__ w23 = w[kRpW23];
+      auto chained = [&](int e, int i, int n) {
+        const float base = fma_chain(f.r_enc + (size_t)e * nf, w1 + n, (size_t)nf, nf) + ld(w[kRpB] + n);
+        const float recv = fma_chain(eff + (size_t)i * nf, w23 + n, (size_t)2 * nf, nf);
+        return base + recv + fma_chain(eff + (size_t)es[e] * nf, w23 + nf + n, (size_t)2 * nf, nf);
+      };
+      const T* __restrict__ rsr = rs;
+      const T* __restrict__ rb = f.rel_base;
+      T* __restrict__ msw = ms;
+      const int nv = nf / 8;
+      for (int idx = threadIdx.x; idx < Np * nv; idx += kThreads) {
+        const int i = idx / nv, c = (idx % nv) * 8;
+        float recv[8], acc[8];
+        ld8(rsr + (size_t)i * 2 * nf + c, recv);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[q] = 0.f;
+#pragma unroll 2
+        for (int e = off[i]; e < off[i + 1]; ++e) {
+          float base[8], send[8], v[8];
+          ld8(rb + (size_t)e * nf + c, base);
+          ld8(rsr + (size_t)es[e] * 2 * nf + nf + c, send);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            float z = rnd<T>(rnd<T>(base[q] + recv[q]) + send[q]);
+            if constexpr (std::is_same<T, float>::value) {
+              if (decides<T>(z, false, true, fabsf(base[q]) + fabsf(recv[q]) + fabsf(send[q])))
+                z = chained(e, i, c + q);
+            }
+            v[q] = fmaxf(z, 0.f);
+            acc[q] += v[q];
+          }
+          if (msw) st8(msw + (size_t)e * nf + c, v);
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[q] = rnd<T>(acc[q]);
+        st8(agg + (size_t)i * nf + c, acc);
       }
-      agg[(size_t)i * nf + c] = rnd<T>(acc);
     }
     __syncthreads();
-    // effect = relu(part_base + agg @ Wb + effect)
-    const float* pb = f.pb;
-    gemm(Np, nf, nf, agg, (size_t)nf, (size_t)1, w[kPpWb], (size_t)nf, (size_t)1, sm,
-         [&](int m, int n, float c) {
-           const size_t at = (size_t)m * nf + n;
-           eff_next[at] = fmaxf(rnd<T>(rnd<T>(pb[at] + rnd<T>(c)) + eff[at]), 0.f);
-         });
+    GNN_PHASE(6);
+    // effect = relu(part_base + agg @ Wb + effect): agg @ Wb decides its
+    // bf16 rounding and (float32, where it is not rounded) the relu
+    const T* pb = f.pb;
+    auto effect = [&](float b, float c, float e, bool& again) {
+      const float z = rnd<T>(rnd<T>(b + rnd<T>(c)) + e);
+      again |= decides<T>(c, true, false, 0.f) ||
+               (std::is_same<T, float>::value &&
+                decides<T>(z, false, true, fabsf(b) + fabsf(c) + fabsf(e)));
+      return fmaxf(z, 0.f);
+    };
+    layer_tc(Np, nf, nf, agg, nf, W.hi[kTcPpWb], W.lo[kTcPpWb], smem,
+             Redo<T>{redo ? w[kPpWb] : nullptr, 1, nf}, [&](int m, int n, float c0, float c1) {
+               const size_t at = (size_t)m * nf + n;
+               const float2 b = ld2(pb + at), e = ld2(eff + at);
+               bool again = false;
+               const float y0 = effect(b.x, c0, e.x, again), y1 = effect(b.y, c1, e.y, again);
+               st2(eff_next + at, y0, y1);
+               return again;
+             });
+    GNN_PHASE(7);
   }
-  const float* eff = f.effs + (d.pstep % f.eff_slots) * f.eff_step;
-  dense<T>(Np, nf, nf, eff, nf, w[kNr0w], w[kNr0b], f.nr_h1, true, sm);
-  dense<T>(Np, nf, nf, f.nr_h1, nf, w[kNr1w], w[kNr1b], f.nr_h2, true, sm);
+  const T* eff = f.effs + (d.pstep % f.eff_slots) * f.eff_step;
+  dense_tc<T>(Np, nf, nf, eff, nf, W, kTcNr0, w[kNr0b], f.nr_h1, true, redo, smem);
+  dense_tc<T>(Np, nf, nf, f.nr_h1, nf, W, kTcNr1, w[kNr1b], f.nr_h2, true, redo, smem);
+  GNN_PHASE(8);
 }
 
 }  // namespace gnn

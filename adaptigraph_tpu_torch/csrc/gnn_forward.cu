@@ -19,13 +19,14 @@
 // pstep 3) the node-level products are ~50 MFLOP per sample against a few KB
 // of inputs; the relation MLP adds ~0.1 MFLOP per real edge.
 //
-// What the design does about it, simply: float32 products on the CUDA cores
-// (gnn_common.cuh's tiled gemm), in both compute dtypes; bfloat16 mode reads
-// bf16 inputs and weights and rounds every layer's output to bf16 where the
-// JAX kernel casts, so its activations are exact bf16 values kept in float32.
-// Only real edges are computed (masked slots add exact zeros in the JAX
-// kernel). A block's node and edge activations do not fit in shared memory
-// beside the gemm tiles, so they live in global buffers from the wrapper:
+// What the design does about it: every product of depth and width >= 16
+// runs on the tensor cores through gnn_common.cuh's layer routine, bf16 on
+// wgmma and float32 as split TF32 (3xTF32) on wgmma tf32, from weights packed
+// once per launch (ops/fused_gnn.py::pack_tc_weights); pe0 and the motion
+// head's last layer stay on the CUDA cores. Only real edges are
+// computed (masked slots add exact zeros in the JAX kernel). A block's node
+// and edge activations do not fit in shared memory beside the tiles, so they
+// live in global buffers from the wrapper, in the compute dtype:
 // - training (keep): every activation of every sample in its own place
 //   (act_bufs), one block per sample; the backward (gnn_train_bwd.cu) reads
 //   them instead of recomputing the forward;
@@ -33,7 +34,6 @@
 //   no larger than the blocks the card holds at once, each block looping over
 //   samples; so the scratch does not grow with the batch (the planning batch
 //   is 2,000) and no message is written.
-// The tensor cores are later work.
 //
 // Profiling builds (ops/kernels.py variants; the counterpart of the JAX
 // profiling copy scripts/profile_kernel_parts.py) change only the in-kernel
@@ -53,8 +53,10 @@ struct Params {
   const float* mask;   // (B, K*Np)
   const float* last;   // (B, Np, 3)
   const void* w[kNumWeights];
-  float* node_acts;    // keep: B x act_node_floats; else grid x scratch_node_floats
-  float* edge_acts;    // keep: B x act_edge_floats; else grid x scratch_edge_floats
+  const void* hi[kNumTc];  // packed tensor-core weights (W^T, depth padded to 16)
+  const void* lo[kNumTc];  // float32: their second TF32 parts; bf16: null
+  void* node_acts;     // keep: B x act_node_elems; else grid x scratch_node_elems (compute dtype)
+  void* edge_acts;     // keep: B x act_edge_elems; else grid x scratch_edge_elems
   float* pred;         // (B, n_p, 3)
   float* motion;       // (B, n_p, 3) or null
   Dims d;
@@ -92,38 +94,47 @@ __device__ int build_radius_edges(const Params& p, const Smem& L, unsigned char*
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gnn_forward_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
   const Dims d = p.d;
   const int Np = d.Np, nf = d.nf;
-  const Smem L = smem_layout(Np, d.K, false, p.nbr == nullptr);
+  const Smem L = smem_layout(Np, d.K, false, p.nbr == nullptr, !std::is_same<T, float>::value);
   float* sm = reinterpret_cast<float*>(smem);
   int* off = reinterpret_cast<int*>(smem + L.off);
   short* er = reinterpret_cast<short*>(smem + L.er);
   short* es = reinterpret_cast<short*>(smem + L.es);
-  const T* w[kNumWeights];
-  for (int i = 0; i < kNumWeights; ++i) w[i] = static_cast<const T*>(p.w[i]);
+  Weights<T> W;
+  for (int i = 0; i < kNumWeights; ++i) W.w[i] = static_cast<const T*>(p.w[i]);
+  for (int i = 0; i < kNumTc; ++i) {
+    W.hi[i] = static_cast<const T*>(p.hi[i]);
+    W.lo[i] = static_cast<const T*>(p.lo[i]);
+  }
 
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    GNN_PHASE(-1);
     const T* nodes = static_cast<const T*>(p.nodes) + (size_t)b * Np * d.D;
     const int E = p.nbr ? build_edges(p.nbr + (size_t)b * d.K * Np, p.mask + (size_t)b * d.K * Np,
                                       Np, d.K, off, er, es, nullptr, nullptr)
                         : build_radius_edges(p, L, smem, b, off, er, es);
-    const FwdBufs f = p.keep ? act_bufs(d, p.node_acts, p.edge_acts, b)
-                             : scratch_bufs(d, p.node_acts, p.edge_acts, blockIdx.x);
-    forward_body<T>(d, nodes, w, E, off, er, es, f, sm);
+    GNN_PHASE(9);
+    const FwdBufs<T> f = p.keep ? act_bufs<T>(d, p.node_acts, p.edge_acts, b)
+                                : scratch_bufs<T>(d, p.node_acts, p.edge_acts, blockIdx.x);
+    forward_body<T>(d, nodes, W, E, off, er, es, f, smem);
 
-    // motion head's last layer (no relu), the clamp and the position update
+    // motion head's last layer (no relu; 3 outputs, on the CUDA cores), the
+    // clamp and the position update
     const float* last = p.last + (size_t)b * Np * 3;
     float* pred = p.pred + (size_t)b * d.n_p * 3;
     float* motion = p.motion ? p.motion + (size_t)b * d.n_p * 3 : nullptr;
-    const T* bias = w[kNr2b];
+    const T* bias = W.w[kNr2b];
     const float clamp = p.motion_clamp;
-    gemm(d.n_p, 3, nf, f.nr_h2, (size_t)nf, (size_t)1, w[kNr2w], (size_t)3, (size_t)1, sm,
+    gemm(d.n_p, 3, nf, f.nr_h2, (size_t)nf, (size_t)1, W.w[kNr2w], (size_t)3, (size_t)1, sm,
          [&](int m, int n, float c) {
            const float mot = rnd<T>(c + ld(bias + n));
            if (motion) motion[m * 3 + n] = mot;
            pred[m * 3 + n] = last[m * 3 + n] + fminf(fmaxf(mot, -clamp), clamp);
          });
+    GNN_PHASE(10);
   }
 }
 
@@ -149,7 +160,8 @@ template <typename T>
 int launch(const Params& p, int grid, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_layout(p.d.Np, p.d.K, false, p.nbr == nullptr).total;
+  const size_t smem =
+      smem_layout(p.d.Np, p.d.K, false, p.nbr == nullptr, !std::is_same<T, float>::value).total;
   err = cudaFuncSetAttribute(gnn_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -161,19 +173,46 @@ int launch(const Params& p, int grid, int device, cudaStream_t stream) {
 
 extern "C" {
 
-// Activation floats per sample (keep) or per block (a forward alone, keep 0):
-// which 0 = node buffers, 1 = edge buffers.
-long long gnn_forward_act_floats(int Np, int K, int pstep, int nf_p, int nf_r, int nf, int rel_in,
-                                 int which, int keep) {
+#ifdef GNN_PHASE_CLOCKS
+// The profiling build's counters: 16 SM-cycle sums, one per phase
+// (GNN_PHASE in forward_body and the kernel), added by every block.
+int gnn_forward_set_phase_clocks(void* counters) {
+  return (int)cudaMemcpyToSymbol(g_phase_clocks, &counters, sizeof(counters));
+}
+#endif
+
+// Activation elements (of the compute dtype) per sample (keep) or per block
+// (a forward alone, keep 0): which 0 = node buffers, 1 = edge buffers.
+long long gnn_forward_act_elems(int Np, int K, int pstep, int nf_p, int nf_r, int nf, int rel_in,
+                                int which, int keep) {
   Dims d{};
   d.Np = Np; d.K = K; d.pstep = pstep; d.nf_p = nf_p; d.nf_r = nf_r; d.nf = nf; d.rel_in = rel_in;
-  if (keep) return (long long)(which == 0 ? act_node_floats(d) : act_edge_floats(d));
-  return (long long)(which == 0 ? scratch_node_floats(d) : scratch_edge_floats(d));
+  if (keep) return (long long)(which == 0 ? act_node_elems(d) : act_edge_elems(d));
+  return (long long)(which == 0 ? scratch_node_elems(d) : scratch_edge_elems(d));
+}
+
+// Where each kept activation buffer of a sample starts (act_bufs), in
+// elements of the compute dtype from the sample's first: which 0 = the node
+// buffers pe_h1, pe_h2, effs, pb, rs, aggs, nr_h1, nr_h2; which 1 = the edge
+// buffers rel_in, re_h1, re_h2, r_enc, rel_base, ms; then their end. Fills
+// out and returns the number of values (9 or 7).
+int gnn_forward_act_offsets(int Np, int K, int pstep, int nf_p, int nf_r, int nf, int rel_in,
+                            int which, long long* out) {
+  Dims d{};
+  d.Np = Np; d.K = K; d.pstep = pstep; d.nf_p = nf_p; d.nf_r = nf_r; d.nf = nf; d.rel_in = rel_in;
+  float* base = reinterpret_cast<float*>(alignof(float) * 1024);  // any aligned address
+  const FwdBufs<float> f = act_bufs<float>(d, base, base, 0);
+  const float* starts[2][8] = {{f.pe_h1, f.pe_h2, f.effs, f.pb, f.rs, f.aggs, f.nr_h1, f.nr_h2},
+                               {f.rel_in, f.re_h1, f.re_h2, f.r_enc, f.rel_base, f.ms}};
+  const int n = which == 0 ? 8 : 6;
+  for (int i = 0; i < n; ++i) out[i] = starts[which][i] - base;
+  out[n] = (long long)(which == 0 ? act_node_elems(d) : act_edge_elems(d));
+  return n + 1;
 }
 
 // Shared memory of a block; `radius` for the in-kernel graph build.
-int gnn_forward_smem_bytes(int Np, int K, int radius) {
-  return (int)smem_layout(Np, K, false, radius != 0).total;
+int gnn_forward_smem_bytes(int Np, int K, int radius, int bf16_mode) {
+  return (int)smem_layout(Np, K, false, radius != 0, bf16_mode != 0).total;
 }
 
 // The grid a launch of B samples uses (its number of scratch slots when keep
@@ -182,7 +221,7 @@ int gnn_forward_grid(int B, int Np, int K, int radius, int keep, int bf16_mode, 
                      int* blocks) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_layout(Np, K, false, radius != 0).total;
+  const size_t smem = smem_layout(Np, K, false, radius != 0, bf16_mode != 0).total;
   return bf16_mode ? grid_blocks<bf16>(B, keep, smem, device, blocks)
                    : grid_blocks<float>(B, keep, smem, device, blocks);
 }
@@ -191,21 +230,26 @@ const char* gnn_error_string(int code) { return cudaGetErrorString(static_cast<c
 
 // Launch on `stream` without synchronising; returns cudaGetLastError(). With
 // nbr null the graph is built in the kernel from `last` with radius² thresh
-// (mask unused). `grid` from gnn_forward_grid.
+// (mask unused). packed: the kNumTc hi pointers, then the kNumTc lo ones
+// (null in bf16). `grid` from gnn_forward_grid.
 int gnn_forward_launch(const void* nodes, const void* nbr, const void* mask, const void* last,
-                       const void* const* weights, void* node_acts, void* edge_acts,
-                       void* pred, void* motion, int B, int Np, int N, int n_p, int K, int n_his,
-                       int pstep, int Dp, int D, int nf_p, int nf_r, int nf, int rel_in,
-                       float motion_clamp, float thresh, int keep, int grid, int bf16_mode,
-                       int device, void* stream) {
+                       const void* const* weights, const void* const* packed, void* node_acts,
+                       void* edge_acts, void* pred, void* motion, int B, int Np, int N, int n_p,
+                       int K, int n_his, int pstep, int Dp, int D, int nf_p, int nf_r, int nf,
+                       int rel_in, float motion_clamp, float thresh, int keep, int grid,
+                       int bf16_mode, int device, void* stream) {
   Params p;
   p.nodes = nodes;
   p.nbr = static_cast<const int*>(nbr);
   p.mask = static_cast<const float*>(mask);
   p.last = static_cast<const float*>(last);
   for (int i = 0; i < kNumWeights; ++i) p.w[i] = weights[i];
-  p.node_acts = static_cast<float*>(node_acts);
-  p.edge_acts = static_cast<float*>(edge_acts);
+  for (int i = 0; i < kNumTc; ++i) {
+    p.hi[i] = packed[i];
+    p.lo[i] = packed[kNumTc + i];
+  }
+  p.node_acts = node_acts;
+  p.edge_acts = edge_acts;
   p.pred = static_cast<float*>(pred);
   p.motion = static_cast<float*>(motion);
   p.d = Dims{Np, N, n_p, K, n_his, pstep, Dp, D, nf_p, nf_r, nf, rel_in};

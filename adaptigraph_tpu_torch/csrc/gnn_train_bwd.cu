@@ -15,28 +15,37 @@
 // stay in the wrapper, as in the JAX package.
 //
 // Both compute dtypes are one template (T, as in gnn_forward.cu). The
-// bfloat16 mode reads bf16 nodes and weights and K2's float32 activations,
-// which hold exact bf16 values, and rounds to bf16 exactly where the TPU
-// kernel casts to its compute dtype: the raw-motion cotangent on entry,
-// every cotangent product dX = dY W^T (but the particle inputs' one), the
-// residual sums d_eff = d_pre + ... and d_p_enc = d_eff + ..., the receiver
-// and sender sums of the message cotangents, and the propagator-base
-// cotangents summed over the rounds in float32 and cast once. Weight
-// gradients and the packed node cotangents are float32 sums of those
-// values, as the TPU kernel's float32 accumulations of bf16 operands.
+// bfloat16 mode reads bf16 nodes and weights and K2's bf16 activations, and
+// rounds to bf16 exactly where the TPU kernel casts to its compute dtype:
+// the raw-motion cotangent on entry, every cotangent product dX = dY W^T
+// (but the particle inputs' one), the residual sums d_eff = d_pre + ... and
+// d_p_enc = d_eff + ..., the receiver and sender sums of the message
+// cotangents, and the propagator-base cotangents summed over the rounds in
+// float32 and cast once. Weight gradients and the packed node cotangents are
+// float32 sums of those values, as the TPU kernel's float32 accumulations of
+// bf16 operands. Cotangents are kept in T, as the activations are: each kept
+// value is already rounded to T.
 //
-// What bounds it on an H100: in float32, arithmetic, about twice the
-// forward's (two products per layer: dX = dY W^T and dW = X^T dY). In
-// bfloat16 at the tensor cores' rate the products would take a tenth of the
-// time of reading K2's float32 activations, so there the bytes bound it.
+// What bounds it on an H100: arithmetic, about twice the forward's (two
+// products per layer: dX = dY W^T and dW = X^T dY), in float32 at the split
+// TF32 rate (495/3 TFLOP/s); in bfloat16 at the tensor cores' rate the
+// products take less time than reading K2's activations, so there the bytes
+// bound this design (a design that recomputes the forward, as the TPU kernel
+// does, would read none).
 //
-// What the design does about it, simply: float32 products on the CUDA cores
-// through the one tiled gemm in both modes (the tensor cores are later
-// work); cotangents in a global scratch from the wrapper (edge-sized ones on
-// real edges only). The TPU kernel
-// accumulates weight gradients across its sequential grid; blocks here run
-// in parallel, so each writes its sample's gradients to its own slot and a
-// second launch sums the slots in sample order. No atomics: a rerun is
+// What the design does about it: every dX and dW of depth and width >= 16
+// runs through gnn_common.cuh's tensor-core layer routine (bf16 wgmma, float32
+// 3xTF32 on wgmma tf32), from the weights packed once per launch
+// (ops/fused_gnn.py::pack_tc_weights, W itself for dX = dY W^T); the narrow
+// layers (the motion head's 3 outputs, pe0) stay on the CUDA cores. Bias
+// gradients are column sums in a fixed order, taken from the cotangent tiles
+// that the weight-gradient products stage (the CUDA-core layers': parts of
+// consecutive rows, then the parts in order); each round's weight gradients
+// are one product over every round's rows. Cotangents live in a
+// global scratch from the wrapper (edge-sized ones on real edges only). The
+// TPU kernel accumulates weight gradients across its sequential grid; blocks
+// here run in parallel, so each writes its sample's gradients to its own slot
+// and a second launch sums the slots in sample order. No atomics: a rerun is
 // bit-identical.
 
 #include <type_traits>
@@ -53,10 +62,12 @@ struct Params {
   const float* mask;   // (B, K*Np)
   const float* dmot;   // (B, Np, 3) raw-motion cotangent, zero beyond the object rows
   const void* w[kNumWeights];  // compute dtype
-  float* node_acts;    // B x act_node_floats, the forward's (read only)
-  float* edge_acts;    // B x act_edge_floats, the forward's (read only)
-  float* node_scratch; // B x node_floats
-  float* edge_scratch; // B x edge_floats
+  const void* hi[kNumTc];      // packed tensor-core weights (W, depth padded to 16)
+  const void* lo[kNumTc];      // float32: their second TF32 parts; bf16: null
+  void* node_acts;     // B x act_node_elems, the forward's (read only)
+  void* edge_acts;     // B x act_edge_elems, the forward's (read only)
+  unsigned char* node_scratch;  // B x node_bytes
+  unsigned char* edge_scratch;  // B x edge_bytes
   float* dnodes;       // (B, Np, D)
   float* partial;      // (B, n_grad) per-sample weight gradients
   int goff[kNumWeights + 1];  // each weight's offset in a sample's slot
@@ -64,26 +75,60 @@ struct Params {
 };
 
 __host__ __device__ inline int wn_of(const Dims& d) { return imax(d.nf_p, d.nf); }
-__host__ __device__ inline int we_of(const Dims& d) { return imax(imax(d.nf_r, d.nf), d.rel_in); }
+__host__ __device__ inline int we_of(const Dims& d) { return imax(imax(d.nf_r, d.nf), rel_in_ld(d)); }
 
-// dA, dB (wn), d_eff, d_pre, d_pb, d_agg, d_rs (2 nf)
-__host__ __device__ inline size_t node_floats(const Dims& d) {
-  return (size_t)d.Np * (2 * wn_of(d) + 6 * d.nf);
+// Per sample, in elements of T: dA, dB (wn), d_eff, d_pb, then per round
+// d_pre, d_agg and d_rs (2 nf), so the rounds' weight gradients are one
+// product each and d_rb is formed once; then the float32 sum of d_pb over
+// the rounds (nf)
+__host__ __device__ inline size_t node_elems(const Dims& d) {
+  return (size_t)d.Np * (2 * wn_of(d) + 2 * d.nf + 4 * d.pstep * d.nf);
+}
+__host__ __device__ inline size_t node_bytes(const Dims& d, size_t elem) {
+  return align16(node_elems(d) * elem) + align16((size_t)d.Np * d.nf * 4);
 }
 
-// d_m, d_rb, dA, dB (we)
-__host__ __device__ inline size_t edge_floats(const Dims& d) {
-  return (size_t)d.Np * d.K * (2 * d.nf + 2 * we_of(d));
+// d_rb, dEA, dEB (we; d rel_in in dEB has row stride rel_in_ld)
+__host__ __device__ inline size_t edge_bytes(const Dims& d, size_t elem) {
+  return align16((size_t)d.Np * d.K * (d.nf + 2 * we_of(d)) * elem);
+}
+
+template <typename T>
+struct Scratch {
+  T *dA, *dB, *d_eff, *d_pre, *d_pb, *d_agg, *d_rs, *d_rb, *dEA, *dEB;
+  float* pb_sum;
+};
+
+template <typename T>
+__device__ Scratch<T> scratch(const Dims& d, unsigned char* node_s, unsigned char* edge_s, int b) {
+  const size_t nN = d.Np, eN = (size_t)d.Np * d.K, nf = d.nf, wn = wn_of(d), we = we_of(d);
+  const size_t P = d.pstep;
+  Scratch<T> s;
+  unsigned char* base = node_s + (size_t)b * node_bytes(d, sizeof(T));
+  T* at = reinterpret_cast<T*>(base);
+  s.dA = at;    at += nN * wn;
+  s.dB = at;    at += nN * wn;
+  s.d_eff = at; at += nN * nf;
+  s.d_pb = at;  at += nN * nf;
+  s.d_pre = at; at += P * nN * nf;
+  s.d_agg = at; at += P * nN * nf;
+  s.d_rs = at;
+  s.pb_sum = reinterpret_cast<float*>(base + align16(node_elems(d) * sizeof(T)));
+  at = reinterpret_cast<T*>(edge_s + (size_t)b * edge_bytes(d, sizeof(T)));
+  s.d_rb = at; at += eN * nf;
+  s.dEA = at;  at += eN * we;
+  s.dEB = at;
+  return s;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gnn_train_bwd_kernel(Params p) {
-  constexpr bool kRound = !std::is_same<T, float>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
   const Dims d = p.d;
   const int b = blockIdx.x, Np = d.Np, nf = d.nf, nfp = d.nf_p, nfr = d.nf_r, rin = d.rel_in;
-  const int D = d.D, Dp = d.Dp, nh3 = d.n_his * 3, P = d.pstep;
-  const Smem L = smem_layout(Np, d.K, true);
+  const int D = d.D, Dp = d.Dp, nh3 = d.n_his * 3, P = d.pstep, rld = rel_in_ld(d);
+  const Smem L = smem_layout(Np, d.K, true, false, !std::is_same<T, float>::value);
   float* sm = reinterpret_cast<float*>(smem);
   int* off = reinterpret_cast<int*>(smem + L.off);
   int* soff = reinterpret_cast<int*>(smem + L.soff);
@@ -91,174 +136,252 @@ __global__ void __launch_bounds__(kThreads) gnn_train_bwd_kernel(Params p) {
   short* es = reinterpret_cast<short*>(smem + L.es);
   int* sl = reinterpret_cast<int*>(smem + L.sl);
 
+  GNN_PHASE(-1);
   const T* nodes = static_cast<const T*>(p.nodes) + (size_t)b * Np * D;
   const int E = build_edges(p.nbr + (size_t)b * d.K * Np, p.mask + (size_t)b * d.K * Np, Np, d.K,
                             off, er, es, soff, sl);
 
-  // ---- the forward's activations, then this kernel's scratch ----
-  const FwdBufs f = act_bufs(d, p.node_acts, p.edge_acts, b);
-  const size_t nN = Np, eN = (size_t)Np * d.K;
-  const int wn = wn_of(d), we = we_of(d);
-  float* at = p.node_scratch + (size_t)b * node_floats(d);
-  float* dA = at;    at += nN * wn;
-  float* dB = at;    at += nN * wn;
-  float* d_eff = at; at += nN * nf;
-  float* d_pre = at; at += nN * nf;
-  float* d_pb = at;  at += nN * nf;
-  float* d_agg = at; at += nN * nf;
-  float* d_rs = at;
-  float* ae = p.edge_scratch + (size_t)b * edge_floats(d);
-  float* d_m = ae;  ae += eN * nf;
-  float* d_rb = ae; ae += eN * nf;
-  float* dEA = ae;  ae += eN * we;
-  float* dEB = ae;
-
-  const T* w[kNumWeights];
-  for (int i = 0; i < kNumWeights; ++i) w[i] = static_cast<const T*>(p.w[i]);
+  // ---- the forward's activations (read only: the relu masks load them by
+  // tc::ldg), then this kernel's scratch ----
+  const FwdBufs<T> f = act_bufs<T>(d, p.node_acts, p.edge_acts, b);
+  const Scratch<T> s = scratch<T>(d, p.node_scratch, p.edge_scratch, b);
+  Weights<T> W;
+  for (int i = 0; i < kNumWeights; ++i) W.w[i] = static_cast<const T*>(p.w[i]);
+  for (int i = 0; i < kNumTc; ++i) {
+    W.hi[i] = static_cast<const T*>(p.hi[i]);
+    W.lo[i] = static_cast<const T*>(p.lo[i]);
+  }
 
   float* g = p.partial + (size_t)b * p.goff[kNumWeights];
   float* dnodes = p.dnodes + (size_t)b * Np * D;
 
-  // dW = X^T dY over `rows` rows, written or (acc) added to weight `wi`'s slot
-  auto wgrad = [&](int wi, const auto* X, int ldx, int kin, const float* dY, int ldy, int nout,
-                   int rows, bool acc) {
+  // dW = X^T dY over `rows` rows into weight `wi`'s slot; with bi >= 0 the
+  // column sums of dY (the bias gradient) into bias bi's slot
+  auto wgrad = [&](int wi, int bi, const T* X, int ldx, int kin, const T* dY, int ldy, int nout,
+                   int rows) {
+    float* G = g + p.goff[wi];
+    wgrad_tc(kin, nout, rows, X, ldx, dY, ldy, smem, bi >= 0 ? g + p.goff[bi] : nullptr,
+             [&](int m, int n, float c0, float c1) {
+               const size_t i = (size_t)m * nout + n;
+               G[i] = c0;
+               G[i + 1] = c1;
+             });
+  };
+  // ... on the CUDA cores (the narrow layers), the bias by colsum
+  auto wgrad_cc = [&](int wi, int bi, const T* X, int ldx, int kin, const T* dY, int ldy, int nout,
+                      int rows) {
     float* G = g + p.goff[wi];
     gemm(kin, nout, rows, X, (size_t)1, (size_t)ldx, dY, (size_t)ldy, (size_t)1, sm,
-         [&](int m, int n, float c) {
-           const size_t i = (size_t)m * nout + n;
-           G[i] = acc ? G[i] + c : c;
-         });
+         [&](int m, int n, float c) { G[(size_t)m * nout + n] = c; });
+    colsum(rows, nout, dY, ldy, g + p.goff[bi], sm);
   };
-  // db = column sums of dY, rows in order
-  auto bgrad = [&](int wi, const float* dY, int ldy, int nout, int rows) {
-    float* G = g + p.goff[wi];
-    for (int n = threadIdx.x; n < nout; n += kThreads) {
-      float s = 0.f;
-      for (int m = 0; m < rows; ++m) s += dY[(size_t)m * ldy + n];
-      G[n] = s;
-    }
-    __syncthreads();
+  // out = rnd(dY @ W^T) [then + add, rounded] [* (H > 0)], (rows, kin), on
+  // the tensor cores: W (kin, nout) is tensor-core layer l (in bf16, a
+  // product near a rounding midpoint is redone from weight_list's W)
+  auto bprop = [&](int rows, int kin, int nout, const T* dY, int ldy, int l, const T* add,
+                   const T* H, T* out) {
+    layer_tc(rows, kin, nout, dY, ldy, W.hi[l], W.lo[l], smem,
+             Redo<T>{W.w[tc_weight(l)], nout, 1},
+             [&](int m, int n, float c0, float c1) {
+               const size_t i = (size_t)m * kin + n;
+               float v0 = rnd<T>(c0), v1 = rnd<T>(c1);
+               if (add) {
+                 const float2 a = ld2(add + i);
+                 v0 = rnd<T>(v0 + a.x), v1 = rnd<T>(v1 + a.y);
+               }
+               if (H) {
+                 const float2 h = ldg2(H + i);
+                 v0 = h.x > 0.f ? v0 : 0.f, v1 = h.y > 0.f ? v1 : 0.f;
+               }
+               st2(out + i, v0, v1);
+               return decides<T>(c0, true, false, 0.f) || decides<T>(c1, true, false, 0.f);
+             });
   };
-  // out = (dY @ W^T [+ add]) [* (H > 0)]; W is (kin, nout) row-major. With
-  // `round`, the product and then the sum are rounded to T.
-  auto bprop = [&](int rows, int kin, int nout, const float* dY, int ldy, const T* Wt,
-                   const float* add, const float* H, float* out, int ldo, bool round) {
+  // ... on the CUDA cores, W (kin, nout) of weight_list; with `round` the
+  // product rounded to T; out row stride ldo
+  auto bprop_cc = [&](int rows, int kin, int nout, const T* dY, int ldy, const T* Wt, const T* H,
+                      auto* out, int ldo, bool round) {
     gemm(rows, kin, nout, dY, (size_t)ldy, (size_t)1, Wt, (size_t)1, (size_t)nout, sm,
          [&](int m, int n, float c) {
            float v = round ? rnd<T>(c) : c;
-           if (add) v = rnd<T>(v + add[(size_t)m * kin + n]);
-           if (H) v = H[(size_t)m * kin + n] > 0.f ? v : 0.f;
-           out[(size_t)m * ldo + n] = v;
+           if (H) v = tc::ldg(H + (size_t)m * kin + n) > 0.f ? v : 0.f;
+           st(out + (size_t)m * ldo + n, v);
          });
   };
+  const int nv = nf / 8;  // the elementwise passes take eight channels per thread
 
+  GNN_PHASE(12);
   // ---- motion head ----
   const float* dmot = p.dmot + (size_t)b * Np * 3;
-  if (kRound) {  // the cotangent in T, in dB until the motion head's first product is done
-    for (int idx = threadIdx.x; idx < Np * 3; idx += kThreads) dB[idx] = rnd<T>(dmot[idx]);
-    __syncthreads();
-    dmot = dB;
-  }
-  const float* effP = f.effs + (size_t)P * f.eff_step;
-  wgrad(kNr2w, f.nr_h2, nf, nf, dmot, 3, 3, Np, false);
-  bgrad(kNr2b, dmot, 3, 3, Np);
-  bprop(Np, nf, 3, dmot, 3, w[kNr2w], nullptr, f.nr_h2, dA, nf, true);
-  wgrad(kNr1w, f.nr_h1, nf, nf, dA, nf, nf, Np, false);
-  bgrad(kNr1b, dA, nf, nf, Np);
-  bprop(Np, nf, nf, dA, nf, w[kNr1w], nullptr, f.nr_h1, dB, nf, true);
-  wgrad(kNr0w, effP, nf, nf, dB, nf, nf, Np, false);
-  bgrad(kNr0b, dB, nf, nf, Np);
-  bprop(Np, nf, nf, dB, nf, w[kNr0w], nullptr, nullptr, d_eff, nf, true);
+  T* dm = s.dB;  // the cotangent in T, in dB until the motion head's first product is done
+  for (int idx = threadIdx.x; idx < Np * 3; idx += kThreads) st(dm + idx, rnd<T>(dmot[idx]));
+  __syncthreads();
+  const T* effP = f.effs + (size_t)P * f.eff_step;
+  wgrad_cc(kNr2w, kNr2b, f.nr_h2, nf, nf, dm, 3, 3, Np);
+  bprop_cc(Np, nf, 3, dm, 3, W.w[kNr2w], f.nr_h2, s.dA, nf, true);
+  wgrad(kNr1w, kNr1b, f.nr_h1, nf, nf, s.dA, nf, nf, Np);
+  bprop(Np, nf, nf, s.dA, nf, kTcNr1, nullptr, f.nr_h1, s.dB);
+  wgrad(kNr0w, kNr0b, effP, nf, nf, s.dB, nf, nf, Np);
+  bprop(Np, nf, nf, s.dB, nf, kTcNr0, nullptr, nullptr, s.d_eff);
+  GNN_PHASE(0);
 
   // ---- pstep rounds, last first ----
   for (int t = P - 1; t >= 0; --t) {
     const bool first = t == P - 1;
-    const float* eff_next = f.effs + (size_t)(t + 1) * f.eff_step;
-    for (int idx = threadIdx.x; idx < Np * nf; idx += kThreads) {
-      const float v = eff_next[idx] > 0.f ? d_eff[idx] : 0.f;
-      d_pre[idx] = v;
-      d_pb[idx] = first ? v : d_pb[idx] + v;
+    const T* __restrict__ eff_next = f.effs + (size_t)(t + 1) * f.eff_step;
+    T* d_pre = s.d_pre + (size_t)t * Np * nf;
+    T* d_rs = s.d_rs + (size_t)t * Np * 2 * nf;
+    for (int idx = threadIdx.x; idx < Np * nv; idx += kThreads) {
+      const size_t at = (size_t)idx * 8;
+      float h[8], v[8], sum[8];
+      ld8(eff_next + at, h);
+      ld8(s.d_eff + at, v);
+      if (first) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) sum[q] = 0.f;
+      } else {
+        ld8(s.pb_sum + at, sum);
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        v[q] = h[q] > 0.f ? v[q] : 0.f;
+        sum[q] = first ? v[q] : sum[q] + v[q];
+      }
+      st8(d_pre + at, v);
+      st8(s.pb_sum + at, sum);
     }
     __syncthreads();
-    wgrad(kPpWb, f.aggs + (size_t)t * f.agg_step, nf, nf, d_pre, nf, nf, Np, !first);
-    bprop(Np, nf, nf, d_pre, nf, w[kPpWb], nullptr, nullptr, d_agg, nf, true);
-    const float* ms = f.ms + (size_t)t * f.ms_step;
-    for (int idx = threadIdx.x; idx < E * nf; idx += kThreads) {
-      const int e = idx / nf, c = idx % nf;
-      const float v = ms[idx] > 0.f ? d_agg[(size_t)er[e] * nf + c] : 0.f;
-      d_m[idx] = v;
-      d_rb[idx] = first ? v : d_rb[idx] + v;
+    T* d_agg = s.d_agg + (size_t)t * Np * nf;
+    bprop(Np, nf, nf, d_pre, nf, kTcPpWb, nullptr, nullptr, d_agg);
+    GNN_PHASE(1);
+    // d_rs = [receiver sums | sender sums] of the message cotangents d_m(e) =
+    // d_agg(receiver of e) where the kept message is > 0: per node and eight
+    // channels, its received edges in slot order, then its sent edges in edge
+    // order (d_m is not stored: d_rb is formed from the masks after the rounds)
+    {
+      const T* __restrict__ ms = f.ms + (size_t)t * f.ms_step;
+      const T* __restrict__ dag = d_agg;
+      for (int idx = threadIdx.x; idx < Np * nv; idx += kThreads) {
+        const int i = idx / nv, c = (idx % nv) * 8;
+        float da[8], r[8], q8[8];
+        ld8(dag + (size_t)i * nf + c, da);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) r[q] = q8[q] = 0.f;
+#pragma unroll 2
+        for (int e = off[i]; e < off[i + 1]; ++e) {
+          float m[8];
+          ld8(ms + (size_t)e * nf + c, m);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) r[q] += m[q] > 0.f ? da[q] : 0.f;
+        }
+#pragma unroll 2
+        for (int k = soff[i]; k < soff[i + 1]; ++k) {
+          const int e = sl[k];
+          float m[8], a[8];
+          ld8(ms + (size_t)e * nf + c, m);
+          ld8(dag + (size_t)er[e] * nf + c, a);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) q8[q] += m[q] > 0.f ? a[q] : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) r[q] = rnd<T>(r[q]), q8[q] = rnd<T>(q8[q]);
+        st8(d_rs + (size_t)i * 2 * nf + c, r);
+        st8(d_rs + (size_t)i * 2 * nf + nf + c, q8);
+      }
     }
     __syncthreads();
-    // d_rs = [receiver sums | sender sums] of the message cotangents
-    for (int idx = threadIdx.x; idx < Np * nf; idx += kThreads) {
-      const int i = idx / nf, c = idx % nf;
-      float r = 0.f, s = 0.f;
-      for (int e = off[i]; e < off[i + 1]; ++e) r += d_m[(size_t)e * nf + c];
-      for (int q = soff[i]; q < soff[i + 1]; ++q) s += d_m[(size_t)sl[q] * nf + c];
-      d_rs[(size_t)i * 2 * nf + c] = rnd<T>(r);
-      d_rs[(size_t)i * 2 * nf + nf + c] = rnd<T>(s);
-    }
-    __syncthreads();
-    wgrad(kRpW23, f.effs + (size_t)t * f.eff_step, nf, nf, d_rs, 2 * nf, 2 * nf, Np, !first);
-    bprop(Np, nf, 2 * nf, d_rs, 2 * nf, w[kRpW23], d_pre, nullptr, d_eff, nf, true);
+    GNN_PHASE(2);
+    bprop(Np, nf, 2 * nf, d_rs, 2 * nf, kTcRpW23, d_pre, nullptr, s.d_eff);
+    GNN_PHASE(3);
   }
-  if (kRound) {  // the propagator-base cotangents, summed over the rounds, in T
-    for (int idx = threadIdx.x; idx < Np * nf; idx += kThreads) d_pb[idx] = rnd<T>(d_pb[idx]);
-    for (int idx = threadIdx.x; idx < E * nf; idx += kThreads) d_rb[idx] = rnd<T>(d_rb[idx]);
-    __syncthreads();
+  // the rounds' weight gradients, one product over the P x Np rows of every
+  // round (the activations of round t lie at slot t, as the cotangents do)
+  wgrad(kPpWb, -1, f.aggs, nf, nf, s.d_pre, nf, nf, P * Np);
+  wgrad(kRpW23, -1, f.effs, nf, nf, s.d_rs, 2 * nf, 2 * nf, P * Np);
+  // the propagator-base cotangents, summed over the rounds in float32, cast once
+  for (int idx = threadIdx.x; idx < Np * nv; idx += kThreads) {
+    float v[8];
+    ld8(s.pb_sum + (size_t)idx * 8, v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = rnd<T>(v[q]);
+    st8(s.d_pb + (size_t)idx * 8, v);
   }
+  // ... and the relation-base cotangents d_rb(e) = the sum over the rounds,
+  // last first, of d_m(e) in float32, cast once
+  for (int idx = threadIdx.x; idx < E * nv; idx += kThreads) {
+    const int e = idx / nv, c = (idx % nv) * 8;
+    float sum[8];
+    for (int t = P - 1; t >= 0; --t) {
+      const bool first = t == P - 1;
+      float m[8], a[8], v[8];
+      ld8(f.ms + (size_t)t * f.ms_step + (size_t)e * nf + c, m);
+      ld8(s.d_agg + ((size_t)t * Np + er[e]) * nf + c, a);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        v[q] = m[q] > 0.f ? a[q] : 0.f;
+        sum[q] = first ? v[q] : sum[q] + v[q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) sum[q] = rnd<T>(sum[q]);
+    st8(s.d_rb + (size_t)e * nf + c, sum);
+  }
+  __syncthreads();
+  GNN_PHASE(4);
 
   // ---- particle side: propagator base, then the encoder ----
-  bgrad(kPpB, d_pb, nf, nf, Np);
-  wgrad(kPpWa, f.effs, nf, nf, d_pb, nf, nf, Np, false);
-  bprop(Np, nf, nf, d_pb, nf, w[kPpWa], d_eff, f.effs, dA, nf, true);      // d p_enc, relu mask
-  wgrad(kPe2w, f.pe_h2, nfp, nfp, dA, nf, nf, Np, false);
-  bgrad(kPe2b, dA, nf, nf, Np);
-  bprop(Np, nfp, nf, dA, nf, w[kPe2w], nullptr, f.pe_h2, dB, nfp, true);
-  wgrad(kPe1w, f.pe_h1, nfp, nfp, dB, nfp, nfp, Np, false);
-  bgrad(kPe1b, dB, nfp, nfp, Np);
-  bprop(Np, nfp, nfp, dB, nfp, w[kPe1w], nullptr, f.pe_h1, dA, nfp, true);
-  wgrad(kPe0w, nodes, D, Dp, dA, nfp, nfp, Np, false);
-  bgrad(kPe0b, dA, nfp, nfp, Np);
-  bprop(Np, Dp, nfp, dA, nfp, w[kPe0w], nullptr, nullptr, dnodes, D, false);  // d p_inputs, f32
+  wgrad(kPpWa, kPpB, f.effs, nf, nf, s.d_pb, nf, nf, Np);
+  bprop(Np, nf, nf, s.d_pb, nf, kTcPpWa, s.d_eff, f.effs, s.dA);  // d p_enc, relu mask
+  wgrad(kPe2w, kPe2b, f.pe_h2, nfp, nfp, s.dA, nf, nf, Np);
+  bprop(Np, nfp, nf, s.dA, nf, kTcPe2, nullptr, f.pe_h2, s.dB);
+  wgrad(kPe1w, kPe1b, f.pe_h1, nfp, nfp, s.dB, nfp, nfp, Np);
+  bprop(Np, nfp, nfp, s.dB, nfp, kTcPe1, nullptr, f.pe_h1, s.dA);
+  GNN_PHASE(5);
+  wgrad_cc(kPe0w, kPe0b, nodes, D, Dp, s.dA, nfp, nfp, Np);
+  bprop_cc(Np, Dp, nfp, s.dA, nfp, W.w[kPe0w], nullptr, dnodes, D, false);  // d p_inputs, f32
+  GNN_PHASE(6);
 
   // ---- relation side: relation base, then the encoder ----
-  bgrad(kRpB, d_rb, nf, nf, E);
-  wgrad(kRpW1, f.r_enc, nf, nf, d_rb, nf, nf, E, false);
-  bprop(E, nf, nf, d_rb, nf, w[kRpW1], nullptr, f.r_enc, dEA, nf, true);
-  wgrad(kRe2w, f.re_h2, nfr, nfr, dEA, nf, nf, E, false);
-  bgrad(kRe2b, dEA, nf, nf, E);
-  bprop(E, nfr, nf, dEA, nf, w[kRe2w], nullptr, f.re_h2, dEB, nfr, true);
-  wgrad(kRe1w, f.re_h1, nfr, nfr, dEB, nfr, nfr, E, false);
-  bgrad(kRe1b, dEB, nfr, nfr, E);
-  bprop(E, nfr, nfr, dEB, nfr, w[kRe1w], nullptr, f.re_h1, dEA, nfr, true);
-  wgrad(kRe0w, f.rel_in, rin, rin, dEA, nfr, nfr, E, false);
-  bgrad(kRe0b, dEA, nfr, nfr, E);
-  bprop(E, rin, nfr, dEA, nfr, w[kRe0w], nullptr, nullptr, dEB, rin, true);  // d rel_in
+  wgrad(kRpW1, kRpB, f.r_enc, nf, nf, s.d_rb, nf, nf, E);
+  bprop(E, nf, nf, s.d_rb, nf, kTcRpW1, nullptr, f.r_enc, s.dEA);
+  GNN_PHASE(7);
+  wgrad(kRe2w, kRe2b, f.re_h2, nfr, nfr, s.dEA, nf, nf, E);
+  bprop(E, nfr, nf, s.dEA, nf, kTcRe2, nullptr, f.re_h2, s.dEB);
+  GNN_PHASE(8);
+  wgrad(kRe1w, kRe1b, f.re_h1, nfr, nfr, s.dEB, nfr, nfr, E);
+  bprop(E, nfr, nfr, s.dEB, nfr, kTcRe1, nullptr, f.re_h1, s.dEA);
+  GNN_PHASE(9);
+  // re0: rel_in and d rel_in have row stride rld, their columns past rin zero
+  wgrad(kRe0w, kRe0b, f.rel_in, rld, rin, s.dEA, nfr, nfr, E);
+  bprop(E, rld, nfr, s.dEA, nfr, kTcRe0, nullptr, nullptr, s.dEB);  // d rel_in
+  GNN_PHASE(10);
 
   // ---- relation features -> packed node_g = [state_norm | attrs | g] ----
   // rel_in = [T_a | G_a | |T_g - G_g| | T_sn - G_sn]; d|x| = sign(x) with
   // abs'(0) = 1, the JAX convention
   const int Dg = nh3 + 3;
+  const T* __restrict__ dEB = s.dEB;
   auto sg = [&](int e) {
     const float x = ld(nodes + (size_t)er[e] * D + Dp + nh3 + 2) - ld(nodes + (size_t)es[e] * D + Dp + nh3 + 2);
     return x < 0.f ? -1.f : 1.f;
   };
   for (int idx = threadIdx.x; idx < Np * Dg; idx += kThreads) {
     const int i = idx / Dg, c = idx % Dg;
-    float s = 0.f;
+    float acc = 0.f;
+#pragma unroll 4
     for (int e = off[i]; e < off[i + 1]; ++e) {  // i receives: the T side
-      const float* dr = dEB + (size_t)e * rin;
-      s += c < nh3 ? dr[5 + c] : c < nh3 + 2 ? dr[c - nh3] : dr[4] * sg(e);
+      const T* dr = dEB + (size_t)e * rld;
+      acc += c < nh3 ? ld(dr + 5 + c) : c < nh3 + 2 ? ld(dr + c - nh3) : ld(dr + 4) * sg(e);
     }
+#pragma unroll 4
     for (int q = soff[i]; q < soff[i + 1]; ++q) {  // i sends: the G side
       const int e = sl[q];
-      const float* dr = dEB + (size_t)e * rin;
-      s += c < nh3 ? -dr[5 + c] : c < nh3 + 2 ? dr[2 + c - nh3] : -(dr[4] * sg(e));
+      const T* dr = dEB + (size_t)e * rld;
+      acc += c < nh3 ? -ld(dr + 5 + c) : c < nh3 + 2 ? ld(dr + 2 + c - nh3) : -(ld(dr + 4) * sg(e));
     }
-    dnodes[(size_t)i * D + Dp + c] = s;
+    dnodes[(size_t)i * D + Dp + c] = acc;
   }
+  GNN_PHASE(11);
 }
 
 // grads[i] = sum over samples b, in order, of partial[b][i]
@@ -283,40 +406,54 @@ cudaError_t launch(const Params& p, int B, size_t smem, cudaStream_t s) {
 
 extern "C" {
 
-// Scratch floats per sample: which 0 = node buffers, 1 = edge buffers.
-long long gnn_train_bwd_scratch_floats(int Np, int K, int nf_p, int nf_r, int nf, int rel_in,
-                                       int which) {
+#ifdef GNN_PHASE_CLOCKS
+// The profiling build's counters: 16 SM-cycle sums, one per phase
+// (GNN_PHASE in the kernel), added by every block.
+int gnn_train_bwd_set_phase_clocks(void* counters) {
+  return (int)cudaMemcpyToSymbol(g_phase_clocks, &counters, sizeof(counters));
+}
+#endif
+
+// Scratch bytes per sample: which 0 = node buffers, 1 = edge buffers.
+long long gnn_train_bwd_scratch_bytes(int Np, int K, int pstep, int nf_p, int nf_r, int nf,
+                                      int rel_in, int which, int bf16_mode) {
   Dims d{};
-  d.Np = Np; d.K = K; d.nf_p = nf_p; d.nf_r = nf_r; d.nf = nf; d.rel_in = rel_in;
-  return (long long)(which == 0 ? node_floats(d) : edge_floats(d));
+  d.Np = Np; d.K = K; d.pstep = pstep; d.nf_p = nf_p; d.nf_r = nf_r; d.nf = nf; d.rel_in = rel_in;
+  const size_t elem = bf16_mode ? 2 : 4;
+  return (long long)(which == 0 ? node_bytes(d, elem) : edge_bytes(d, elem));
 }
 
-int gnn_train_bwd_smem_bytes(int Np, int K) { return (int)smem_layout(Np, K, true).total; }
-
-// Shared memory and scratch are the same in both compute dtypes.
+int gnn_train_bwd_smem_bytes(int Np, int K, int bf16_mode) {
+  return (int)smem_layout(Np, K, true, false, bf16_mode != 0).total;
+}
 
 // Launch both kernels on `stream` without synchronising; returns
 // cudaGetLastError(). nodes and weights in bfloat16 with bf16_mode, else
-// float32. node_acts / edge_acts: the activations the forward kernel wrote
-// for these inputs and weights in the same mode (gnn_forward_launch's).
-// goff: the 25 offsets of the weights in a sample's gradient slot (the last
-// is the slot's size).
+// float32; packed: the kNumTc hi pointers of the backward's packed weights,
+// then the kNumTc lo ones (null in bf16). node_acts / edge_acts: the
+// activations the forward kernel wrote for these inputs and weights in the
+// same mode (gnn_forward_launch's). goff: the 25 offsets of the weights in a
+// sample's gradient slot (the last is the slot's size).
 int gnn_train_bwd_launch(const void* nodes, const void* nbr, const void* mask, const void* dmot,
-                         const void* const* weights, void* node_acts, void* edge_acts,
-                         void* node_scratch, void* edge_scratch, void* dnodes, void* partial,
-                         void* grads, const int* goff, int B, int Np, int N, int n_p, int K,
-                         int n_his, int pstep, int Dp, int D, int nf_p, int nf_r, int nf,
-                         int rel_in, int bf16_mode, int device, void* stream) {
+                         const void* const* weights, const void* const* packed, void* node_acts,
+                         void* edge_acts, void* node_scratch, void* edge_scratch, void* dnodes,
+                         void* partial, void* grads, const int* goff, int B, int Np, int N,
+                         int n_p, int K, int n_his, int pstep, int Dp, int D, int nf_p, int nf_r,
+                         int nf, int rel_in, int bf16_mode, int device, void* stream) {
   Params p;
   p.nodes = nodes;
   p.nbr = static_cast<const int*>(nbr);
   p.mask = static_cast<const float*>(mask);
   p.dmot = static_cast<const float*>(dmot);
   for (int i = 0; i < kNumWeights; ++i) p.w[i] = weights[i];
-  p.node_acts = static_cast<float*>(node_acts);
-  p.edge_acts = static_cast<float*>(edge_acts);
-  p.node_scratch = static_cast<float*>(node_scratch);
-  p.edge_scratch = static_cast<float*>(edge_scratch);
+  for (int i = 0; i < kNumTc; ++i) {
+    p.hi[i] = packed[i];
+    p.lo[i] = packed[kNumTc + i];
+  }
+  p.node_acts = node_acts;
+  p.edge_acts = edge_acts;
+  p.node_scratch = static_cast<unsigned char*>(node_scratch);
+  p.edge_scratch = static_cast<unsigned char*>(edge_scratch);
   p.dnodes = static_cast<float*>(dnodes);
   p.partial = static_cast<float*>(partial);
   for (int i = 0; i <= kNumWeights; ++i) p.goff[i] = goff[i];
@@ -324,7 +461,7 @@ int gnn_train_bwd_launch(const void* nodes, const void* nbr, const void* mask, c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_layout(Np, K, true).total;
+  const size_t smem = smem_layout(Np, K, true, false, bf16_mode != 0).total;
   err = bf16_mode ? launch<bf16>(p, B, smem, s) : launch<float>(p, B, smem, s);
   if (err != cudaSuccess) return (int)err;
   const int n = goff[kNumWeights];

@@ -1,0 +1,153 @@
+// Tensor-core and asynchronous-copy primitives (PTX) shared by the kernels:
+// - mma.sync m16n8k16 bf16 with ldmatrix loads (the whole-push rollout,
+//   rollout_chunk.cu);
+// - the hi/lo split of a float32 value into two TF32 values (gnn_common.cuh's
+//   float32 products, "3xTF32": hi·hi + hi·lo + lo·hi);
+// - wgmma m64n64k16 bf16 and m64n64k8 tf32 (A from registers) with
+//   shared-memory descriptors of the 128-byte swizzled layout (the layer
+//   routine of gnn_common.cuh);
+// - cp.async 16-byte copies with zero fill.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+// ---- mma.sync, bf16 -------------------------------------------------------
+// Fragment layouts are the PTX ISA's: with g = lane / 4 and t = lane % 4, an A
+// fragment holds rows g and g + 8, columns 2t, 2t+1 and 2t+8, 2t+9; a B
+// fragment rows (k) 2t, 2t+1 and 2t+8, 2t+9 of column g; an accumulator rows
+// g and g + 8, columns 2t and 2t+1.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- TF32 ------------------------------------------------------------------
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo to ~2^-22 relative: hi = tf32(x), lo = tf32(x - hi) (the
+// difference is exact in float32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Read-only global loads (ld.global.nc) of data no thread writes while the
+// kernel runs (the activations the forward kernel kept, the weights).
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const bf16* p) { return __bfloat162float(__ldg(p)); }
+
+// ---- cp.async -------------------------------------------------------------
+// 16 bytes from global to shared memory; with `valid` false the 16 bytes are
+// zeros and src is not read (it must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- wgmma, bf16 ----------------------------------------------------------
+// Operand tiles are kept in the 128-byte swizzled layout: blocks of rows of
+// 64 bf16 (128 bytes), every 8 rows (1,024 bytes, 1,024-aligned) an atom, the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8). A tile whose rows are
+// the M (or N) index and whose 64 columns are k is K-major; one whose rows are
+// k and columns M (or N) is MN-major (the transposed operand of a dW = X^T dY
+// product). The descriptor's start address, leading and stride byte offsets:
+// for a K-major k16 slice, the rows' 8-row atoms lie 1,024 bytes apart
+// (stride) and the slice starts 32 bytes per k16 step into the row; for an
+// MN-major k16 slice (16 rows, one 64-wide atom column) both offsets are the
+// 1,024 bytes between its two 8-row atoms, so the slice reads the same
+// either way the hardware names them.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes of the generic proxy (cp.async, st.shared) made
+// visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= A B over one k16 step for a 64 x 64 tile of the warpgroup. TA / TB:
+// 0 K-major, 1 MN-major. With accumulate 0 the old d is ignored. Thread t of
+// the warpgroup holds, for i < 32, row 16 (t / 32) + (t % 32) / 4 + 8 ((i % 4)
+// / 2) and column 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (+)= A B over one k8 step of TF32 for a 64 x 64 tile of the warpgroup,
+// A from registers (each warp's 16 rows as mma.sync m16n8k8's A fragment:
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)), B from shared memory,
+// K-major (the only layout wgmma takes for tf32), in the 128-byte swizzled
+// layout: 32 floats per row, a k8 step 32 bytes into it. Accumulators as in
+// wgmma_m64n64k16.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+}  // namespace tc

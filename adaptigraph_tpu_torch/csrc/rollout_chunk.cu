@@ -48,6 +48,7 @@
 #include <cstdint>
 
 #include "edge_build.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -255,29 +256,11 @@ __device__ void matmul(const float* X, int ldx, int M, int Kin, const float* W, 
   __syncthreads();
 }
 
-// Tensor-core primitives (PTX): ldmatrix loads of 8x8 bf16 tiles from shared
-// memory, and the m16n8k16 bf16 product with float32 accumulators. Fragment
-// layouts are the PTX ISA's: with g = lane / 4 and t = lane % 4, an A
-// fragment holds rows g and g + 8, columns 2t, 2t+1 and 2t+8, 2t+9; a B
-// fragment rows (k) 2t, 2t+1 and 2t+8, 2t+9 of column g; an accumulator rows
-// g and g + 8, columns 2t and 2t+1.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Tensor-core primitives (mma.cuh): ldmatrix loads of 8x8 bf16 tiles from
+// shared memory, and the m16n8k16 bf16 product with float32 accumulators.
+using tc::ldsm_x4;
+using tc::ldsm_x4_trans;
+using tc::mma_bf16;
 
 // Y = X @ W for rows [0, M), bf16 on the tensor cores with float32
 // accumulators. X in shared memory, row stride ldx (a multiple of 8, padded

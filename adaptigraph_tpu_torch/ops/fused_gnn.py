@@ -89,6 +89,87 @@ def weight_list(params, cfg: GNNConfig, compute_dtype):
     return out
 
 
+# weight_list indices of the layers whose products K2 and K3 run on the
+# tensor cores, in the order of their packed weights (csrc/gnn_common.cuh,
+# enum Tc): pe1, pe2, re1, re2, rp_w1, rp_w23, pp_wa, pp_wb, nr0, nr1, re0.
+# The others (pe0 on the particle inputs, the motion head's 3-wide last
+# layer) stay on the CUDA cores.
+TC_LAYERS = (2, 4, 8, 10, 12, 13, 15, 16, 18, 20, 6)
+
+
+def tf32_round(x):
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``; the low 13 bits of the result are 0."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x):
+    """float32 x -> (hi, lo), both TF32 values: hi = tf32(x), lo = tf32(x - hi)
+    (x - hi is exact in float32), so hi + lo is x to ~2^-22 relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+_PACK_INDEX = {}  # (layer shapes, transpose, device) -> pack_tc_weights' gather index, offsets
+
+
+def _pack_index(shapes, transpose, device):
+    """Where each element of ``pack_tc_weights``' buffer comes from: its
+    position in the layers' weights (kin, nout) flattened one after another,
+    or one past their end (a zero) for the padding; and each layer's offset.
+    Made once per shapes, layout and device."""
+    key = (tuple(shapes), transpose, str(device))
+    if key not in _PACK_INDEX:
+        parts, offs, at = [], [0], 0
+        for k, n in shapes:
+            m = np.arange(at, at + k * n).reshape(k, n)
+            m = m.T if transpose else m
+            block = np.full((round_up(m.shape[0], 8), round_up(m.shape[1], 16)), -1, np.int64)
+            block[:m.shape[0], :m.shape[1]] = m
+            parts.append(block.reshape(-1))
+            offs.append(offs[-1] + block.size)
+            at += k * n
+        idx = np.concatenate(parts)
+        idx[idx < 0] = at
+        _PACK_INDEX[key] = (torch.from_numpy(idx).to(device), offs[:-1])
+    return _PACK_INDEX[key]
+
+
+def pack_tc_weights(weights, compute_dtype, transpose):
+    """The tensor-core layers' weights (``TC_LAYERS`` of ``weight_list``'s
+    output, in ``compute_dtype``) in the layout the kernels stage, in one flat
+    buffer: per layer, the rows of its product's B^T zero-padded to a depth of
+    a multiple of 16 (and to a multiple of 8 rows) — with ``transpose`` (K2's
+    Y = X W) W^T, (nout, round16(kin)); without (K3's dX = dY W^T) W itself,
+    (round8(kin), round16(nout)). One gather from the concatenated weights
+    (``_pack_index``), so a launch's packing is a few device operations.
+    Returns (hi, lo, offsets): in bfloat16 hi holds the weights and lo is
+    None; in float32 hi and lo are the TF32 parts of ``tf32_split``.
+    ``offsets`` are each layer's first element (multiples of 16)."""
+    mats = [weights[i] for i in TC_LAYERS]
+    idx, offs = _pack_index([tuple(m.shape) for m in mats], transpose, mats[0].device)
+    flat = torch.cat([m.reshape(-1) for m in mats] + [mats[0].new_zeros(1)])
+    flat = flat.to(compute_dtype).index_select(0, idx)
+    if compute_dtype == torch.bfloat16:
+        return flat, None, offs
+    hi, lo = tf32_split(flat)
+    return hi, lo, offs
+
+
+def tc_pointers(weights, compute_dtype, transpose):
+    """Pack (``pack_tc_weights``) and return the kernels' pointer array: the
+    hi pointer of every tensor-core layer, then the lo ones (null in bf16),
+    and the packed tensors, which must outlive the launch."""
+    hi, lo, offs = pack_tc_weights(weights, compute_dtype, transpose)
+    size = hi.element_size()
+    ptrs = [hi.data_ptr() + o * size for o in offs]
+    ptrs += [lo.data_ptr() + o * size for o in offs] if lo is not None else [None] * len(offs)
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), (hi, lo)
+
+
 def radius_threshold(adj_radius):
     """radius² as the JAX kernel forms it: a double product rounded to float32."""
     return float(np.float32(adj_radius * adj_radius))
@@ -457,14 +538,20 @@ def gnn_forward_plain(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_d
 
 def check_gnn_inputs(nodes, nbr, mask, weights, cfg: GNNConfig, compute_dtype, extra=(), K=None):
     """What the K2, K2e and K3 kernels take: contiguous tensors of these
-    shapes and dtypes on one device, 24 weights, Np < 32768 and pstep >= 1;
-    with ``nbr`` None (K2e: the graph built in the kernel, ``K`` slots), no
-    tables and Np <= 128 (a warp's four columns per lane). Returns (B, Np, K,
-    Dp)."""
+    shapes and dtypes on one device, 24 weights, Np < 32768 and pstep >= 1,
+    layer widths (nf_particle, nf_relation, nf_effect) that are multiples of
+    8 up to 128 (the tensor-core tiles' 16-byte rows, a 128-row weight
+    slice); with ``nbr`` None (K2e: the graph built in the kernel, ``K``
+    slots), no tables and Np <= 128 (a warp's four columns per lane).
+    Returns (B, Np, K, Dp)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
+    widths = (cfg.nf_particle, cfg.nf_relation, cfg.nf_effect)
+    if any(w % 8 or not 8 <= w <= 128 for w in widths):
+        raise ValueError(f"the kernels need layer widths that are multiples of 8 up to 128, "
+                         f"got {widths}")
     B, Np, D = nodes.shape
     if nbr is not None:
         K = nbr.shape[1] // Np if nbr.dim() == 2 else 0
@@ -491,34 +578,36 @@ def launch_forward(lib, nodes, nbr, mask, last, weights, cfg: GNNConfig, compute
     radius∧topk graph (``K`` slots, ``adj_radius``) itself. With
     ``keep_acts`` every activation of every sample is kept for the training
     backward, one block per sample; without, each resident block reuses one
-    scratch (a forward alone). Activations and outputs come from
-    ``torch.empty``. Returns (pred, motion or None, acts)."""
+    scratch (a forward alone). Activations (in ``compute_dtype``) and outputs
+    come from ``torch.empty``; the tensor-core weights are packed here, once
+    per launch (``pack_tc_weights``). Returns (pred, motion or None, acts)."""
     B, Np, K, Dp = check_gnn_inputs(
         nodes, nbr, mask, weights, cfg, compute_dtype,
         {"last": (last, (nodes.shape[0], nodes.shape[1], 3), torch.float32)}, K=K)
     dev = nodes.device
     radius = nbr is None
     nfp, nfr, nf, rin = cfg.nf_particle, cfg.nf_relation, cfg.nf_effect, cfg.relation_input_dim
-    smem = lib.gnn_forward_smem_bytes(Np, K, int(radius))
+    bf16 = int(compute_dtype == torch.bfloat16)
+    smem = lib.gnn_forward_smem_bytes(Np, K, int(radius), bf16)
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory per block, more than {_MAX_SMEM}")
-    bf16 = int(compute_dtype == torch.bfloat16)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     grid = ctypes.c_int(0)
     rc = lib.gnn_forward_grid(B, Np, K, int(radius), int(keep_acts), bf16, index, ctypes.byref(grid))
     if rc != 0:
         raise RuntimeError(f"gnn_forward grid query failed: {lib.gnn_error_string(rc).decode()}")
     node_a, edge_a = (
-        torch.empty(grid.value * lib.gnn_forward_act_floats(Np, K, cfg.pstep, nfp, nfr, nf, rin,
-                                                             which, int(keep_acts)),
-                    dtype=torch.float32, device=dev) for which in (0, 1))
+        torch.empty(grid.value * lib.gnn_forward_act_elems(Np, K, cfg.pstep, nfp, nfr, nf, rin,
+                                                            which, int(keep_acts)),
+                    dtype=compute_dtype, device=dev) for which in (0, 1))
     n_p = cfg.max_nobj
     pred = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev)
     motion = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev) if want_motion else None
     wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
+    tptrs, _packed = tc_pointers(weights, compute_dtype, transpose=True)
     rc = lib.gnn_forward_launch(
         nodes.data_ptr(), None if radius else nbr.data_ptr(), None if radius else mask.data_ptr(),
-        last.data_ptr(), wptrs, node_a.data_ptr(), edge_a.data_ptr(), pred.data_ptr(),
+        last.data_ptr(), wptrs, tptrs, node_a.data_ptr(), edge_a.data_ptr(), pred.data_ptr(),
         motion.data_ptr() if motion is not None else None,
         B, Np, cfg.n_nodes, n_p, K, cfg.n_his, cfg.pstep, Dp, nodes.shape[2], nfp, nfr, nf, rin,
         float(cfg.motion_clamp), radius_threshold(adj_radius) if radius else 0.0,
@@ -529,12 +618,32 @@ def launch_forward(lib, nodes, nbr, mask, last, weights, cfg: GNNConfig, compute
     return pred, motion, (node_a, edge_a)
 
 
+def act_layout(lib, cfg: GNNConfig, K):
+    """Where training's kept activations lie in a sample's part of each of
+    the two tensors K2 writes (the library's ``gnn_forward_act_offsets``):
+    for which 0 (node buffers) and 1 (edge buffers), a list of (name, offset
+    in elements, slots, rows, width), a buffer holding ``slots`` tensors of
+    (rows, width) one after another."""
+    Np, P = round_up(cfg.n_nodes, 8), cfg.pstep
+    names = ([("pe_h1", 1), ("pe_h2", 1), ("effs", P + 1), ("pb", 1), ("rs", 1), ("aggs", P),
+              ("nr_h1", 1), ("nr_h2", 1)],
+             [("rel_in", 1), ("re_h1", 1), ("re_h2", 1), ("r_enc", 1), ("rel_base", 1), ("ms", P)])
+    out = []
+    for which, rows in ((0, Np), (1, Np * K)):
+        offs = (ctypes.c_longlong * 9)()
+        n = lib.gnn_forward_act_offsets(Np, K, P, cfg.nf_particle, cfg.nf_relation, cfg.nf_effect,
+                                        cfg.relation_input_dim, which, offs)
+        out.append([(name, offs[i], slots, rows, (offs[i + 1] - offs[i]) // (slots * rows))
+                    for i, (name, slots) in enumerate(names[which][:n - 1])])
+    return out
+
+
 def gnn_forward_cuda(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype,
                      want_motion=True, keep_acts=True):
     """Launch K2 (prebuilt edges) on the current stream. Returns (pred,
-    motion or None, acts): with ``keep_acts``, ``acts`` the two float32
-    tensors holding every activation, which the training backward (K3)
-    reads; without, a scratch that holds nothing afterwards."""
+    motion or None, acts): with ``keep_acts``, ``acts`` the two tensors
+    (in ``compute_dtype``) holding every activation, which the training
+    backward (K3) reads; without, a scratch that holds nothing afterwards."""
     from adaptigraph_tpu_torch.ops import kernels
 
     out = launch_forward(kernels.library(), nodes, nbr, mask, last, weights, cfg, compute_dtype,

@@ -29,7 +29,7 @@ import torch
 from adaptigraph_tpu_torch.models.gnn import GNNConfig
 from adaptigraph_tpu_torch.ops.fused_gnn import (N_WEIGHTS, _MAX_SMEM, _weight_shapes,
                                                  check_gnn_inputs, gnn_forward, gnn_forward_cuda,
-                                                 pack_inputs, supports, weight_list)
+                                                 pack_inputs, supports, tc_pointers, weight_list)
 from adaptigraph_tpu_torch.utils.checkpoint import tree_from_leaves, tree_leaves
 
 
@@ -201,29 +201,29 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     return dnodes, [g[k] for k in order]
 
 
-def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts,
-                       compute_dtype=torch.float32):
-    """Check the inputs against what the kernel takes, then launch it (and
-    the per-sample gradient sum) on the current stream. ``nodes`` and
+def launch_backward(lib, nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts, compute_dtype):
+    """Check the inputs against what the kernel takes, then launch the
+    backward of library ``lib`` (and the per-sample gradient sum) on the
+    current stream, counting nothing (the callers count). ``nodes`` and
     ``weights`` in ``compute_dtype``, ``dmot`` float32. ``acts``: the
     activations that the forward kernel wrote in the same dtype for the same
-    nodes, edges and weights (``gnn_forward_cuda``'s third output, float32
-    buffers); the kernel reads them where the TPU kernel recomputes the
-    forward. Returns float32 node cotangents and gradients."""
-    from adaptigraph_tpu_torch.ops import kernels
-
+    nodes, edges and weights (``gnn_forward_cuda``'s third output, two
+    tensors in ``compute_dtype``); the kernel reads them where the TPU kernel
+    recomputes the forward. The tensor-core weights are packed here, once per
+    launch (``pack_tc_weights``, W itself for dX = dY W^T). Returns float32
+    node cotangents and gradients."""
     f32 = torch.float32
     B, Np, K, Dp = check_gnn_inputs(nodes, nbr, mask, weights, cfg, compute_dtype,
                                     {"dmot": (dmot, (nodes.shape[0], nodes.shape[1], 3), f32)})
     dev = nodes.device
-    lib = kernels.library()
     nfp, nfr, nf, rin = cfg.nf_particle, cfg.nf_relation, cfg.nf_effect, cfg.relation_input_dim
     for which, a in enumerate(acts):
-        n = B * lib.gnn_forward_act_floats(Np, K, cfg.pstep, nfp, nfr, nf, rin, which, 1)
-        if a.dtype != f32 or a.device != dev or a.numel() != n or not a.is_contiguous():
-            raise ValueError(f"activations {which}: expected {n} contiguous float32 on {dev}, "
-                             f"got {a.numel()} {a.dtype} on {a.device}")
-    smem = lib.gnn_train_bwd_smem_bytes(Np, K)
+        n = B * lib.gnn_forward_act_elems(Np, K, cfg.pstep, nfp, nfr, nf, rin, which, 1)
+        if a.dtype != compute_dtype or a.device != dev or a.numel() != n or not a.is_contiguous():
+            raise ValueError(f"activations {which}: expected {n} contiguous {compute_dtype} on "
+                             f"{dev}, got {a.numel()} {a.dtype} on {a.device}")
+    bf16 = int(compute_dtype == torch.bfloat16)
+    smem = lib.gnn_train_bwd_smem_bytes(Np, K, bf16)
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory per block, more than {_MAX_SMEM}")
     shapes = _weight_shapes(cfg, Dp)
@@ -232,26 +232,37 @@ def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts,
     for s in sizes:
         offs.append(offs[-1] + s)
     node_s, edge_s = (
-        torch.empty(B * lib.gnn_train_bwd_scratch_floats(Np, K, nfp, nfr, nf, rin, which),
-                    dtype=f32, device=dev) for which in (0, 1))
+        torch.empty(B * lib.gnn_train_bwd_scratch_bytes(Np, K, cfg.pstep, nfp, nfr, nf, rin, which,
+                                                         bf16),
+                    dtype=torch.uint8, device=dev) for which in (0, 1))
     dnodes = torch.empty(B, Np, nodes.shape[2], dtype=f32, device=dev)
     partial = torch.empty(B, offs[-1], dtype=f32, device=dev)
     grads = torch.empty(offs[-1], dtype=f32, device=dev)
     wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
+    tptrs, _packed = tc_pointers(weights, compute_dtype, transpose=False)
     goff = (ctypes.c_int * (N_WEIGHTS + 1))(*offs)
     rc = lib.gnn_train_bwd_launch(
-        nodes.data_ptr(), nbr.data_ptr(), mask.data_ptr(), dmot.data_ptr(), wptrs,
+        nodes.data_ptr(), nbr.data_ptr(), mask.data_ptr(), dmot.data_ptr(), wptrs, tptrs,
         acts[0].data_ptr(), acts[1].data_ptr(), node_s.data_ptr(), edge_s.data_ptr(),
         dnodes.data_ptr(), partial.data_ptr(), grads.data_ptr(), goff,
         B, Np, cfg.n_nodes, cfg.max_nobj, K, cfg.n_his, cfg.pstep, Dp, nodes.shape[2], nfp, nfr, nf,
-        rin, int(compute_dtype == torch.bfloat16),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        rin, bf16, dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gnn_train_bwd kernel launch failed: "
                            f"{lib.gnn_error_string(rc).decode()} ({rc})")
-    gnn_train_bwd.launches += 1
     return dnodes, [grads[o:o + n].view(s) for o, n, s in zip(offs, sizes, shapes)]
+
+
+def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts,
+                       compute_dtype=torch.float32):
+    """Launch K3 (``launch_backward``) on the current stream."""
+    from adaptigraph_tpu_torch.ops import kernels
+
+    out = launch_backward(kernels.library(), nodes, nbr, mask, dmot, weights, cfg, acts,
+                          compute_dtype)
+    gnn_train_bwd.launches += 1
+    return out
 
 
 def train_forward(nodes, nbr, mask, last, weights, cfg: GNNConfig, compute_dtype=torch.float32):

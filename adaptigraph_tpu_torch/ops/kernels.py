@@ -10,9 +10,11 @@ builds anew and an unchanged one is reused. Nothing here runs at import.
 A ``variant`` other than the normal build (``None``) is a profiling build of
 the same sources, which the port's own calls never use:
 
-- ``"phase_clocks"`` (``-DROLLOUT_PHASE_CLOCKS``): the rollout kernel adds its
-  blocks' SM cycles per phase into a buffer set with
-  ``rollout_chunk_set_phase_clocks``;
+- ``"phase_clocks"`` (``-DROLLOUT_PHASE_CLOCKS -DGNN_PHASE_CLOCKS``): the
+  rollout kernel adds its blocks' SM cycles per phase into a buffer set with
+  ``rollout_chunk_set_phase_clocks``, the single-step forward and its
+  backward into 16 counters each, set with ``gnn_forward_set_phase_clocks``
+  and ``gnn_train_bwd_set_phase_clocks``;
 - ``"no_edge"``, ``"no_gather"`` and ``"mlp_only"`` (both): the single-step
   forward with its in-kernel graph ablated (``csrc/gnn_forward.cu``, built
   alone), the parts switched off in ``profiling/kernel_parts.py``.
@@ -35,7 +37,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 # variant -> (extra flags, the one source it builds or None for all)
 VARIANTS = {
     None: ([], None),
-    "phase_clocks": (["-DROLLOUT_PHASE_CLOCKS"], None),
+    "phase_clocks": (["-DROLLOUT_PHASE_CLOCKS", "-DGNN_PHASE_CLOCKS"], None),
     "no_edge": (["-DGNN_ABLATE_NO_EDGE"], "gnn_forward.cu"),
     "no_gather": (["-DGNN_ABLATE_NO_GATHER"], "gnn_forward.cu"),
     "mlp_only": (["-DGNN_ABLATE_NO_EDGE", "-DGNN_ABLATE_NO_GATHER"], "gnn_forward.cu"),
@@ -123,14 +125,17 @@ def library(variant=None):
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.gnn_error_string.argtypes = [I]
     lib.gnn_error_string.restype = ctypes.c_char_p
-    lib.gnn_forward_act_floats.argtypes = [I] * 9  # Np, K, pstep, nf_p, nf_r, nf, rel_in, which, keep
-    lib.gnn_forward_act_floats.restype = L
-    lib.gnn_forward_smem_bytes.argtypes = [I, I, I]  # Np, K, radius
+    lib.gnn_forward_act_elems.argtypes = [I] * 9  # Np, K, pstep, nf_p, nf_r, nf, rel_in, which, keep
+    lib.gnn_forward_act_elems.restype = L
+    lib.gnn_forward_act_offsets.argtypes = [I] * 8 + [ctypes.POINTER(L)]  # dims, which, out
+    lib.gnn_forward_act_offsets.restype = I
+    lib.gnn_forward_smem_bytes.argtypes = [I] * 4  # Np, K, radius, bf16
     lib.gnn_forward_smem_bytes.restype = I
     lib.gnn_forward_grid.argtypes = [I] * 7 + [ctypes.POINTER(I)]  # B, Np, K, radius, keep, bf16, device
     lib.gnn_forward_grid.restype = I
     lib.gnn_forward_launch.argtypes = (
-        [P, P, P, P, ctypes.POINTER(P), P, P, P, P]   # inputs, weights, activations, outputs
+        [P, P, P, P, ctypes.POINTER(P), ctypes.POINTER(P)]  # inputs, weights, packed weights
+        + [P, P, P, P]                                # activations, outputs
         + [I] * 13                                    # B and the dims
         + [F, F, I, I, I, I, P])                      # clamp, thresh, keep, grid, bf16, device, stream
     lib.gnn_forward_launch.restype = I
@@ -139,6 +144,9 @@ def library(variant=None):
     if variant == "phase_clocks":
         lib.rollout_chunk_set_phase_clocks.argtypes = [P]
         lib.rollout_chunk_set_phase_clocks.restype = None
+        for fn in (lib.gnn_forward_set_phase_clocks, lib.gnn_train_bwd_set_phase_clocks):
+            fn.argtypes = [P]
+            fn.restype = I
     lib.rollout_chunk_smem_bytes.argtypes = [I] * 12  # dims, bf16
     lib.rollout_chunk_smem_bytes.restype = I
     lib.rollout_chunk_error_string.argtypes = [I]
@@ -150,12 +158,12 @@ def library(variant=None):
         + [I, I, I]                                   # max_repeat, mean_y, bf16
         + [I, P])                                     # device, stream
     lib.rollout_chunk_launch.restype = I
-    lib.gnn_train_bwd_scratch_floats.argtypes = [I] * 7  # Np, K, nf_p, nf_r, nf, rel_in, which
-    lib.gnn_train_bwd_scratch_floats.restype = L
-    lib.gnn_train_bwd_smem_bytes.argtypes = [I, I]
+    lib.gnn_train_bwd_scratch_bytes.argtypes = [I] * 9  # Np, K, pstep, nf_p, nf_r, nf, rel_in, which, bf16
+    lib.gnn_train_bwd_scratch_bytes.restype = L
+    lib.gnn_train_bwd_smem_bytes.argtypes = [I, I, I]
     lib.gnn_train_bwd_smem_bytes.restype = I
     lib.gnn_train_bwd_launch.argtypes = (
-        [P, P, P, P, ctypes.POINTER(P)]               # nodes, nbr, mask, dmot, weights
+        [P, P, P, P, ctypes.POINTER(P), ctypes.POINTER(P)]  # nodes, nbr, mask, dmot, weights, packed
         + [P] * 7 + [ctypes.POINTER(I)]               # activations, scratch, outputs, offsets
         + [I] * 13                                    # B and the dims
         + [I, I, P])                                  # bf16, device, stream

@@ -4,7 +4,9 @@
 
 Phases, each printing JSON lines; any failure exits non-zero:
   0. card name and power limit, torch and CUDA versions; TF32 off.
-  1. build the CUDA kernels from the sources in this checkout (timed).
+  1. build the CUDA kernels from the sources in this checkout (timed), with
+     ptxas' register report and each K2/K3 instance's HGMMA and HMMA count
+     (every instance must run wgmma: HGMMA).
   2. the rollout kernel against its plain PyTorch version on the card, on the
      same inputs, in f32 and bf16 each (see ``phase_kernels``): rope width
      (fixture weights, B 2000) and granular width (5-point board, K 20), each
@@ -23,10 +25,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      baseline), rope on a batch of the synthetic dataset (few valid objects
      after FPS, ~40 real edges) and granular at its fixture's density
      (fixture weights): the single-step forward kernel (K2) against its
-     plain version (float32 and bfloat16); the backward kernel (K3), from
-     K2's activations, against its plain versions (on the card and on the
-     CPU, and against a float64 plain version off its relu flips), plus a
-     rerun that must be bit-identical. One train step through the kernels
+     plain version (float32 and bfloat16); the backward kernel (K3), on the
+     plain forward's activations and on K2's, against its plain versions
+     (on the card and on the CPU, and against a float64 plain version off
+     its relu flips), plus a rerun that must be bit-identical. One train step through the kernels
      against the same step through the plain versions; K2, K3 and train-step
      times; then the main path of this slice, ``python -m
      adaptigraph_tpu_torch train --config rope`` (in process) for 300 steps
@@ -49,7 +51,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
      script's states and at states packed so that every row fills its K
      slots), and the shares of K2e's time they give.
  10. bfloat16 training: K3 in bf16 against its plain bf16 version on the
-     three inputs of phase 5 (``backward_kernel_bf16``), one bf16 train step
+     three inputs of phase 5, fed the plain forward's activations and
+     bf16 K2's, which are held to the plain forward's
+     (``backward_kernel_bf16``), one bf16 train step
      against a plain one, K3 bf16 and bare bf16 step times, and 300 bf16
      steps through ``make_train_step(fused_fn=fused_train_fn(..., bf16))``
      in the CLI's loop from the float32 run's initial weights, with its
@@ -81,7 +85,11 @@ B_CHUNK = 2000
 # the rollout kernel's phases, in the order of its profiling build's counters
 PHASES = ("encoder", "graph", "relation", "projection", "aggregate", "update", "head",
           "restick")
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
+# H100 SXM dense peaks. float32-accurate products run on the tensor cores as
+# split TF32 (3xTF32: three TF32 products per float32 one, ~2^-21 relative
+# error), so the card's float32 rate for them is a third of TF32's 495
+# TFLOP/s, not the CUDA cores' 67.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 PEAK_BYTES = 3.35e12
 TRAIN_DIR = os.path.join(ROOT, "runs", "chip_smoke")  # gitignored; made anew each run
 B_TRAIN = 128
@@ -102,6 +110,35 @@ def card_line():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, make_inputs, reps, kernels):
+    """Under ``torch.profiler``, ``reps`` calls fn(*make_inputs(r)): the
+    device time per call of the kernels whose names hold one of ``kernels``;
+    the host time per call (perf_counter around the call, which returns
+    once its work is queued); and the host's CPU operators by self time per
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    host = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for r in range(reps):
+            args = make_inputs(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = sum(e.self_device_time_total for e in events
+              if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels))
+    cpu = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:8]
+    return dict(device_ms=dev / 1e3 / reps, host_ms=float(np.median(host)),
+                host_ops=[{"name": e.key[:60], "self_ms_per_call": e.self_cpu_time_total / 1e3 / reps,
+                           "calls_per_call": e.count / reps} for e in cpu])
 
 
 def median_ms(fn, make_inputs, reps):
@@ -189,10 +226,39 @@ def k1_work(gnn, pin, sa, weights, out, stats, B):
 # phases
 # ---------------------------------------------------------------------------
 
+def sass_counts(path):
+    """The tensor-core instructions of every K2/K3 template instance in the
+    built library (``cuobjdump -sass``): {kernel: {"HGMMA": n, "HMMA": n}},
+    each kernel named by its function and compute dtype."""
+    import re
+
+    from adaptigraph_tpu_torch.ops import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((k for k in ("gnn_forward_kernel", "gnn_train_bwd_kernel") if k in fn), None)
+            if name is not None:
+                name += "<bf16>" if "bfloat16" in fn else "<float>"
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            hit = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if hit:
+                counts[name][hit.group(1)] += 1
+    return counts
+
+
 def phase_build():
     """Build the kernels and, at the same time, their profiling builds (the
     per-phase SM-cycle counters of ``kernel_phases`` and the ablations of
-    ``kernel_parts``), one nvcc process per source, all started together."""
+    ``kernel_parts``), one nvcc process per source, all started together.
+    The line gives ptxas' register and spill report and the HGMMA and HMMA
+    counts of each K2/K3 instance: every instance must have HGMMA (wgmma:
+    bf16, and float32's split TF32; none keeps mma.sync's HMMA)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from adaptigraph_tpu_torch.ops import kernels
@@ -203,8 +269,13 @@ def phase_build():
     kernels.library()
     with open(path + ".ptxas.txt") as f:
         ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+    counts = sass_counts(path)
+    ok = len(counts) == 4 and all(c["HGMMA"] > 0 for c in counts.values())
     emit(phase="build", seconds=round(time.time() - t0, 2), library=os.path.relpath(path, ROOT),
-         variants=[v for v in kernels.VARIANTS if v], ptxas=ptxas)
+         variants=[v for v in kernels.VARIANTS if v], ptxas=ptxas, tensor_core_instructions=counts,
+         ok=ok)
+    if not ok:
+        fail("a K2/K3 instance lacks its tensor-core instructions (HGMMA; see the build line)")
 
 
 def run_both(mat, dev, cd, B, n_steps, masked, seed=0, stats=None):
@@ -1073,34 +1144,40 @@ GRAD_LAYER = ["pe0", "pe0", "pe1", "pe1", "pe2", "pe2", "re0", "re0", "re1", "re
 FLIP_MARGIN = 2.0 ** -12
 
 
+def act_views(acts, cfg, K):
+    """K2's kept activations (two flat tensors, B samples) as views by name,
+    in the layout the library exports (``ops/fused_gnn.py::act_layout``):
+    name -> one (B, rows, width) view per slot."""
+    from adaptigraph_tpu_torch.ops import kernels
+    from adaptigraph_tpu_torch.ops.fused_gnn import act_layout
+
+    out = {}
+    for buf, layout in zip(acts, act_layout(kernels.library(), cfg, K)):
+        B = buf.numel() // sum(slots * rows * width for _, _, slots, rows, width in layout)
+        flat = buf.view(B, -1)
+        for name, off, slots, rows, width in layout:
+            n = rows * width
+            out[name] = [flat[:, off + s * n:off + (s + 1) * n].view(B, rows, width)
+                         for s in range(slots)]
+    return out
+
+
 def kernel_relu_outputs(acts, msk, cfg):
-    """K2's relu outputs, read from its activations (this mirrors their
-    layout, ``act_bufs`` in csrc/gnn_common.cuh), per relu layer as the
-    plain version's ``taps`` list them: node layers (B, Np, F), edge layers
-    on the real edges in the kernel's order (by sample, receiver, slot),
-    (E, F)."""
+    """K2's relu outputs, read from its activations (``act_views``; their
+    dtype is the compute dtype), per relu layer as the plain version's
+    ``taps`` list them: node layers (B, Np, F), edge layers on the real
+    edges in the kernel's order (by sample, receiver, slot), (E, F)."""
     from adaptigraph_tpu_torch.ops.fused_gnn import round_up
 
-    nf, nfp, nfr, P = cfg.nf_effect, cfg.nf_particle, cfg.nf_relation, cfg.pstep
-    B, Np = msk.shape[0], round_up(cfg.n_nodes, 8)
+    Np = round_up(cfg.n_nodes, 8)
     K = msk.shape[1] // Np
-
-    def split(buf, rows, widths):
-        out, at = [], 0
-        for w in widths:
-            out.append(buf[:, at:at + rows * w].view(B, rows, w))
-            at += rows * w
-        return out
-
-    node = split(acts[0].view(B, -1), Np, [nfp, nfp] + [nf] * (P + 1) + [nf, 2 * nf] + [nf] * P
-                 + [nf, nf])
-    edge = split(acts[1].view(B, -1), Np * K, [cfg.relation_input_dim, nfr, nfr, nf, nf] + [nf] * P)
+    v = act_views(acts, cfg, K)
     n_real = (msk > 0).sum(1)
     real = torch.arange(Np * K, device=msk.device)[None] < n_real[:, None]
-    effs = node[2:P + 3]
-    return {"pe0": [node[0]], "pe1": [node[1]], "pe2": [effs[0]], "re0": [edge[1][real]],
-            "re1": [edge[2][real]], "re2": [edge[3][real]], "msg": [t[real] for t in edge[5:]],
-            "eff": effs[1:], "nr0": [node[-2]], "nr1": [node[-1]]}
+    return {"pe0": v["pe_h1"], "pe1": v["pe_h2"], "pe2": v["effs"][:1],
+            "re0": [v["re_h1"][0][real]], "re1": [v["re_h2"][0][real]],
+            "re2": [v["r_enc"][0][real]], "msg": [t[real] for t in v["ms"]],
+            "eff": v["effs"][1:], "nr0": v["nr_h1"], "nr1": v["nr_h2"]}
 
 
 def relu_flips(taps, kernel_out, msk, cfg):
@@ -1127,110 +1204,252 @@ def relu_flips(taps, kernel_out, msk, cfg):
     return units, worst
 
 
+def plain_activations(nodes, nbr, msk, w, cfg, cd):
+    """The plain forward's activations in the layout K2 keeps them for K3
+    (``act_views``), in the compute dtype: every value that K3 reads, as the
+    plain backward recomputes it (from its ``taps``, on the same device);
+    the buffers K3 does not read (pb, rs, rel_base) are zero. K3 fed these
+    takes the same relu and rounding decisions as the plain backward, so it
+    is held to it alone."""
+    from adaptigraph_tpu_torch.ops import kernels
+    from adaptigraph_tpu_torch.ops.fused_gnn import act_layout
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_plain
+
+    f32 = torch.float32
+    B, Np, D = nodes.shape
+    K, P, nh3 = nbr.shape[1] // Np, cfg.pstep, cfg.n_his * 3
+    taps = {}
+    gnn_train_bwd_plain(nodes, nbr, msk, torch.zeros(B, Np, 3, device=nodes.device), w, cfg,
+                        taps=taps, compute_dtype=cd)
+
+    def act(name, t=0):  # the layer's output, rnd(relu(z)), as the plain version keeps it
+        return torch.relu(taps[name][t][0]).to(cd)
+
+    def rnd(v):
+        return v.to(cd).to(f32)
+
+    emask = (msk.view(B, K, Np) > 0)[..., None]
+    x = nodes.to(f32)
+    node_g = x[..., D - nh3 - 3:]
+    T = node_g[:, None].expand(B, K, Np, node_g.shape[-1])
+    G = node_g[torch.arange(B, device=x.device)[:, None, None], nbr.long().view(B, K, Np)]
+    rel_in = torch.cat([T[..., nh3:nh3 + 2], G[..., nh3:nh3 + 2],
+                        rnd(T[..., nh3 + 2:] - G[..., nh3 + 2:]).abs(),
+                        rnd(T[..., :nh3] - G[..., :nh3])], dim=-1).to(cd)
+    edges = emask[..., 0].permute(0, 2, 1)  # (B, receiver, slot): the kernel's edge order
+    real = torch.arange(Np * K, device=x.device)[None] < edges.sum((1, 2))[:, None]
+    bufs = tuple(torch.zeros(B * (layout[-1][1] + layout[-1][2] * layout[-1][3] * layout[-1][4]),
+                             dtype=cd, device=x.device)
+                 for layout in act_layout(kernels.library(), cfg, K))
+    v = act_views(bufs, cfg, K)
+
+    def edge_rows(dst, t):  # (B, K, Np, F) on the real edges -> the kernel's edge rows
+        dst[..., :t.shape[-1]][real] = t.permute(0, 2, 1, 3)[edges]
+
+    for name, src in (("pe_h1", [act("pe0")]), ("pe_h2", [act("pe1")]),
+                      ("effs", [act("pe2")] + [act("eff", t) for t in range(P)]),
+                      ("aggs", [torch.where(emask, act("msg", t).to(f32), 0.0).sum(1).to(cd)
+                                for t in range(P)]),
+                      ("nr_h1", [act("nr0")]), ("nr_h2", [act("nr1")])):
+        for dst, t in zip(v[name], src):
+            dst.copy_(t)
+    # the relation inputs keep a row stride of a multiple of 8, zeros past rel_in
+    for name, src in (("rel_in", [rel_in]), ("re_h1", [act("re0")]), ("re_h2", [act("re1")]),
+                      ("r_enc", [act("re2")]), ("ms", [act("msg", t) for t in range(P)])):
+        for dst, t in zip(v[name], src):
+            edge_rows(dst, t)
+    return bufs
+
+
+def k3_vs_plain(got, refs, dev, taps=None, acts=None, msk=None, cfg=None, plain_taps=None):
+    """Each of K3's outputs (dnodes, then the 24 gradients) against the
+    plain versions: rows of relative errors, the worst (whole tensors)
+    against the nearest of "plain", "plain_cpu" and (where ``refs`` has it)
+    "f64", and, with float64
+    ``taps`` and the activations K3 read, the worst against "f64" off the
+    columns of the relu units that went the other way than float64's, and
+    the largest flip margin. With the ``plain_taps`` of "plain", also (for
+    diagnosis, not a gate) the worst against "plain" off the columns of the
+    units where the relu K3 read went the other way than its own (those
+    flips' margins count too)."""
+    def flips_of(t):
+        return ({}, 0.0) if t is None else relu_flips(t, kernel_relu_outputs(acts, msk, cfg),
+                                                      msk, cfg)
+
+    def keep_of(units, i, a):
+        layer = None if i == 0 else GRAD_LAYER[i - 1]
+        if layer is None or layer not in units:
+            return torch.ones(a.shape[-1], dtype=torch.bool, device=dev)
+        return ~units[layer].repeat(a.shape[-1] // units[layer].numel())
+
+    flips, margin = flips_of(taps)
+    pflips, pmargin = flips_of(plain_taps)
+    flat = {k: [v[0]] + v[1] for k, v in refs.items()}
+    rows, worst, worst64, worst_off = [], 0.0, 0.0, 0.0
+    for i, a in enumerate([got[0]] + got[1]):
+        p, c = flat["plain"][i], flat["plain_cpu"][i].to(dev)
+        r = min([rel_norm(a, p), rel_norm(a, c)]
+                + ([rel_norm(a, flat["f64"][i])] if "f64" in flat else []))
+        row = {"name": "dnodes" if i == 0 else f"grad{i - 1}", "rel_vs_plain": rel_norm(a, p),
+               "rel_vs_plain_cpu": rel_norm(a, c), "max_abs_vs_plain": float((a - p).abs().max())}
+        if plain_taps is not None:  # for diagnosis only: off the plain version's flips
+            pk = keep_of(pflips, i, a)
+            off = rel_norm(a[..., pk], p[..., pk])
+            worst_off = max(worst_off, off)
+            row.update(plain_flip_columns=int((~pk).sum()), rel_vs_plain_off_its_flips=off)
+        worst = max(worst, r)
+        if taps is not None:
+            x = flat["f64"][i]
+            keep = keep_of(flips, i, a)
+            r64 = rel_norm(a[..., keep], x[..., keep])
+            worst64 = max(worst64, r64)
+            row.update(kernel_rel_vs_f64=rel_norm(a, x), plain_rel_vs_f64=rel_norm(p, x),
+                       flip_columns=int((~keep).sum()), kernel_rel_vs_f64_off_flips=r64)
+        rows.append(row)
+    finite = all(bool(torch.isfinite(t).all()) for t in [got[0]] + got[1])
+    return dict(worst_rel_vs_nearer_plain=worst, worst_rel_vs_f64_off_flips=worst64,
+                worst_rel_vs_plain_off_its_flips=worst_off if plain_taps is not None else None,
+                largest_flip_margin=max(margin, pmargin),
+                relu_flip_units={k: int(v.sum()) for k, v in flips.items()},
+                relu_flip_units_vs_plain={k: int(v.sum()) for k, v in pflips.items()},
+                finite=finite, rows=rows)
+
+
 def phase_backward_kernel(config, synth_batch, dev):
     """K3 against its plain version on the same inputs (f32, ``input_cases``),
-    reading the activations of a K2 launch on them; a rerun must be
-    bit-identical. The node cotangents and every weight gradient must lie
-    within 5e-4 of a plain version relative to its norm. A ReLU whose input
-    lies within float32 rounding of 0 may fall on either side in two correct
-    float32 versions, and one such flip moves a whole gradient column; so
-    each tensor is held to the nearer of two plain versions that sum in
-    different orders (on the card and on the CPU). So that a drift to one
-    side is still caught, every tensor must also lie within 5e-4 of a
-    float64 plain version, without the columns of the relu units where the
-    kernel's relu (read from K2's activations) went the other way than
-    float64's; each such flip must lie within FLIP_MARGIN of 0. Returns the
-    rope case's max abs error against the plain version on the card."""
+    twice: fed the plain forward's activations (``plain_activations``: K3
+    alone, with the plain backward's own relu decisions), and on the
+    activations of a K2 launch on the same inputs (K2 then K3, the training
+    path), whose rerun must be bit-identical. The node cotangents and every
+    weight gradient must lie within 5e-4 of a plain version relative to its
+    norm. A ReLU whose input lies within float32 rounding of 0 may fall on
+    either side in two correct float32 versions, and one such flip moves a
+    whole gradient column; so each tensor is held, as a whole tensor, to the
+    nearest of three versions: two plain versions that sum in different
+    orders (on the card and on the CPU) and a float64 plain version (where
+    both float32 plain versions take the side of a relu that float64 does
+    not, a kernel that takes float64's is right). K2 redoes a relu input
+    near 0 as a float32 sum that rounds to nearest, as the plain versions
+    sum; the figure off the columns of the units where the relu K3 read went
+    the other way than the plain version's is reported beside it, for
+    diagnosis. So that a drift to one side is still caught,
+    every tensor must also lie within 5e-4 of a float64 plain version,
+    without the columns of the relu units where the relu K3 read went the
+    other way than float64's; each such flip must lie within FLIP_MARGIN of
+    0. Returns the rope case's max abs error of K2 then K3 against the plain
+    version on the card."""
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
 
+    f32 = torch.float32
     errs, ok_all = {}, True
-    for name, (nodes, nbr, msk, last, w), cfg in input_cases(config, synth_batch, dev,
-                                                              torch.float32):
+    for name, (nodes, nbr, msk, last, w), cfg in input_cases(config, synth_batch, dev, f32):
         g = torch.Generator(device=dev)
         g.manual_seed(5)
         dmot = torch.randn(nodes.shape[0], nodes.shape[1], 3, generator=g, device=dev) * 1e-2
         dmot[:, cfg.max_nobj:] = 0
-        acts = gnn_forward_cuda(nodes, nbr, msk, last, w, cfg, torch.float32)[2]
+        acts = gnn_forward_cuda(nodes, nbr, msk, last, w, cfg, f32)[2]
         got = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts)
         again = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts)
+        pacts = plain_activations(nodes, nbr, msk, w, cfg, f32)
+        alone = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, pacts)
         torch.cuda.synchronize()
         identical = bool(torch.equal(got[0], again[0])
                          and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
-        taps = {}
-        refs = {"plain": gnn_train_bwd_plain(nodes, nbr, msk, dmot, w, cfg),
+        taps, ptaps = {}, {}
+        refs = {"plain": gnn_train_bwd_plain(nodes, nbr, msk, dmot, w, cfg, taps=ptaps),
                 "plain_cpu": gnn_train_bwd_plain(nodes.cpu(), nbr.cpu(), msk.cpu(), dmot.cpu(),
                                                  [t.cpu() for t in w], cfg),
                 "f64": gnn_train_bwd_plain(nodes.double(), nbr, msk, dmot.double(),
                                            [t.double() for t in w], cfg, taps=taps)}
-        flips, flip_margin = relu_flips(taps, kernel_relu_outputs(acts, msk, cfg), msk, cfg)
-        del taps
-        flat = {k: [v[0]] + v[1] for k, v in refs.items()}
-        rows, worst, worst64, max_abs = [], 0.0, 0.0, 0.0
-        for i, a in enumerate([got[0]] + got[1]):
-            p, c, x = flat["plain"][i], flat["plain_cpu"][i].to(dev), flat["f64"][i]
-            r = min(rel_norm(a, p), rel_norm(a, c))
-            layer = None if i == 0 else GRAD_LAYER[i - 1]
-            keep = torch.ones(a.shape[-1], dtype=torch.bool, device=dev)
-            if layer is not None:
-                keep = ~flips[layer].repeat(a.shape[-1] // flips[layer].numel())
-            r64 = rel_norm(a[..., keep], x[..., keep])
-            worst, worst64 = max(worst, r), max(worst64, r64)
-            max_abs = max(max_abs, float((a - p).abs().max()))
-            rows.append({"name": "dnodes" if i == 0 else f"grad{i - 1}",
-                         "rel_vs_plain": rel_norm(a, p), "rel_vs_plain_cpu": rel_norm(a, c),
-                         "max_abs_vs_plain": float((a - p).abs().max()),
-                         "kernel_rel_vs_f64": rel_norm(a, x), "plain_rel_vs_f64": rel_norm(p, x),
-                         "plain_cpu_rel_vs_f64": rel_norm(c, x),
-                         "flip_columns": int((~keep).sum()), "kernel_rel_vs_f64_off_flips": r64})
-        ok = bool(identical and worst <= 5e-4 and worst64 <= 5e-4 and flip_margin <= FLIP_MARGIN
-                  and all(torch.isfinite(t).all() for t in [got[0]] + got[1]))
+        res = {"k3_alone": k3_vs_plain(alone, refs, dev, taps, pacts, msk, cfg),
+               "k2_then_k3": k3_vs_plain(got, refs, dev, taps, acts, msk, cfg, ptaps)}
+        del taps, ptaps, refs
+        oks = {k: bool(r["finite"] and r["worst_rel_vs_nearer_plain"] <= 5e-4
+                       and r["worst_rel_vs_f64_off_flips"] <= 5e-4
+                       and r["largest_flip_margin"] <= FLIP_MARGIN) for k, r in res.items()}
+        ok = identical and all(oks.values())
         ok_all &= ok
-        errs[name] = max_abs
-        # where the tensor farthest from the plain version on the card differs:
-        # the share of its absolute difference in its largest last-axis column
-        far = max(range(len(rows)), key=lambda i: rows[i]["rel_vs_plain"])
-        diff = ([got[0]] + got[1])[far] - flat["plain"][far]
-        cols = diff.abs().reshape(-1, diff.shape[-1]).sum(0)
+        errs[name] = max(r["max_abs_vs_plain"] for r in res["k2_then_k3"]["rows"])
         emit(phase="backward_kernel_check", case=name, B=nodes.shape[0],
              real_edges_per_sample=real_edges(msk), rerun_bit_identical=identical,
-             worst_rel_vs_nearer_plain=worst, worst_rel_vs_f64_off_flips=worst64,
-             max_abs_err=max_abs,
              tol="5e-4 of the norm: of the nearer plain version, and of float64 off the flips",
-             relu_flip_units={k: int(v.sum()) for k, v in flips.items()},
-             largest_flip_margin=flip_margin, flip_margin_tol=FLIP_MARGIN,
-             farthest_from_plain=rows[far]["name"], its_top_column=int(cols.argmax()),
-             its_top_column_share=float(cols.max() / cols.sum().clamp(min=1e-30)), rows=rows,
-             ok=ok)
+             flip_margin_tol=FLIP_MARGIN, ok_by_input=oks, ok=ok,
+             **{k: dict(r, rows=r["rows"] if not oks[k] else None) for k, r in res.items()})
     if not ok_all:
         fail("the backward kernel disagrees with its plain versions (see backward_kernel_check)")
     return errs["rope"]
 
 
-# K3 bf16 against its plain bf16 version, of the norm: a rounding step that
-# is missed or misplaced moves a tensor by ~1e-3, far above this
-BF16_ROUNDING_TOL = 1e-5
+# bf16 K3 against its plain bf16 version, relative to the norm. The tensor
+# cores truncate their float32 sums, which on their own flip the bf16
+# rounding of some cotangents and activations against the plain version's
+# float32 matmuls (3.1e-4 of the norm on the rope fixture's inputs before
+# the redo); K2 and K3 redo every output near a bf16 rounding midpoint (or
+# a relu input near 0) as the FMA chain in k order that the plain version's
+# matmul computes (csrc/gnn_common.cuh's Redo), and so take its rounding
+# decisions, as the earlier CUDA-core K3 did at 1e-5. A rounding step that
+# is missed or misplaced moves tensors by 2e-3 to 5e-3.
+BF16_ROUNDING_TOL = 1e-5  # K3 alone (the plain forward's activations) and K2 then K3
+BF16_ACT_DIFFER = 1e-4  # share of K2's kept bf16 activations that differ from the plain forward's
+BF16_ACT_OVER_ONE_ULP = 1e-5  # ... that lie more than one bf16 ulp from it
+
+
+def bf16_ordered(t):
+    """bf16 values as integers in the order of the values (one bf16 ulp apart
+    = 1 apart; +0 and -0 equal)."""
+    bits = t.contiguous().view(torch.int16).int()
+    mag = bits & 0x7FFF
+    return torch.where(bits < 0, -mag, mag)
+
+
+EDGE_ACTS = ("rel_in", "re_h1", "re_h2", "r_enc", "rel_base", "ms")
+
+
+def act_ulps(acts, pacts, cfg, msk):
+    """K2's kept bf16 activations against the plain forward's
+    (``plain_activations``), buffer by buffer and round by round, on the real
+    node rows and the real edges (pb, rs and rel_base, which K3 does not
+    read, are left out): the share of elements that differ and the share
+    more than one bf16 ulp apart."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import round_up
+
+    Np = round_up(cfg.n_nodes, 8)
+    K = msk.shape[1] // Np
+    got, want = act_views(acts, cfg, K), act_views(pacts, cfg, K)
+    real = torch.arange(Np * K, device=msk.device)[None] < (msk > 0).sum(1)[:, None]
+    out = {}
+    for name in got:
+        if name in ("pb", "rs", "rel_base"):
+            continue
+        for s, (a, b) in enumerate(zip(got[name], want[name])):
+            a, b = (a[real], b[real]) if name in EDGE_ACTS else (a[:, :cfg.n_nodes], b[:, :cfg.n_nodes])
+            d = (bf16_ordered(a) - bf16_ordered(b)).abs()
+            out[f"{name}[{s}]"] = {"differ": float((d > 0).double().mean()),
+                                   "over_one_ulp": float((d > 1).double().mean())}
+    return out
 
 
 def phase_backward_kernel_bf16(config, synth_batch, dev):
     """K3 in bfloat16 against its plain bf16 version on the same inputs
-    (``input_cases`` packed in bf16), reading the activations of a bf16 K2
-    launch on them; a rerun must be bit-identical. The node cotangents and
-    each of the 24 weight gradients must lie within ``BF16_ROUNDING_TOL`` of
-    their norm (so within 2e-2) of a plain bf16 version, where the bf16
-    rounding points show, and no farther from the float32 K3 (on the float32
-    packing of the same batch and weights) than 1.25 times the plain bf16
-    version is. As in float32 (``phase_backward_kernel``), a relu input
-    within rounding of 0 may fall on either side in two correct versions
-    and move a whole gradient column, so each tensor is held to the nearer
-    of two plain versions (on the card and on the CPU), and its distance
-    from float32 to 1.25 times the farther one's. Returns the rope case's
-    max abs error against the plain version on the card."""
+    (``input_cases`` packed in bf16). The node cotangents and each of the 24
+    weight gradients are held, as whole tensors relative to their norm, to
+    the nearer of two plain bf16 versions (on the card and on the CPU), where
+    the bf16 rounding points show, within ``BF16_ROUNDING_TOL``: fed the
+    plain bf16 forward's activations (``plain_activations``: K3 alone), and
+    on the activations of a bf16 K2 launch on the same inputs (K2 then K3,
+    the training path; its rerun must be bit-identical), whose distance from
+    the float32 K3 (on the float32 packing of the same batch and weights)
+    must also be at most 1.25 times the plain versions'. K2's kept
+    activations themselves are held to the plain forward's buffer by buffer
+    (``act_ulps``): at most ``BF16_ACT_DIFFER`` of each buffer's elements
+    differ, at most ``BF16_ACT_OVER_ONE_ULP`` by more than one bf16 ulp.
+    Returns the rope case's max abs error of K2 then K3."""
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
 
     f32, bf16 = torch.float32, torch.bfloat16
-    errs, ok_all = {}, True
+    out, ok_all = {}, True
     for (name, a32, cfg), (_, a16, _) in zip(input_cases(config, synth_batch, dev, f32),
                                              input_cases(config, synth_batch, dev, bf16)):
         nodes, nbr, msk, last, w = a16
@@ -1238,47 +1457,54 @@ def phase_backward_kernel_bf16(config, synth_batch, dev):
         g.manual_seed(5)
         dmot = torch.randn(nodes.shape[0], nodes.shape[1], 3, generator=g, device=dev) * 1e-2
         dmot[:, cfg.max_nobj:] = 0
+        plain = gnn_train_bwd_plain(nodes, nbr, msk, dmot, w, cfg, compute_dtype=bf16)
+        plain_cpu = gnn_train_bwd_plain(nodes.cpu(), nbr.cpu(), msk.cpu(), dmot.cpu(),
+                                        [t.cpu() for t in w], cfg, compute_dtype=bf16)
+        refs = {"plain": plain, "plain_cpu": plain_cpu}
+        pacts = plain_activations(nodes, nbr, msk, w, cfg, bf16)
+        res = k3_vs_plain(gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, pacts, bf16), refs, dev)
         acts = gnn_forward_cuda(nodes, nbr, msk, last, w, cfg, bf16)[2]
+        ulps = act_ulps(acts, pacts, cfg, msk)
+        differ = max(v["differ"] for v in ulps.values())
+        over = max(v["over_one_ulp"] for v in ulps.values())
+        del pacts
         got = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts, bf16)
         again = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts, bf16)
         torch.cuda.synchronize()
         identical = bool(torch.equal(got[0], again[0])
                          and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
         del acts, again
+        chain = k3_vs_plain(got, refs, dev)
         acts32 = gnn_forward_cuda(*a32, cfg, f32)[2]
         ref32 = gnn_train_bwd_cuda(a32[0], a32[1], a32[2], dmot, a32[4], cfg, acts32)
         del acts32
-        plain = gnn_train_bwd_plain(nodes, nbr, msk, dmot, w, cfg, compute_dtype=bf16)
-        plain_cpu = gnn_train_bwd_plain(nodes.cpu(), nbr.cpu(), msk.cpu(), dmot.cpu(),
-                                        [t.cpu() for t in w], cfg, compute_dtype=bf16)
-        rows, worst, worst_ratio, max_abs = [], 0.0, 0.0, 0.0
-        tensors = zip([got[0]] + got[1], [plain[0]] + plain[1], [plain_cpu[0]] + plain_cpu[1],
-                      [ref32[0]] + ref32[1])
-        for i, (a, p, c, x) in enumerate(tensors):
-            c = c.to(dev)
-            r = min(rel_norm(a, p), rel_norm(a, c))
-            ratio = rel_norm(a, x) / max(rel_norm(p, x), rel_norm(c, x), 1e-30)
-            worst, worst_ratio = max(worst, r), max(worst_ratio, ratio)
-            max_abs = max(max_abs, float((a - p).abs().max()))
-            rows.append({"name": "dnodes" if i == 0 else f"grad{i - 1}",
-                         "rel_vs_plain": rel_norm(a, p), "rel_vs_plain_cpu": rel_norm(a, c),
-                         "kernel_rel_vs_f32_k3": rel_norm(a, x), "plain_rel_vs_f32_k3": rel_norm(p, x),
-                         "plain_cpu_rel_vs_f32_k3": rel_norm(c, x)})
-        ok = bool(identical and worst <= BF16_ROUNDING_TOL and worst_ratio <= 1.25
-                  and all(torch.isfinite(t).all() for t in [got[0]] + got[1]))
+        out[name] = max(r["max_abs_vs_plain"] for r in chain["rows"])
+        ratio = max(rel_norm(a, x) / max(rel_norm(p, x), rel_norm(c.to(dev), x), 1e-30)
+                    for a, p, c, x in zip([got[0]] + got[1], [plain[0]] + plain[1],
+                                          [plain_cpu[0]] + plain_cpu[1], [ref32[0]] + ref32[1]))
+        ok = bool(identical and res["finite"] and chain["finite"]
+                  and res["worst_rel_vs_nearer_plain"] <= BF16_ROUNDING_TOL
+                  and chain["worst_rel_vs_nearer_plain"] <= BF16_ROUNDING_TOL and ratio <= 1.25
+                  and differ <= BF16_ACT_DIFFER and over <= BF16_ACT_OVER_ONE_ULP)
         ok_all &= ok
-        errs[name] = max_abs
         emit(phase="backward_kernel_bf16_check", case=name, B=nodes.shape[0],
              real_edges_per_sample=real_edges(msk), rerun_bit_identical=identical,
-             worst_rel_vs_nearer_plain=worst, worst_f32_error_ratio_vs_plain=worst_ratio,
-             max_abs_err=max_abs,
-             tol=f"{BF16_ROUNDING_TOL:g} of the norm of the nearer plain bf16 version (inside "
-                 "2e-2); error against float32 K3 at most 1.25x the plain versions'",
-             rows=rows, ok=ok)
+             k3_alone_worst_rel_vs_nearer_plain=res["worst_rel_vs_nearer_plain"],
+             k2_then_k3_worst_rel_vs_nearer_plain=chain["worst_rel_vs_nearer_plain"],
+             k2_then_k3_worst_f32_error_ratio_vs_plain=ratio,
+             k2_acts_worst_share_differing=differ, k2_acts_worst_share_over_one_ulp=over,
+             k2_acts_vs_plain={k: v for k, v in ulps.items() if v["differ"] > 0},
+             tol=f"K3 alone and K2 then K3 {BF16_ROUNDING_TOL:g} of the norm of the nearer plain "
+                 f"bf16 version, K2 then K3's error against float32 K3 at most 1.25x the plain "
+                 f"versions'; K2's activations: at most {BF16_ACT_DIFFER:g} of each buffer "
+                 f"differing from the plain forward's, {BF16_ACT_OVER_ONE_ULP:g} by more than "
+                 f"one ulp",
+             k3_alone_rows=res["rows"] if not ok else None,
+             k2_then_k3_rows=chain["rows"] if not ok else None, ok=ok)
     if not ok_all:
         fail("the bf16 backward kernel disagrees with its plain versions "
              "(see backward_kernel_bf16_check)")
-    return errs["rope"]
+    return out["rope"]
 
 
 def plain_kernels():
@@ -1379,39 +1605,43 @@ def gnn_work(gnn, nodes, nbr, msk, weights):
 
 def k2_train_bound(gnn, nodes, nbr, msk, weights, peak):
     """K2 with training's activations kept: its operations; the bytes of its
-    inputs (+ last) read once, pred, motion and the float32 activations
-    written once."""
+    inputs (+ last) read once, pred, motion and the activations (in the
+    compute dtype) written once."""
     fwd, nbytes, acts = gnn_work(gnn, nodes, nbr, msk, weights)
     B, Np = nodes.shape[:2]
     return dict(zip(("bound_ms", "bound_by"),
-                    bound(fwd, nbytes + B * Np * 3 * 4 + B * gnn.max_nobj * 3 * 4 * 2 + 4 * acts,
-                          peak)), gflop_per_launch=fwd / 1e9)
+                    bound(fwd, nbytes + B * Np * 3 * 4 + B * gnn.max_nobj * 3 * 4 * 2
+                          + acts * nodes.element_size(), peak)), gflop_per_launch=fwd / 1e9)
 
 
 def k3_bound(gnn, nodes, nbr, msk, weights, peak):
     """K3's bound: the lesser of two designs of the same function. One reads
     the forward's activations, kept in the compute dtype, and does two
-    products per layer (dX = dY W^T, dW = X^T dY); the other recomputes the
-    forward, as the TPU kernel does (three products per layer, no
-    activation bytes). Both read the inputs (nodes, tables, dmot, weights)
-    once and write dnodes and the float32 weight gradients once. Also the
-    bound of the present design (two products, K2's float32 activations)
-    and the bytes of those activations."""
+    products per layer (dX = dY W^T, dW = X^T dY): the present design; the
+    other recomputes the forward, as the TPU kernel does (three products
+    per layer, no activation bytes). Both read the inputs (nodes, tables,
+    dmot, weights) once and write dnodes and the float32 weight gradients
+    once. Also the bound of the present design and the bytes of the
+    activations it reads."""
     fwd, nbytes, acts = gnn_work(gnn, nodes, nbr, msk, weights)
     B, Np = nodes.shape[:2]
     io = nbytes + B * Np * 3 * 4 + nodes.numel() * 4 + sum(t.numel() * 4 for t in weights)
-    keep = bound(2 * fwd, io + acts * nodes.element_size(), peak)
+    act_bytes = acts * nodes.element_size()
+    keep = bound(2 * fwd, io + act_bytes, peak)
     recompute = bound(3 * fwd, io, peak)
     (ms, by), design = min((keep, "keeps the activations in the compute dtype"),
                            (recompute, "recomputes the forward"))
-    return dict(bound_ms=ms, bound_by=by, bound_design=design,
-                bound_ms_present_design=bound(2 * fwd, io + 4 * acts, peak)[0],
-                activation_bytes_per_launch=4 * acts, gflop_per_launch=2 * fwd / 1e9)
+    return dict(bound_ms=ms, bound_by=by, bound_design=design, bound_ms_present_design=keep[0],
+                activation_bytes_per_launch=act_bytes, gflop_per_launch=2 * fwd / 1e9)
 
 
 def bound(ops, nbytes, peak):
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+K2_KERNELS = ("gnn_forward_kernel",)
+K3_KERNELS = ("gnn_train_bwd_kernel", "sum_samples_kernel")  # the backward and its gradient sum
 
 
 def time_train_kernels(config, synth_batches, dev, R=9):
@@ -1475,11 +1705,13 @@ def time_train_kernels(config, synth_batches, dev, R=9):
             plain_ms = median_ms(plain, args, 5)
             nodes, nbr, msk, _, w = ins[0]
             out[name] = dict(ms=ms, plain_ms=plain_ms, real_edges_per_sample=real_edges(msk),
+                             **device_ms(kern, args, 9, K3_KERNELS if name == "k3" else K2_KERNELS),
                              **work(gnn, nodes, nbr, msk, w, PEAK_FLOPS[f32]))
         gnn_train_bwd_cuda(*bwd16_args(0))  # warm-up of the bf16 build
         nodes, nbr, msk, _, w = ins16[0]
         out["k3_bf16"] = dict(ms=median_ms(gnn_train_bwd_cuda, bwd16_args, 7),
                               plain_ms=median_ms(bwd16_plain, bwd16_args, 5),
+                              **device_ms(gnn_train_bwd_cuda, bwd16_args, 7, K3_KERNELS),
                               **k3_bound(gnn, nodes, nbr, msk, w, PEAK_FLOPS[bf16]))
         acts.clear()
         acts16.clear()
@@ -1501,6 +1733,57 @@ def time_train_kernels(config, synth_batches, dev, R=9):
     emit(phase="train_kernel_time", data="synthetic dataset", **times(synth_batches[:R]))
     profile_step(step, leaves, train.adam_init(leaves), dense, gen)
     return out
+
+
+# the SM-cycle counters of K2 and K3's profiling build (GNN_PHASE in
+# csrc/gnn_common.cuh, gnn_forward.cu and gnn_train_bwd.cu), by index
+K2_PHASES = ["relation_inputs", "re0", "re1_re2_rpw1", "pe0", "pe1_pe2_ppwa", "rpw23_rounds",
+             "messages_rounds", "ppwb_rounds", "nr0_nr1", "edge_lists", "motion_head"]
+K3_PHASES = ["motion_head", "d_pre_ppwb_rounds", "receiver_sender_sums_rounds", "rpw23_rounds",
+             "round_weight_grads_and_bases", "pp_pe2_pe1", "pe0", "rpw1", "re2", "re1", "re0",
+             "relation_inputs", "edge_lists"]
+SUB_PHASES = ["layer_routine_staging", "layer_routine_products", "layer_routine_epilogues"]
+_CLOCKS = []  # the profiling build keeps pointers to these counters
+
+
+def phase_train_kernel_phases(config, dev):
+    """Where K2 and K3 spend their SM cycles at the rope fixture's density
+    (B 128, weights from ``init_params``), float32 and bf16: one launch each
+    of the profiling build (``kernels.library("phase_clocks")``), cycles per
+    block by phase, and thread 0's cycles inside the layer routine (staging,
+    products, epilogues; those overlap the phases)."""
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.ops import kernels
+    from adaptigraph_tpu_torch.ops.fused_gnn import launch_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import launch_backward
+
+    lib = kernels.library("phase_clocks")
+    gnn, edge, _, _ = rope_train_objects(config)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
+    batch = fixture_batch("rope", dev, seed=20)[0]
+    for cd in (torch.float32, torch.bfloat16):
+        nodes, nbr, msk, last, w = step_inputs(batch, gnn, edge, params, cd)
+        dmot = torch.randn(nodes.shape[0], nodes.shape[1], 3, device=dev) * 1e-2
+        dmot[:, gnn.max_nobj:] = 0
+        out = {}
+        for name, setter, labels in (("k2", lib.gnn_forward_set_phase_clocks, K2_PHASES),
+                                     ("k3", lib.gnn_train_bwd_set_phase_clocks, K3_PHASES)):
+            _CLOCKS.append(torch.zeros(16, dtype=torch.int64, device=dev))
+            setter(_CLOCKS[-1].data_ptr())
+            acts = launch_forward(lib, nodes, nbr, msk, last, w, gnn, cd, True, True)[2]
+            if name == "k3":
+                torch.cuda.synchronize()
+                _CLOCKS[-1].zero_()
+                launch_backward(lib, nodes, nbr, msk, dmot, w, gnn, acts, cd)
+            torch.cuda.synchronize()
+            c = (_CLOCKS[-1].double() / nodes.shape[0]).tolist()
+            total = sum(c[:13])
+            out[name] = {"cycles_per_block": total,
+                         "share": {k: c[i] / total for i, k in enumerate(labels) if k},
+                         "layer_routine_share": {k: c[13 + i] / total
+                                                 for i, k in enumerate(SUB_PHASES)}}
+            del acts
+        emit(phase="train_kernel_phases", dtype=str(cd).split(".")[-1], **out)
 
 
 def profile_step(step, leaves, state, batches, gen, n=5):
@@ -1883,6 +2166,7 @@ def main():
     k3_bf16_err = phase_backward_kernel_bf16(config, batches[1], dev)
     phase_train_step(config, batches[2], dev)
     ttime = time_train_kernels(config, batches, dev)
+    phase_train_kernel_phases(config, dev)
     k2_launches, k3_launches, losses, nudged_losses = phase_train(config, prep, dev)
     k2_bf16_launches, k3_bf16_launches = phase_train_bf16(prep, losses, nudged_losses)
     k2_rollout_launches, rollout_time = phase_rollout(config, prep, dev)
@@ -1898,6 +2182,7 @@ def main():
             "adaptigraph_tpu/ops/fused_gnn.py:479", launches, main_err, timing),
         dict(row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
                  "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
+             device_ms=ttime["k2"]["device_ms"],
              launches_cloth_solve=k2_cloth_launches, ms_cloth_solve=cloth_step["k2_ms"],
              plain_ms_cloth_solve=cloth_step["k2_plain_ms"],
              bound_ms_cloth_solve=cloth_step["k2_bound_ms"],
@@ -1910,6 +2195,7 @@ def main():
              ms_per_substep_masked_tools=masked_ms, max_abs_err_masked_tools=masked_err),
         dict(row("gnn_train_bwd", "adaptigraph_tpu_torch/csrc/gnn_train_bwd.cu",
                  "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"]),
+             device_ms=ttime["k3"]["device_ms"], device_ms_bf16=ttime["k3_bf16"]["device_ms"],
              ms_bf16=ttime["k3_bf16"]["ms"], plain_ms_bf16=ttime["k3_bf16"]["plain_ms"],
              bound_ms_bf16=ttime["k3_bf16"]["bound_ms"],
              bound_by_bf16=ttime["k3_bf16"]["bound_by"],
