@@ -1,11 +1,10 @@
 // Tensor-core and asynchronous-copy primitives (PTX) shared by the kernels:
-// - mma.sync m16n8k16 bf16 with ldmatrix loads (the whole-push rollout,
-//   rollout_chunk.cu);
 // - the hi/lo split of a float32 value into two TF32 values (gnn_common.cuh's
 //   float32 products, "3xTF32": hi·hi + hi·lo + lo·hi);
-// - wgmma m64n64k16 bf16 and m64n64k8 tf32 (A from registers) with
-//   shared-memory descriptors of the 128-byte swizzled layout (the layer
-//   routine of gnn_common.cuh);
+// - wgmma m64n64k16 bf16 with both operands in shared memory and m64n64k8
+//   tf32 with A from registers, through descriptors of the 128-byte swizzled
+//   layout (the layer routine of gnn_common.cuh); wgmma m64n128k16 bf16, both
+//   operands in shared memory (rollout_chunk.cu);
 // - cp.async 16-byte copies with zero fill.
 #pragma once
 
@@ -17,29 +16,6 @@
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-
-// ---- mma.sync, bf16 -------------------------------------------------------
-// Fragment layouts are the PTX ISA's: with g = lane / 4 and t = lane % 4, an A
-// fragment holds rows g and g + 8, columns 2t, 2t+1 and 2t+8, 2t+9; a B
-// fragment rows (k) 2t, 2t+1 and 2t+8, 2t+9 of column g; an accumulator rows
-// g and g + 8, columns 2t and 2t+1.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // ---- TF32 ------------------------------------------------------------------
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -148,6 +124,43 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// ---- wgmma m64n128k16, bf16 -----------------------------------------------
+// d (+)= A B over one k16 step for a 64 x 128 tile of the warpgroup, both
+// operands K-major in 128-byte swizzled shared memory, as wgmma_m64n64k16<0,
+// 0>. With accumulate 0 the old d is ignored. Accumulators as in
+// wgmma_m64n64k16, for i < 64.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Keep the compiler from moving reads or writes of wgmma's accumulators
+// across the asynchronous products (place after wgmma_wait0).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 }  // namespace tc

@@ -339,11 +339,12 @@ def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_r
         if width % step:
             raise ValueError(f"the {compute_dtype} kernel needs layer widths divisible by "
                              f"{step}, got {width}")
-    if bf16 and (cfg.nf_relation, nf) != (128, 128) or bf16 and cfg.relation_input_dim > 32:
-        # the tensor-core relation MLP keeps a 16 x 128 activation tile per warp in registers
-        raise ValueError("the bfloat16 kernel needs nf_relation = nf_effect = 128 and at most "
-                         f"32 relation inputs, got {cfg.nf_relation}, {nf}, "
-                         f"{cfg.relation_input_dim}")
+    if bf16 and ((cfg.nf_particle, cfg.nf_relation, nf) != (128, 128, 128)
+                 or cfg.relation_input_dim > 32):
+        # the tensor-core products are 128 wide, and re0's depth is two k16 steps
+        raise ValueError("the bfloat16 kernel needs nf_particle = nf_relation = nf_effect = 128 "
+                         f"and at most 32 relation inputs, got {cfg.nf_particle}, "
+                         f"{cfg.nf_relation}, {nf}, {cfg.relation_input_dim}")
     for t in [pin] + list(weights):
         if t.data_ptr() % 16:
             raise ValueError("kernel inputs must be 16-byte aligned")
@@ -358,14 +359,18 @@ def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_r
                          f"more than the {_MAX_SMEM} a Hopper block may use")
     relbase = torch.empty(B, Np * K, nf, dtype=compute_dtype, device=dev)
     penc = torch.empty(B, Np, nf, dtype=compute_dtype, device=dev)
-    # bf16 keeps the propagator base in shared memory
-    pbase = None if bf16 else torch.empty(B, Np, nf, dtype=compute_dtype, device=dev)
+    pbase = torch.empty(B, Np, nf, dtype=compute_dtype, device=dev)
     out = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev)
     wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
+    if bf16:  # the tensor-core layers as W^T, and round 1's recv|send once per push
+        tcptrs, _packed = tc_pointers(weights, compute_dtype, transpose=True)
+        rs1 = torch.empty(B, Np, 2 * nf, dtype=compute_dtype, device=dev)
+    else:
+        tcptrs, _packed, rs1 = None, None, None
     rc = lib.rollout_chunk_launch(
-        pin.data_ptr(), sa.data_ptr(), repeat.data_ptr(), valid.data_ptr(), wptrs,
-        relbase.data_ptr(), penc.data_ptr(), pbase.data_ptr() if pbase is not None else None,
-        out.data_ptr(),
+        pin.data_ptr(), sa.data_ptr(), repeat.data_ptr(), valid.data_ptr(), wptrs, tcptrs,
+        relbase.data_ptr(), penc.data_ptr(), pbase.data_ptr(),
+        rs1.data_ptr() if rs1 is not None else None, out.data_ptr(),
         B, *dims, radius_threshold(adj_radius), float(gripper_lift), float(cfg.motion_clamp),
         int(max_repeat), int(bool(mean_y)), int(bf16),
         dev.index if dev.index is not None else torch.cuda.current_device(),

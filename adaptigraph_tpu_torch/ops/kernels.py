@@ -152,7 +152,8 @@ def library(variant=None):
     lib.rollout_chunk_error_string.argtypes = [I]
     lib.rollout_chunk_error_string.restype = ctypes.c_char_p
     lib.rollout_chunk_launch.argtypes = (
-        [P, P, P, P, ctypes.POINTER(P), P, P, P, P]   # inputs, weights, scratch, output
+        [P, P, P, P, ctypes.POINTER(P), ctypes.POINTER(P)]  # inputs, weights, packed weights
+        + [P, P, P, P, P]                             # scratch, output
         + [I] * 12                                    # B and the dims
         + [F, F, F]                                   # thresh, gripper_lift, motion_clamp
         + [I, I, I]                                   # max_repeat, mean_y, bf16

@@ -5,7 +5,9 @@ bit, on the same inputs:
   ``dynamics_rollout_batched`` (its whole-push branch), rope and granular
   width, fixture weights and state, float32 and bfloat16;
 - K2: one step with prebuilt edges at B 128, rope width, float32 and
-  bfloat16, the activations it keeps for training included;
+  bfloat16, the activations it keeps for training included (the edge
+  buffers on the rows K2 writes, a sample's real edges: the rest of each
+  buffer is never written and holds whatever the allocator left there);
 - K3: float32, on K2's float32 activations and a seeded motion gradient.
 
 Each checkout runs in a subprocess with its own root first on ``sys.path``
@@ -33,7 +35,9 @@ def worker(root, out):
     import torch
 
     from adaptigraph_tpu_torch.cli import _task_objects, load_params
-    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda, pack_inputs, weight_list
+    from adaptigraph_tpu_torch.ops import kernels
+    from adaptigraph_tpu_torch.ops.fused_gnn import (act_layout, gnn_forward_cuda, pack_inputs,
+                                                     weight_list)
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda
     from adaptigraph_tpu_torch.ops.graph import build_neighbor_graph_batch
     from adaptigraph_tpu_torch.planning.actions import decode_action
@@ -93,8 +97,15 @@ def worker(root, out):
         w = weight_list(params, gnn, cd)
         pred, mot, acts = gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, cd)
         tag = str(cd)[6:]
+        real = (msk.view(B, -1) > 0).sum(1).tolist()  # real edges per sample
+        edge_acts = acts[1].view(B, -1)
+        layout = act_layout(kernels.library(), gnn, edge.topk)[1]
+        written = [edge_acts[b, off + s * rows * width:off + (s + 1) * rows * width]
+                   .view(rows, width)[:real[b]].reshape(-1)
+                   for _, off, slots, rows, width in layout for s in range(slots) for b in range(B)]
         res.update({f"k2:{tag}:pred": pred.cpu(), f"k2:{tag}:motion": mot.cpu(),
-                    f"k2:{tag}:acts_node": acts[0].cpu(), f"k2:{tag}:acts_edge": acts[1].cpu()})
+                    f"k2:{tag}:acts_node": acts[0].cpu(),
+                    f"k2:{tag}:acts_edge": torch.cat(written).cpu()})
         if cd == torch.float32:
             dmot = torch.tensor(np.random.RandomState(3).randn(*last.shape).astype(np.float32),
                                 device=dev)

@@ -1,18 +1,21 @@
 """Drive the PyTorch port on one CUDA card and check it.
 
-    python3 chip_smoke.py    # needs one CUDA card
+    python3 chip_smoke.py          # needs one CUDA card
+    python3 chip_smoke.py --k1     # phases 0-3 alone: the rollout kernel, the solve
 
 Phases, each printing JSON lines; any failure exits non-zero:
   0. card name and power limit, torch and CUDA versions; TF32 off.
   1. build the CUDA kernels from the sources in this checkout (timed), with
-     ptxas' register report and each K2/K3 instance's HGMMA and HMMA count
-     (every instance must run wgmma: HGMMA).
+     ptxas' register and spill report and each K1/K2/K3 instance's HGMMA and
+     HMMA count (every K2/K3 instance and bf16 K1 must run wgmma: HGMMA;
+     bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised bf16
+     K1's wgmma).
   2. the rollout kernel against its plain PyTorch version on the card, on the
      same inputs, in f32 and bf16 each (see ``phase_kernels``): rope width
      (fixture weights, B 2000) and granular width (5-point board, K 20), each
      in min-y and masked mean-y mode with per-sample masks and physics (B
-     512); then the kernel's time and, from its profiling build, its cycles
-     per phase.
+     512); then the kernel's time (CUDA events and device time) and, from
+     its profiling build, its cycles per phase.
   3. the main path: the rope MPPI solve of 20,000 samples in chunks of 2,000,
      one warm-up and three timed solves, with the kernel's launch count read
      around the timed solves.
@@ -208,13 +211,17 @@ def chunk_case(tcfg, state, B, seed, dev, cd, n_steps=None, masked=False):
 
 def k1_work(gnn, pin, sa, weights, out, stats, B):
     """(operations, bytes) the rollout needs on these inputs: the matmul
-    FLOPs of the particle encoder once per sample, the node-level products per
-    substep a sample runs, and the relation MLP per real edge; every input
-    read once and the output written once."""
+    FLOPs of the particle encoder, the propagator base and round 1's
+    recv|send (the effect starts from the particle encoding) once per sample,
+    the other node-level products per substep a sample runs, and the
+    relation MLP per real edge; every input read once and the output written
+    once."""
     N, n_p, nf = gnn.n_nodes, gnn.max_nobj, gnn.nf_effect
     nfp, nfr, rin, Dp = gnn.nf_particle, gnn.nf_relation, gnn.relation_input_dim, pin.shape[-1]
-    per_sample = 2 * N * (Dp * nfp + nfp * nfp + nfp * nf) + 2 * N * nf * nf
-    per_step = gnn.pstep * (2 * N * nf * 2 * nf + 2 * N * nf * nf) + 2 * n_p * (2 * nf * nf + 3 * nf)
+    recv_send = 2 * N * nf * 2 * nf
+    per_sample = 2 * N * (Dp * nfp + nfp * nfp + nfp * nf) + 2 * N * nf * nf + recv_send
+    per_step = ((gnn.pstep - 1) * recv_send + gnn.pstep * 2 * N * nf * nf
+                + 2 * n_p * (2 * nf * nf + 3 * nf))
     per_edge = 2 * (rin * nfr + nfr * nfr + nfr * nf + nf * nf)
     ops = B * per_sample + stats["sample_steps"] * per_step + stats["edges"] * per_edge
     nbytes = sum(t.numel() * t.element_size() for t in [pin, sa, out] + list(weights))
@@ -226,10 +233,19 @@ def k1_work(gnn, pin, sa, weights, out, stats, B):
 # phases
 # ---------------------------------------------------------------------------
 
+KERNEL_FUNCTIONS = ("gnn_forward_kernel", "gnn_train_bwd_kernel", "rollout_chunk_kernel")
+
+
+def kernel_label(fn):
+    """A template instance's name, e.g. ``rollout_chunk_kernel<bf16>``, from its
+    mangled name, or None for another function."""
+    name = next((k for k in KERNEL_FUNCTIONS if k in fn), None)
+    return None if name is None else name + ("<bf16>" if "bfloat16" in fn else "<float>")
+
+
 def sass_counts(path):
-    """The tensor-core instructions of every K2/K3 template instance in the
-    built library (``cuobjdump -sass``): {kernel: {"HGMMA": n, "HMMA": n}},
-    each kernel named by its function and compute dtype."""
+    """The tensor-core instructions of every K1/K2/K3 template instance in the
+    built library (``cuobjdump -sass``): {kernel: {"HGMMA": n, "HMMA": n}}."""
     import re
 
     from adaptigraph_tpu_torch.ops import kernels
@@ -240,10 +256,8 @@ def sass_counts(path):
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            name = next((k for k in ("gnn_forward_kernel", "gnn_train_bwd_kernel") if k in fn), None)
+            name = kernel_label(line.split("Function :")[1].strip())
             if name is not None:
-                name += "<bf16>" if "bfloat16" in fn else "<float>"
                 counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name is not None:
             hit = re.search(r"\b(HGMMA|HMMA)\.", line)
@@ -252,13 +266,55 @@ def sass_counts(path):
     return counts
 
 
+def ptxas_kernels(report):
+    """Registers and spill bytes of each K1/K2/K3 instance from ptxas' report
+    (``-Xptxas -v``): {kernel: {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}}."""
+    import re
+
+    out, name = {}, None
+    for line in report:
+        hit = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if hit:
+            name = kernel_label(hit.group(1))
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
+                                            spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out.setdefault(name, {})["registers"] = int(regs.group(1))
+    return out
+
+
+def wgmma_serialized(report):
+    """ptxas' notes (C75xx) that it serialised the wgmma instructions of a
+    K1/K2/K3 instance: [(kernel, note)]. ptxas builds such an instance
+    without failing, and it runs the products one at a time."""
+    import re
+
+    out = []
+    for line in report:
+        hit = re.search(r"\((C75\d\d)\).*wgmma.*serialized.*function '([\w$]+)'", line)
+        if hit and kernel_label(hit.group(2)) is not None:
+            out.append((kernel_label(hit.group(2)), line.split(":", 1)[-1].strip()[:200]))
+    return out
+
+
 def phase_build():
     """Build the kernels and, at the same time, their profiling builds (the
     per-phase SM-cycle counters of ``kernel_phases`` and the ablations of
     ``kernel_parts``), one nvcc process per source, all started together.
-    The line gives ptxas' register and spill report and the HGMMA and HMMA
-    counts of each K2/K3 instance: every instance must have HGMMA (wgmma:
-    bf16, and float32's split TF32; none keeps mma.sync's HMMA)."""
+    The line gives ptxas' register and spill report, per K1/K2/K3 instance
+    too, and the HGMMA and HMMA counts of each instance: every K2/K3 instance
+    must have HGMMA (wgmma: bf16, and float32's split TF32), and bf16 K1
+    HGMMA and no HMMA (mma.sync); float32 K1 (the CUDA cores) is reported.
+    It fails if ptxas serialised bf16 K1's wgmma (``wgmma_serialized``); the
+    K2/K3 instances' notes are reported (their layer routine waits after
+    every k-step, and ptxas serialises it: C7520)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from adaptigraph_tpu_torch.ops import kernels
@@ -268,14 +324,24 @@ def phase_build():
         path = list(pool.map(kernels.build, kernels.VARIANTS))[0]
     kernels.library()
     with open(path + ".ptxas.txt") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        report = f.read().splitlines()
+    ptxas = [ln.strip() for ln in report if "registers" in ln or "spill" in ln]
     counts = sass_counts(path)
-    ok = len(counts) == 4 and all(c["HGMMA"] > 0 for c in counts.values())
+    k1 = counts.get("rollout_chunk_kernel<bf16>", {"HGMMA": 0, "HMMA": 1})
+    ok = (len(counts) == 6 and "rollout_chunk_kernel<float>" in counts
+          and all(c["HGMMA"] > 0 for k, c in counts.items() if not k.startswith("rollout"))
+          and k1["HGMMA"] > 0 and k1["HMMA"] == 0)
+    serialized = wgmma_serialized(report)
+    k1_serialized = any(k == "rollout_chunk_kernel<bf16>" for k, _ in serialized)
     emit(phase="build", seconds=round(time.time() - t0, 2), library=os.path.relpath(path, ROOT),
-         variants=[v for v in kernels.VARIANTS if v], ptxas=ptxas, tensor_core_instructions=counts,
-         ok=ok)
+         variants=[v for v in kernels.VARIANTS if v], ptxas=ptxas,
+         ptxas_kernels=ptxas_kernels(report), tensor_core_instructions=counts,
+         wgmma_serialized=serialized, ok=ok and not k1_serialized)
     if not ok:
-        fail("a K2/K3 instance lacks its tensor-core instructions (HGMMA; see the build line)")
+        fail("a kernel instance lacks its tensor-core instructions, or bf16 K1 keeps mma.sync "
+             "(see the build line)")
+    if k1_serialized:
+        fail("ptxas serialised the wgmma of rollout_chunk_kernel<bf16> (see the build line)")
 
 
 def run_both(mat, dev, cd, B, n_steps, masked, seed=0, stats=None):
@@ -391,7 +457,9 @@ def phase_kernels(dev):
 
 def time_kernel(rope, dev):
     """Kernel and plain-version time per chunk launch at the main path's shapes
-    (rope, B 2000, bf16), each repetition on fresh actions; and the bound."""
+    (rope, B 2000, bf16), each repetition on fresh actions: CUDA events around
+    the wrapper call (median of 7) and the kernel's device time under
+    ``torch.profiler``; the bound, and the kernel's shared memory per block."""
     from adaptigraph_tpu_torch.ops import kernels
     from adaptigraph_tpu_torch.ops.fused_gnn import (rollout_chunk_cuda, rollout_chunk_plain,
                                                      weight_list)
@@ -408,7 +476,12 @@ def time_kernel(rope, dev):
 
     rollout_chunk_cuda(*inputs(99))  # warm-up: library load, allocator
     ms = median_ms(rollout_chunk_cuda, inputs, 7)
+    dev_t = device_ms(rollout_chunk_cuda, inputs, 5, ["rollout_chunk_kernel"])
     plain_ms = median_ms(rollout_chunk_plain, inputs, 5)
+    _, Np, Dp = inputs(0)[0].shape
+    smem = kernels.library().rollout_chunk_smem_bytes(
+        Np, gnn.n_nodes, gnn.max_nobj, dcfg.edge.topk, gnn.n_his, gnn.pstep, Dp, gnn.nf_particle,
+        gnn.nf_relation, gnn.nf_effect, gnn.relation_input_dim, 1)
     stats = {}
     pin, sa = inputs(100)[:2]
     out = rollout_chunk_plain(*inputs(100), stats=stats)
@@ -434,9 +507,11 @@ def time_kernel(rope, dev):
     emit(phase="kernel_phases", cycles_per_sample_step=float(cycles.sum()) / stats["sample_steps"],
          share={k: round(float(v), 4) for k, v in zip(PHASES, cycles / cycles.sum())},
          normal_build_ms=float(normal_ms), profiling_build_counters_off_ms=float(prof_ms))
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+    return dict(ms=ms, device_ms=dev_t["device_ms"], host_ms=dev_t["host_ms"], plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                gflop_per_launch=ops / 1e9, edges_per_sample_step=stats["edges"] / stats["sample_steps"])
+                gflop_per_launch=ops / 1e9, smem_bytes_per_block=smem,
+                edges_per_sample_step=stats["edges"] / stats["sample_steps"])
 
 
 def phase_solve(rope, dev):
@@ -2150,6 +2225,9 @@ def main():
     timing = time_kernel(rope, dev)
     emit(phase="kernel_time", **timing)
     launches = phase_solve(rope, dev)
+    if sys.argv[1:] == ["--k1"]:
+        print(card, flush=True)
+        return
     phase_demo_ppo(dev)
 
     k2e_err = phase_edges_kernel(rope, material("granular", dev), dev)
@@ -2178,8 +2256,9 @@ def main():
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
 
     emit(kernels=[
-        row("rollout_chunk", "adaptigraph_tpu_torch/csrc/rollout_chunk.cu",
-            "adaptigraph_tpu/ops/fused_gnn.py:479", launches, main_err, timing),
+        dict(row("rollout_chunk", "adaptigraph_tpu_torch/csrc/rollout_chunk.cu",
+                 "adaptigraph_tpu/ops/fused_gnn.py:479", launches, main_err, timing),
+             device_ms=timing["device_ms"]),
         dict(row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
                  "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
              device_ms=ttime["k2"]["device_ms"],

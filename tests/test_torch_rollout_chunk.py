@@ -3,6 +3,7 @@ the kernel's plain version) against the JAX rollout kernel in interpret mode
 and against the JAX per-substep XLA path; the cases of tests/test_fused.py."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -140,3 +141,81 @@ def test_kernel_wrapper_rejects_unsupported_config():
     with pytest.raises(ValueError, match="not supported"):
         fused_rollout_chunk({}, torch.zeros(8, 3), torch.zeros(1, 1, 3), torch.zeros(1, 1, 3),
                             torch.ones(1), torch.zeros(1), cfg, 0.5, 4)
+
+
+def _published(name):
+    """The port's task config of a material (``configs/dynamics`` and
+    ``configs/planning``) and the JAX GNNConfig of the same widths."""
+    from adaptigraph_tpu_torch.cli import _task_objects
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    tcfg, _ = _task_objects(load_planning_config(name))
+    return tcfg, JaxGNNConfig(**dataclasses.asdict(tcfg.dcfg.gnn))
+
+
+def _fixture_state(name, n_p):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "fixtures", f"{name}_demo", "interaction_000.npz")) as z:
+        state = z["state_init"].astype(np.float32)
+    idx = np.random.RandomState(0).choice(len(state), n_p, replace=len(state) < n_p)
+    return state[idx]
+
+
+@pytest.mark.parametrize("substeps", [1, 2])
+@pytest.mark.parametrize("masked", [False, True], ids=["min_y", "masked_mean_y"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["rope", "granular"])
+def test_published_width_matches_jax_kernel(name, dtype, masked, substeps):
+    """The plain version against the JAX rollout kernel (interpret mode) at the
+    published widths the kernel runs on the card (rope: N 101, K 10; granular:
+    N 105, K 20; nf 128, pstep 3), B 2 pushes from the fixture's recorded
+    state, cut to one and two substeps: min-y, and masked mean-y with
+    per-sample masks and physics. float32 within 2e-4 and bf16 within 0.05,
+    the tolerances of the cases above. The pushes move the kept rows by up to
+    0.035-0.11 here, which 0.05 alone would not tell from no motion, so the
+    displacement (result minus start) is also held to 5% of the JAX kernel's
+    largest displacement."""
+    from adaptigraph_tpu_torch.planning.actions import decode_action
+    from adaptigraph_tpu_torch.planning.forward import pusher_keypoints
+
+    tcfg, jgnn = _published(name)
+    dcfg = tcfg.dcfg
+    gnn, K, n_p, B = dcfg.gnn, dcfg.edge.topk, dcfg.gnn.max_nobj, 2
+    jp = jax.tree_util.tree_map(np.asarray, init_params(jax.random.PRNGKey(7), jgnn))
+    tp = params_from_numpy(jp, "cpu")
+    rng = np.random.RandomState(substeps + 2 * masked)
+    act = torch.tensor(rng.uniform(tcfg.action_lower_lim, tcfg.action_upper_lim,
+                                   (B, 4)).astype(np.float32))
+    decoded, _ = decode_action(act, dcfg.push_length)
+    obj = np.broadcast_to(_fixture_state(name, n_p), (B, n_p, 3)).copy()
+    mask, phys = None, np.asarray([0.5], np.float32)
+    if masked:
+        mask = np.arange(n_p)[None] < rng.randint(n_p // 2, n_p + 1, B)[:, None]
+        obj = obj * mask[..., None]
+        phys = rng.uniform(0, 1, (B, 1)).astype(np.float32)
+        y = (obj[..., 1] * mask).sum(1) / np.maximum(mask.sum(1), 1)
+    else:
+        y = obj[..., 1].min(1)
+    kp, delta = pusher_keypoints(dcfg, decoded, act[:, 2], torch.tensor(y))
+    repeat = np.full(B, substeps, np.int32)
+    cd_t, cd_j = (torch.float32, jnp.float32) if dtype == "float32" else (torch.bfloat16,
+                                                                           jnp.bfloat16)
+    got = fused_rollout_chunk(
+        tp, torch.tensor(obj), kp, delta, torch.tensor(repeat), torch.tensor(phys), gnn,
+        dcfg.adj_thresh, K, dcfg.max_repeat, dcfg.gripper_lift, cd_t,
+        obj_mask=None if mask is None else torch.tensor(mask), mean_y=masked).numpy()
+    want = np.asarray(jax_chunk(
+        jp, jnp.asarray(obj), jnp.asarray(kp.numpy()), jnp.asarray(delta.numpy()),
+        jnp.asarray(repeat), jnp.asarray(phys), jgnn, adj_radius=dcfg.adj_thresh, edge_topk=K,
+        max_repeat=dcfg.max_repeat, gripper_lift=dcfg.gripper_lift, compute_dtype=cd_j,
+        samples_per_block=2, interpret=True,
+        obj_mask=None if mask is None else jnp.asarray(mask), mean_y=masked))
+    keep = np.ones((B, n_p, 1), bool) if mask is None else mask[..., None]
+    assert np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got * keep, want * keep, rtol=2e-4, atol=2e-4)
+    else:
+        np.testing.assert_allclose(got * keep, want * keep, atol=0.05)
+    moved = np.abs((want - obj) * keep).max()
+    assert moved > 0.03
+    np.testing.assert_allclose((got - obj) * keep, (want - obj) * keep, rtol=0, atol=0.05 * moved)
