@@ -6,8 +6,14 @@
     python -m adaptigraph_tpu_torch preprocess --config rope --data_dir <h5 dir> --prep_dir <dir>
     python -m adaptigraph_tpu_torch train --config rope --prep_dir <dir> --out_dir <dir>
     python -m adaptigraph_tpu_torch rollout --config rope --prep_dir <dir> --out_dir <dir>
+    python -m adaptigraph_tpu_torch plan --config rope --ckpt_dir fixtures/rope_demo \
+        --save_dir runs/plan
+    python -m adaptigraph_tpu_torch random-interact --config rope --ckpt_dir fixtures/rope_demo
+    python -m adaptigraph_tpu_torch perception --calibrate
 
-Commands run on the CUDA card unless ``--device cpu`` is given.
+Commands run on the CUDA card unless ``--device cpu`` is given. ``plan`` has
+no ``--mesh`` (one card) and no ``--learned_perception`` (GroundingDINO + SAM
+need downloaded weights).
 """
 
 import argparse
@@ -124,7 +130,12 @@ def _task_objects(task):
         target_type=task.get("target_type", "pcd"),
         fps_radius=task.get("fps_radius", 0.2),
         sim_real_ratio=ratio,
+        k_filter=task.get("k_filter", 1.0),
+        obj_list=tuple(task.get("obj_list", [])),
+        max_n=task.get("max_n", 1),
         target_path=task.get("target", None),
+        clipping_height=task.get("clipping_height", None),
+        rotate_pusher=task.get("rotate_pusher", False),
         # board-frame [x_min, x_max, z_min, z_max, ...] -> sim-frame (2, 2)
         workspace_bbox=(np.asarray(task["bbox"][:4], np.float32).reshape(2, 2) * ratio
                         if task.get("bbox") is not None else None),
@@ -303,6 +314,164 @@ def cmd_rollout(args):
     return stats, summary
 
 
+def _load_plan_params(args, tcfg, device):
+    if args.ckpt_dir:
+        return load_params(args.ckpt_dir, tcfg.dcfg.gnn, device, args.epoch)
+    from adaptigraph_tpu_torch.models.gnn import init_params
+
+    print("WARNING: no --ckpt_dir, using random init (smoke mode)")
+    return init_params(torch.Generator(device=device).manual_seed(0), tcfg.dcfg.gnn)
+
+
+def _true_phys(props, config, phys_dim):
+    """The scene's true physics parameter, normalised by the dataset's
+    min/max, or None where its properties do not cover the model's."""
+    true = np.array([(float(props[s["name"]]) - s["min"]) / (s["max"] - s["min"])
+                     for s in _phys_specs(config) if s["use"] and s["name"] in props],
+                    np.float32)
+    return true if true.size == phys_dim else None
+
+
+def _plan_target(args, tcfg, env):
+    if args.target:  # an explicit file beats the yaml target
+        target = np.load(args.target)
+        target = target[target.files[0]] if hasattr(target, "files") else target
+    elif tcfg.target_type == "box" and isinstance(tcfg.target_path, (list, tuple)):
+        # board-frame [x_min, x_max, z_min, z_max] -> sim-frame (2, 2)
+        target = np.asarray(tcfg.target_path, np.float32).reshape(2, 2) * tcfg.sim_real_ratio
+    elif isinstance(tcfg.target_path, str) and os.path.exists(tcfg.target_path):
+        target = np.load(tcfg.target_path)
+        target = target[target.files[0]] if hasattr(target, "files") else target
+    else:
+        # default target: the current object translated
+        target = env.get_particles_sim() + np.array([0.5, 0.0, 0.3], np.float32)
+    if tcfg.target_type != "box" and np.ndim(target) == 2:
+        # resample a point-cloud target to exactly max_nobj points, as the
+        # JAX command does (the same points for the same seed)
+        M = tcfg.dcfg.gnn.max_nobj
+        if len(target) != M:
+            idx = np.random.RandomState(args.seed).choice(len(target), M,
+                                                          replace=len(target) < M)
+            target = np.asarray(target)[idx]
+    return target
+
+
+def cmd_plan(args):
+    """The closed loop on the sim-backed environment: perceive, solve,
+    execute, re-estimate the physics parameter; one ``step_*.npz`` per push
+    under ``--save_dir``."""
+    from adaptigraph_tpu_torch.planning.closed_loop import run_plan
+    from adaptigraph_tpu_torch.realworld.detect import color_spread_mask_fn
+    from adaptigraph_tpu_torch.realworld.env import SimRealEnv
+    from adaptigraph_tpu_torch.realworld.perception import PerceptionModule
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    device = resolve_device(args.device)
+    task = load_planning_config(args.config)
+    tcfg, config = _task_objects(task)
+    if args.n_actions:
+        tcfg.n_actions = args.n_actions
+    if args.verify:
+        tcfg.verify_improvement = True
+    if args.fps_radius is not None:
+        tcfg.fps_radius = args.fps_radius
+    if args.reward_weight is not None:
+        tcfg.mcfg = dataclasses.replace(tcfg.mcfg, reward_weight=args.reward_weight)
+    if args.n_sample or args.n_sample_chunk:
+        n_sample = args.n_sample or tcfg.mcfg.n_sample
+        chunk = args.n_sample_chunk or min(n_sample, tcfg.mcfg.n_sample_chunk)
+        if n_sample % chunk:  # the solve needs chunk | n_sample
+            chunk = next(c for c in range(min(chunk, n_sample), 0, -1) if n_sample % c == 0)
+        tcfg.mcfg = dataclasses.replace(tcfg.mcfg, n_sample=n_sample, n_sample_chunk=chunk)
+    material = config["dataset_config"]["materials"][0]
+    env = SimRealEnv(material, seed=args.seed, sim_real_ratio=tcfg.sim_real_ratio)
+    true_phys = _true_phys(env.env.properties, config, tcfg.dcfg.gnn.phys_dim)
+    phys_override = None
+    if args.phys is not None:
+        phys_override = np.asarray(args.phys, np.float32)
+    elif args.oracle:
+        if true_phys is None:
+            raise SystemExit("--oracle needs the scene's true physics parameters")
+        phys_override = true_phys
+    if phys_override is not None:
+        args.no_ppo = True  # fixed-parameter arms do not adapt
+    params = _load_plan_params(args, tcfg, device)
+    target = _plan_target(args, tcfg, env)
+    mask_fn = None
+    if args.sim_mask:
+        # colour segmentation of the rendered scene: the non-use_raw path
+        # (mask_fn and the voxel/outlier passes) without a detector
+        mask_fn = color_spread_mask_fn()
+        tcfg.use_raw = False
+    pm = PerceptionModule(stride=2, k_filter=tcfg.k_filter, obj_prompts=tcfg.obj_list,
+                          max_n=tcfg.max_n, mask_fn=mask_fn)
+    hist = run_plan(env, params, tcfg, target, pm=pm, save_dir=args.save_dir, seed=args.seed,
+                    use_ppo=not args.no_ppo, resume=args.resume, true_phys=true_phys,
+                    phys_override=phys_override, ppo_warmup=args.ppo_warmup, device=device)
+    if args.save_dir:
+        from adaptigraph_tpu_torch.utils.viz import plot_planning_progress
+
+        try:
+            plot_planning_progress(hist["errors"], os.path.join(args.save_dir, "plan_errors.png"))
+        except ImportError as e:
+            print(f"error plot not written: {e}")
+    print(f"plan done: errors {['%.4f' % e for e in hist['errors']]}")
+    return hist
+
+
+def cmd_random_interact(args):
+    """Exploration pushes recorded as interactions, then one physics estimate."""
+    from adaptigraph_tpu_torch.planning.closed_loop import run_random_interact
+    from adaptigraph_tpu_torch.realworld.env import SimRealEnv
+    from adaptigraph_tpu_torch.realworld.perception import PerceptionModule
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    device = resolve_device(args.device)
+    task = load_planning_config(args.config)
+    tcfg, config = _task_objects(task)
+    material = config["dataset_config"]["materials"][0]
+    env = SimRealEnv(material, seed=args.seed, sim_real_ratio=tcfg.sim_real_ratio)
+    params = _load_plan_params(args, tcfg, device)
+    pm = PerceptionModule(stride=2, k_filter=tcfg.k_filter, obj_prompts=tcfg.obj_list,
+                          max_n=tcfg.max_n)
+    ppo = run_random_interact(env, params, tcfg, pm=pm, save_dir=args.save_dir,
+                              seed=args.seed, n_actions=args.n_actions or 20,
+                              resume=args.resume, device=device)
+    est, err, err0 = ppo.optimize(iterations=50)
+    print(f"random-interact done: physics estimate {est} (err {err:.5f} <- {err0:.5f})")
+    return est, err, err0
+
+
+def cmd_perception(args):
+    """Perception on the sim-backed environment (host numpy): ``--construct_goal``
+    saves the perceived scene as a goal point cloud; ``--calibrate`` compares
+    the perceived state with the simulator's particles (Chamfer, sim units,
+    computed on ``--device``)."""
+    from adaptigraph_tpu_torch.ops.costs import chamfer
+    from adaptigraph_tpu_torch.realworld.env import SimRealEnv
+    from adaptigraph_tpu_torch.realworld.perception import (PerceptionModule,
+                                                            construct_goal_from_perception,
+                                                            get_state_cur)
+
+    device = resolve_device(args.device)
+    env = SimRealEnv(material=args.material, seed=args.seed)
+    pm = PerceptionModule(stride=2)
+    if args.construct_goal:
+        goal = construct_goal_from_perception(env, pm)
+        np.savez(args.out, goal=goal)
+        print(f"captured goal point cloud ({goal.shape[0]} pts) -> {args.out}")
+        return goal
+    if args.calibrate:
+        state, _ = get_state_cur(env, pm)
+        gt = env.get_particles_sim()
+        err = float(chamfer(torch.tensor(state, device=device), torch.tensor(gt, device=device)))
+        print(f"calibration check: {state.shape[0]} perceived keypoints, "
+              f"chamfer to ground truth {err:.4f} (sim units)")
+        return err
+    print("please specify --calibrate or --construct_goal")
+    return None
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="adaptigraph_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -354,6 +523,57 @@ def build_parser():
                    help="reuse the first push's FPS indices for all pushes in an episode")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     r.set_defaults(fn=cmd_rollout)
+
+    pl = sub.add_parser("plan", help="closed-loop planning on the sim-backed environment")
+    pl.add_argument("--config", required=True)
+    pl.add_argument("--ckpt_dir")
+    pl.add_argument("--epoch", type=int)
+    pl.add_argument("--save_dir")
+    pl.add_argument("--target", help="npz/npy target point cloud")
+    pl.add_argument("--n_actions", type=int)
+    pl.add_argument("--n_sample", type=int, help="override the MPPI sample budget")
+    pl.add_argument("--n_sample_chunk", type=int, help="override the MPPI chunk size")
+    pl.add_argument("--fps_radius", type=float,
+                    help="override the task's FPS radius (perceived-state density)")
+    pl.add_argument("--reward_weight", type=float, help="override the MPPI softmax temperature")
+    pl.add_argument("--seed", type=int, default=0)
+    pl.add_argument("--no_ppo", action="store_true", help="disable online physics adaptation")
+    pl.add_argument("--phys", type=float, nargs="+",
+                    help="plan with this fixed physics parameter (adaptation off)")
+    pl.add_argument("--oracle", action="store_true",
+                    help="plan with the scene's true physics parameter (adaptation off)")
+    pl.add_argument("--ppo_warmup", type=int, default=0,
+                    help="random excitation pushes recorded before the MPC loop")
+    pl.add_argument("--resume", action="store_true",
+                    help="continue an interrupted run from --save_dir")
+    pl.add_argument("--verify", action="store_true",
+                    help="execute only pushes predicted to improve; stop when converged")
+    pl.add_argument("--sim_mask", action="store_true",
+                    help="colour-spread mask_fn: the non-use_raw perception path")
+    pl.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pl.set_defaults(fn=cmd_plan)
+
+    ri = sub.add_parser("random-interact", help="exploration pushes for system identification")
+    ri.add_argument("--config", required=True)
+    ri.add_argument("--ckpt_dir")
+    ri.add_argument("--epoch", type=int)
+    ri.add_argument("--save_dir")
+    ri.add_argument("--n_actions", type=int)
+    ri.add_argument("--seed", type=int, default=0)
+    ri.add_argument("--resume", action="store_true")
+    ri.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ri.set_defaults(fn=cmd_random_interact)
+
+    pc = sub.add_parser("perception", help="perception utilities on the sim-backed environment")
+    pc.add_argument("--calibrate", action="store_true",
+                    help="perceived state against the simulator's particles")
+    pc.add_argument("--construct_goal", action="store_true",
+                    help="capture the current scene as a goal point cloud")
+    pc.add_argument("--material", default="rope")
+    pc.add_argument("--seed", type=int, default=0)
+    pc.add_argument("--out", default="goal.npz")
+    pc.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pc.set_defaults(fn=cmd_perception)
     return p
 
 

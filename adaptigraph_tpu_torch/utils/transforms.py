@@ -1,6 +1,6 @@
-"""Quaternion helper (numpy copy of ``quat_to_rotmat`` from
-``adaptigraph_tpu/utils/transforms.py``; xyzw convention), the one
-``dynamics.preprocess`` needs."""
+"""Quaternion helpers (numpy copies of ``quat_to_rotmat`` and
+``quat_from_yaw`` from ``adaptigraph_tpu/utils/transforms.py``; xyzw
+convention), the ones ``dynamics.preprocess`` and ``sim.env`` need."""
 
 import numpy as np
 
@@ -20,3 +20,8 @@ def quat_to_rotmat(q):
     out[..., 2, 1] = 2 * (y * z + x * w)
     out[..., 2, 2] = 1 - 2 * (x * x + y * y)
     return out
+
+
+def quat_from_yaw(theta):
+    """Rotation about +y by theta as an xyzw quaternion."""
+    return np.array([0.0, np.sin(theta / 2), 0.0, np.cos(theta / 2)])

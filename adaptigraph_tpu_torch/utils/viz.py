@@ -1,5 +1,6 @@
 """Rollout videos and error plots (numpy copy of the parts of
-``adaptigraph_tpu/utils/viz.py`` that the rollout evaluator uses).
+``adaptigraph_tpu/utils/viz.py`` that the rollout evaluator and ``plan``
+use).
 
 ``cv2`` draws, ``imageio`` writes a gif where no mp4 codec is available, and
 ``matplotlib`` plots; each is imported inside the function that needs it, so
@@ -104,6 +105,24 @@ def plot_error_curves(stats, path, title="rollout error"):
     ax.set_ylabel("mean particle L2 error")
     ax.set_title(title)
     ax.legend()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fig.savefig(path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def plot_planning_progress(errors, path, title="planning error vs target"):
+    """Per-MPC-step error curve of a ``plan`` run."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.plot(np.arange(len(errors)), errors, marker="o")
+    ax.set_xlabel("MPC step")
+    ax.set_ylabel("error to target")
+    ax.set_title(title)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     fig.savefig(path, dpi=120, bbox_inches="tight")
     plt.close(fig)

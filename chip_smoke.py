@@ -69,7 +69,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
  12. ``dynamics_masked`` on the cloth config (B 2000, float32, per-sample
      masks, actions and physics) against the plain version, K2 launches
      counted (``masked_tools``).
-The last lines are the kernel table, the card line, and the ok line.
+ 13. the closed-loop rope plan, ``python -m adaptigraph_tpu_torch plan
+     --config rope --ckpt_dir fixtures/rope_demo --n_actions 3 --seed 0``
+     in process at the published width (20,000 samples in chunks of 2,000,
+     bf16, adaptation on): K1's launches (each solve's chunks, each
+     estimate's masked evaluations) held to the count the code implies,
+     three finite errors and the step files written, the estimate in
+     [-0.2, 1.2], the true parameter recorded, step 0's prediction within
+     0.05 of the plain rollout of its push; ms per executed push and its
+     split into perceive, solve, execute, adapt and the rest (``plan``).
+ 14. the granular solve (``make_mppi_solver`` at its published width,
+     fixture weights, the config's box target): a warm-up and three timed
+     solves with their K1 launches counted, and one float32 chunk against
+     the plain version (``granular_solve``).
+The last lines are the script's wall seconds, the kernel table, the card
+line, and the ok line.
 """
 
 import json
@@ -514,12 +528,28 @@ def time_kernel(rope, dev):
                 edges_per_sample_step=stats["edges"] / stats["sample_steps"])
 
 
-def phase_solve(rope, dev):
-    from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk, rollout_chunk_plain
-    from adaptigraph_tpu_torch.ops.fused_gnn import chunk_inputs, weight_list
+def plain_push(dcfg, params, state, act_seq, phys, dev):
+    """The plain bf16 rollout, on the card, of the first push of ``act_seq``
+    (L, 4) from ``state`` (max_nobj, 3) at physics ``phys``, as the solve
+    rolls it out: (max_nobj, 3)."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import chunk_inputs, rollout_chunk_plain, weight_list
     from adaptigraph_tpu_torch.planning.actions import decode_action
-    from adaptigraph_tpu_torch.planning.closed_loop import make_reward_fn
     from adaptigraph_tpu_torch.planning.forward import pusher_keypoints
+
+    cd = torch.bfloat16
+    best = torch.as_tensor(act_seq, device=dev).reshape(1, -1, 4)
+    decoded, repeat = decode_action(best, dcfg.push_length)
+    obj = torch.as_tensor(state, device=dev)[None]
+    kp, delta = pusher_keypoints(dcfg, decoded[:, 0], best[:, 0, 2], obj[..., 1].amin(1))
+    return rollout_chunk_plain(*chunk_inputs(obj, kp, delta, repeat[:, 0],
+                                             torch.as_tensor(phys, device=dev), dcfg.gnn, cd),
+                               weight_list(params, dcfg.gnn, cd), dcfg.gnn, dcfg.edge.topk,
+                               dcfg.adj_thresh, dcfg.max_repeat, dcfg.gripper_lift, False, cd)[0]
+
+
+def phase_solve(rope, dev):
+    from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk
+    from adaptigraph_tpu_torch.planning.closed_loop import make_reward_fn
     from adaptigraph_tpu_torch.planning.mppi_solve import make_mppi_solver
 
     tcfg, params, state, _ = rope
@@ -553,15 +583,7 @@ def phase_solve(rope, dev):
     on_card = all(v.is_cuda for v in res.values())
     finite = all(bool(torch.isfinite(r["best_reward"])) for r in results)
     # the solve's best final state against the plain rollout of its best push
-    best = res["act_seq"][None]
-    decoded, repeat = decode_action(best, dcfg.push_length)
-    obj = torch.tensor(state, device=dev)[None]
-    kp, delta = pusher_keypoints(dcfg, decoded[:, 0], best[:, 0, 2], obj[..., 1].amin(1))
-    cd = torch.bfloat16
-    ref = rollout_chunk_plain(*chunk_inputs(obj, kp, delta, repeat[:, 0], torch.tensor(phys, device=dev),
-                                            dcfg.gnn, cd),
-                              weight_list(params, dcfg.gnn, cd), dcfg.gnn, dcfg.edge.topk,
-                              dcfg.adj_thresh, dcfg.max_repeat, dcfg.gripper_lift, False, cd)[0]
+    ref = plain_push(dcfg, params, state, res["act_seq"], phys, dev)
     best_err = float((ref - res["best_final_state"]).abs().max())
     emit(phase="solve", n_sample=mcfg.n_sample, n_sample_chunk=mcfg.n_sample_chunk,
          solves=n_solves, ms_per_solve=secs / n_solves * 1e3, solves_per_s=n_solves / secs,
@@ -905,6 +927,41 @@ def time_cloth_step(tcfg, params, state, dev):
                 k2_bf16_ok=check_ok)
 
 
+def f32_chunk_vs_plain(tcfg, params, state, phys, reward, rollout, plain, dev):
+    """One float32 chunk of the task's solve (seeded samples around the middle
+    of the action box, sorted by repeat) through ``rollout``
+    (``dynamics_rollout_batched``) on the kernels and inside the ``plain()``
+    context, on the card. Returns each sample's error, its graded whole-push
+    bound, and both chunks' rewards."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import weight_list
+    from adaptigraph_tpu_torch.planning.actions import decode_action, sample_action_seq
+    from adaptigraph_tpu_torch.planning.mppi_solve import sort_by_repeat
+
+    dcfg, mcfg = tcfg.dcfg, tcfg.mcfg
+    lo = torch.tensor(tcfg.action_lower_lim, device=dev)
+    hi = torch.tensor(tcfg.action_upper_lim, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    act0_t = ((lo + hi) / 2)[None].expand(mcfg.n_look_ahead, 4)
+    chunk = sort_by_repeat(sample_action_seq(g, act0_t, lo, hi, mcfg.n_sample_chunk,
+                                             noise_level=mcfg.noise_level,
+                                             push_length=mcfg.push_length), mcfg.push_length)
+    obj, ph = torch.tensor(state, device=dev), torch.tensor(phys, device=dev)
+
+    def chunk_run():
+        w = weight_list(params, dcfg.gnn, torch.float32)
+        out = rollout(w, obj, chunk, ph, dcfg, compute_dtype=torch.float32)["state_seqs"]
+        return out[:, -1], reward(out, chunk, obj)
+
+    got, got_r = chunk_run()
+    with plain():
+        want, want_r = chunk_run()
+    err = per_sample_err(got, want, torch.ones_like(got[:, :1, :1], dtype=torch.bool))
+    rep = decode_action(chunk, mcfg.push_length)[1][:, -1].cpu().numpy()
+    tols = np.array([graded(min(int(r), dcfg.max_repeat)) for r in rep])
+    return err, tols, got_r, want_r
+
+
 def phase_cloth_solve(dev):
     """The cloth solve through ``make_mppi_solver`` (bf16, 20,000 samples in
     chunks of 2,000; per substep the contact-gated tools_all graph and one
@@ -915,7 +972,7 @@ def phase_cloth_solve(dev):
     graded whole-push bound."""
     from adaptigraph_tpu_torch.ops import fused_gnn
     from adaptigraph_tpu_torch.planning import mppi_solve
-    from adaptigraph_tpu_torch.planning.actions import decode_action, sample_action_seq
+    from adaptigraph_tpu_torch.planning.actions import decode_action
     from adaptigraph_tpu_torch.planning.closed_loop import make_reward_fn
 
     tcfg, params, state, target = cloth_setup(dev)
@@ -959,29 +1016,8 @@ def phase_cloth_solve(dev):
     all_finite = bool(torch.stack(finite).all())
 
     # one float32 chunk: kernels against plain versions, on the card
-    lo = torch.tensor(tcfg.action_lower_lim, device=dev)
-    hi = torch.tensor(tcfg.action_upper_lim, device=dev)
-    g = torch.Generator(device=dev)
-    g.manual_seed(4)
-    act0_t = ((lo + hi) / 2)[None].expand(mcfg.n_look_ahead, 4)
-    chunk = mppi_solve.sort_by_repeat(sample_action_seq(g, act0_t, lo, hi, mcfg.n_sample_chunk,
-                                                        noise_level=mcfg.noise_level,
-                                                        push_length=mcfg.push_length),
-                                      mcfg.push_length)
-    obj, ph = torch.tensor(state, device=dev), torch.tensor(phys, device=dev)
-
-    def chunk_run():
-        w = fused_gnn.weight_list(params, dcfg.gnn, torch.float32)
-        out = real_rollout(w, obj, chunk, ph, dcfg, compute_dtype=torch.float32)["state_seqs"]
-        return out[:, -1], reward(out, chunk, obj)
-
-    got, got_r = chunk_run()
-    with plain_forward():
-        want, want_r = chunk_run()
-    keep = torch.ones_like(got[:, :1, :1], dtype=torch.bool)
-    err = per_sample_err(got, want, keep)
-    rep = decode_action(chunk, mcfg.push_length)[1][:, -1].cpu().numpy()
-    tols = np.array([graded(min(int(r), dcfg.max_repeat)) for r in rep])
+    err, tols, got_r, want_r = f32_chunk_vs_plain(tcfg, params, state, phys, reward,
+                                                  real_rollout, plain_forward, dev)
     step = time_cloth_step(tcfg, params, state, dev)
     ok = bool(launches == expected[0] and others == 0 and all_finite and step["k2_bf16_ok"]
               and all(torch.isfinite(r["best_reward"]) for r in results)
@@ -2202,8 +2238,217 @@ def phase_masked_tools(dev):
         fail("dynamics_masked on cloth failed its checks (see the masked_tools line)")
     return launches, ms / max(launches, 1), float(err.max())
 
+# ---------------------------------------------------------------------------
+# the closed-loop rope plan (K1 in the solve and the estimate), the granular solve
+# ---------------------------------------------------------------------------
+
+PLAN_DIR = os.path.join(TRAIN_DIR, "plan")
+PLAN_PUSHES = 3
+
+
+def plan_k1_launches(tcfg, n_pushes):
+    """K1 launches that ``run_plan`` makes for ``n_pushes`` executed pushes
+    (verify off, phys_dim 1): per push one solve of n_sample / n_sample_chunk
+    chunks per look-ahead step and update iteration, one launch each
+    (``mppi_solve.all_rewards``), and one estimate, one masked launch per
+    ``evaluate`` of ``PhysicsParamOnlineOptimizer.optimize``: the initial
+    error, the GP's first n_init candidates, its expected-improvement batches
+    of 10 up to the ``ppo_iterations`` budget, and the final error."""
+    m = tcfg.mcfg
+    per_solve = m.n_sample // m.n_sample_chunk * m.n_look_ahead * m.n_update_iter
+    budget = tcfg.ppo_iterations
+    n_init = min(20, max(budget // 2, 2))
+    per_estimate = 1 + 1 + -(-(budget - n_init) // 10) + 1
+    return n_pushes * (per_solve + per_estimate), per_solve, per_estimate
+
+
+def timed_calls(parts, key, fn, sync):
+    """``fn`` with the seconds of each call (after a device sync) added to
+    parts[key]."""
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if sync:
+            torch.cuda.synchronize()
+        parts[key] += time.perf_counter() - t0
+        return out
+
+    return wrapped
+
+
+def plan_step0_vs_plain(tcfg, params, dev):
+    """Step 0's recorded prediction against the plain rollout of the executed
+    push from the recorded state, padded as the solve pads it, at the
+    initial estimate 0.5."""
+    with np.load(os.path.join(PLAN_DIR, "step_000.npz")) as z:
+        act, state, pred = z["act"], z["state"], z["pred_state"]
+    n = len(pred)
+    obj = np.zeros((tcfg.dcfg.gnn.max_nobj, 3), np.float32)
+    obj[:n] = state[:n]
+    ref = plain_push(tcfg.dcfg, params, obj, act, np.array([0.5], np.float32), dev)
+    return float((ref[:n].cpu() - torch.tensor(pred)).abs().max())
+
+
+def phase_plan(dev):
+    """``python -m adaptigraph_tpu_torch plan --config rope --ckpt_dir
+    fixtures/rope_demo --n_actions 3 --seed 0`` in process at the published
+    width (20,000 samples in chunks of 2,000, bf16, adaptation on): K1's
+    launches counted from 0 around the run and held to ``plan_k1_launches``;
+    three finite errors, ``initial.npz`` and ``step_00{0,1,2}.npz`` written,
+    the estimate inside [-0.2, 1.2], the true parameter recorded; step 0's
+    prediction within 0.05 of the plain rollout of its push. ms per executed
+    push (``run_plan``'s wall time over its pushes) and its split: perceive
+    (camera render, fusion, FPS), solve, execute (the simulator's push),
+    adapt (the estimate) and the rest."""
+    from adaptigraph_tpu_torch import cli
+    from adaptigraph_tpu_torch.ops import fused_gnn
+    from adaptigraph_tpu_torch.planning import closed_loop
+    from adaptigraph_tpu_torch.planning.physics_optimizer import (PARAM_HI, PARAM_LO,
+                                                                  PhysicsParamOnlineOptimizer)
+    from adaptigraph_tpu_torch.realworld.env import SimRealEnv
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    fixture = os.path.join(ROOT, "fixtures", "rope_demo")
+    tcfg, _ = cli._task_objects(load_planning_config("rope"))
+    d, m = tcfg.dcfg, tcfg.mcfg
+    published = (d.gnn.n_nodes, d.edge.topk, d.gnn.nf_effect, d.gnn.pstep, d.gnn.phys_dim,
+                 m.n_sample, m.n_sample_chunk, m.n_look_ahead, m.n_update_iter)
+    if published != (101, 10, 128, 3, 1, 20000, 2000, 1, 1):
+        fail(f"rope plan config is not the published width: {published}")
+    shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    argv = ["plan", "--config", "rope", "--ckpt_dir", fixture, "--n_actions", str(PLAN_PUSHES),
+            "--seed", "0", "--save_dir", PLAN_DIR, "--device", dev.type]
+    sync = dev.type == "cuda"
+    parts = dict.fromkeys(("perceive", "solve", "execute", "adapt", "run_plan"), 0.0)
+    real_make = closed_loop.make_mppi_solver
+
+    def make_solver(*a, **k):
+        return timed_calls(parts, "solve", real_make(*a, **k), sync)
+
+    patches = [
+        mock.patch.object(closed_loop, "make_mppi_solver", make_solver),
+        mock.patch.object(closed_loop, "get_state_cur",
+                          timed_calls(parts, "perceive", closed_loop.get_state_cur, False)),
+        mock.patch.object(SimRealEnv, "step",
+                          timed_calls(parts, "execute", SimRealEnv.step, False)),
+        mock.patch.object(PhysicsParamOnlineOptimizer, "optimize",
+                          timed_calls(parts, "adapt", PhysicsParamOnlineOptimizer.optimize, sync)),
+        mock.patch.object(closed_loop, "run_plan",
+                          timed_calls(parts, "run_plan", closed_loop.run_plan, sync)),
+    ]
+    for p in patches:
+        p.start()
+    try:
+        fused_gnn.fused_rollout_chunk.launches = 0
+        t0 = time.time()
+        hist = cli.main(argv)
+        secs = time.time() - t0
+        launches = fused_gnn.fused_rollout_chunk.launches
+    finally:
+        for p in patches:
+            p.stop()
+    n_push = len(hist["errors"])
+    expected, per_solve, per_estimate = plan_k1_launches(tcfg, n_push)
+    files = ["initial.npz"] + [f"step_{i:03d}.npz" for i in range(PLAN_PUSHES)]
+    written = all(os.path.exists(os.path.join(PLAN_DIR, f)) for f in files)
+    est = [float(e[0]) for e in hist["phys"]]
+    with np.load(os.path.join(PLAN_DIR, "initial.npz")) as z:
+        true_on_disk = "true_phys" in z.files
+    params = cli.load_params(fixture, d.gnn, dev)
+    pred_err = plan_step0_vs_plain(tcfg, params, dev) if written else float("inf")
+    ms = {k: v / max(n_push, 1) * 1e3 for k, v in parts.items()}
+    split = {k: ms[k] for k in ("perceive", "solve", "execute", "adapt")}
+    split["rest"] = ms["run_plan"] - sum(split.values())
+    ok = bool(n_push == PLAN_PUSHES and np.isfinite(hist["errors"]).all() and written
+              and len(est) == n_push and all(PARAM_LO <= e <= PARAM_HI for e in est)
+              and hist.get("true_phys") is not None and true_on_disk
+              and launches == expected and pred_err <= 0.05)
+    emit(phase="plan", pushes=n_push, errors=hist["errors"], initial_error=hist["initial_error"],
+         estimates=est, true_phys=[float(x) for x in hist.get("true_phys", [])],
+         k1_launches=launches, expected_k1_launches=expected, k1_per_solve=per_solve,
+         k1_per_estimate=per_estimate, step0_pred_vs_plain=pred_err, pred_tol=0.05,
+         files_written=written, seconds=secs, ms_per_push=ms["run_plan"], ms_split=split, ok=ok)
+    if not ok:
+        fail("the closed-loop plan failed its checks (see the plan line)")
+    return launches, ms["run_plan"], split
+
+
+def phase_granular_solve(dev):
+    """``make_mppi_solver`` on the granular task at its published width
+    (5-point board, K 20, 20,000 samples in chunks of 2,000, bf16) with the
+    fixture's weights and first recorded state and the config's box target:
+    one warm-up and three timed solves, K1 launches counted from 0 and held
+    to n_chunks x n_look_ahead per solve, every reward finite. Then one
+    float32 chunk through K1 against the same chunk through its plain
+    version on the card, each sample within the graded whole-push bound."""
+    from adaptigraph_tpu_torch.ops import fused_gnn
+    from adaptigraph_tpu_torch.planning import mppi_solve
+    from adaptigraph_tpu_torch.planning.closed_loop import make_reward_fn
+
+    tcfg, params, state, _ = material("granular", dev)
+    dcfg, mcfg = tcfg.dcfg, tcfg.mcfg
+    published = (dcfg.gnn.n_nodes, dcfg.edge.topk, dcfg.gnn.nf_effect, dcfg.gnn.pstep,
+                 dcfg.max_repeat, mcfg.n_sample, mcfg.n_sample_chunk, tcfg.target_type)
+    if published != (105, 20, 128, 3, 10, 20000, 2000, "box"):
+        fail(f"granular config is not the published width: {published}")
+    target = np.asarray(tcfg.target_path, np.float32).reshape(2, 2) * tcfg.sim_real_ratio
+    reward = make_reward_fn(tcfg, target, dev)
+    finite = []
+
+    def reward_fn(*a):
+        r = reward(*a)
+        finite.append(torch.isfinite(r).all())
+        return r
+
+    solve = mppi_solve.make_mppi_solver(dcfg, mcfg, reward_fn, tcfg.action_lower_lim,
+                                        tcfg.action_upper_lim, device=dev)
+    act0 = np.tile((tcfg.action_lower_lim + tcfg.action_upper_lim) / 2, (mcfg.n_look_ahead, 1))
+    phys = np.array([0.5], np.float32)
+
+    def run(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return solve(params, state, act0, g, phys)
+
+    run(0)  # warm-up
+    torch.cuda.synchronize()
+    finite.clear()
+    n_solves = 3
+    fused_gnn.fused_rollout_chunk.launches = 0
+    t0 = time.time()
+    results = []
+    for seed in range(1, n_solves + 1):
+        results.append(run(seed))
+        torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = fused_gnn.fused_rollout_chunk.launches
+    per_solve = mcfg.n_sample // mcfg.n_sample_chunk * mcfg.n_look_ahead * mcfg.n_update_iter
+    all_finite = bool(torch.stack(finite).all())
+
+    # one float32 chunk: K1 against its plain version, on the card
+    err, tols, got_r, want_r = f32_chunk_vs_plain(
+        tcfg, params, state, phys, reward, mppi_solve.dynamics_rollout_batched,
+        lambda: mock.patch.object(fused_gnn, "rollout_chunk", fused_gnn.rollout_chunk_plain), dev)
+    ok = bool(launches == per_solve * n_solves and all_finite
+              and all(torch.isfinite(r["best_reward"]) for r in results)
+              and all(r["best_final_state"].is_cuda for r in results)
+              and (err <= tols).all() and torch.isfinite(got_r).all())
+    emit(phase="granular_solve", n_sample=mcfg.n_sample, n_sample_chunk=mcfg.n_sample_chunk,
+         solves=n_solves, ms_per_solve=secs / n_solves * 1e3, k1_launches=launches,
+         expected_k1_launches=per_solve * n_solves, rewards_finite=all_finite,
+         best_rewards=[float(r["best_reward"]) for r in results],
+         best_act_seq=results[-1]["act_seq"].cpu().tolist(),
+         f32_chunk_max_abs_err=float(err.max()),
+         f32_chunk_p99_abs_err=float(np.quantile(err, 0.99)),
+         f32_chunk_reward_max_abs_diff=float((got_r - want_r).abs().max()),
+         f32_tol="graded by repeat", ok=ok)
+    if not ok:
+        fail("the granular solve failed its checks (see the granular_solve line)")
+    return launches, secs / n_solves * 1e3
+
 
 def main():
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         raise SystemExit(2)
@@ -2249,16 +2494,21 @@ def main():
     k2_bf16_launches, k3_bf16_launches = phase_train_bf16(prep, losses, nudged_losses)
     k2_rollout_launches, rollout_time = phase_rollout(config, prep, dev)
     k2_masked_launches, masked_ms, masked_err = phase_masked_tools(dev)
+    k1_plan_launches, plan_ms_per_push, _ = phase_plan(dev)
+    k1_granular_launches, granular_ms_per_solve = phase_granular_solve(dev)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
 
+    emit(phase="wall", seconds=time.time() - t_start)
     emit(kernels=[
         dict(row("rollout_chunk", "adaptigraph_tpu_torch/csrc/rollout_chunk.cu",
                  "adaptigraph_tpu/ops/fused_gnn.py:479", launches, main_err, timing),
-             device_ms=timing["device_ms"]),
+             device_ms=timing["device_ms"], launches_plan=k1_plan_launches,
+             ms_per_push_plan=plan_ms_per_push, launches_granular_solve=k1_granular_launches,
+             ms_per_solve_granular=granular_ms_per_solve),
         dict(row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
                  "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
              device_ms=ttime["k2"]["device_ms"],

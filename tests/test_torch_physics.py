@@ -135,3 +135,28 @@ def test_cli_cuda_without_card_exits(tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["demo-ppo", "--config", "rope", "--load_dir", str(tmp_path),
                   "--ckpt_dir", str(tmp_path)])
+
+
+def test_granular_fixture_curve_matches_jax():
+    """The granular demo fixture at its full width (its 5 recorded
+    interactions, the trained checkpoint, 105 nodes, K 20): the port's error
+    curve over 9 candidates in [0, 0.5] against the JAX optimizer's
+    ``evaluate``, float32 on both sides, and the same argmin."""
+    from adaptigraph_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
+
+    fixture = os.path.join(ROOT, "fixtures", "granular_demo")
+    jt, _ = jax_cli._task_objects(jax_load_planning_config("granular"))
+    tt, _ = cli._task_objects(load_planning_config("granular"))
+    assert (tt.dcfg.gnn.n_nodes, tt.dcfg.edge.topk, tt.dcfg.gnn.nf_effect) == (105, 20, 128)
+    grid = np.linspace(0.0, 0.5, 9, dtype=np.float32)[:, None]
+    # no padding rows: the padded rows repeat real ones and leave the means as they are
+    want_ppo = JaxOptimizer(jt.dcfg, jax_load_checkpoint(fixture), phys_dim=1, pad_i=1, pad_p=1)
+    want_ppo.load_interactions(fixture)
+    ppo = PhysicsParamOnlineOptimizer(tt.dcfg, cli.load_params(fixture, tt.dcfg.gnn, "cpu"),
+                                      phys_dim=1, pad_i=1, pad_p=1, device="cpu",
+                                      compute_dtype=torch.float32)
+    ppo.load_interactions(fixture)
+    assert len(ppo._interactions) == len(want_ppo._interactions) == 5
+    want, got = want_ppo.evaluate(grid), ppo.evaluate(grid)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+    assert int(np.argmin(got)) == int(np.argmin(want))
