@@ -501,7 +501,8 @@ def build_parser():
     t.add_argument("--num_workers", type=int, default=4,
                    help="batch-assembly worker processes; only with --slow_loader")
     t.add_argument("--steps_per_call", type=int, default=20,
-                   help="optimizer steps per stacked superbatch (run as a loop)")
+                   help="optimizer steps per stacked superbatch (on the card one "
+                        "step captured in a CUDA graph and replayed per step)")
     t.add_argument("--slow_loader", action="store_true",
                    help="per-sample batch assembly instead of PackedDataset")
     t.add_argument("--resume", action="store_true",

@@ -7,9 +7,11 @@ graph once from the augmented pre-rollout state, runs ``n_future``
 autoregressive steps through the differentiable fused forward
 (``ops.fused_gnn_train``: K2 forward and K3 backward on the card), sums the
 per-step MSE and applies Adam with optax's defaults, optionally after
-optax's global-norm clip. ``train`` adds the epoch loop with validation,
-the metrics log, checkpoints that the JAX package can read, loss curves and
-``resume``. One device; no mesh.
+optax's global-norm clip. ``make_train_steps`` / ``make_eval_steps`` run K
+steps per call over a stacked superbatch: on the card one step captured in a
+CUDA graph and replayed K times (the JAX ``lax.scan``). ``train`` adds the
+epoch loop with validation, the metrics log, checkpoints that the JAX
+package can read, loss curves and ``resume``. One device; no mesh.
 """
 
 import dataclasses
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from adaptigraph_tpu_torch.models.gnn import GNNConfig, init_params, params_from_numpy, params_to_numpy
+from adaptigraph_tpu_torch.ops import fused_gnn, fused_gnn_train
 from adaptigraph_tpu_torch.ops.fused_gnn_train import make_fused_train_forward
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig, build_neighbor_graph_batch
 from adaptigraph_tpu_torch.utils import checkpoint as ckpt
@@ -159,7 +162,11 @@ def fused_train_fn(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, compute_dtype=None)
 
 
 def adam_init(leaves):
-    return {"count": 0, "mu": [torch.zeros_like(p) for p in leaves],
+    """optax's Adam state: the step count, an int32 tensor on the leaves'
+    device (so that a step captured in a CUDA graph counts on every
+    replay), and the zeroed moments."""
+    return {"count": torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+            "mu": [torch.zeros_like(p) for p in leaves],
             "nu": [torch.zeros_like(p) for p in leaves]}
 
 
@@ -173,10 +180,10 @@ def adam_step(leaves, grads, state, lr, clip_norm=0.0):
     if clip_norm > 0:
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         grads = [torch.where(norm < clip_norm, g, (g / norm) * clip_norm) for g in grads]
-    state["count"] += 1
-    # 1 - decay**count in float32, as optax forms the bias corrections
-    c1, c2 = (1 - torch.tensor(b, dtype=torch.float32, device=leaves[0].device) ** state["count"]
-              for b in (b1, b2))
+    state["count"].add_(1)
+    # 1 - decay**count in float32 on the device, as optax forms the bias
+    # corrections; no host value, so the step can be captured in a graph
+    c1, c2 = (1 - torch.pow(b, state["count"]) for b in (b1, b2))
     for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
         mu.copy_((1 - b1) * g + b1 * mu)
         nu.copy_((1 - b2) * (g * g) + b2 * nu)
@@ -221,6 +228,131 @@ def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, 
                                hyper.n_future, hyper.store_rest_state, fused_fn)
 
     return evaluate
+
+
+# the wrappers whose ``launches`` counters a train or eval step bumps (K2,
+# K3), held here so that a caller's patch of the module attribute (a plain
+# version in place of the kernel) leaves the counters in place
+_LAUNCH_COUNTERS = (fused_gnn.gnn_forward, fused_gnn_train.gnn_train_bwd)
+
+
+def _n_slices(superbatch):
+    return next(iter(superbatch.values())).shape[0]
+
+
+def _slice(superbatch, k):
+    return {name: v[k] for name, v in superbatch.items()}
+
+
+class GraphedStep:
+    """``fn(*state, batch, generator) -> loss`` run on each slice of a
+    (K, B, ...) superbatch on the card, captured once in a CUDA graph.
+
+    The first call (and the first after the state's tensors, the generator
+    or the batch's shapes change) runs slice 0 eagerly on a side stream,
+    which also warms up what a step sets up at first use, then captures one
+    call on static batch buffers. Every later slice is copied into those
+    buffers and the graph replayed. The state (parameter leaves, optimizer
+    state) is updated in place, so its addresses, baked into the graph, stay
+    valid; the generator is registered with the graph, so replay k draws
+    the numbers the eager step k would. A failed capture raises.
+    ``counted``: the launches per kernel counter that the capture recorded
+    (``_LAUNCH_COUNTERS``); a replay adds them, as the kernels' wrappers,
+    which do not run on replay, would."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.key = None
+        self.graph = None
+        self.counted = None
+
+    @staticmethod
+    def _key(state, superbatch, generator):
+        tensors = []
+        for part in state:
+            items = part.values() if isinstance(part, dict) else part
+            for x in items:
+                tensors += x if isinstance(x, (list, tuple)) else [x]
+        return (tuple(t.data_ptr() for t in tensors), id(generator),
+                tuple((name, tuple(v.shape[1:]), v.dtype, v.device)
+                      for name, v in superbatch.items()))
+
+    def _capture(self, state, superbatch, generator, out):
+        dev = out.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):  # slice 0, eagerly: the warm-up
+            out[0].copy_(self.fn(*state, _slice(superbatch, 0), generator))
+        cur.wait_stream(side)
+        self.graph = self.key = None  # frees an earlier capture's memory first
+        self.static = {name: v[0].clone() for name, v in superbatch.items()}
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = [c.launches for c in _LAUNCH_COUNTERS]
+        # thread_local: the batch prefetcher's thread pins and copies meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.loss = self.fn(*state, self.static, generator)
+        self.counted = [c.launches - b for c, b in zip(_LAUNCH_COUNTERS, before)]
+        for c, n in zip(_LAUNCH_COUNTERS, self.counted):  # the capture launched nothing
+            c.launches -= n
+        self.graph = graph
+        self.key = self._key(state, superbatch, generator)
+
+    def __call__(self, state, superbatch, generator):
+        K = _n_slices(superbatch)
+        dev = next(iter(superbatch.values())).device
+        out = torch.empty(K, dtype=torch.float32, device=dev)
+        start = 0
+        if self.graph is None or self.key != self._key(state, superbatch, generator):
+            self._capture(state, superbatch, generator, out)
+            start = 1
+        for k in range(start, K):
+            for name, buf in self.static.items():
+                buf.copy_(superbatch[name][k])
+            self.graph.replay()
+            out[k].copy_(self.loss)  # the next replay overwrites it
+            for c, n in zip(_LAUNCH_COUNTERS, self.counted):
+                c.launches += n
+        return out
+
+
+def make_train_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
+    """``steps(leaves, opt_state, superbatch, generator) -> losses (K,)``: K
+    optimizer steps over a (K, B, ...) superbatch, each with the numerics of
+    ``make_train_step`` (the JAX ``make_train_steps``, a ``lax.scan`` whose
+    body is compiled once). On CUDA tensors one step is captured in a CUDA
+    graph and replayed per slice (``GraphedStep``, ``steps.graphed``); on
+    CPU tensors it is a loop of the step."""
+    step = make_train_step(gnn_cfg, edge_cfg, hyper, fused_fn)
+    graphed = GraphedStep(step)
+
+    def steps(leaves, opt_state, superbatch, generator):
+        if leaves[0].is_cuda:
+            return graphed((leaves, opt_state), superbatch, generator)
+        return torch.stack([step(leaves, opt_state, _slice(superbatch, k), generator)
+                            for k in range(_n_slices(superbatch))])
+
+    steps.graphed = graphed
+    return steps
+
+
+def make_eval_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
+    """``evaluate(leaves, superbatch, generator) -> losses (K,)``: K eval
+    steps (``make_eval_step``'s) over a (K, B, ...) superbatch; on CUDA
+    tensors one captured in a CUDA graph and replayed per slice."""
+    evaluate = make_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn)
+    graphed = GraphedStep(evaluate)
+
+    def steps(leaves, superbatch, generator):
+        if leaves[0].is_cuda:
+            return graphed((leaves,), superbatch, generator)
+        return torch.stack([evaluate(leaves, _slice(superbatch, k), generator)
+                            for k in range(_n_slices(superbatch))])
+
+    steps.graphed = graphed
+    return steps
 
 
 class DevicePrefetcher:
@@ -317,7 +449,9 @@ def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loa
     optimizer steps and ``n_iters_valid`` validation batches each, a metrics
     line (``metrics.jsonl``), a checkpoint (``checkpoints/``) and the loss
     curves per epoch. Loaders yield numpy batch dicts; with ``stack_steps``
-    K > 1 they yield (K, B, ...) superbatches, run here as K steps. With
+    K > 1 they yield (K, B, ...) superbatches, run by ``make_train_steps`` /
+    ``make_eval_steps`` (on the card a CUDA graph per step kind). The train
+    loss of an epoch is the mean over the logged calls' steps. With
     ``resume``, the latest parameters and optimizer state in ``out_dir`` are
     restored and the epoch count continues. Returns (params, curves)."""
     from adaptigraph_tpu_torch.utils.metrics import MetricsLogger
@@ -337,20 +471,33 @@ def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loa
                 p.copy_(r)
         if os.path.exists(ckpt.optim_name(out_dir)):
             saved = ckpt.load_optimizer(out_dir)
-            opt_state["count"] = saved["count"]
+            opt_state["count"].fill_(saved["count"])
             for name in ("mu", "nu"):
                 for t, a in zip(opt_state[name], saved[name]):
                     t.copy_(torch.from_numpy(a))
         start_epoch = _start_epoch(out_dir)
         print(f"resumed from {ckpt.latest_name(out_dir)} at epoch {start_epoch}")
 
-    step = make_train_step(gnn_cfg, edge_cfg, hyper)
-    evaluate = make_eval_step(gnn_cfg, edge_cfg, hyper)
     gen = torch.Generator(device=device)
     gen.manual_seed(hyper.seed + 1)
 
+    # K steps per call when the loaders stack superbatches, as the JAX loop
     K = getattr(train_loader, "stack_steps", 1)
     KV = getattr(valid_loader, "stack_steps", 1)
+    if K > 1:
+        step = make_train_steps(gnn_cfg, edge_cfg, hyper)
+    else:
+        one_step = make_train_step(gnn_cfg, edge_cfg, hyper)
+
+        def step(leaves, opt_state, batch, generator):
+            return one_step(leaves, opt_state, batch, generator)[None]
+    if KV > 1:
+        evaluate = make_eval_steps(gnn_cfg, edge_cfg, hyper)
+    else:
+        one_eval = make_eval_step(gnn_cfg, edge_cfg, hyper)
+
+        def evaluate(leaves, batch, generator):
+            return one_eval(leaves, batch, generator)[None]
     train_stage = DevicePrefetcher(train_loader, device)
     valid_stage = DevicePrefetcher(valid_loader, device)
     metrics = MetricsLogger(out_dir)
@@ -358,31 +505,24 @@ def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loa
     n_calls_train = max(1, hyper.n_iters_train // K)
     n_calls_valid = max(1, hyper.n_iters_valid // KV)
 
-    def split(batch, k, stack):
-        return batch if stack == 1 else {key: v[k] for key, v in batch.items()}
-
     try:
         for epoch in range(start_epoch, start_epoch + hyper.n_epochs):
             t0 = time.time()
             losses = []
             for it in range(n_calls_train):
-                batch = next(train_stage)
-                out = [step(leaves, opt_state, split(batch, k, K), gen) for k in range(K)]
+                out = step(leaves, opt_state, next(train_stage), gen)
                 if it % max(1, log_every // K) == 0:
-                    losses.append(torch.stack(out).mean())
-            train_loss = float(torch.stack(losses).mean())  # waits for the epoch's steps
+                    losses.append(out)
+            train_loss = float(torch.cat(losses).mean())  # waits for the epoch's steps
             train_seconds = time.time() - t0
-            vlosses = []
-            for _ in range(n_calls_valid):
-                batch = next(valid_stage)
-                vlosses += [evaluate(leaves, split(batch, k, KV), gen) for k in range(KV)]
+            vlosses = [evaluate(leaves, next(valid_stage), gen) for _ in range(n_calls_valid)]
             curves["train"].append(train_loss)
-            curves["valid"].append(float(torch.stack(vlosses).mean()))
+            curves["valid"].append(float(torch.cat(vlosses).mean()))
             metrics.log("epoch", step=epoch, train_loss=curves["train"][-1],
                         valid_loss=curves["valid"][-1], seconds=time.time() - t0,
                         train_seconds=train_seconds, train_steps=n_calls_train * K)
             ckpt.save_checkpoint(out_dir, epoch, params_to_numpy(ckpt.tree_from_leaves(leaves)),
-                                 {"count": opt_state["count"],
+                                 {"count": int(opt_state["count"]),
                                   "mu": [t.cpu().numpy() for t in opt_state["mu"]],
                                   "nu": [t.cpu().numpy() for t in opt_state["nu"]]})
             np.savez(os.path.join(out_dir, "loss_curves.npz"),

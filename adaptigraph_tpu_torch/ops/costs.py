@@ -1,7 +1,10 @@
 """Planning costs and penalties (counterpart of ``adaptigraph_tpu/ops/costs.py``).
 
 Plain PyTorch: the JAX package computes these outside any kernel too.
+``emd_hungarian`` runs on the host, as the JAX one does.
 """
+
+import math
 
 import torch
 
@@ -112,3 +115,62 @@ def bbox_penalty(state, bbox):
         torch.clamp(bbox[1, 1] - zmax, min=0.0),
     ], dim=-1)
     return torch.exp(-pens * 100.0).amax(dim=-1)
+
+
+def hausdorff(x, y, x_mask=None, y_mask=None, eps=1e-12):
+    """Symmetric Hausdorff distance: the largest directed nearest-neighbour
+    distance each way, summed. x (..., N, D), y (..., M, D), optional bool
+    masks (..., N) / (..., M). Returns (...,)."""
+    diff = x[..., :, None, :] - y[..., None, :, :]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eps)
+    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
+    if x_mask is not None:
+        dist = torch.where(x_mask[..., :, None], dist, inf)
+    if y_mask is not None:
+        dist = torch.where(y_mask[..., None, :], dist, inf)
+    d_xy = dist.amin(dim=-1)
+    d_yx = dist.amin(dim=-2)
+    if x_mask is not None:
+        d_xy = torch.where(x_mask, d_xy, -inf)
+    if y_mask is not None:
+        d_yx = torch.where(y_mask, d_yx, -inf)
+    return d_xy.amax(dim=-1) + d_yx.amax(dim=-1)
+
+
+def emd_hungarian(x, y):
+    """Earth mover's distance by exact assignment (scipy's Hungarian solver
+    per batch element, on the host). x, y (B, N, D) equal-size point sets,
+    tensors or arrays -> (B,) float32 numpy mean matched distance. Use
+    ``emd_sinkhorn`` for a differentiable one on the device."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    x, y = host(x), host(y)
+    out = np.zeros(x.shape[0], np.float32)
+    for i in range(x.shape[0]):
+        cost = np.linalg.norm(x[i][:, None, :] - y[i][None, :, :], axis=-1)
+        r, c = linear_sum_assignment(cost)
+        out[i] = cost[r, c].mean()
+    return out
+
+
+def emd_sinkhorn(x, y, epsilon=0.02, n_iters=50):
+    """Entropy-regularised EMD by log-domain Sinkhorn with a fixed number of
+    iterations: batched and differentiable, it tends to ``emd_hungarian`` as
+    epsilon -> 0. x, y (B, N, D) -> (B,) transport cost under the plan."""
+    diff = x[:, :, None, :] - y[:, None, :, :]
+    C = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)  # (B, N, M)
+    B, N, M = C.shape
+    log_a = torch.full((B, N), -math.log(N), dtype=C.dtype, device=C.device)
+    log_b = torch.full((B, M), -math.log(M), dtype=C.dtype, device=C.device)
+    f = torch.zeros(B, N, dtype=C.dtype, device=C.device)
+    g = torch.zeros(B, M, dtype=C.dtype, device=C.device)
+    for _ in range(n_iters):
+        f = -epsilon * torch.logsumexp((g[:, None, :] - C) / epsilon + log_b[:, None, :], dim=-1)
+        g = -epsilon * torch.logsumexp((f[:, :, None] - C) / epsilon + log_a[:, :, None], dim=-2)
+    P = torch.exp((f[:, :, None] + g[:, None, :] - C) / epsilon
+                  + log_a[:, :, None] + log_b[:, None, :])
+    return torch.sum(P * C, dim=(-2, -1))

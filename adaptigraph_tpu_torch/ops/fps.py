@@ -1,9 +1,11 @@
-"""Farthest point sampling on the host (numpy copy of the numpy half of
-``adaptigraph_tpu/ops/fps.py``): ``fps_numpy``, ``fps_rad_numpy`` and the
-two-stage ``fps_downsample`` the data pipeline uses.
+"""Farthest point sampling (counterpart of ``adaptigraph_tpu/ops/fps.py``):
+on the host, ``fps_numpy``, ``fps_rad_numpy`` and the two-stage
+``fps_downsample`` the data pipeline uses (numpy copies); on the device,
+``fps_device``, the JAX ``fps_jax``.
 """
 
 import numpy as np
+import torch
 
 # points below this count get a precomputed pairwise squared-distance matrix
 # (n=2048 -> 16 MB f32); above it per-pick BLAS matvec updates are used. Both
@@ -102,3 +104,29 @@ def fps_downsample(pcd, max_num, radius, rng=None, start_idx=None):
     # deterministic start for stage 2 keeps the first FPS point first
     idx2 = _fps_rad(_SqDist(np.asarray(pcd)[idx1]), radius, 0)
     return idx1[idx2]
+
+
+def fps_device(pcd, mask, num, start_idx=0):
+    """FPS on the points' device returning exactly ``num`` indices (repeated
+    when fewer than ``num`` points are valid) and their validity (the JAX
+    ``fps_jax``): from ``start_idx``, each pick is the valid point farthest
+    (euclidean) from those picked, ties to the smallest index.
+
+    pcd (n, d) float; mask (n,) bool. Returns idxs (num,) int32 and valid
+    (num,) bool, False for the slots past the number of valid points. A
+    loop of ``num - 1`` small kernels, with no host read."""
+    neg = torch.tensor(-float("inf"), dtype=pcd.dtype, device=pcd.device)
+
+    def dist_to(i):
+        return torch.where(mask, torch.linalg.norm(pcd - pcd[i], dim=1), neg)
+
+    start = torch.as_tensor(start_idx, dtype=torch.int64, device=pcd.device)
+    dist = dist_to(start)
+    idxs = [start]
+    for _ in range(1, num):
+        nxt = torch.argmax(dist)  # the first of equal maxima, as jnp.argmax
+        idxs.append(nxt)
+        dist = torch.minimum(dist, dist_to(nxt))
+    idxs = torch.stack(idxs).to(torch.int32)
+    valid = torch.arange(num, device=pcd.device) < mask.sum()
+    return idxs, valid

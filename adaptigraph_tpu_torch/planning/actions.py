@@ -10,6 +10,7 @@ samples.
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -69,6 +70,31 @@ def sample_action_seq(generator, act_seq, lower, upper, n_sample, iter_index=0,
     return samples
 
 
+def sample_action_seq_correlated(generator, act_seq, lower, upper, n_sample, noise_level=0.1,
+                                 beta_filter=0.7):
+    """The Planner's default sampler: ``n_sample`` copies of ``act_seq``
+    (L, A) plus low-pass filtered normal noise, clamped to [lower, upper].
+    The normals, one (n_sample, A) draw per step, come from ``generator`` on
+    ``act_seq.device``; ``correlated_action_seqs`` is the rest."""
+    L, A = act_seq.shape
+    normals = torch.randn((L, n_sample, A), generator=generator, device=act_seq.device)
+    return correlated_action_seqs(normals, act_seq, lower, upper, noise_level, beta_filter)
+
+
+def correlated_action_seqs(normals, act_seq, lower, upper, noise_level=0.1, beta_filter=0.7):
+    """``sample_action_seq_correlated`` given its standard normals (L,
+    n_sample, A): step l's residual is ``beta_filter * noise_level *
+    normals[l]`` plus ``1 - beta_filter`` of step l-1's; the samples are
+    ``act_seq`` plus the residuals, clamped. Returns (n_sample, L, A)."""
+    residual = torch.zeros_like(normals[0])
+    residuals = []
+    for step in normals:
+        residual = beta_filter * (step * noise_level) + residual * (1.0 - beta_filter)
+        residuals.append(residual)
+    out = act_seq[None] + torch.stack(residuals, dim=1)
+    return torch.minimum(torch.maximum(out, lower), upper)
+
+
 def optimize_action_mppi(act_seqs, reward_seqs, reward_weight=100.0, lower=None,
                          upper=None, push_length=0.10):
     """Softmax-weighted MPPI update in endpoint space."""
@@ -83,3 +109,20 @@ def optimize_action_mppi(act_seqs, reward_seqs, reward_weight=100.0, lower=None,
     theta = torch.atan2(z - ze, x - xe)
     length = torch.sqrt((xe - x) ** 2 + (ze - z) ** 2) / push_length
     return clip_actions(torch.stack([x, z, theta, length], dim=-1), lower, upper)
+
+
+def fps_action_grid(lower, upper, n_sample, grid_size=0.02):
+    """Host FPS over the action grid (spacing ``grid_size`` in every
+    dimension) for diverse initial samples, seeded at the point of largest
+    motion (the second half of the dimensions against the first). Returns
+    (n_sample, A) numpy."""
+    from adaptigraph_tpu_torch.ops.fps import fps_numpy
+
+    lower = np.asarray(lower)
+    upper = np.asarray(upper)
+    axes = [np.arange(lower[i], upper[i], grid_size) for i in range(len(lower))]
+    grid = np.stack(np.meshgrid(*axes), axis=-1).reshape(-1, len(lower))
+    c = grid.shape[1]
+    motion = np.linalg.norm(grid[:, c // 2:] - grid[:, :c // 2], axis=1)
+    idx = fps_numpy(grid, n_sample, start_idx=int(motion.argmax()))
+    return grid[idx]

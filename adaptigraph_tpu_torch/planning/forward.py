@@ -1,6 +1,10 @@
 """Batched forward dynamics for MPPI and physics identification (counterpart
 of ``adaptigraph_tpu/planning/forward.py``).
 
+``dynamics_rollout`` is the differentiable model of the gradient-descent
+Planner: per substep the graph build and the training forward (K2 with its
+activations kept, K3 in the backward), so gradients reach the actions.
+
 ``dynamics_rollout_batched`` advances a chunk of samples push by push, on
 the JAX branches with ``use_fused``: for edge policy ``none`` (rope,
 granular) each look-ahead step's whole push in one launch of the rollout
@@ -24,6 +28,7 @@ import torch
 from adaptigraph_tpu_torch.models.gnn import GNNConfig
 from adaptigraph_tpu_torch.ops.fused_gnn import (fused_forward_batch, fused_rollout_chunk,
                                                  weight_list)
+from adaptigraph_tpu_torch.ops.fused_gnn_train import make_fused_train_forward
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig, build_neighbor_graph_batch
 from adaptigraph_tpu_torch.planning.actions import decode_action
 
@@ -76,6 +81,75 @@ def pusher_keypoints(cfg: DynamicsConfig, decoded, theta, y):
     return kp, delta[:, None].expand(B, n_eef, 3)
 
 
+def dynamics_rollout(params, state, action_seqs, physics_param, cfg: DynamicsConfig,
+                     compute_dtype=torch.float32, step_fn=None):
+    """The JAX ``dynamics_rollout``, differentiable with respect to
+    ``action_seqs``: every sample's pushes substep by substep
+    (``_push_substeps``), per substep the graph of the newest frame for the
+    config's edge policy (all object slots valid) and one differentiable
+    step. ``step_fn(params, state, action, physics, attrs, p_instance,
+    neighbors, nbr_mask) -> pred``; None takes the training forward in
+    ``compute_dtype`` (``make_fused_train_forward`` on ``topk + max_neef``
+    slots: on CUDA K2 with its activations kept and K3 in the backward, on
+    CPU their plain versions). The gradient reaches the actions through the
+    pusher keypoints, the eef's delta (the step's ``d_state`` and
+    ``d_action``) and the re-stick height (``amin``, which splits it evenly
+    among tied minima, as JAX's ``min``). Substeps run to each push's
+    largest repeat where JAX runs ``max_repeat``: the recorded states, and
+    so their gradients, are the same.
+
+    params: the nested parameter dict (float32); state (max_nobj, 3);
+    action_seqs (B, L, 4); physics_param (phys_dim,). Returns
+    ``state_seqs`` (B, L, max_nobj, 3) and the decoded ``action_seqs``.
+    """
+    gnn, edge = cfg.gnn, cfg.edge
+    step_fn = step_fn or make_fused_train_forward(gnn, edge.topk + edge.max_neef, compute_dtype)
+    decoded, repeat = decode_action(action_seqs, cfg.push_length)
+
+    def fwd(g):
+        return step_fn(params, g["state"], g["action"], g["physics_param"], g["attrs"],
+                       g["p_instance"], g["neighbors"], g["nbr_mask"])
+
+    node_mask = torch.ones(action_seqs.shape[0], gnn.n_nodes, dtype=torch.bool,
+                           device=action_seqs.device)
+    return {"state_seqs": _substep_pushes(fwd, state, action_seqs, decoded, repeat, physics_param,
+                                          cfg, node_mask),
+            "action_seqs": decoded}
+
+
+def _obj_y_fn(cfg: DynamicsConfig):
+    """Each sample's re-stick height: its min object y (``amin``, whose
+    gradient splits evenly among tied minima), or the mean with
+    ``use_mean_y``."""
+    def obj_y(obj):
+        return obj[..., 1].mean(dim=1) if cfg.use_mean_y else obj[..., 1].amin(dim=1)
+
+    return obj_y
+
+
+def _substep_pushes(fwd, state, action_seqs, decoded, repeat, physics_param, cfg: DynamicsConfig,
+                    node_mask):
+    """Every look-ahead push of every sample, substep by substep
+    (``_push_substeps`` with ``fwd`` and ``node_mask``), each push from the
+    states the previous one recorded. Returns (B, L, max_nobj, 3)."""
+    gnn = cfg.gnn
+    n_p, N = gnn.max_nobj, gnn.n_nodes
+    B, L = action_seqs.shape[0], action_seqs.shape[1]
+    dev = action_seqs.device
+    obj_y = _obj_y_fn(cfg)
+    is_tool = torch.arange(N, device=dev) >= n_p
+    graph = {"attrs": torch.stack([~is_tool, is_tool], dim=-1).float().expand(B, N, 2),
+             "p_instance": torch.ones(B, n_p, 1, device=dev),
+             "physics_param": physics_param.float().expand(B, *physics_param.shape)}
+    obj = state[None].expand(B, n_p, 3)
+    outs = []
+    for li in range(L):
+        kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
+        obj = _push_substeps(fwd, obj, kp, delta, repeat[:, li], graph, cfg, obj_y, node_mask)
+        outs.append(obj)
+    return torch.stack(outs, dim=1)
+
+
 def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: DynamicsConfig,
                              compute_dtype=torch.bfloat16, fused_substeps=True):
     """MPPI forward model for one chunk of samples (the JAX
@@ -100,20 +174,16 @@ def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: Dyn
     the decoded ``action_seqs`` (B, L, 4).
     """
     gnn, edge = cfg.gnn, cfg.edge
-    n_p, N = gnn.max_nobj, gnn.n_nodes
     B, L = action_seqs.shape[0], action_seqs.shape[1]
-    dev = action_seqs.device
     decoded, repeat = decode_action(action_seqs, cfg.push_length)
     weights = (params if isinstance(params, (list, tuple))
                else weight_list(params, gnn, compute_dtype))
     kernel_edges = edge.policy == "none"
 
-    def obj_y(obj):
-        return obj[..., 1].mean(dim=1) if cfg.use_mean_y else obj[..., 1].amin(dim=1)
-
-    obj = state[None].expand(B, n_p, 3)
-    outs = []
     if kernel_edges and fused_substeps:
+        obj_y = _obj_y_fn(cfg)
+        obj = state[None].expand(B, gnn.max_nobj, 3)
+        outs = []
         for li in range(L):
             kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
             obj = fused_rollout_chunk(
@@ -134,16 +204,11 @@ def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: Dyn
             return fused_forward_batch(weights, g, gnn, compute_dtype, want_motion=False,
                                        k_used=edge.topk + edge.max_neef)[0]
 
-    is_tool = torch.arange(N, device=dev) >= n_p
-    graph = {"attrs": torch.stack([~is_tool, is_tool], dim=-1).float().expand(B, N, 2),
-             "p_instance": torch.ones(B, n_p, 1, device=dev),
-             "physics_param": physics_param.float().expand(B, *physics_param.shape)}
-    node_mask = None if kernel_edges else torch.ones(B, N, dtype=torch.bool, device=dev)
-    for li in range(L):
-        kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
-        obj = _push_substeps(fwd, obj, kp, delta, repeat[:, li], graph, cfg, obj_y, node_mask)
-        outs.append(obj)
-    return {"state_seqs": torch.stack(outs, dim=1), "action_seqs": decoded}
+    node_mask = (None if kernel_edges
+                 else torch.ones(B, gnn.n_nodes, dtype=torch.bool, device=action_seqs.device))
+    return {"state_seqs": _substep_pushes(fwd, state, action_seqs, decoded, repeat, physics_param,
+                                          cfg, node_mask),
+            "action_seqs": decoded}
 
 
 def _push_substeps(fwd, obj, kp, delta, repeat, graph, cfg: DynamicsConfig, obj_y, node_mask):

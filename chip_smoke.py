@@ -33,11 +33,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
      (on the card and on the CPU, and against a float64 plain version off
      its relu flips), plus a rerun that must be bit-identical. One train step through the kernels
      against the same step through the plain versions; K2, K3 and train-step
-     times; then the main path of this slice, ``python -m
-     adaptigraph_tpu_torch train --config rope`` (in process) for 300 steps
-     at batch 128, with the K2/K3 launch counts read around it, a falling
-     loss, the checkpoint read back, and the same run through the plain
-     versions, whose loss curves must agree.
+     times; K optimizer steps per call (``train_steps``: ``make_train_steps``,
+     one step captured in a CUDA graph and replayed, K 10, f32 and bf16,
+     bit for bit against the loop of ``make_train_step``, its launches per
+     replay by ``torch.profiler`` kernel names, ms per step through the graph
+     and the loop); then ``python -m adaptigraph_tpu_torch train --config
+     rope`` (in process) for 300 steps at batch 128 (``--steps_per_call
+     10``: the graphs), with the K2/K3 launch counts read around it, a
+     falling loss, the checkpoint read back, and the same run through the
+     plain versions, whose loss curves must agree.
   6. the single-step forward with its graph built in the kernel (K2e): at
      rope and granular width (fixture weights, B 2000) against its plain
      version in f32 and bf16 and, in f32, bit for bit against K2 on the
@@ -82,6 +86,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
      fixture weights, the config's box target): a warm-up and three timed
      solves with their K1 launches counted, and one float32 chunk against
      the plain version (``granular_solve``).
+ 15. the Planner's MPPI variant at the rope solve's width (20,000 samples
+     from its correlated sampler, chunks of 2,000 through K1 in bf16, 2
+     iterations, the best rolled out): K1's launches (2 x 10 + 1), its best
+     reward against ``make_mppi_solver``'s on the same samples (0.05), ms
+     per iteration (``planner_mppi``).
+ 16. the Planner's gradient-descent variant through ``dynamics_rollout``
+     (512 samples, 10 Adam steps, float32 K2 forward and K3 backward per
+     substep): the first gradient with respect to the actions within 5e-4 of
+     its norm of the plain versions', K2 = K3 = substeps per iteration, K2
+     alone in the final rollouts, a higher mean reward, peak device memory
+     and ms per iteration (``planner_gd``).
 The last lines are the script's wall seconds, the kernel table, the card
 line, and the ok line.
 """
@@ -114,12 +129,25 @@ TRAIN_ARGS = ["--epochs", "3", "--iters", "100", "--batch_size", str(B_TRAIN),
               "--steps_per_call", "10"]
 
 
+_emitted = []  # the last line emit() printed
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    line = json.dumps(kw)
+    _emitted[:] = [line]
+    print(line, flush=True)
 
 
 def fail(msg, **kw):
+    """Print the error line and exit 1. The message and the line before it
+    (the failed phase's, which holds the numbers its check read) also go to
+    standard error, whose end is what a caller that keeps only that end
+    sees."""
+    before = _emitted[0] if _emitted else ""
     emit(phase="error", error=msg, **kw)
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    if before:
+        print(before[:16000], file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -1922,6 +1950,137 @@ def profile_step(step, leaves, state, batches, gen, n=5):
                "calls_per_step": e.count / n} for e in top])
 
 
+def kernel_launches_in(fn, names, trace_dir):
+    """Under ``torch.profiler`` (the port's ``utils.profiling.device_trace``,
+    which writes the trace to ``trace_dir``), the launches of each kernel
+    whose name holds one of ``names`` (device events) while fn() runs."""
+    from torch.autograd import DeviceType
+
+    from adaptigraph_tpu_torch.utils.profiling import device_trace
+
+    torch.cuda.synchronize()
+    with device_trace(trace_dir) as prof:
+        fn()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {n: sum(e.count for e in events if n in e.key) for n in names}
+
+
+def phase_train_steps(config, dev, K=10, R=9):
+    """K optimizer steps per call (``make_train_steps``: on the card one step
+    captured in a CUDA graph after one eager step, then replayed per slice)
+    at the rope fixture's density (``fixture_batch``, B 128, n_future 3, a
+    superbatch of K 10 batches), in float32 and in bf16
+    (``fused_train_fn(..., bfloat16)``). The gate: two calls (20 steps) from
+    the same weights, Adam state and generator seed give the losses, the
+    parameters and the Adam state (moments, count) of 20 ``make_train_step``
+    calls, bit for bit, after each call. The K2 and K3 launches of one
+    replay, counted by ``torch.profiler`` kernel names, must equal the
+    capture's count (3 + 3): the profiled window holds a fresh step object's
+    eager slice and capture, then one replay, and the eager step's launches
+    (its wrappers' counts) come off. A call of K steps must add 3K + 3K to
+    the launch counters. ms per step through the graph and through the loop
+    (CUDA events around a call of K steps and around K step calls,
+    alternating, median of R) and host ms per step (perf_counter around the
+    call, which returns once its work is queued)."""
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+
+    gnn, edge, _, hyper = rope_train_objects(config)
+    parts = [fixture_batch("rope", dev, seed=40 + k)[0] for k in range(K)]
+    sb = {name: torch.stack([p[name] for p in parts]) for name in parts[0]}
+    base = ckpt.tree_leaves(init_params(torch.Generator().manual_seed(0), gnn))
+
+    def start(cd, graphed):
+        leaves = [p.to(dev).clone().requires_grad_(True) for p in base]
+        state = train.adam_init(leaves)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        fused = train.fused_train_fn(gnn, edge, cd)
+        if graphed:
+            steps = train.make_train_steps(gnn, edge, hyper, fused_fn=fused)
+            return steps, lambda batch: steps(leaves, state, batch, gen), leaves, state
+        step = train.make_train_step(gnn, edge, hyper, fused_fn=fused)
+
+        def loop(batch):
+            return torch.stack([step(leaves, state, {n: v[k] for n, v in batch.items()}, gen)
+                                for k in range(next(iter(batch.values())).shape[0])])
+
+        return None, loop, leaves, state
+
+    def snapshot(losses, leaves, state):
+        return ([losses.clone()] + [p.detach().clone() for p in leaves]
+                + [t.clone() for t in state["mu"] + state["nu"]] + [state["count"].clone()])
+
+    results, launches = {}, [0, 0]
+    for cd in (torch.float32, torch.bfloat16):
+        name = str(cd).split(".")[-1]
+        steps, graph_call, gl, gs = start(cd, True)
+        _, loop_call, ll, ls = start(cd, False)
+        equal, per_call = [], []
+        for _ in range(2):  # the first call warms up and captures, the second only replays
+            gnn_forward.launches = gnn_train_bwd.launches = 0
+            got = snapshot(graph_call(sb), gl, gs)
+            per_call.append([gnn_forward.launches, gnn_train_bwd.launches])
+            launches = [a + b for a, b in zip(launches, per_call[-1])]
+            want = snapshot(loop_call(sb), ll, ls)
+            equal.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        # one replay under the profiler, of a graph captured inside the same
+        # window: a CUPTI that attaches after a graph's instantiation need
+        # not trace its kernel nodes. A one-slice call on a fresh step object
+        # runs the slice eagerly and captures (the counters take the eager
+        # step's launches, not the capture's); a second call replays once.
+        fresh_steps, fresh_call = start(cd, True)[:2]
+        one, eager = {n: v[:1] for n, v in sb.items()}, []
+
+        def capture_then_replay():
+            gnn_forward.launches = gnn_train_bwd.launches = 0
+            fresh_call(one)
+            eager.extend([gnn_forward.launches, gnn_train_bwd.launches])
+            fresh_call(one)
+
+        profiled = kernel_launches_in(capture_then_replay,
+                                      ("gnn_forward_kernel", "gnn_train_bwd_kernel"),
+                                      os.path.join(TRAIN_DIR, f"trace_train_steps_{name}"))
+        per_replay = {k: profiled[k] - n for k, n in zip(profiled, eager)}
+        fresh_capture = list(fresh_steps.graphed.counted)
+        del fresh_steps, fresh_call
+        graph_ms, loop_ms, graph_host, loop_host = [], [], [], []
+        for _ in range(R):
+            for call, ms, host in ((graph_call, graph_ms, graph_host),
+                                   (loop_call, loop_ms, loop_host)):
+                torch.cuda.synchronize()
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t0 = time.perf_counter()
+                call(sb)
+                host.append((time.perf_counter() - t0) * 1e3 / K)
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1) / K)
+        capture = list(steps.graphed.counted)
+        ok = (all(equal) and capture == fresh_capture == eager == [3, 3]
+              and per_call == [[3 * K, 3 * K]] * 2
+              and [per_replay["gnn_forward_kernel"], per_replay["gnn_train_bwd_kernel"]] == capture)
+        results[name] = dict(bit_equal_per_call=equal, capture_launches={"k2": capture[0],
+                                                                         "k3": capture[1]},
+                             profiled_launches_eager_and_one_replay=profiled,
+                             eager_step_launches={"k2": eager[0], "k3": eager[1]},
+                             profiled_launches_one_replay=per_replay,
+                             launches_per_call=[{"k2": a, "k3": b} for a, b in per_call],
+                             ms_per_step_graph=float(np.median(graph_ms)),
+                             ms_per_step_loop=float(np.median(loop_ms)),
+                             host_ms_per_step_graph=float(np.median(graph_host)),
+                             host_ms_per_step_loop=float(np.median(loop_host)), ok=bool(ok))
+        del steps, graph_call, loop_call
+    emit(phase="train_steps", K=K, B=B_TRAIN, data="rope fixture density", **results)
+    if not all(r["ok"] for r in results.values()):
+        fail("the graphed K-step train calls failed their checks (see the train_steps line)")
+    return launches
+
+
 CURVE_RTOL = 0.02  # kernel vs plain run, each epoch's mean train and valid loss
 CURVE_SPREADS = 3  # ... or within this many times the float32 spread of the curves
 
@@ -1929,10 +2088,11 @@ CURVE_SPREADS = 3  # ... or within this many times the float32 spread of the cur
 def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32):
     """The CLI's train command into TRAIN_DIR/<tag>, through the kernels or
     (``plain``) the plain versions; with ``nudge``, from initial weights
-    each one float32 step nearer 0; with ``cd`` bfloat16, its train and
-    eval steps built by ``make_train_step`` / ``make_eval_step`` with
+    each one float32 step nearer 0; with ``cd`` bfloat16, its K-step train
+    and eval calls built by ``make_train_steps`` / ``make_eval_steps`` with
     ``fused_fn=fused_train_fn(..., bfloat16)`` (the CLI has no dtype
-    option). Returns (params, curves, seconds, argv, the loss of every
+    option). ``--steps_per_call 10``: each call replays a CUDA graph of one
+    step 10 times. Returns (params, curves, seconds, argv, the loss of every
     train step)."""
     from contextlib import ExitStack
 
@@ -1940,37 +2100,37 @@ def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32):
     from adaptigraph_tpu_torch.dynamics import train
     from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
-    init, make_step, make_eval = train.init_params, train.make_train_step, train.make_eval_step
+    init, make_steps, make_evals = train.init_params, train.make_train_steps, train.make_eval_steps
     losses = []
 
     def nudged(generator, cfg):
         return ckpt.tree_from_leaves([torch.nextafter(p, torch.zeros_like(p))
                                       for p in ckpt.tree_leaves(init(generator, cfg))])
 
-    def step_recorded(gnn, edge, hyper):
-        step = make_step(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
+    def steps_recorded(gnn, edge, hyper):
+        steps = make_steps(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
 
-        def recorded(*a):
-            losses.append(step(*a))
+        def recorded(*a):  # the K losses of each call
+            losses.append(steps(*a))
             return losses[-1]
 
         return recorded
 
-    def eval_step(gnn, edge, hyper):
-        return make_eval(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
+    def eval_steps(gnn, edge, hyper):
+        return make_evals(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
 
     argv = ["train", "--config", "rope", "--prep_dir", prep,
             "--out_dir", os.path.join(TRAIN_DIR, tag)] + TRAIN_ARGS
     with ExitStack() as stack:
-        stack.enter_context(mock.patch.object(train, "make_train_step", step_recorded))
-        stack.enter_context(mock.patch.object(train, "make_eval_step", eval_step))
+        stack.enter_context(mock.patch.object(train, "make_train_steps", steps_recorded))
+        stack.enter_context(mock.patch.object(train, "make_eval_steps", eval_steps))
         if plain:
             stack.enter_context(plain_kernels())
         if nudge:
             stack.enter_context(mock.patch.object(train, "init_params", nudged))
         t0 = time.time()
         params, curves = main(argv)
-    return params, curves, time.time() - t0, argv, torch.stack(losses).cpu().numpy()
+    return params, curves, time.time() - t0, argv, torch.cat(losses).cpu().numpy()
 
 
 def phase_train(config, prep, dev):
@@ -2447,6 +2607,197 @@ def phase_granular_solve(dev):
     return launches, secs / n_solves * 1e3
 
 
+# ---------------------------------------------------------------------------
+# the Planner: MPPI on K1, gradient descent through K2/K3
+# ---------------------------------------------------------------------------
+
+def rope_task(rope, dev):
+    """The rope solve's reward (the fixture's state moved by (0.5, 0, 0.3)
+    as the target), its state on the card, physics 0.5, the action limits
+    and the middle of the action box as the initial sequence."""
+    from adaptigraph_tpu_torch.planning.closed_loop import make_reward_fn
+
+    tcfg, params, state, _ = rope
+    target = state + np.array([0.5, 0.0, 0.3], np.float32)
+    lo, hi = (np.asarray(x, np.float32) for x in (tcfg.action_lower_lim, tcfg.action_upper_lim))
+    act0 = np.tile((lo + hi) / 2, (tcfg.mcfg.n_look_ahead, 1))
+    return (make_reward_fn(tcfg, target, dev), torch.tensor(state, device=dev),
+            torch.tensor([0.5], device=dev), lo, hi, act0)
+
+
+def phase_planner_mppi(rope, dev, n_iter=2):
+    """The Planner's MPPI variant at the rope solve's width (fixture weights,
+    N 101, 20,000 samples from its correlated sampler, ordered by repeat as
+    the solve orders them, rolled out in chunks of 2,000 through
+    ``dynamics_rollout_batched``, K1 in bf16, and scored per chunk), 2
+    update iterations, ``rollout_best`` on: a warm-up, then a timed run with
+    K1's launches counted from 0 (2 x 10 + 1). Its best reward is held to
+    ``make_mppi_solver``'s on the same samples (its sampler patched to hand
+    them over) with the same reward function, within the bf16 whole-push
+    tolerance 0.05."""
+    import dataclasses
+
+    from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk, weight_list
+    from adaptigraph_tpu_torch.planning import mppi_solve
+    from adaptigraph_tpu_torch.planning.actions import sample_action_seq_correlated
+    from adaptigraph_tpu_torch.planning.forward import dynamics_rollout_batched
+    from adaptigraph_tpu_torch.planning.planner import Planner, PlannerConfig
+    from adaptigraph_tpu_torch.utils.profiling import StageTimer
+
+    tcfg, params = rope[:2]
+    dcfg, mcfg = tcfg.dcfg, tcfg.mcfg
+    reward_fn, state, phys, lo, hi, act0 = rope_task(rope, dev)
+    cd, chunk = torch.bfloat16, mcfg.n_sample_chunk
+    weights = weight_list(params, dcfg.gnn, cd)
+    lower, upper = torch.tensor(lo, device=dev), torch.tensor(hi, device=dev)
+
+    def rollout(s, act_seqs):
+        return {"state_seqs": torch.cat([
+            dynamics_rollout_batched(weights, s, act_seqs[i:i + chunk], phys, dcfg,
+                                     compute_dtype=cd)["state_seqs"]
+            for i in range(0, len(act_seqs), chunk)])}
+
+    def evaluate(state_seqs, act_seqs, state_cur=None):
+        return {"reward_seqs": torch.cat([reward_fn(state_seqs[i:i + chunk], act_seqs[i:i + chunk],
+                                                    state_cur)
+                                          for i in range(0, len(act_seqs), chunk)])}
+
+    drawn = []
+
+    def sample(generator, act_seq, iter_index=0):
+        seqs = mppi_solve.sort_by_repeat(sample_action_seq_correlated(
+            generator, act_seq, lower, upper, mcfg.n_sample, mcfg.noise_level), mcfg.push_length)
+        drawn.append(seqs)
+        return seqs
+
+    planner = Planner(PlannerConfig(
+        action_dim=4, model_rollout_fn=rollout, evaluate_traj_fn=evaluate,
+        n_sample=mcfg.n_sample, n_look_ahead=mcfg.n_look_ahead, n_update_iter=n_iter,
+        reward_weight=mcfg.reward_weight, action_lower_lim=lo, action_upper_lim=hi,
+        sampling_action_seq_fn=sample, noise_level=mcfg.noise_level, device=dev))
+
+    def run(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return planner.trajectory_optimization(state, act0, g)
+
+    run(0)  # warm-up
+    drawn.clear()
+    torch.cuda.synchronize()
+    fused_rollout_chunk.launches = 0
+    timer = StageTimer()
+    with timer("planner_mppi"):
+        res = run(1)
+        torch.cuda.synchronize()
+    secs = timer.stats()["planner_mppi"]["total_s"]
+    launches = fused_rollout_chunk.launches
+    want_launches = n_iter * (mcfg.n_sample // chunk) * mcfg.n_look_ahead + mcfg.n_look_ahead
+    solve = mppi_solve.make_mppi_solver(dcfg, dataclasses.replace(mcfg, n_update_iter=n_iter),
+                                        reward_fn, lo, hi, device=dev)
+    given = iter(drawn)
+    with mock.patch.object(mppi_solve, "sample_action_seq", lambda *a, **k: next(given)):
+        sres = solve(params, state, act0, torch.Generator(device=dev), phys)
+    diff = abs(float(res["best_reward"]) - float(sres["best_reward"]))
+    best_state = res["best_model_output"]["state_seqs"]
+    ok = (launches == want_launches and diff <= 0.05 and bool(torch.isfinite(best_state).all())
+          and best_state.shape == (1, mcfg.n_look_ahead, dcfg.gnn.max_nobj, 3))
+    emit(phase="planner_mppi", n_sample=mcfg.n_sample, chunk=chunk, n_update_iter=n_iter,
+         compute_dtype="bfloat16", k1_launches=launches, k1_launches_expected=want_launches,
+         ms_per_iteration=secs / n_iter * 1e3, seconds=secs,
+         best_reward=float(res["best_reward"]), solver_best_reward=float(sres["best_reward"]),
+         best_reward_abs_diff=diff, tol=0.05, best_act_seq=res["act_seq"].cpu().tolist(), ok=ok)
+    if not ok:
+        fail("the MPPI Planner failed its checks (see the planner_mppi line)")
+    return launches, secs / n_iter * 1e3
+
+
+GD_LR = 0.05  # Adam's step on the rope actions (x, z in [-4.5, 4.5], theta in radians)
+
+
+def phase_planner_gd(rope, dev, n_sample=512, n_iter=10):
+    """The Planner's gradient-descent variant through ``dynamics_rollout``
+    (float32: per substep the graph build, K2 with its activations kept and,
+    in the backward, K3), fixture weights, N 101, 512 correlated samples,
+    one look-ahead step, 10 Adam steps (lr ``GD_LR``) on -mean(reward).
+    Checks: the first iteration's gradient with respect to the actions
+    within 5e-4 of its norm of the same gradient through the plain versions
+    on the card (K3's float32 gate); per gradient iteration one K2 and one
+    K3 launch per substep run (the samples' largest repeat, at most
+    max_repeat: the length gets no gradient, so it stays), the final
+    rollouts K2 only; the samples' mean reward after the iterations above
+    their initial mean. Peak device memory and ms per iteration."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.planning import planner as planner_mod
+    from adaptigraph_tpu_torch.planning.actions import sample_action_seq_correlated
+    from adaptigraph_tpu_torch.planning.forward import dynamics_rollout
+    from adaptigraph_tpu_torch.planning.planner import Planner, PlannerConfig
+    from adaptigraph_tpu_torch.utils.profiling import StageTimer
+
+    tcfg, params = rope[:2]
+    dcfg, mcfg = tcfg.dcfg, tcfg.mcfg
+    reward_fn, state, phys, lo, hi, act0 = rope_task(rope, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    samples = sample_action_seq_correlated(g, torch.tensor(act0, device=dev),
+                                           torch.tensor(lo, device=dev),
+                                           torch.tensor(hi, device=dev), n_sample,
+                                           mcfg.noise_level)
+    n_steps = min(int(samples[..., 3].max()), dcfg.max_repeat)
+    means, records = [], []
+
+    def evaluate(state_seqs, act_seqs, state_cur=None):
+        r = reward_fn(state_seqs, act_seqs, state_cur)
+        means.append(float(r.detach().mean()))
+        return {"reward_seqs": r}
+
+    real_adam = planner_mod.adam_step
+
+    def spy(leaves, grads, opt_state, lr):  # after each iteration's backward
+        records.append((grads[0].clone(), gnn_forward.launches, gnn_train_bwd.launches))
+        return real_adam(leaves, grads, opt_state, lr)
+
+    planner = Planner(PlannerConfig(
+        action_dim=4, model_rollout_fn=lambda s, a: dynamics_rollout(params, s, a, phys, dcfg),
+        evaluate_traj_fn=evaluate, n_sample=n_sample, n_look_ahead=1, n_update_iter=n_iter,
+        reward_weight=mcfg.reward_weight, action_lower_lim=lo, action_upper_lim=hi,
+        planner_type="GD", lr=GD_LR, sampling_action_seq_fn=lambda *a, **k: samples,
+        device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gnn_forward.launches = gnn_train_bwd.launches = 0
+    timer = StageTimer()
+    with timer("planner_gd"), mock.patch.object(planner_mod, "adam_step", spy):
+        res = planner.trajectory_optimization(state, act0, g)
+        torch.cuda.synchronize()
+    secs = timer.stats()["planner_gd"]["total_s"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    k2, k3 = gnn_forward.launches, gnn_train_bwd.launches
+    marks = [(0, 0)] + [(a, b) for _, a, b in records]
+    per_iter = [[a1 - a0, b1 - b0] for (a0, b0), (a1, b1) in zip(marks, marks[1:])]
+    best_steps = min(int(res["act_seq"][0, 3]), dcfg.max_repeat)
+    final = [k2 - marks[-1][0], k3 - marks[-1][1]]
+
+    a = samples.clone().requires_grad_(True)
+    with plain_kernels():
+        out = dynamics_rollout(params, state, a, phys, dcfg)
+        plain_grad, = torch.autograd.grad(-reward_fn(out["state_seqs"], a, state).mean(), a)
+    grad_rel = rel_norm(records[0][0], plain_grad)
+    ok = (grad_rel <= 5e-4 and per_iter == [[n_steps, n_steps]] * n_iter
+          and final == [n_steps + best_steps, 0] and means[n_iter] > means[0]
+          and np.isfinite(means).all())
+    emit(phase="planner_gd", n_sample=n_sample, n_update_iter=n_iter, lr=GD_LR,
+         compute_dtype="float32", substeps_per_rollout=n_steps,
+         k2_k3_launches_per_iteration=per_iter, final_rollouts_k2_k3=final,
+         k2_launches=k2, k3_launches=k3, first_grad_rel_to_plain=grad_rel, grad_tol=5e-4,
+         mean_reward_initial=means[0], mean_reward_final=means[n_iter],
+         best_reward=float(res["best_reward"]), peak_device_mb=peak / 2 ** 20,
+         ms_per_iteration=secs / n_iter * 1e3, seconds=secs, ok=bool(ok))
+    if not ok:
+        fail("the gradient-descent Planner failed its checks (see the planner_gd line)")
+    return (k2, k3), secs / n_iter * 1e3, peak
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2459,6 +2810,10 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "fixtures", "rope_demo")):
         raise SystemExit("chip_smoke: fixtures/ not found beside the script")
     dev = torch.device("cuda", 0)
+    # CUPTI stays attached between profiler sessions once the first one has
+    # started (torch.profiler's own setting where CUDA graphs run: a CUPTI
+    # torn down and attached again need not trace a graph made meanwhile)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2490,12 +2845,15 @@ def main():
     phase_train_step(config, batches[2], dev)
     ttime = time_train_kernels(config, batches, dev)
     phase_train_kernel_phases(config, dev)
+    k2_steps_launches, k3_steps_launches = phase_train_steps(config, dev)
     k2_launches, k3_launches, losses, nudged_losses = phase_train(config, prep, dev)
     k2_bf16_launches, k3_bf16_launches = phase_train_bf16(prep, losses, nudged_losses)
     k2_rollout_launches, rollout_time = phase_rollout(config, prep, dev)
     k2_masked_launches, masked_ms, masked_err = phase_masked_tools(dev)
     k1_plan_launches, plan_ms_per_push, _ = phase_plan(dev)
     k1_granular_launches, granular_ms_per_solve = phase_granular_solve(dev)
+    k1_planner_launches, mppi_ms_per_iter = phase_planner_mppi(rope, dev)
+    (k2_gd_launches, k3_gd_launches), gd_ms_per_iter, _ = phase_planner_gd(rope, dev)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2508,7 +2866,9 @@ def main():
                  "adaptigraph_tpu/ops/fused_gnn.py:479", launches, main_err, timing),
              device_ms=timing["device_ms"], launches_plan=k1_plan_launches,
              ms_per_push_plan=plan_ms_per_push, launches_granular_solve=k1_granular_launches,
-             ms_per_solve_granular=granular_ms_per_solve),
+             ms_per_solve_granular=granular_ms_per_solve,
+             launches_planner_mppi=k1_planner_launches,
+             ms_per_iteration_planner_mppi=mppi_ms_per_iter),
         dict(row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
                  "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
              device_ms=ttime["k2"]["device_ms"],
@@ -2516,7 +2876,8 @@ def main():
              plain_ms_cloth_solve=cloth_step["k2_plain_ms"],
              bound_ms_cloth_solve=cloth_step["k2_bound_ms"],
              max_abs_err_cloth_solve=cloth_step["k2_bf16_max_abs_err"],
-             launches_train_bf16=k2_bf16_launches,
+             launches_train_bf16=k2_bf16_launches, launches_train_steps=k2_steps_launches,
+             launches_planner_gd=k2_gd_launches, ms_per_iteration_planner_gd=gd_ms_per_iter,
              launches_rollout=k2_rollout_launches, ms_rollout=rollout_time["k2_ms"],
              plain_ms_rollout=rollout_time["k2_plain_ms"],
              bound_ms_rollout=rollout_time["k2_bound_ms"],
@@ -2531,7 +2892,8 @@ def main():
              bound_design_bf16=ttime["k3_bf16"]["bound_design"],
              bound_ms_present_design_bf16=ttime["k3_bf16"]["bound_ms_present_design"],
              max_abs_err_bf16=k3_bf16_err,
-             launches_bf16=k3_bf16_launches),
+             launches_bf16=k3_bf16_launches, launches_train_steps=k3_steps_launches,
+             launches_planner_gd=k3_gd_launches),
         row("gnn_forward_edges", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
             "adaptigraph_tpu/ops/fused_gnn.py:115", k2e_launches, k2e_err, k2e_time),
         dict(row("kernel_parts", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
