@@ -3,6 +3,8 @@
 
     python -m adaptigraph_tpu_torch demo-ppo --config rope \\
         --load_dir fixtures/rope_demo --ckpt_dir fixtures/rope_demo
+    python -m adaptigraph_tpu_torch datagen --config softbody --data_dir <h5 dir> --n_episodes 12
+    python -m adaptigraph_tpu_torch filter --data_dir <h5 dir>
     python -m adaptigraph_tpu_torch preprocess --config rope --data_dir <h5 dir> --prep_dir <dir>
     python -m adaptigraph_tpu_torch train --config rope --prep_dir <dir> --out_dir <dir>
     python -m adaptigraph_tpu_torch rollout --config rope --prep_dir <dir> --out_dir <dir>
@@ -11,7 +13,8 @@
     python -m adaptigraph_tpu_torch random-interact --config rope --ckpt_dir fixtures/rope_demo
     python -m adaptigraph_tpu_torch perception --calibrate
 
-Commands run on the CUDA card unless ``--device cpu`` is given. ``plan`` has
+Commands run on the CUDA card unless ``--device cpu`` is given; ``datagen``,
+``filter`` and ``preprocess`` run on the host and take no device. ``plan`` has
 no ``--mesh`` (one card) and no ``--learned_perception`` (GroundingDINO + SAM
 need downloaded weights).
 """
@@ -187,6 +190,54 @@ def cmd_demo_ppo(args):
     return est, err, err0
 
 
+def cmd_datagen(args):
+    """Simulated push episodes as h5 files (host numpy and the C++
+    simulator), from a ``configs/data_gen`` config or from ``--material``
+    and ``--data_dir``; flags override the config."""
+    from adaptigraph_tpu_torch.utils.config import config_path, load_yaml
+
+    if args.config:
+        ds = load_yaml(config_path(args.config, "data_gen"))["dataset"]
+        material = args.material or ds["obj"]
+        data_dir = args.data_dir or ds["data_dir"]
+        n_episodes = args.n_episodes or ds["n_episode"]
+        n_pushes = args.n_pushes or ds.get("n_timestep", 5)
+        n_workers = args.n_workers or ds.get("n_worker", 1)
+        seed = ds.get("seed", 0) if args.seed is None else args.seed
+    else:
+        material, data_dir = args.material, args.data_dir
+        n_episodes, n_pushes = args.n_episodes or 10, args.n_pushes or 5
+        n_workers, seed = args.n_workers or 1, args.seed or 0
+    if not (material and data_dir):
+        raise SystemExit("datagen needs --material and --data_dir, or --config")
+
+    if material == "box":
+        from adaptigraph_tpu_torch.sim.box2d import gen_box_data
+
+        gen_box_data(data_dir, n_episodes, seed=seed)
+        print(f"generated {n_episodes} box episodes -> {data_dir}")
+        return []
+    from adaptigraph_tpu_torch.sim.datagen import generate
+
+    bad = generate(data_dir, material, n_episodes, n_pushes=n_pushes, n_workers=n_workers,
+                   seed=seed, capture_depth=args.capture, robot=args.robot,
+                   start_episode=args.start_episode)
+    print(f"generated {n_episodes} episodes ({len(bad)} bad) -> {data_dir}")
+    return bad
+
+
+def cmd_filter(args):
+    """Flag simulated pushes with solver artifacts (drift from the rest
+    state, non-finite positions, frame-to-frame spikes) into a json that
+    ``preprocess --filter_file`` reads."""
+    from adaptigraph_tpu_torch.sim.filter import filter_dataset
+
+    res = filter_dataset(args.data_dir, out_file=args.out, drift_thresh=args.drift_thresh,
+                         spike_thresh=args.spike_thresh)
+    print(f"flagged {sum(len(v) for v in res.values())} pushes across {len(res)} episodes")
+    return res
+
+
 def cmd_preprocess(args):
     """Simulated h5 episodes -> training artifacts (needs ``h5py``)."""
     from adaptigraph_tpu_torch.dynamics.preprocess import preprocess
@@ -198,8 +249,9 @@ def cmd_preprocess(args):
     prep_dir = args.prep_dir or os.path.join(dc["prep_data_dir"], dc["data_name"])
     filter_actions = None
     if args.filter_file:
-        with open(args.filter_file) as f:
-            filter_actions = {k: list(v) for k, v in json.load(f).items()}
+        from adaptigraph_tpu_torch.sim.filter import load_filter_file
+
+        filter_actions = load_filter_file(args.filter_file)
     n = preprocess(data_dir, prep_dir, np.asarray(dc["eef"]["pos"], np.float32), dc["n_his"],
                    dc["n_future"], dc["dist_thresh"], _phys_specs(config),
                    store_rest_state=dc.get("store_rest_state", False),
@@ -484,12 +536,39 @@ def build_parser():
     dp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     dp.set_defaults(fn=cmd_demo_ppo)
 
+    d = sub.add_parser("datagen", help="generate simulation episodes")
+    d.add_argument("--config", help="data_gen config name or path")
+    d.add_argument("--material")
+    d.add_argument("--data_dir")
+    d.add_argument("--n_episodes", type=int)
+    d.add_argument("--n_pushes", type=int)
+    d.add_argument("--n_workers", type=int)
+    d.add_argument("--seed", type=int)
+    d.add_argument("--start_episode", type=int, default=0,
+                   help="first episode index: extend an existing dataset in place (episode "
+                        "seeds depend only on the base seed and the index, so an extended "
+                        "run equals one longer run)")
+    d.add_argument("--capture", action="store_true",
+                   help="record 4-camera RGB-D observations per frame")
+    d.add_argument("--robot", action="store_true",
+                   help="execute pushes through the xArm6 IK chain with the tool's "
+                        "contact-face collision geometry")
+    d.set_defaults(fn=cmd_datagen)
+
     pr = sub.add_parser("preprocess", help="h5 episodes -> training artifacts")
     pr.add_argument("--config", required=True)
     pr.add_argument("--data_dir")
     pr.add_argument("--prep_dir")
-    pr.add_argument("--filter_file", help="json {episode: [push numbers]} of pushes to drop")
+    pr.add_argument("--filter_file",
+                    help="json from the `filter` command: {episode: [push numbers]} to drop")
     pr.set_defaults(fn=cmd_preprocess)
+
+    fl = sub.add_parser("filter", help="flag sim episodes with solver artifacts")
+    fl.add_argument("--data_dir", required=True)
+    fl.add_argument("--out", help="the json to write (default <data_dir>/filter_artifacts.json)")
+    fl.add_argument("--drift_thresh", type=float, default=1.0)
+    fl.add_argument("--spike_thresh", type=float, default=0.5)
+    fl.set_defaults(fn=cmd_filter)
 
     t = sub.add_parser("train", help="train the GNN dynamics model")
     t.add_argument("--config", required=True)

@@ -159,8 +159,11 @@ def preprocess(data_dir, prep_dir, eef_offsets, n_his, n_future, dist_thresh,
 
 
 def preprocess_episodes(episodes, prep_dir, eef_offsets, n_his, n_future, dist_thresh,
-                        phys_param_specs, store_rest_state=False):
+                        phys_param_specs, store_rest_state=False, filter_actions=None):
     """``preprocess`` for episodes held in memory: a list of (properties,
-    pushes) pairs, as ``sim.synthetic.simulate_rope_dataset`` returns."""
-    return _write(((None, props, pushes, ()) for props, pushes in episodes), prep_dir, eef_offsets,
+    pushes) pairs, as ``sim.synthetic.simulate_rope_dataset`` returns.
+    ``filter_actions`` names episode i ``f"{i:06d}"``, as ``sim.datagen``
+    names its episode directories."""
+    return _write(((None, props, pushes, (filter_actions or {}).get(f"{i:06d}", []))
+                   for i, (props, pushes) in enumerate(episodes)), prep_dir, eef_offsets,
                   n_his, n_future, dist_thresh, phys_param_specs, store_rest_state)

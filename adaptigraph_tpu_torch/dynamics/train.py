@@ -139,7 +139,8 @@ def multi_step_loss(params, batch, gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, n_f
     state = batch["state"]
     tool = batch["eef_mask"]
     nbrs, nbr_mask = build_neighbor_graph_batch(state[:, -1], batch["state_mask"], tool,
-                                                batch["adj_thresh"], edge_cfg)
+                                                batch["adj_thresh"], edge_cfg,
+                                                batch.get("knn_frac", 1.0))
     n_p = gnn_cfg.max_nobj
     state_hist, action = state, batch["action"]
     total = 0.0

@@ -34,7 +34,7 @@ from adaptigraph_tpu_torch.utils.checkpoint import tree_from_leaves, tree_leaves
 
 
 def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=None,
-                        compute_dtype=torch.float32):
+                        compute_dtype=torch.float32, decisions=None):
     """Plain PyTorch version of the backward kernel, step by step as
     ``_train_bwd_kernel``: recompute the forward on the packed inputs, then
     back from ``dmot`` (B, Np, 3), the raw-motion cotangent. Returns dnodes
@@ -57,7 +57,14 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     absolute terms of z, the mask of the real rows). A unit whose z lies
     within rounding of 0 may fall on either side of the relu in two correct
     float32 versions, which moves its column of the layer's weight
-    gradient."""
+    gradient, and through it the gradients of every layer before it.
+
+    With a dict ``decisions`` (the same layer names, per layer a list of
+    bool tensors of the pre-activations' shapes, one per round), each relu
+    passes its input where the decision says so instead of where the input
+    is positive: a version in another precision that takes another
+    version's relu decisions (float64 with a kernel's, say) differs from it
+    by arithmetic alone."""
     f32 = torch.float64 if nodes.dtype == torch.float64 else torch.float32
     bf16 = compute_dtype == torch.bfloat16
 
@@ -84,11 +91,19 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     def scatter(d):  # (B, K, Np, F) -> (B, Np, F)
         return torch.einsum("bkin,bkif->bnf", onehot, d)
 
-    def relu(v):  # the layer's output, in the compute dtype
-        return rnd(torch.relu(v))
+    on = {}  # per relu layer and round, where its output passes its input
 
-    def pos(v):
-        return (v > 0).to(f32)
+    def relu(name, v):  # the layer's output, in the compute dtype
+        if decisions is None:
+            out = rnd(torch.relu(v))
+            on.setdefault(name, []).append(out > 0)
+            return out
+        keep = decisions[name][len(on.setdefault(name, []))]
+        on[name].append(keep)
+        return rnd(torch.where(keep, v, 0.0))
+
+    def pos(name, t=0):
+        return on[name][t].to(f32)
 
     def dW(a, d):  # a^T @ d summed over the batch and rows
         return a.reshape(-1, a.shape[-1]).T @ d.reshape(-1, d.shape[-1])
@@ -114,15 +129,15 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     rel_in = torch.cat([T[..., nh3:nh3 + 2], G[..., nh3:nh3 + 2], gdiff.abs(),
                         rnd(T[..., :nh3] - G[..., :nh3])], dim=-1)
     p_in = x[..., :Dp]
-    pe_h1 = relu(lin("pe0", p_in, pe0w, pe0b, node_rows))
-    pe_h2 = relu(lin("pe1", pe_h1, pe1w, pe1b, node_rows))
-    p_enc = relu(lin("pe2", pe_h2, pe2w, pe2b, node_rows))
-    re_h1 = relu(lin("re0", rel_in, re0w, re0b, emask))
-    re_h2 = relu(lin("re1", re_h1, re1w, re1b, emask))
-    r_enc = relu(lin("re2", re_h2, re2w, re2b, emask))
+    pe_h1 = relu("pe0", lin("pe0", p_in, pe0w, pe0b, node_rows))
+    pe_h2 = relu("pe1", lin("pe1", pe_h1, pe1w, pe1b, node_rows))
+    p_enc = relu("pe2", lin("pe2", pe_h2, pe2w, pe2b, node_rows))
+    re_h1 = relu("re0", lin("re0", rel_in, re0w, re0b, emask))
+    re_h2 = relu("re1", lin("re1", re_h1, re1w, re1b, emask))
+    r_enc = relu("re2", lin("re2", re_h2, re2w, re2b, emask))
     rel_base = rnd(r_enc @ rp_w1 + rp_b)
     part_base = rnd(p_enc @ pp_wa + pp_b)
-    effs, ms, aggs = [p_enc], [], []
+    effs, aggs = [p_enc], []
     for _ in range(cfg.pstep):
         eff = effs[-1]
         rs = rnd(eff @ rp_w23)
@@ -130,24 +145,23 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
                 lambda: (r_enc.abs() @ rp_w1.abs() + rp_b.abs()
                          + (eff.abs() @ rp_w23.abs()[:, :nf])[:, None]
                          + gather(eff.abs() @ rp_w23.abs()[:, nf:])), emask)
-        m = torch.where(emask, relu(z), 0.0)
+        m = torch.where(emask, relu("msg", z), 0.0)
         agg = rnd(m.sum(1))
         z = tap("eff", rnd(rnd(part_base + rnd(agg @ pp_wb)) + eff),
                 lambda: p_enc.abs() @ pp_wa.abs() + pp_b.abs() + agg @ pp_wb.abs() + eff.abs(),
                 node_rows)
-        effs.append(relu(z))
-        ms.append(m)
+        effs.append(relu("eff", z))
         aggs.append(agg)
-    nr_h1 = relu(lin("nr0", effs[-1], nr0w, nr0b, node_rows))
-    nr_h2 = relu(lin("nr1", nr_h1, nr1w, nr1b, node_rows))
+    nr_h1 = relu("nr0", lin("nr0", effs[-1], nr0w, nr0b, node_rows))
+    nr_h2 = relu("nr1", lin("nr1", nr_h1, nr1w, nr1b, node_rows))
 
     # ---- backward ----
     dmot = rnd(dmot.to(f32))
     g = {}
     g["nr2w"], g["nr2b"] = dW(nr_h2, dmot), db(dmot)
-    d_h2 = rnd(dmot @ nr2w.T) * pos(nr_h2)
+    d_h2 = rnd(dmot @ nr2w.T) * pos("nr1")
     g["nr1w"], g["nr1b"] = dW(nr_h1, d_h2), db(d_h2)
-    d_h1 = rnd(d_h2 @ nr1w.T) * pos(nr_h1)
+    d_h1 = rnd(d_h2 @ nr1w.T) * pos("nr0")
     g["nr0w"], g["nr0b"] = dW(effs[-1], d_h1), db(d_h1)
     d_eff = rnd(d_h1 @ nr0w.T)
 
@@ -156,11 +170,11 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     g_wb = torch.zeros_like(pp_wb)
     g_w23 = torch.zeros_like(rp_w23)
     for t in reversed(range(cfg.pstep)):
-        d_pre = d_eff * pos(effs[t + 1])
+        d_pre = d_eff * pos("eff", t)
         d_pb = d_pb + d_pre
         g_wb = g_wb + dW(aggs[t], d_pre)
         d_agg = rnd(d_pre @ pp_wb.T)
-        d_m = d_agg[:, None] * pos(ms[t])
+        d_m = d_agg[:, None] * (pos("msg", t) * emask)
         d_rb = d_rb + d_m
         d_rs = rnd(torch.cat([d_m.sum(1), scatter(d_m)], dim=-1))
         g_w23 = g_w23 + dW(effs[t], d_rs)
@@ -172,19 +186,19 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     g["rpb"], g["rpw1"] = db(d_rb), dW(r_enc, d_rb)
     d_r_enc = rnd(d_rb @ rp_w1.T)
 
-    d3 = d_r_enc * pos(r_enc)
+    d3 = d_r_enc * pos("re2")
     g["re2w"], g["re2b"] = dW(re_h2, d3), db(d3)
-    d2 = rnd(d3 @ re2w.T) * pos(re_h2)
+    d2 = rnd(d3 @ re2w.T) * pos("re1")
     g["re1w"], g["re1b"] = dW(re_h1, d2), db(d2)
-    d1 = rnd(d2 @ re1w.T) * pos(re_h1)
+    d1 = rnd(d2 @ re1w.T) * pos("re0")
     g["re0w"], g["re0b"] = dW(rel_in, d1), db(d1)
     d_rel_in = rnd(d1 @ re0w.T)
 
-    dp3 = d_p_enc * pos(p_enc)
+    dp3 = d_p_enc * pos("pe2")
     g["pe2w"], g["pe2b"] = dW(pe_h2, dp3), db(dp3)
-    dp2 = rnd(dp3 @ pe2w.T) * pos(pe_h2)
+    dp2 = rnd(dp3 @ pe2w.T) * pos("pe1")
     g["pe1w"], g["pe1b"] = dW(pe_h1, dp2), db(dp2)
-    dp1 = rnd(dp2 @ pe1w.T) * pos(pe_h1)
+    dp1 = rnd(dp2 @ pe1w.T) * pos("pe0")
     g["pe0w"], g["pe0b"] = dW(p_in, dp1), db(dp1)
     d_p_in = dp1 @ pe0w.T  # float32, as the JAX kernel leaves it
 

@@ -106,6 +106,8 @@ def _load():
     lib.xpbd_get_tool.restype = None
     lib.xpbd_step.argtypes = [P, FP, I]
     lib.xpbd_step.restype = None
+    lib.xpbd_create_softbody_points.restype = P
+    lib.xpbd_create_softbody_points.argtypes = [FP, I, F, F, I, F]
     lib.xpbd_get_instance.argtypes = [P, IP]
     lib.xpbd_get_instance.restype = None
     lib.xpbd_fluid_range.argtypes = [P, IP]
@@ -135,6 +137,20 @@ class XPBDScene:
         if not self._h:
             raise ValueError(f"unknown scene {scene}")
         self._n_tool = 0
+
+    @classmethod
+    def from_points(cls, points, spacing, stiffness=0.5, cluster_span=3, fixed_frac=0.0):
+        """Soft body from an arbitrary particle fill (e.g. ``meshutil.voxelize``'s
+        output): the FleX CreateSoftBody-from-mesh role (by_softbody.h:260)."""
+        self = cls.__new__(cls)
+        self._lib = _load()
+        arr, ptr = _fptr(np.asarray(points, np.float32))
+        self._h = self._lib.xpbd_create_softbody_points(ptr, len(arr), spacing, stiffness,
+                                                        cluster_span, fixed_frac)
+        if not self._h:
+            raise ValueError("softbody_points creation failed")
+        self._n_tool = 0
+        return self
 
     @property
     def n_particles(self):

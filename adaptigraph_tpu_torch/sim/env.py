@@ -1,14 +1,13 @@
-"""Push environment over the XPBD engine (counterpart of the parts of
-``adaptigraph_tpu/sim/env.py`` that the closed loop runs; numpy, the same
-draws in the same order).
+"""Push environment over the XPBD engine (counterpart of
+``adaptigraph_tpu/sim/env.py``; numpy, the same draws in the same order).
 
 Plays the role of the reference ``FlexEnv`` (reference:
-``src/sim/sim_env/flex_env.py:23-1065``): scene setup, push and grasp
-execution with frame capture, and end-effector state recording. The data
-generator's action samplers and the softbody poke are not ported. The
-reference drives a simulated xArm6 through PyBullet IK to move the pusher
-(flex_env.py:308-481); here the pusher is a kinematic tool in the XPBD
-engine, or (``robot=True``) the tool follows the arm's IK waypoints.
+``src/sim/sim_env/flex_env.py:23-1065``): scene setup, material-specific
+action sampling (push, grasp, top-down poke), their execution with frame
+capture, end-effector state recording and the push-validity gate of the data
+generator. The reference drives a simulated xArm6 through PyBullet IK to
+move the pusher (flex_env.py:308-481); here the pusher is a kinematic tool in
+the XPBD engine, or (``robot=True``) the tool follows the arm's IK waypoints.
 """
 
 import numpy as np
@@ -19,6 +18,20 @@ from adaptigraph_tpu_torch.utils.transforms import quat_from_yaw
 
 PUSH_STEP = 0.02  # tool travel per sim frame
 FRAME_EVERY = 5  # capture cadence (0.1 units of travel per captured frame)
+
+# Per-material action family (reference: flex_env.py:493-521 sample_action —
+# rope/granular push, cloth/bunnybath/multiobj grasp at a boundary point,
+# softbody a 50/50 mix of horizontal pushes and top-down pokes).
+ACTION_KINDS = {
+    "rope": "push",
+    "granular": "push",
+    "cloth": "grasp",
+    "multiobj": "grasp",
+    "bunnybath": "grasp",
+    "softbody": "mixed",
+    "rigid": "push",
+}
+
 
 # base particle color per material (uint8 RGB); instances are re-hued
 MATERIAL_BASE_RGB = {
@@ -105,6 +118,77 @@ class PushEnv:
     def get_fixed_mask(self):
         return self.scene.get_inv_mass() == 0.0
 
+    def sample_push(self):
+        """Material push sampling: start outside the object, aim through a
+        random particle (reference: flex_env.py:493-569 sample_deform_actions
+        family). Returns (x_start, z_start, x_end, z_end)."""
+        pts = self.get_positions()
+        i = self.rng.randint(pts.shape[0])
+        target = pts[i, [0, 2]]
+        center = pts[:, [0, 2]].mean(axis=0)
+        ang = self.rng.uniform(-np.pi, np.pi)
+        start = target + np.array([np.cos(ang), np.sin(ang)]) * self.rng.uniform(0.35, 0.7)
+        # aim past the chosen particle toward a jittered interior point
+        aim = target * 0.5 + center * 0.5 + self.rng.uniform(-0.15, 0.15, 2)
+        d = aim - start
+        d = d / (np.linalg.norm(d) + 1e-9)
+        length = self.rng.uniform(0.6, 1.5)
+        end = start + d * length
+        return np.array([start[0], start[1], end[0], end[1]], np.float32)
+
+    def sample_action(self):
+        """Material-specific action dispatch (reference: flex_env.py:493-521).
+        Returns (kind, action) where kind in {push, grasp, poke}."""
+        kind = ACTION_KINDS[self.material]
+        if kind == "mixed":
+            kind = "push" if self.rng.rand() > 0.5 else "poke"
+        sampler = {"push": self.sample_push, "grasp": self.sample_grasp,
+                   "poke": self.sample_poke}[kind]
+        return kind, sampler()
+
+    def execute_action(self, kind, action):
+        fn = {"push": self.execute_push, "grasp": self.execute_grasp,
+              "poke": self.execute_poke}[kind]
+        return fn(action)
+
+    def sample_grasp(self):
+        """Pick a boundary particle at an x/z extreme and drag it outward
+        (reference: flex_env.py:997-1050 sample_grasp_actions_corner — the
+        endpoint moves 1.0-1.5 away along the boundary normal, rejected if it
+        leaves the workspace). Returns (x_start, z_start, x_end, z_end)."""
+        pts = self.get_positions()
+        movable = ~self.get_fixed_mask()
+        if self.scene is not None:
+            # exclude fluid particles (bunnybath): grasp targets the body
+            fluid = self.scene.fluid_mask()
+            movable = movable & ~fluid
+        p = pts[movable] if movable.any() else pts
+        for _ in range(100):
+            side = self.rng.randint(4)
+            idx = [np.argmax(p[:, 0]), np.argmin(p[:, 0]),
+                   np.argmax(p[:, 2]), np.argmin(p[:, 2])][side]
+            start = p[idx, [0, 2]].astype(np.float64)
+            normal = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float64)[side]
+            end = start + normal * self.rng.uniform(0.6, 1.0)
+            if np.abs(end).max() < 2.0:
+                return np.array([start[0], start[1], end[0], end[1]], np.float32)
+        return np.array([start[0], start[1], end[0], end[1]], np.float32)
+
+    def sample_poke(self):
+        """Top-down poke over a random movable particle (reference:
+        flex_env.py:784 sample_top_down_deform_actions). Returns the 6-dim
+        action [x_start, z_start, y_start, x_end, z_end, y_end]."""
+        pts = self.get_positions()
+        movable = ~self.get_fixed_mask()
+        p = pts[movable] if movable.any() else pts
+        i = self.rng.randint(p.shape[0])
+        x, z = p[i, 0], p[i, 2]
+        top = float(p[:, 1].max())
+        y0 = top + 0.3
+        depth = self.rng.uniform(0.1, 0.25)
+        y1 = max(0.05, top - depth)
+        return np.array([x, z, y0, x, z, y1], np.float32)
+
     def _tool_points(self, x, z, theta, y):
         offs = np.asarray(self.geom["offsets"], np.float32)
         pts = np.zeros((len(offs), 3), np.float32)
@@ -164,8 +248,9 @@ class PushEnv:
         collision face there. Records (wp_target, fk_realized) pairs in
         ``last_robot_trace`` so tests can assert the eef follows the IK
         waypoints (reference: flex_env.py:308-380)."""
-        from adaptigraph_tpu_torch.realworld.kinematics import (
-            forward_kinematics, inverse_kinematics, push_waypoints)
+        from adaptigraph_tpu_torch.realworld.kinematics import (forward_kinematics,
+                                                          inverse_kinematics,
+                                                          push_waypoints)
 
         x0, z0, x1, z1 = [float(v) for v in action]
         theta = np.arctan2(z1 - z0, x1 - x0)
@@ -315,6 +400,46 @@ class PushEnv:
         self._store_rgbd(frames_rgbd)
         return np.asarray(frames_pos), np.asarray(frames_eef)
 
+    def execute_poke(self, action):
+        """Top-down poke: descend into the object, hold, retreat (reference
+        poke waypoints flex_env.py:344-352: s -> mid -> e -> e -> back -> s).
+
+        ``action`` is [x_start, z_start, y_start, x_end, z_end, y_end].
+        Returns (positions (T, N, 3), eef_states (T, 1, 14)).
+        """
+        x0, z0, y0, x1, z1, y1 = [float(v) for v in action]
+        frames_pos, frames_eef, frames_rgbd = [], [], []
+        prev_state = [None]
+
+        def capture(x, z, y):
+            frames_pos.append(self.get_positions())
+            st = self._eef_state(x, z, 0.0, y, prev_state[0])
+            prev_state[0] = st
+            frames_eef.append(st[None])
+            if self.cameras is not None:
+                frames_rgbd.append(self._render_views(frames_pos[-1]))
+
+        def sweep(a, b):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            n_steps = max(2, int(np.linalg.norm(b - a) / PUSH_STEP))
+            for s in range(n_steps):
+                t = a + (b - a) * (s + 1) / n_steps
+                self.scene.step(np.asarray([t], np.float32))
+                if s % FRAME_EVERY == 0 or s == n_steps - 1:
+                    capture(t[0], t[2], t[1])
+
+        self.scene.set_tool(np.asarray([[x0, y0, z0]], np.float32),
+                            radius=self.geom["radius"])
+        sweep([x0, y0, z0], [x1, y1, z1])
+        # hold at depth so the material conforms (reference holds at e)
+        for s in range(20):
+            self.scene.step(np.asarray([[x1, y1, z1]], np.float32))
+            if s % FRAME_EVERY == 0:
+                capture(x1, z1, y1)
+        sweep([x1, y1, z1], [x0, y0, z0])
+        self._store_rgbd(frames_rgbd)
+        return np.asarray(frames_pos), np.asarray(frames_eef)
+
     def _store_rgbd(self, frames_rgbd):
         """frames_rgbd: list over T of list over cams of (rgb, depth)."""
         if self.cameras is None:
@@ -332,3 +457,26 @@ class PushEnv:
         cams = range(len(self.cameras))
         return {"color": {f"cam_{i}": self._last_color[:, i] for i in cams},
                 "depth": {f"cam_{i}": self._last_depth[:, i] for i in cams}}
+
+    def camera_params(self):
+        if self.cameras is None:
+            return None
+        return {"intr": np.stack([c.intr for c in self.cameras]),
+                "R": np.stack([c.R for c in self.cameras]),
+                "t": np.stack([c.t for c in self.cameras])}
+
+    def push_moved_object(self, before, after, threshold=0.01,
+                          local_threshold=0.05):
+        """Push-validity gate (the reference gates on image change,
+        data_gen.py:140-155 — sensitive to LOCAL motion). Accepts either the
+        final frame or the full captured trajectory; a push is valid when the
+        mean displacement passes ``threshold`` OR any single particle moves
+        more than ``local_threshold`` during the push (elastic materials with
+        fixed anchors — softbody — deform locally under contact and relax by
+        the final frame)."""
+        after = np.asarray(after)
+        if after.ndim == 3:  # (T, N, 3) trajectory
+            per_particle = np.linalg.norm(after - before[None], axis=-1)
+            return (float(np.abs(after - before[None]).mean(axis=(1, 2)).max())
+                    > threshold) or float(per_particle.max()) > local_threshold
+        return float(np.abs(after - before).mean()) > threshold

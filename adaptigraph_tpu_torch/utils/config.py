@@ -27,8 +27,8 @@ def config_dir():
 
 
 def config_path(name_or_path, kind):
-    """The yaml file the port reads for a ``kind`` ("dynamics" or
-    "planning") config named by material or by path: for a path inside the
+    """The yaml file the port reads for a ``kind`` ("dynamics", "planning"
+    or "data_gen") config named by material or by path: for a path inside the
     JAX package (relative, under ``adaptigraph_tpu/``, or absolute), the
     port's copy of the same name, which must exist; for another existing
     path, the path; else ``configs/<kind>/<name>.yaml``."""

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py          # needs one CUDA card
     python3 chip_smoke.py --k1     # phases 0-3 alone: the rollout kernel, the solve
+    python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
 
 Phases, each printing JSON lines; any failure exits non-zero:
   0. card name and power limit, torch and CUDA versions; TF32 off.
@@ -97,10 +98,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
      its norm of the plain versions', K2 = K3 = substeps per iteration, K2
      alone in the final rollouts, a higher mean reward, peak device memory
      and ms per iteration (``planner_gd``).
+ 17. softbody, the widest configuration the JAX package trains, at its
+     published width (N 305, 15 slots, nf 128, pstep 4, n_his 5 with the
+     rest frame, ``non_fixed``, B 128): ``datagen --config softbody`` (12
+     of the config's 100 episodes, 5 pushes each, 5 workers), ``filter``
+     and ``preprocess`` through the CLI; K2 and K3 in f32 and bf16 against
+     their plain versions on its batches, at phase 5's and 10's gates; their
+     times, bounds and shared memory; K 10 steps per call through the CUDA
+     graph against the loop; 200 CLI train steps with their launches and a
+     falling loss; ``rollout --all_episodes`` with its K2 launches and step
+     1 against the plain version (``softbody``). ``python3 chip_smoke.py
+     --softbody`` runs phases 0-1 and this one alone.
 The last lines are the script's wall seconds, the kernel table, the card
-line, and the ok line.
+line, and the ok line. On every way out, the script ends the processes it
+started that still run (``stop_processes``).
 """
 
+import ctypes
 import json
 import os
 import shutil
@@ -149,6 +163,68 @@ def fail(msg, **kw):
     if before:
         print(before[:16000], file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def _descendants():
+    """The pids of the running processes this one started, and theirs."""
+    parent = {}
+    for pid in os.listdir("/proc"):
+        if pid.isdigit():
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            except OSError:  # ended meanwhile
+                continue
+            if state != "Z":
+                parent[int(pid)] = int(ppid)
+    found, todo = [], [os.getpid()]
+    while todo:
+        kids = [c for c, p in parent.items() if p == todo[-1]]
+        todo.pop()
+        found += kids
+        todo += kids
+    return found
+
+
+def stop_processes():
+    """End every process the script started that still runs, on every way
+    out. The worker pools end with their calls, but the resource tracker
+    that a spawned pool starts stays until the script has exited; it is
+    stopped here as multiprocessing stops it (its pipe closed, then waited
+    for). Anything else still running is named on standard error, sent
+    SIGTERM and, 5 s later, SIGKILL."""
+    import multiprocessing as mp
+    import signal
+    import threading
+    from multiprocessing import resource_tracker
+
+    for p in mp.active_children():
+        p.terminate()
+        p.join(5)
+    stop = threading.Thread(target=resource_tracker._resource_tracker._stop, daemon=True)
+    stop.start()
+    stop.join(5)
+    left = _descendants()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            try:
+                with open(f"/proc/{pid}/cmdline") as f:
+                    cmd = f.read().replace("\0", " ").strip()
+                print(f"chip_smoke: ending process {pid} ({cmd[:200]}) with {sig.name}",
+                      file=sys.stderr, flush=True)
+                os.kill(pid, sig)
+            except OSError:  # ended meanwhile
+                pass
+        deadline = time.time() + 5
+        while left and time.time() < deadline:
+            time.sleep(0.1)
+            left = _descendants()
+    while True:  # reap the children that ended
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                break
+        except ChildProcessError:
+            break
 
 
 def card_line():
@@ -1134,7 +1210,7 @@ def phase_dataset():
     return config, prep
 
 
-def rope_train_objects(config):
+def train_objects(config):
     from adaptigraph_tpu_torch.cli import _dyn_objects, _train_objects
 
     gnn, edge = _dyn_objects(config)
@@ -1148,7 +1224,7 @@ def device_batches(config, prep, dev, n, seed):
     from adaptigraph_tpu_torch.dynamics.dataset import PackedDataset
     from adaptigraph_tpu_torch.dynamics.train import expand_compact_batch
 
-    gnn, _, spec, _ = rope_train_objects(config)
+    gnn, _, spec, _ = train_objects(config)
     ds = PackedDataset(prep, spec, "train", config["dataset_config"]["ratio"], compact=True)
     rng = np.random.RandomState(seed)
     out = []
@@ -1231,7 +1307,7 @@ def input_cases(config, synth_batch, dev, cd):
         batch, tcfg, params = fixture_batch(name, dev)
         yield name, step_inputs(batch, tcfg.dcfg.gnn, tcfg.dcfg.edge, params, cd), tcfg.dcfg.gnn
         if name == "rope":
-            gnn, edge = rope_train_objects(config)[:2]
+            gnn, edge = train_objects(config)[:2]
             yield ("rope synthetic", step_inputs(synth_batch, gnn, edge, params, cd), gnn)
 
 
@@ -1239,17 +1315,18 @@ def real_edges(msk):
     return float((msk > 0).sum()) / msk.shape[0]
 
 
-def phase_forward_kernel(config, synth_batch, dev):
-    """K2 against its plain version on the same inputs (``input_cases``):
+def phase_forward_kernel(cases):
+    """K2 against its plain version on the same inputs (``cases(cd)`` yields
+    (name, inputs, gnn config), e.g. ``input_cases``):
     float32 at 2e-4 (tests/test_fused.py's bound); bfloat16 at 2% of the
     plain version's largest |motion|, about five bf16 steps of it (the JAX
     tests allow 0.05, as large as a push's motion; a kernel that returned
-    no motion would pass that)."""
+    no motion would pass that). Returns the max abs errors by (case, dtype)."""
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda, gnn_forward_plain
 
     errs, ok_all = {}, True
     for cd in (torch.float32, torch.bfloat16):
-        for name, args, cfg in input_cases(config, synth_batch, dev, cd):
+        for name, args, cfg in cases(cd):
             pred, mot, _ = gnn_forward_cuda(*args, cfg, cd)
             torch.cuda.synchronize()
             want_pred, want_mot = gnn_forward_plain(*args, cfg, cd)
@@ -1265,7 +1342,7 @@ def phase_forward_kernel(config, synth_batch, dev):
                  plain_max_abs_motion=max_mot, tol=tol, ok=ok)
     if not ok_all:
         fail("the forward kernel disagrees with its plain version (see forward_kernel_check)")
-    return errs[("rope", "float32")]
+    return errs
 
 
 def rel_norm(a, b):
@@ -1317,6 +1394,33 @@ def kernel_relu_outputs(acts, msk, cfg):
             "re0": [v["re_h1"][0][real]], "re1": [v["re_h2"][0][real]],
             "re2": [v["r_enc"][0][real]], "msg": [t[real] for t in v["ms"]],
             "eff": v["effs"][1:], "nr0": v["nr_h1"], "nr1": v["nr_h2"]}
+
+
+def kernel_decisions(acts, msk, cfg):
+    """The relu decisions of K2's kept activations (``kernel_relu_outputs``)
+    in the layout of the plain version's pre-activations, as
+    ``gnn_train_bwd_plain(decisions=...)`` takes them: node layers (B, Np,
+    F), edge layers (B, K, Np, F), False off the real edges."""
+    return relu_decisions(kernel_relu_outputs(acts, msk, cfg), msk)
+
+
+def relu_decisions(out, msk):
+    """``kernel_decisions`` from relu outputs laid out as
+    ``kernel_relu_outputs`` gives them."""
+    B, Np = msk.shape[0], out["pe0"][0].shape[1]
+    K = msk.shape[1] // Np
+    edges = (msk.view(B, K, Np) > 0).permute(0, 2, 1)  # (B, receiver, slot): the kernel's order
+    dec = {}
+    for name, entries in out.items():
+        dec[name] = []
+        for v in entries:
+            if v.dim() == 2:  # the real edges' rows, in the kernel's order
+                full = torch.zeros(B, Np, K, v.shape[-1], dtype=torch.bool, device=v.device)
+                full[edges] = v > 0
+                dec[name].append(full.permute(0, 2, 1, 3))
+            else:
+                dec[name].append(v > 0)
+    return dec
 
 
 def relu_flips(taps, kernel_out, msk, cfg):
@@ -1405,9 +1509,11 @@ def k3_vs_plain(got, refs, dev, taps=None, acts=None, msk=None, cfg=None, plain_
     plain versions: rows of relative errors, the worst (whole tensors)
     against the nearest of "plain", "plain_cpu" and (where ``refs`` has it)
     "f64", and, with float64
-    ``taps`` and the activations K3 read, the worst against "f64" off the
-    columns of the relu units that went the other way than float64's, and
-    the largest flip margin. With the ``plain_taps`` of "plain", also (for
+    ``taps`` and the activations K3 read, the worst against "f64_same" (the
+    float64 plain version taking the relu decisions of the activations K3
+    read, ``kernel_decisions``), the largest flip margin and (for diagnosis)
+    the worst against "f64" off the columns of the relu units that went the
+    other way than float64's. With the ``plain_taps`` of "plain", also (for
     diagnosis, not a gate) the worst against "plain" off the columns of the
     units where the relu K3 read went the other way than its own (those
     flips' margins count too)."""
@@ -1424,7 +1530,7 @@ def k3_vs_plain(got, refs, dev, taps=None, acts=None, msk=None, cfg=None, plain_
     flips, margin = flips_of(taps)
     pflips, pmargin = flips_of(plain_taps)
     flat = {k: [v[0]] + v[1] for k, v in refs.items()}
-    rows, worst, worst64, worst_off = [], 0.0, 0.0, 0.0
+    rows, worst, worst64, worst_off, worst_same = [], 0.0, 0.0, 0.0, 0.0
     for i, a in enumerate([got[0]] + got[1]):
         p, c = flat["plain"][i], flat["plain_cpu"][i].to(dev)
         r = min([rel_norm(a, p), rel_norm(a, c)]
@@ -1442,11 +1548,15 @@ def k3_vs_plain(got, refs, dev, taps=None, acts=None, msk=None, cfg=None, plain_
             keep = keep_of(flips, i, a)
             r64 = rel_norm(a[..., keep], x[..., keep])
             worst64 = max(worst64, r64)
+            same = rel_norm(a, flat["f64_same"][i])
+            worst_same = max(worst_same, same)
             row.update(kernel_rel_vs_f64=rel_norm(a, x), plain_rel_vs_f64=rel_norm(p, x),
-                       flip_columns=int((~keep).sum()), kernel_rel_vs_f64_off_flips=r64)
+                       flip_columns=int((~keep).sum()), kernel_rel_vs_f64_off_flips=r64,
+                       kernel_rel_vs_f64_same_decisions=same)
         rows.append(row)
     finite = all(bool(torch.isfinite(t).all()) for t in [got[0]] + got[1])
-    return dict(worst_rel_vs_nearer_plain=worst, worst_rel_vs_f64_off_flips=worst64,
+    return dict(worst_rel_vs_nearer_plain=worst, worst_rel_vs_f64_same_decisions=worst_same,
+                worst_rel_vs_f64_off_flips=worst64,
                 worst_rel_vs_plain_off_its_flips=worst_off if plain_taps is not None else None,
                 largest_flip_margin=max(margin, pmargin),
                 relu_flip_units={k: int(v.sum()) for k, v in flips.items()},
@@ -1454,8 +1564,8 @@ def k3_vs_plain(got, refs, dev, taps=None, acts=None, msk=None, cfg=None, plain_
                 finite=finite, rows=rows)
 
 
-def phase_backward_kernel(config, synth_batch, dev):
-    """K3 against its plain version on the same inputs (f32, ``input_cases``),
+def phase_backward_kernel(cases, dev, cascade_gates=True):
+    """K3 against its plain version on the same inputs (f32, ``cases``),
     twice: fed the plain forward's activations (``plain_activations``: K3
     alone, with the plain backward's own relu decisions), and on the
     activations of a K2 launch on the same inputs (K2 then K3, the training
@@ -1472,17 +1582,23 @@ def phase_backward_kernel(config, synth_batch, dev):
     sum; the figure off the columns of the units where the relu K3 read went
     the other way than the plain version's is reported beside it, for
     diagnosis. So that a drift to one side is still caught,
-    every tensor must also lie within 5e-4 of a float64 plain version,
-    without the columns of the relu units where the relu K3 read went the
-    other way than float64's; each such flip must lie within FLIP_MARGIN of
-    0. Returns the rope case's max abs error of K2 then K3 against the plain
-    version on the card."""
+    every tensor must also lie within 5e-4 of a float64 plain version that
+    takes the relu decisions of the activations K3 read
+    (``kernel_decisions``), and every unit where those go the other way
+    than float64's own must lie within FLIP_MARGIN of 0; and, with
+    ``cascade_gates``, within 5e-4 of float64 without the columns of those
+    units. Dropping only the flipped units' columns leaves what a flip
+    passes back to every earlier layer: at softbody's width (its gate off)
+    ~15 flipped message units put the float32 plain versions themselves
+    5e-4 to 9e-4 of the norm from float64 off those columns, the figure
+    reported. Returns each case's max abs error of K2 then K3 against the
+    plain version on the card."""
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
 
     f32 = torch.float32
     errs, ok_all = {}, True
-    for name, (nodes, nbr, msk, last, w), cfg in input_cases(config, synth_batch, dev, f32):
+    for name, (nodes, nbr, msk, last, w), cfg in cases(f32):
         g = torch.Generator(device=dev)
         g.manual_seed(5)
         dmot = torch.randn(nodes.shape[0], nodes.shape[1], 3, generator=g, device=dev) * 1e-2
@@ -1496,28 +1612,38 @@ def phase_backward_kernel(config, synth_batch, dev):
         identical = bool(torch.equal(got[0], again[0])
                          and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
         taps, ptaps = {}, {}
+        w64 = [t.double() for t in w]
         refs = {"plain": gnn_train_bwd_plain(nodes, nbr, msk, dmot, w, cfg, taps=ptaps),
                 "plain_cpu": gnn_train_bwd_plain(nodes.cpu(), nbr.cpu(), msk.cpu(), dmot.cpu(),
                                                  [t.cpu() for t in w], cfg),
-                "f64": gnn_train_bwd_plain(nodes.double(), nbr, msk, dmot.double(),
-                                           [t.double() for t in w], cfg, taps=taps)}
-        res = {"k3_alone": k3_vs_plain(alone, refs, dev, taps, pacts, msk, cfg),
-               "k2_then_k3": k3_vs_plain(got, refs, dev, taps, acts, msk, cfg, ptaps)}
+                "f64": gnn_train_bwd_plain(nodes.double(), nbr, msk, dmot.double(), w64, cfg,
+                                           taps=taps)}
+
+        def f64_same(a):  # float64, taking the relu decisions of the activations ``a``
+            return {"f64_same": gnn_train_bwd_plain(nodes.double(), nbr, msk, dmot.double(), w64,
+                                                    cfg, decisions=kernel_decisions(a, msk, cfg))}
+
+        res = {"k3_alone": k3_vs_plain(alone, dict(refs, **f64_same(pacts)), dev, taps, pacts,
+                                       msk, cfg),
+               "k2_then_k3": k3_vs_plain(got, dict(refs, **f64_same(acts)), dev, taps, acts, msk,
+                                         cfg, ptaps)}
         del taps, ptaps, refs
         oks = {k: bool(r["finite"] and r["worst_rel_vs_nearer_plain"] <= 5e-4
-                       and r["worst_rel_vs_f64_off_flips"] <= 5e-4
+                       and r["worst_rel_vs_f64_same_decisions"] <= 5e-4
+                       and (r["worst_rel_vs_f64_off_flips"] <= 5e-4 or not cascade_gates)
                        and r["largest_flip_margin"] <= FLIP_MARGIN) for k, r in res.items()}
         ok = identical and all(oks.values())
         ok_all &= ok
         errs[name] = max(r["max_abs_vs_plain"] for r in res["k2_then_k3"]["rows"])
         emit(phase="backward_kernel_check", case=name, B=nodes.shape[0],
              real_edges_per_sample=real_edges(msk), rerun_bit_identical=identical,
-             tol="5e-4 of the norm: of the nearer plain version, and of float64 off the flips",
+             tol="5e-4 of the norm: of the nearer plain version, and of float64 taking the relu "
+                 "decisions of the activations K3 read",
              flip_margin_tol=FLIP_MARGIN, ok_by_input=oks, ok=ok,
              **{k: dict(r, rows=r["rows"] if not oks[k] else None) for k, r in res.items()})
     if not ok_all:
         fail("the backward kernel disagrees with its plain versions (see backward_kernel_check)")
-    return errs["rope"]
+    return errs
 
 
 # bf16 K3 against its plain bf16 version, relative to the norm. The tensor
@@ -1569,9 +1695,73 @@ def act_ulps(acts, pacts, cfg, msk):
     return out
 
 
-def phase_backward_kernel_bf16(config, synth_batch, dev):
+def act_local_ulps(acts, nodes, nbr, msk, w, cfg):
+    """K2's kept bf16 activations, each against the plain forward's layer
+    (float32 products on the card, rounded to bf16 where the plain version
+    rounds) applied to K2's own kept inputs of that layer, buffer by buffer
+    and round by round, on the real node rows and the real edges: the share
+    of elements that differ and the share more than one bf16 ulp apart. Not
+    carried from round to round as ``act_ulps``'s differences are, these
+    measure each layer's rounding decisions alone."""
+    f32 = torch.float32
+    B, Np, D = nodes.shape
+    K, P, N = nbr.shape[1] // Np, cfg.pstep, cfg.n_nodes
+    nf, nh3 = cfg.nf_effect, cfg.n_his * 3
+    Dp = D - nh3 - 3
+    v = {k: [t.to(f32) for t in x] for k, x in act_views(acts, cfg, K).items()}
+    (pe0w, pe0b, pe1w, pe1b, pe2w, pe2b, re0w, re0b, re1w, re1b, re2w, re2b,
+     rp_w1, rp_w23, rp_b, pp_wa, pp_wb, pp_b, nr0w, nr0b, nr1w, nr1b, _, _) = [t.to(f32) for t in w]
+    real = torch.arange(Np * K, device=nodes.device)[None] < (msk > 0).sum(1)[:, None]
+    edges = (msk.view(B, K, Np) > 0).permute(0, 2, 1)  # (B, receiver, slot): the kernel's order
+    b_i, recv, slot = edges.nonzero(as_tuple=True)
+    send = nbr.view(B, K, Np).long()[b_i, slot, recv]
+
+    def rnd(x):
+        return x.to(torch.bfloat16).to(f32)
+
+    def relu(x):
+        return rnd(torch.relu(x))
+
+    def e(name, t=0):  # an edge buffer's real rows, in the kernel's order
+        return v[name][t][real]
+
+    def n(name, t=0):
+        return v[name][t]
+
+    rin = cfg.relation_input_dim
+    want = {"re_h1[0]": (e("re_h1"), relu(e("rel_in")[:, :rin] @ re0w + re0b)),
+            "re_h2[0]": (e("re_h2"), relu(e("re_h1") @ re1w + re1b)),
+            "r_enc[0]": (e("r_enc"), relu(e("re_h2") @ re2w + re2b)),
+            "rel_base[0]": (e("rel_base"), rnd(e("r_enc") @ rp_w1 + rp_b)),
+            "pe_h1[0]": (n("pe_h1"), relu(nodes[..., :Dp].to(f32) @ pe0w + pe0b)),
+            "pe_h2[0]": (n("pe_h2"), relu(n("pe_h1") @ pe1w + pe1b)),
+            "effs[0]": (n("effs"), relu(n("pe_h2") @ pe2w + pe2b)),
+            "pb[0]": (n("pb"), rnd(n("effs") @ pp_wa + pp_b)),
+            "nr_h1[0]": (n("nr_h1"), relu(n("effs", P) @ nr0w + nr0b)),
+            "nr_h2[0]": (n("nr_h2"), relu(n("nr_h1") @ nr1w + nr1b))}
+    for t in range(P):
+        rs = rnd(n("effs", t) @ rp_w23)
+        z = rnd(rnd(e("rel_base") + rs[b_i, recv, :nf]) + rs[b_i, send, nf:])
+        want[f"ms[{t}]"] = (e("ms", t), relu(z))
+        dense = torch.zeros(B, Np, K, nf, device=nodes.device)
+        dense[edges] = e("ms", t)
+        agg = rnd(dense.permute(0, 2, 1, 3).contiguous().sum(1))  # as the plain version sums
+        want[f"aggs[{t}]"] = (n("aggs", t), agg)
+        want[f"effs[{t + 1}]"] = (n("effs", t + 1),
+                                  relu(rnd(rnd(n("pb") + rnd(n("aggs", t) @ pp_wb)) + n("effs", t))))
+    out = {}
+    for name, (got, exp) in want.items():
+        if got.dim() == 3:
+            got, exp = got[:, :N], exp[:, :N]
+        d = (bf16_ordered(got.to(torch.bfloat16)) - bf16_ordered(exp.to(torch.bfloat16))).abs()
+        out[name] = {"differ": float((d > 0).double().mean()),
+                     "over_one_ulp": float((d > 1).double().mean())}
+    return out
+
+
+def phase_backward_kernel_bf16(cases, dev, cascade_gates=True):
     """K3 in bfloat16 against its plain bf16 version on the same inputs
-    (``input_cases`` packed in bf16). The node cotangents and each of the 24
+    (``cases`` packed in bf16). The node cotangents and each of the 24
     weight gradients are held, as whole tensors relative to their norm, to
     the nearer of two plain bf16 versions (on the card and on the CPU), where
     the bf16 rounding points show, within ``BF16_ROUNDING_TOL``: fed the
@@ -1580,17 +1770,30 @@ def phase_backward_kernel_bf16(config, synth_batch, dev):
     the training path; its rerun must be bit-identical), whose distance from
     the float32 K3 (on the float32 packing of the same batch and weights)
     must also be at most 1.25 times the plain versions'. K2's kept
-    activations themselves are held to the plain forward's buffer by buffer
-    (``act_ulps``): at most ``BF16_ACT_DIFFER`` of each buffer's elements
-    differ, at most ``BF16_ACT_OVER_ONE_ULP`` by more than one bf16 ulp.
-    Returns the rope case's max abs error of K2 then K3."""
+    activations themselves are held to the plain forward's buffer by buffer:
+    at most ``BF16_ACT_DIFFER`` of each buffer's elements differ, at most
+    ``BF16_ACT_OVER_ONE_ULP`` by more than one bf16 ulp, each layer against
+    the plain layer on K2's own kept inputs (``act_local_ulps``) and the
+    whole forward against the plain forward's (``act_ulps``).
+
+    With ``cascade_gates`` False (softbody) K2 then K3 at
+    ``BF16_ROUNDING_TOL`` and the whole-forward shares are reported, not
+    gated. They hold K2 to take every bf16 rounding decision that the plain
+    forward takes, so one decision that falls the other way (its float32
+    sum within rounding of a bf16 midpoint) is carried by the message
+    passing to the neighbours, round after round: at softbody's 4 rounds
+    and ~3,700 real edges a sample, K2's own decisions differ from the
+    plain layers' in ~1e-6 of the elements, as at rope, and the whole
+    forward's in up to 4e-4 by the motion head, K2 then K3 9e-3 from the
+    plain bf16 backward, while its distance from float32 K3 stays the plain
+    bf16 version's (the 1.25x gate). Returns each case's max abs error of
+    K2 then K3."""
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
 
     f32, bf16 = torch.float32, torch.bfloat16
     out, ok_all = {}, True
-    for (name, a32, cfg), (_, a16, _) in zip(input_cases(config, synth_batch, dev, f32),
-                                             input_cases(config, synth_batch, dev, bf16)):
+    for (name, a32, cfg), (_, a16, _) in zip(cases(f32), cases(bf16)):
         nodes, nbr, msk, last, w = a16
         g = torch.Generator(device=dev)
         g.manual_seed(5)
@@ -1606,6 +1809,9 @@ def phase_backward_kernel_bf16(config, synth_batch, dev):
         ulps = act_ulps(acts, pacts, cfg, msk)
         differ = max(v["differ"] for v in ulps.values())
         over = max(v["over_one_ulp"] for v in ulps.values())
+        local = act_local_ulps(acts, nodes, nbr, msk, w, cfg)
+        local_differ = max(v["differ"] for v in local.values())
+        local_over = max(v["over_one_ulp"] for v in local.values())
         del pacts
         got = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts, bf16)
         again = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, cfg, acts, bf16)
@@ -1621,10 +1827,12 @@ def phase_backward_kernel_bf16(config, synth_batch, dev):
         ratio = max(rel_norm(a, x) / max(rel_norm(p, x), rel_norm(c.to(dev), x), 1e-30)
                     for a, p, c, x in zip([got[0]] + got[1], [plain[0]] + plain[1],
                                           [plain_cpu[0]] + plain_cpu[1], [ref32[0]] + ref32[1]))
+        cascade_ok = (chain["worst_rel_vs_nearer_plain"] <= BF16_ROUNDING_TOL
+                      and differ <= BF16_ACT_DIFFER and over <= BF16_ACT_OVER_ONE_ULP)
         ok = bool(identical and res["finite"] and chain["finite"]
-                  and res["worst_rel_vs_nearer_plain"] <= BF16_ROUNDING_TOL
-                  and chain["worst_rel_vs_nearer_plain"] <= BF16_ROUNDING_TOL and ratio <= 1.25
-                  and differ <= BF16_ACT_DIFFER and over <= BF16_ACT_OVER_ONE_ULP)
+                  and res["worst_rel_vs_nearer_plain"] <= BF16_ROUNDING_TOL and ratio <= 1.25
+                  and local_differ <= BF16_ACT_DIFFER and local_over <= BF16_ACT_OVER_ONE_ULP
+                  and (cascade_ok or not cascade_gates))
         ok_all &= ok
         emit(phase="backward_kernel_bf16_check", case=name, B=nodes.shape[0],
              real_edges_per_sample=real_edges(msk), rerun_bit_identical=identical,
@@ -1633,17 +1841,21 @@ def phase_backward_kernel_bf16(config, synth_batch, dev):
              k2_then_k3_worst_f32_error_ratio_vs_plain=ratio,
              k2_acts_worst_share_differing=differ, k2_acts_worst_share_over_one_ulp=over,
              k2_acts_vs_plain={k: v for k, v in ulps.items() if v["differ"] > 0},
+             k2_acts_local_worst_share_differing=local_differ,
+             k2_acts_local_worst_share_over_one_ulp=local_over,
+             k2_acts_local_vs_plain={k: v for k, v in local.items() if v["differ"] > 0},
+             gated_k2_then_k3_and_k2_acts=cascade_gates,
              tol=f"K3 alone and K2 then K3 {BF16_ROUNDING_TOL:g} of the norm of the nearer plain "
                  f"bf16 version, K2 then K3's error against float32 K3 at most 1.25x the plain "
                  f"versions'; K2's activations: at most {BF16_ACT_DIFFER:g} of each buffer "
                  f"differing from the plain forward's, {BF16_ACT_OVER_ONE_ULP:g} by more than "
-                 f"one ulp",
+                 f"one ulp, each layer on K2's own inputs and (where gated) the whole forward",
              k3_alone_rows=res["rows"] if not ok else None,
              k2_then_k3_rows=chain["rows"] if not ok else None, ok=ok)
     if not ok_all:
         fail("the bf16 backward kernel disagrees with its plain versions "
              "(see backward_kernel_bf16_check)")
-    return out["rope"]
+    return out
 
 
 def plain_kernels():
@@ -1676,7 +1888,7 @@ def phase_train_step(config, synth_batch, dev):
     within 1e-6 but for at most 0.1% of them, and those within 2 lr.
     bfloat16 (``fused_train_fn(..., bfloat16)``, each version in bf16): the
     loss within 1e-2 relative and the gradients within 2e-2 of the norm."""
-    gnn, edge, _, hyper = rope_train_objects(config)
+    gnn, edge, _, hyper = train_objects(config)
     for cd in (torch.float32, torch.bfloat16):
         for name, batch in (("rope", fixture_batch("rope", dev)[0]),
                             ("rope synthetic", synth_batch)):
@@ -1783,94 +1995,118 @@ K2_KERNELS = ("gnn_forward_kernel",)
 K3_KERNELS = ("gnn_train_bwd_kernel", "sum_samples_kernel")  # the backward and its gradient sum
 
 
-def time_train_kernels(config, synth_batches, dev, R=9):
-    """K2 and K3 per launch at the main path's shapes (rope, B 128, f32,
-    weights from ``init_params``), each repetition on another batch; K3 in
-    bfloat16 on the bf16 packing of the same batches (``k3_bf16``); the
-    plain versions on the same inputs; the bounds; and the bare train step,
-    float32 and bfloat16.
-    The baseline is the rope batches at the fixture's density
-    (``fixture_batch``, R seeds); the same numbers on the synthetic
-    dataset's batches (the CLI run's data) are reported beside them."""
+def train_kernel_times(config, batches, dev, R=9):
+    """K2 and K3 per launch on the first R of ``batches`` (full training
+    batches of B_TRAIN for ``config``, weights from ``init_params``), each
+    repetition on another batch: K2 and K3 in float32, K2 and K3 in bfloat16
+    on the bf16 packing of the same batches (``k2_bf16``, ``k3_bf16``), each
+    as a CUDA-event median and as device time under ``torch.profiler``; the
+    plain versions on the same inputs; the bounds; each kernel's shared
+    memory per block; and the bare train step, float32 and bfloat16, through
+    the kernels and (float32) through the plain versions."""
     from adaptigraph_tpu_torch.dynamics import train
     from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.ops import kernels
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda, gnn_forward_plain
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
     from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
-    gnn, edge, _, hyper = rope_train_objects(config)
+    gnn, edge, _, hyper = train_objects(config)
     f32, bf16 = torch.float32, torch.bfloat16
+    lib = kernels.library()
     params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
     leaves = [p.clone().requires_grad_(True) for p in ckpt.tree_leaves(params)]
     step = train.make_train_step(gnn, edge, hyper)
     step16 = train.make_train_step(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, bf16))
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
+    batches = batches[:R]
+    ins = [step_inputs(b, gnn, edge, params, f32) for b in batches]
+    ins16 = [step_inputs(b, gnn, edge, params, bf16) for b in batches]
+    dmots, acts, acts16 = [], [], []
+    for (nodes, nbr, msk, last, w), i16 in zip(ins, ins16):
+        d = torch.randn(nodes.shape[0], nodes.shape[1], 3, device=dev) * 1e-2
+        d[:, gnn.max_nobj:] = 0
+        dmots.append(d)
+        acts.append(gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, f32)[2])
+        acts16.append(gnn_forward_cuda(*i16, gnn, bf16)[2])
 
-    def times(batches):
-        ins = [step_inputs(b, gnn, edge, params, f32) for b in batches]
-        ins16 = [step_inputs(b, gnn, edge, params, bf16) for b in batches]
-        dmots, acts, acts16 = [], [], []
-        for (nodes, nbr, msk, last, w), i16 in zip(ins, ins16):
-            d = torch.randn(nodes.shape[0], nodes.shape[1], 3, device=dev) * 1e-2
-            d[:, gnn.max_nobj:] = 0
-            dmots.append(d)
-            acts.append(gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, f32)[2])
-            acts16.append(gnn_forward_cuda(*i16, gnn, bf16)[2])
+    def fwd_args(r):
+        return ins[r % R] + (gnn, f32)
 
-        def fwd_args(r):
-            return ins[r % R] + (gnn, f32)
+    def fwd16_args(r):
+        return ins16[r % R] + (gnn, bf16)
 
-        def bwd_args(r):  # the kernel's inputs, K2's activations last
-            nodes, nbr, msk, _, w = ins[r % R]
-            return nodes, nbr, msk, dmots[r % R], w, gnn, acts[r % R]
+    def bwd_args(r):  # the kernel's inputs, K2's activations last
+        nodes, nbr, msk, _, w = ins[r % R]
+        return nodes, nbr, msk, dmots[r % R], w, gnn, acts[r % R]
 
-        def bwd16_args(r):
-            nodes, nbr, msk, _, w = ins16[r % R]
-            return nodes, nbr, msk, dmots[r % R], w, gnn, acts16[r % R], bf16
+    def bwd16_args(r):
+        nodes, nbr, msk, _, w = ins16[r % R]
+        return nodes, nbr, msk, dmots[r % R], w, gnn, acts16[r % R], bf16
 
-        def bwd_plain(*args):  # recomputes the forward, as the TPU kernel does
-            return gnn_train_bwd_plain(*args[:6])
+    def bwd_plain(*args):  # recomputes the forward, as the TPU kernel does
+        return gnn_train_bwd_plain(*args[:6])
 
-        def bwd16_plain(*args):
-            return gnn_train_bwd_plain(*args[:6], compute_dtype=bf16)
+    def bwd16_plain(*args):
+        return gnn_train_bwd_plain(*args[:6], compute_dtype=bf16)
 
-        gnn_train_bwd_cuda(*bwd_args(0))  # warm-up
-        out = {}
-        for name, kern, plain, args, work in (
-                ("k2", gnn_forward_cuda, gnn_forward_plain, fwd_args, k2_train_bound),
-                ("k3", gnn_train_bwd_cuda, bwd_plain, bwd_args, k3_bound)):
-            ms = median_ms(kern, args, 9)
-            plain_ms = median_ms(plain, args, 5)
-            nodes, nbr, msk, _, w = ins[0]
-            out[name] = dict(ms=ms, plain_ms=plain_ms, real_edges_per_sample=real_edges(msk),
-                             **device_ms(kern, args, 9, K3_KERNELS if name == "k3" else K2_KERNELS),
-                             **work(gnn, nodes, nbr, msk, w, PEAK_FLOPS[f32]))
-        gnn_train_bwd_cuda(*bwd16_args(0))  # warm-up of the bf16 build
-        nodes, nbr, msk, _, w = ins16[0]
-        out["k3_bf16"] = dict(ms=median_ms(gnn_train_bwd_cuda, bwd16_args, 7),
-                              plain_ms=median_ms(bwd16_plain, bwd16_args, 5),
-                              **device_ms(gnn_train_bwd_cuda, bwd16_args, 7, K3_KERNELS),
-                              **k3_bound(gnn, nodes, nbr, msk, w, PEAK_FLOPS[bf16]))
-        acts.clear()
-        acts16.clear()
-        state = train.adam_init(leaves)
-        step(leaves, state, batches[0], gen)
-        out["step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
-                                   lambda r: (batches[r % R],), 9)
-        step16(leaves, state, batches[0], gen)
-        out["step_bf16_ms"] = median_ms(lambda b: step16(leaves, state, b, gen),
-                                        lambda r: (batches[r % R],), 9)
-        with plain_kernels():
-            out["plain_step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
-                                             lambda r: (batches[r % R],), 5)
-        return out
+    gnn_train_bwd_cuda(*bwd_args(0))  # warm-up
+    gnn_train_bwd_cuda(*bwd16_args(0))  # warm-up of the bf16 build
+    Np, K = ins[0][0].shape[1], ins[0][1].shape[1] // ins[0][0].shape[1]
+    out = {"smem_bytes_per_block": {
+        "k2_f32": lib.gnn_forward_smem_bytes(Np, K, 0, 0),
+        "k2_bf16": lib.gnn_forward_smem_bytes(Np, K, 0, 1),
+        "k3_f32": lib.gnn_train_bwd_smem_bytes(Np, K, 0),
+        "k3_bf16": lib.gnn_train_bwd_smem_bytes(Np, K, 1)}, "Np": Np, "K": K}
+    for name, kern, plain, args, work, cd, reps in (
+            ("k2", gnn_forward_cuda, gnn_forward_plain, fwd_args, k2_train_bound, f32, 9),
+            ("k3", gnn_train_bwd_cuda, bwd_plain, bwd_args, k3_bound, f32, 9),
+            ("k2_bf16", gnn_forward_cuda, gnn_forward_plain, fwd16_args, k2_train_bound, bf16, 7),
+            ("k3_bf16", gnn_train_bwd_cuda, bwd16_plain, bwd16_args, k3_bound, bf16, 7)):
+        nodes, nbr, msk, _, w = (ins if cd == f32 else ins16)[0]
+        out[name] = dict(ms=median_ms(kern, args, reps), plain_ms=median_ms(plain, args, 5),
+                         real_edges_per_sample=real_edges(msk),
+                         **device_ms(kern, args, reps,
+                                     K3_KERNELS if name.startswith("k3") else K2_KERNELS),
+                         **work(gnn, nodes, nbr, msk, w, PEAK_FLOPS[cd]))
+    acts.clear()
+    acts16.clear()
+    state = train.adam_init(leaves)
+    step(leaves, state, batches[0], gen)
+    out["step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
+                               lambda r: (batches[r % R],), 9)
+    step16(leaves, state, batches[0], gen)
+    out["step_bf16_ms"] = median_ms(lambda b: step16(leaves, state, b, gen),
+                                    lambda r: (batches[r % R],), 9)
+    with plain_kernels():
+        out["plain_step_ms"] = median_ms(lambda b: step(leaves, state, b, gen),
+                                         lambda r: (batches[r % R],), 5)
+    return out
+
+
+def time_train_kernels(config, synth_batches, dev, R=9):
+    """``train_kernel_times`` at the main path's shapes (rope, B 128). The
+    baseline is the rope batches at the fixture's density (``fixture_batch``,
+    R seeds); the same numbers on the synthetic dataset's batches (the CLI
+    run's data) are reported beside them. Then where a bare float32 step's
+    device time goes (``profile_step``)."""
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
     dense = [fixture_batch("rope", dev, seed=20 + r)[0] for r in range(R)]
-    out = times(dense)
+    out = train_kernel_times(config, dense, dev, R)
     emit(phase="train_kernel_time", data="rope fixture density", **out)
-    emit(phase="train_kernel_time", data="synthetic dataset", **times(synth_batches[:R]))
-    profile_step(step, leaves, train.adam_init(leaves), dense, gen)
+    emit(phase="train_kernel_time", data="synthetic dataset",
+         **train_kernel_times(config, synth_batches, dev, R))
+    gnn, edge, _, hyper = train_objects(config)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
+    leaves = [p.clone().requires_grad_(True) for p in ckpt.tree_leaves(params)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    profile_step(train.make_train_step(gnn, edge, hyper), leaves, train.adam_init(leaves), dense,
+                 gen)
     return out
 
 
@@ -1897,7 +2133,7 @@ def phase_train_kernel_phases(config, dev):
     from adaptigraph_tpu_torch.ops.fused_gnn_train import launch_backward
 
     lib = kernels.library("phase_clocks")
-    gnn, edge, _, _ = rope_train_objects(config)
+    gnn, edge, _, _ = train_objects(config)
     params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
     batch = fixture_batch("rope", dev, seed=20)[0]
     for cd in (torch.float32, torch.bfloat16):
@@ -1950,6 +2186,9 @@ def profile_step(step, leaves, state, batches, gen, n=5):
                "calls_per_step": e.count / n} for e in top])
 
 
+PROFILED_WINDOWS = 3  # train_steps: profiled windows, at most, for one replay's launches
+
+
 def kernel_launches_in(fn, names, trace_dir):
     """Under ``torch.profiler`` (the port's ``utils.profiling.device_trace``,
     which writes the trace to ``trace_dir``), the launches of each kernel
@@ -1965,11 +2204,11 @@ def kernel_launches_in(fn, names, trace_dir):
     return {n: sum(e.count for e in events if n in e.key) for n in names}
 
 
-def phase_train_steps(config, dev, K=10, R=9):
+def phase_train_steps(config, dev, K=10, R=9, parts=None, data="rope fixture density"):
     """K optimizer steps per call (``make_train_steps``: on the card one step
     captured in a CUDA graph after one eager step, then replayed per slice)
-    at the rope fixture's density (``fixture_batch``, B 128, n_future 3, a
-    superbatch of K 10 batches), in float32 and in bf16
+    on a superbatch of K batches (``parts``; by default at the rope fixture's
+    density, ``fixture_batch``, B 128, n_future 3), in float32 and in bf16
     (``fused_train_fn(..., bfloat16)``). The gate: two calls (20 steps) from
     the same weights, Adam state and generator seed give the losses, the
     parameters and the Adam state (moments, count) of 20 ``make_train_step``
@@ -1977,7 +2216,9 @@ def phase_train_steps(config, dev, K=10, R=9):
     replay, counted by ``torch.profiler`` kernel names, must equal the
     capture's count (3 + 3): the profiled window holds a fresh step object's
     eager slice and capture, then one replay, and the eager step's launches
-    (its wrappers' counts) come off. A call of K steps must add 3K + 3K to
+    (its wrappers' counts) come off; a window short of a launch, which CUPTI
+    can lose, is taken again on a fresh step object, PROFILED_WINDOWS in
+    all at most, and none may show more. A call of K steps must add 3K + 3K to
     the launch counters. ms per step through the graph and through the loop
     (CUDA events around a call of K steps and around K step calls,
     alternating, median of R) and host ms per step (perf_counter around the
@@ -1988,8 +2229,8 @@ def phase_train_steps(config, dev, K=10, R=9):
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
     from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
-    gnn, edge, _, hyper = rope_train_objects(config)
-    parts = [fixture_batch("rope", dev, seed=40 + k)[0] for k in range(K)]
+    gnn, edge, _, hyper = train_objects(config)
+    parts = parts or [fixture_batch("rope", dev, seed=40 + k)[0] for k in range(K)]
     sb = {name: torch.stack([p[name] for p in parts]) for name in parts[0]}
     base = ckpt.tree_leaves(init_params(torch.Generator().manual_seed(0), gnn))
 
@@ -2032,21 +2273,33 @@ def phase_train_steps(config, dev, K=10, R=9):
         # not trace its kernel nodes. A one-slice call on a fresh step object
         # runs the slice eagerly and captures (the counters take the eager
         # step's launches, not the capture's); a second call replays once.
-        fresh_steps, fresh_call = start(cd, True)[:2]
-        one, eager = {n: v[:1] for n, v in sb.items()}, []
+        # CUPTI can lose a record (one K3 of six, in one window of some
+        # forty), and a graph runs every node on every replay, so a window
+        # short of a launch is taken again, up to PROFILED_WINDOWS times:
+        # one must show exactly the eager step's and the capture's, and
+        # none more.
+        windows, eager, fresh_capture = [], [], None
+        for w in range(PROFILED_WINDOWS):
+            fresh_steps, fresh_call = start(cd, True)[:2]
+            one, eager = {n: v[:1] for n, v in sb.items()}, []
 
-        def capture_then_replay():
-            gnn_forward.launches = gnn_train_bwd.launches = 0
-            fresh_call(one)
-            eager.extend([gnn_forward.launches, gnn_train_bwd.launches])
-            fresh_call(one)
+            def capture_then_replay():
+                gnn_forward.launches = gnn_train_bwd.launches = 0
+                fresh_call(one)
+                eager.extend([gnn_forward.launches, gnn_train_bwd.launches])
+                fresh_call(one)
 
-        profiled = kernel_launches_in(capture_then_replay,
-                                      ("gnn_forward_kernel", "gnn_train_bwd_kernel"),
-                                      os.path.join(TRAIN_DIR, f"trace_train_steps_{name}"))
-        per_replay = {k: profiled[k] - n for k, n in zip(profiled, eager)}
-        fresh_capture = list(fresh_steps.graphed.counted)
-        del fresh_steps, fresh_call
+            profiled = kernel_launches_in(capture_then_replay,
+                                          ("gnn_forward_kernel", "gnn_train_bwd_kernel"),
+                                          os.path.join(TRAIN_DIR, f"trace_train_steps_{data}_{name}"
+                                                       .replace(" ", "_") + f"_{w}"))
+            fresh_capture = list(fresh_steps.graphed.counted)
+            windows.append({k: profiled[k] - n for k, n in zip(profiled, eager)})
+            del fresh_steps, fresh_call
+            if [windows[-1]["gnn_forward_kernel"],
+                    windows[-1]["gnn_train_bwd_kernel"]] == fresh_capture:
+                break
+        per_replay = windows[-1]
         graph_ms, loop_ms, graph_host, loop_host = [], [], [], []
         for _ in range(R):
             for call, ms, host in ((graph_call, graph_ms, graph_host),
@@ -2063,19 +2316,21 @@ def phase_train_steps(config, dev, K=10, R=9):
         capture = list(steps.graphed.counted)
         ok = (all(equal) and capture == fresh_capture == eager == [3, 3]
               and per_call == [[3 * K, 3 * K]] * 2
-              and [per_replay["gnn_forward_kernel"], per_replay["gnn_train_bwd_kernel"]] == capture)
+              and [per_replay["gnn_forward_kernel"], per_replay["gnn_train_bwd_kernel"]] == capture
+              and all(w[k] <= n for w in windows for k, n in zip(per_replay, capture)))
         results[name] = dict(bit_equal_per_call=equal, capture_launches={"k2": capture[0],
                                                                          "k3": capture[1]},
                              profiled_launches_eager_and_one_replay=profiled,
                              eager_step_launches={"k2": eager[0], "k3": eager[1]},
                              profiled_launches_one_replay=per_replay,
+                             profiled_windows=windows,
                              launches_per_call=[{"k2": a, "k3": b} for a, b in per_call],
                              ms_per_step_graph=float(np.median(graph_ms)),
                              ms_per_step_loop=float(np.median(loop_ms)),
                              host_ms_per_step_graph=float(np.median(graph_host)),
                              host_ms_per_step_loop=float(np.median(loop_host)), ok=bool(ok))
         del steps, graph_call, loop_call
-    emit(phase="train_steps", K=K, B=B_TRAIN, data="rope fixture density", **results)
+    emit(phase="train_steps", K=K, B=B_TRAIN, data=data, **results)
     if not all(r["ok"] for r in results.values()):
         fail("the graphed K-step train calls failed their checks (see the train_steps line)")
     return launches
@@ -2085,8 +2340,10 @@ CURVE_RTOL = 0.02  # kernel vs plain run, each epoch's mean train and valid loss
 CURVE_SPREADS = 3  # ... or within this many times the float32 spread of the curves
 
 
-def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32):
-    """The CLI's train command into TRAIN_DIR/<tag>, through the kernels or
+def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32, config="rope",
+              args=TRAIN_ARGS):
+    """The CLI's train command (``--config config`` and ``args``) into
+    TRAIN_DIR/<tag>, through the kernels or
     (``plain``) the plain versions; with ``nudge``, from initial weights
     each one float32 step nearer 0; with ``cd`` bfloat16, its K-step train
     and eval calls built by ``make_train_steps`` / ``make_eval_steps`` with
@@ -2119,8 +2376,8 @@ def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32):
     def eval_steps(gnn, edge, hyper):
         return make_evals(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
 
-    argv = ["train", "--config", "rope", "--prep_dir", prep,
-            "--out_dir", os.path.join(TRAIN_DIR, tag)] + TRAIN_ARGS
+    argv = ["train", "--config", config, "--prep_dir", prep,
+            "--out_dir", os.path.join(TRAIN_DIR, tag)] + args
     with ExitStack() as stack:
         stack.enter_context(mock.patch.object(train, "make_train_steps", steps_recorded))
         stack.enter_context(mock.patch.object(train, "make_eval_steps", eval_steps))
@@ -2154,7 +2411,7 @@ def phase_train(config, prep, dev):
     from adaptigraph_tpu_torch.utils import checkpoint as ckpt
     from adaptigraph_tpu_torch.utils.metrics import read_metrics
 
-    gnn = rope_train_objects(config)[0]
+    gnn = train_objects(config)[0]
     out = os.path.join(TRAIN_DIR, "out")
     gnn_forward.launches = 0
     gnn_train_bwd.launches = 0
@@ -2269,7 +2526,7 @@ def phase_rollout(config, prep, dev):
                                                      gnn_forward_plain, pack_inputs, weight_list)
     from adaptigraph_tpu_torch.ops.graph import build_neighbor_graph_batch
 
-    gnn, edge = rope_train_objects(config)[:2]
+    gnn, edge = train_objects(config)[:2]
     spec = spec_from_config(config)
     fixture = os.path.join(TRAIN_DIR, "rollout_fixture")
     shutil.copytree(os.path.join(ROOT, "fixtures", "rope_demo", "checkpoints"),
@@ -2798,12 +3055,173 @@ def phase_planner_gd(rope, dev, n_sample=512, n_iter=10):
     return (k2, k3), secs / n_iter * 1e3, peak
 
 
+# ---------------------------------------------------------------------------
+# softbody: generated, filtered, trained and rolled out at its published width
+# ---------------------------------------------------------------------------
+
+SOFTBODY_EPISODES = 12  # the data_gen config's 100, cut: 10 train and 2 valid episodes at 0.9/0.1
+SOFTBODY_TRAIN_ARGS = ["--epochs", "2", "--iters", "100", "--batch_size", str(B_TRAIN),
+                       "--steps_per_call", "10"]
+
+
+def softbody_data():
+    """Softbody episodes by the port's generator with the data_gen config's
+    settings (5 pushes an episode, 5 spawned workers, seed 0; SOFTBODY_EPISODES
+    episodes), flagged by its filter and preprocessed with the softbody
+    dynamics config, the flagged pushes dropped, into TRAIN_DIR/softbody/prep.
+    This is ``datagen --config softbody``, ``filter`` and ``preprocess
+    --filter_file`` with the episodes held in memory (``sim.datagen.simulate``,
+    ``sim.filter.flag_episodes``, ``preprocess_episodes``): the card's host
+    has no h5py. Returns (prep dir, the data line's fields)."""
+    from adaptigraph_tpu_torch.cli import _phys_specs
+    from adaptigraph_tpu_torch.dynamics.preprocess import preprocess_episodes
+    from adaptigraph_tpu_torch.sim.datagen import simulate
+    from adaptigraph_tpu_torch.sim.filter import flag_episodes
+    from adaptigraph_tpu_torch.utils.config import config_path, load_dynamics_config, load_yaml
+
+    prep = os.path.join(TRAIN_DIR, "softbody", "prep")
+    ds = load_yaml(config_path("softbody", "data_gen"))["dataset"]
+    dc = load_dynamics_config("softbody")["dataset_config"]
+    t0 = time.time()
+    episodes = simulate(ds["obj"], SOFTBODY_EPISODES, n_pushes=ds["n_timestep"],
+                        n_workers=ds["n_worker"], seed=ds["seed"])
+    t1 = time.time()
+    flagged = flag_episodes((f"{e:06d}", [p["positions"] for p in pushes])
+                            for e, _, pushes, _ in episodes)
+    t2 = time.time()
+    n = preprocess_episodes([(props, pushes) for _, props, pushes, _ in episodes], prep,
+                            np.asarray(dc["eef"]["pos"], np.float32), dc["n_his"], dc["n_future"],
+                            dc["dist_thresh"], _phys_specs(load_dynamics_config("softbody")),
+                            store_rest_state=dc["store_rest_state"], filter_actions=flagged)
+    t3 = time.time()
+    first = episodes[0][2][0]["positions"]
+    fields = dict(episodes=len(episodes), bad_episodes=sum(bool(b) for *_, b in episodes),
+                  pushes=sum(len(p) for _, _, p, _ in episodes),
+                  flagged_pushes=sum(len(v) for v in flagged.values()),
+                  preprocessed_episodes=n, particles=int(first.shape[1]),
+                  pushes_per_episode=ds["n_timestep"], workers=ds["n_worker"], seed=ds["seed"],
+                  datagen_seconds=t1 - t0, filter_seconds=t2 - t1, preprocess_seconds=t3 - t2)
+    ok = (len(episodes) == SOFTBODY_EPISODES and n == len(episodes) and fields["pushes"] > 0
+          and all(np.isfinite(p["positions"]).all() for _, _, ps, _ in episodes for p in ps))
+    emit(phase="softbody_data", **fields, ok=bool(ok))
+    if not ok:
+        fail("softbody data generation failed (see the softbody_data line)")
+    return prep, fields
+
+
+def phase_softbody(dev):
+    """Softbody, the widest configuration the JAX package trains, on the
+    card at its published width (N 305: 300 objects + a 5-point pusher, 15
+    slots, nf 128, pstep 4, n_his 5 with the rest frame pinned, ``non_fixed``,
+    B 128): the data (``softbody_data``); K2 and K3 in float32 and bf16 on
+    batches of it against their plain versions at the rope phases' gates
+    (``phase_forward_kernel``, ``phase_backward_kernel``,
+    ``phase_backward_kernel_bf16``; weights from ``init_params``); their
+    times, bounds and shared memory (``train_kernel_times``); K 10 steps per
+    call through the CUDA graph against the loop, bit for bit
+    (``phase_train_steps``); ``train --config softbody`` through the CLI for
+    200 steps (``--steps_per_call 10``) with its K2/K3 launches counted and
+    the mean loss of its last 20 steps below its first 20's; and ``rollout
+    --config softbody --all_episodes`` on the prep dir with the trained
+    checkpoint, its K2 launches counted and each push's step-1 error within
+    2e-4 of the evaluator through K2's plain version. Returns the numbers
+    of the kernels line."""
+    from adaptigraph_tpu_torch.cli import load_params, main
+    from adaptigraph_tpu_torch.dynamics import rollout
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+    from adaptigraph_tpu_torch.utils.metrics import read_metrics
+
+    t_start = time.time()
+    torch.cuda.empty_cache()
+    prep, data = softbody_data()
+    config = load_dynamics_config("softbody")
+    gnn, edge, spec, _ = train_objects(config)
+    batches = device_batches(config, prep, dev, 10, seed=13)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
+
+    def cases(cd):
+        yield "softbody", step_inputs(batches[0], gnn, edge, params, cd), gnn
+
+    k2_err = phase_forward_kernel(cases)
+    k3_err = phase_backward_kernel(cases, dev, cascade_gates=False)["softbody"]
+    k3_bf16_err = phase_backward_kernel_bf16(cases, dev, cascade_gates=False)["softbody"]
+    times = train_kernel_times(config, batches, dev, R=5)
+    emit(phase="train_kernel_time", data="softbody", **times)
+    steps_launches = phase_train_steps(config, dev, parts=batches, data="softbody")
+
+    # the CLI's train run: 3 + 3 kernels per step, 3 K2 per validation step
+    out = os.path.join(TRAIN_DIR, "softbody_out")
+    gnn_forward.launches = gnn_train_bwd.launches = 0
+    t0 = time.time()
+    _, curves, _, argv, losses = cli_train(prep, "softbody_out", config="softbody",
+                                           args=SOFTBODY_TRAIN_ARGS)
+    train_secs = time.time() - t0
+    k2_train, k3_train = gnn_forward.launches, gnn_train_bwd.launches
+    epochs = [m for m in read_metrics(os.path.join(out, "metrics.jsonl")) if m["tag"] == "epoch"]
+    n_train, n_valid = len(losses), 10 * len(epochs)
+    first20, last20 = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    train_ok = bool(np.isfinite(losses).all() and last20 < first20 and n_train >= 200
+                    and k3_train == 3 * n_train and k2_train == 3 * (n_train + n_valid))
+    train_line = dict(argv=argv[1:], seconds=train_secs, train_steps=n_train,
+                      valid_steps=n_valid, k2_launches=k2_train, k3_launches=k3_train,
+                      first20_mean_loss=first20, last20_mean_loss=last20,
+                      train_loss=curves["train"], valid_loss=curves["valid"],
+                      ms_per_step_cli=epochs[-1]["train_seconds"] / epochs[-1]["train_steps"] * 1e3)
+
+    # the rollout evaluator through the CLI on the trained checkpoint
+    argv = ["rollout", "--config", "softbody", "--prep_dir", prep, "--out_dir", out,
+            "--all_episodes"]
+    torch.cuda.synchronize()
+    gnn_forward.launches = 0
+    t0 = time.time()
+    stats, summary = main(argv)
+    torch.cuda.synchronize()
+    roll_secs = time.time() - t0
+    k2_roll = gnn_forward.launches
+    with plain_forward():
+        plain = rollout.rollout_dataset(load_params(out, gnn, dev), spec, gnn, edge, prep,
+                                        phase_ratio=(0.0, 1.0))
+    got, want = stats["per_push"], plain["per_push"]
+    step1 = max(abs(float(a[0]) - float(b[0])) for a, b in zip(got, want))
+    med_rel = np.abs(stats["median"] - plain["median"]) / np.abs(plain["median"])
+    roll_ok = bool(len(got) == len(want) == summary["n_pushes"] > 0 and step1 <= 2e-4
+                   and np.isfinite(stats["median"]).all() and k2_roll > 0)
+    roll_line = dict(argv=argv[1:], seconds=roll_secs, k2_launches=k2_roll,
+                     n_pushes=summary["n_pushes"], steps=len(stats["median"]),
+                     step1_max_abs_diff_vs_plain=step1, step1_tol=2e-4,
+                     median_max_rel_diff_vs_plain=float(med_rel.max()), summary=summary)
+    ok = train_ok and roll_ok
+    emit(phase="softbody", B=B_TRAIN, N=gnn.n_nodes, Np=times["Np"], K=times["K"],
+         nf=gnn.nf_particle, pstep=gnn.pstep, n_his=gnn.n_his, policy=edge.policy,
+         data=data, real_edges_per_sample=times["k2"]["real_edges_per_sample"],
+         smem_bytes_per_block=times["smem_bytes_per_block"],
+         kernels={k: {f: times[k][f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by")} for k in ("k2", "k3", "k2_bf16",
+                                                                       "k3_bf16")},
+         step_ms=times["step_ms"], step_bf16_ms=times["step_bf16_ms"],
+         plain_step_ms=times["plain_step_ms"], train=dict(train_line, ok=train_ok),
+         rollout=dict(roll_line, ok=roll_ok), seconds=time.time() - t_start, ok=bool(ok))
+    if not ok:
+        fail("the softbody phase failed its checks (see the softbody line)")
+    return dict(times=times, k2_err=k2_err[("softbody", "float32")],
+                k2_bf16_err=k2_err[("softbody", "bfloat16")], k3_err=k3_err,
+                k3_bf16_err=k3_bf16_err, k2_launches=k2_train + k2_roll + steps_launches[0],
+                k3_launches=k3_train + steps_launches[1])
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         raise SystemExit(2)
     sys.path.insert(0, ROOT)
+    # the processes the script's children leave behind become its own, so
+    # that stop_processes can end them and wait for them: PID 1 of a
+    # container need not reap them (PR_SET_CHILD_SUBREAPER)
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
     # the port and its fixtures must be here before anything is printed
     from adaptigraph_tpu_torch.ops import kernels  # noqa: F401
 
@@ -2821,6 +3239,10 @@ def main():
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     phase_build()
+    if sys.argv[1:] == ["--softbody"]:
+        phase_softbody(dev)
+        print(card, flush=True)
+        return
     rope, main_err = phase_kernels(dev)
     timing = time_kernel(rope, dev)
     emit(phase="kernel_time", **timing)
@@ -2839,9 +3261,11 @@ def main():
 
     config, prep = phase_dataset()
     batches = device_batches(config, prep, dev, 9, seed=11)
-    k2_err = phase_forward_kernel(config, batches[0], dev)
-    k3_err = phase_backward_kernel(config, batches[1], dev)
-    k3_bf16_err = phase_backward_kernel_bf16(config, batches[1], dev)
+    k2_err = phase_forward_kernel(lambda cd: input_cases(config, batches[0], dev, cd))
+    k2_err = k2_err[("rope", "float32")]
+    k3_err = phase_backward_kernel(lambda cd: input_cases(config, batches[1], dev, cd), dev)["rope"]
+    k3_bf16_err = phase_backward_kernel_bf16(lambda cd: input_cases(config, batches[1], dev, cd),
+                                             dev)["rope"]
     phase_train_step(config, batches[2], dev)
     ttime = time_train_kernels(config, batches, dev)
     phase_train_kernel_phases(config, dev)
@@ -2854,11 +3278,23 @@ def main():
     k1_granular_launches, granular_ms_per_solve = phase_granular_solve(dev)
     k1_planner_launches, mppi_ms_per_iter = phase_planner_mppi(rope, dev)
     (k2_gd_launches, k3_gd_launches), gd_ms_per_iter, _ = phase_planner_gd(rope, dev)
+    sb = phase_softbody(dev)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+
+    def softbody(kernel):  # the softbody phase's numbers for K2 ("k2") or K3 ("k3")
+        out = {"launches_softbody": sb[f"{kernel}_launches"]}
+        for suffix, key in (("", kernel), ("_bf16", f"{kernel}_bf16")):
+            t = sb["times"][key]
+            out.update({f"ms_softbody{suffix}": t["ms"], f"device_ms_softbody{suffix}": t["device_ms"],
+                        f"plain_ms_softbody{suffix}": t["plain_ms"],
+                        f"bound_ms_softbody{suffix}": t["bound_ms"],
+                        f"bound_by_softbody{suffix}": t["bound_by"],
+                        f"max_abs_err_softbody{suffix}": sb[f"{key}_err"]})
+        return out
 
     emit(phase="wall", seconds=time.time() - t_start)
     emit(kernels=[
@@ -2882,7 +3318,8 @@ def main():
              plain_ms_rollout=rollout_time["k2_plain_ms"],
              bound_ms_rollout=rollout_time["k2_bound_ms"],
              launches_masked_tools=k2_masked_launches,
-             ms_per_substep_masked_tools=masked_ms, max_abs_err_masked_tools=masked_err),
+             ms_per_substep_masked_tools=masked_ms, max_abs_err_masked_tools=masked_err,
+             **softbody("k2")),
         dict(row("gnn_train_bwd", "adaptigraph_tpu_torch/csrc/gnn_train_bwd.cu",
                  "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"]),
              device_ms=ttime["k3"]["device_ms"], device_ms_bf16=ttime["k3_bf16"]["device_ms"],
@@ -2893,7 +3330,7 @@ def main():
              bound_ms_present_design_bf16=ttime["k3_bf16"]["bound_ms_present_design"],
              max_abs_err_bf16=k3_bf16_err,
              launches_bf16=k3_bf16_launches, launches_train_steps=k3_steps_launches,
-             launches_planner_gd=k3_gd_launches),
+             launches_planner_gd=k3_gd_launches, **softbody("k3")),
         row("gnn_forward_edges", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
             "adaptigraph_tpu/ops/fused_gnn.py:115", k2e_launches, k2e_err, k2e_time),
         dict(row("kernel_parts", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
@@ -2906,4 +3343,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_processes()

@@ -86,9 +86,36 @@ def test_rollout_command_defaults_to_cuda(monkeypatch):
         main(["rollout", "--config", "rope", "--prep_dir", "missing", "--out_dir", "missing"])
 
 
+def test_datagen_and_filter_parse_without_a_device():
+    """``datagen`` and ``filter`` run on the host: they parse their JAX flags
+    and take no ``--device``."""
+    from adaptigraph_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args(
+        ["datagen", "--config", "softbody", "--material", "softbody", "--data_dir", "d",
+         "--n_episodes", "2", "--n_pushes", "3", "--n_workers", "2", "--seed", "1",
+         "--start_episode", "4", "--capture", "--robot"])
+    assert (args.config, args.material, args.data_dir, args.n_episodes, args.n_pushes,
+            args.n_workers, args.seed, args.start_episode, args.capture, args.robot) == (
+        "softbody", "softbody", "d", 2, 3, 2, 1, 4, True, True)
+    args = build_parser().parse_args(["filter", "--data_dir", "d", "--out", "f.json",
+                                      "--drift_thresh", "0.5", "--spike_thresh", "0.25"])
+    assert (args.data_dir, args.out, args.drift_thresh, args.spike_thresh) == ("d", "f.json",
+                                                                                 0.5, 0.25)
+    for argv in (["datagen", "--device", "cpu"], ["filter", "--data_dir", "d", "--device", "cpu"]):
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(argv)
+
+
 @pytest.mark.parametrize("rel", ["dynamics/rope.yaml", "dynamics/granular.yaml",
                                  "dynamics/cloth.yaml", "planning/rope.yaml",
-                                 "planning/granular.yaml", "planning/cloth.yaml"])
+                                 "planning/granular.yaml", "planning/cloth.yaml",
+                                 "dynamics/softbody.yaml", "dynamics/multiobj.yaml",
+                                 "dynamics/bunnybath.yaml", "dynamics/rope_f8.yaml",
+                                 "dynamics/granular_f6.yaml", "data_gen/box.yaml",
+                                 "data_gen/bunnybath.yaml", "data_gen/cloth.yaml",
+                                 "data_gen/granular.yaml", "data_gen/multiobj.yaml",
+                                 "data_gen/rope.yaml", "data_gen/softbody.yaml"])
 def test_copied_yaml_equals_original(rel):
     with open(os.path.join(ROOT, "adaptigraph_tpu", "configs", rel)) as f:
         want = yaml.safe_load(f)
@@ -127,12 +154,20 @@ def test_planning_config_reads_only_the_port_copies(monkeypatch, name):
     assert os.path.basename(read[1]) == os.path.basename(task["config"])
 
 
-def test_missing_dynamics_copy_is_an_error(tmp_path):
+def test_missing_dynamics_copy_is_an_error(tmp_path, monkeypatch):
     """A planning config naming a JAX dynamics file that the port has no copy
-    of fails, naming the file, instead of reading the JAX package's."""
-    from adaptigraph_tpu_torch.utils.config import load_planning_config
+    of fails, naming the file, instead of reading the JAX package's. The port
+    copies every JAX dynamics file, so the port's config directory is
+    replaced by one that lacks the softbody copy."""
+    import shutil
 
-    with open(os.path.join(PKG, "configs", "planning", "rope.yaml")) as f:
+    from adaptigraph_tpu_torch.utils import config
+
+    configs = tmp_path / "configs"
+    shutil.copytree(os.path.join(PKG, "configs"), configs)
+    os.remove(configs / "dynamics" / "softbody.yaml")
+    monkeypatch.setattr(config, "config_dir", lambda: str(configs))
+    with open(configs / "planning" / "rope.yaml") as f:
         plan = yaml.safe_load(f)
     plan["task_config"]["config"] = "adaptigraph_tpu/configs/dynamics/softbody.yaml"
     path = tmp_path / "softbody_planning.yaml"
@@ -140,4 +175,4 @@ def test_missing_dynamics_copy_is_an_error(tmp_path):
     assert os.path.exists(os.path.join(ROOT, "adaptigraph_tpu", "configs", "dynamics",
                                        "softbody.yaml"))
     with pytest.raises(FileNotFoundError, match="softbody.yaml"):
-        load_planning_config(str(path))
+        config.load_planning_config(str(path))
