@@ -14,9 +14,12 @@
     python -m adaptigraph_tpu_torch perception --calibrate
 
 Commands run on the CUDA card unless ``--device cpu`` is given; ``datagen``,
-``filter`` and ``preprocess`` run on the host and take no device. ``plan`` has
-no ``--mesh`` (one card) and no ``--learned_perception`` (GroundingDINO + SAM
-need downloaded weights).
+``filter`` and ``preprocess`` run on the host and take no device.
+``train --n_devices N`` (N > 1) trains data parallel over the first N cards
+(with ``--device cpu``, N shards on the CPU), and ``plan --mesh auto|N``
+shards each solve's samples likewise; either exits non-zero when N cards are
+not there. ``plan`` has no ``--learned_perception`` (GroundingDINO + SAM need
+weights the repository does not hold).
 """
 
 import argparse
@@ -163,6 +166,38 @@ def resolve_device(name):
     return device
 
 
+def device_mesh(n_devices, device):
+    """The mesh of ``n_devices`` entries for a command on ``device``: the
+    first n cards, or n shards on the CPU; an error exit when the cards are
+    not there."""
+    from adaptigraph_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        if device.type == "cpu":
+            return make_mesh(devices=["cpu"] * n_devices)
+        return make_mesh(n_devices)
+    except RuntimeError as e:
+        raise SystemExit(f"--mesh/--n_devices {n_devices}: {e}")
+
+
+def mesh_chunk(mcfg, n_dev):
+    """The solve budget for a mesh of ``n_dev`` devices, as the JAX
+    ``plan --mesh`` sizes it: the sharded solve needs n_chunks % n_dev == 0,
+    so the chunk shrinks until the chunks divide evenly over the devices;
+    an error exit when n_sample itself is not a multiple of n_dev."""
+    n_chunks = mcfg.n_sample // mcfg.n_sample_chunk
+    if n_chunks % n_dev == 0:
+        return mcfg
+    if mcfg.n_sample % n_dev:
+        raise SystemExit(f"n_sample={mcfg.n_sample} must be divisible by the device count "
+                         f"({n_dev}) for --mesh; adjust n_sample or n_sample_chunk in the task "
+                         "config")
+    chunk = mcfg.n_sample // (n_dev * max(1, n_chunks // n_dev))
+    while chunk > 1 and mcfg.n_sample % (chunk * n_dev):
+        chunk -= 1
+    return dataclasses.replace(mcfg, n_sample_chunk=chunk)
+
+
 # ---------------------------------------------------------------------------
 # subcommands
 # ---------------------------------------------------------------------------
@@ -267,6 +302,8 @@ def cmd_train(args):
     from adaptigraph_tpu_torch.utils.config import load_dynamics_config
 
     device = resolve_device(args.device)
+    # N > 1: data parallel over a mesh of N (JAX: a mesh only for n_devices > 1)
+    mesh = device_mesh(args.n_devices, device) if args.n_devices > 1 else None
     config = load_dynamics_config(args.config)
     gnn_cfg, edge_cfg = _dyn_objects(config)
     spec, hyper = _train_objects(config)
@@ -298,7 +335,7 @@ def cmd_train(args):
                          hyper.batch_size, stack_steps=K)
     try:
         params, curves = train(gnn_cfg, edge_cfg, hyper, tr, va, out_dir, device=device,
-                               resume=args.resume)
+                               resume=args.resume, mesh=mesh)
     finally:
         tr.close()
         va.close()
@@ -419,6 +456,11 @@ def cmd_plan(args):
     from adaptigraph_tpu_torch.utils.config import load_planning_config
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:  # a mesh only for more than one device, as the JAX command
+        n_dev = int(args.mesh) if args.mesh != "auto" else (
+            torch.cuda.device_count() if device.type == "cuda" else 1)
+        mesh = device_mesh(n_dev, device) if n_dev > 1 else None
     task = load_planning_config(args.config)
     tcfg, config = _task_objects(task)
     if args.n_actions:
@@ -457,9 +499,12 @@ def cmd_plan(args):
         tcfg.use_raw = False
     pm = PerceptionModule(stride=2, k_filter=tcfg.k_filter, obj_prompts=tcfg.obj_list,
                           max_n=tcfg.max_n, mask_fn=mask_fn)
+    if mesh is not None:
+        tcfg.mcfg = mesh_chunk(tcfg.mcfg, len(mesh))
     hist = run_plan(env, params, tcfg, target, pm=pm, save_dir=args.save_dir, seed=args.seed,
                     use_ppo=not args.no_ppo, resume=args.resume, true_phys=true_phys,
-                    phys_override=phys_override, ppo_warmup=args.ppo_warmup, device=device)
+                    phys_override=phys_override, ppo_warmup=args.ppo_warmup, device=device,
+                    mesh=mesh)
     if args.save_dir:
         from adaptigraph_tpu_torch.utils.viz import plot_planning_progress
 
@@ -577,6 +622,9 @@ def build_parser():
     t.add_argument("--epochs", type=int)
     t.add_argument("--iters", type=int, help="train iters per epoch override")
     t.add_argument("--batch_size", type=int)
+    t.add_argument("--n_devices", type=int, default=1,
+                   help="data parallel over this many cards (with --device cpu, shards on "
+                        "the CPU); 1 = one device")
     t.add_argument("--num_workers", type=int, default=4,
                    help="batch-assembly worker processes; only with --slow_loader")
     t.add_argument("--steps_per_call", type=int, default=20,
@@ -628,6 +676,8 @@ def build_parser():
                     help="continue an interrupted run from --save_dir")
     pl.add_argument("--verify", action="store_true",
                     help="execute only pushes predicted to improve; stop when converged")
+    pl.add_argument("--mesh", help="shard each solve's sample budget over 'auto' (every card) "
+                                   "or this many devices (with --device cpu, shards on the CPU)")
     pl.add_argument("--sim_mask", action="store_true",
                     help="colour-spread mask_fn: the non-use_raw perception path")
     pl.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -41,6 +41,7 @@
 // (i + k) mod Np, every slot real (no distance work); -DGNN_ABLATE_NO_GATHER
 // makes every edge's sender its receiver (no gather), on the graph built.
 
+#include "device_guard.cuh"
 #include "gnn_common.cuh"
 
 namespace {
@@ -158,6 +159,7 @@ int grid_blocks(int B, int keep, size_t smem, int device, int* out) {
 
 template <typename T>
 int launch(const Params& p, int grid, int device, cudaStream_t stream) {
+  const CurrentDeviceGuard restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
@@ -219,6 +221,7 @@ int gnn_forward_smem_bytes(int Np, int K, int radius, int bf16_mode) {
 // is 0); returns a CUDA error code, 0 on success.
 int gnn_forward_grid(int B, int Np, int K, int radius, int keep, int bf16_mode, int device,
                      int* blocks) {
+  const CurrentDeviceGuard restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = smem_layout(Np, K, false, radius != 0, bf16_mode != 0).total;

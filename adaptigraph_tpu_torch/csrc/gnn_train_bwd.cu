@@ -50,6 +50,7 @@
 
 #include <type_traits>
 
+#include "device_guard.cuh"
 #include "gnn_common.cuh"
 
 namespace {
@@ -459,6 +460,7 @@ int gnn_train_bwd_launch(const void* nodes, const void* nbr, const void* mask, c
   for (int i = 0; i <= kNumWeights; ++i) p.goff[i] = goff[i];
   p.d = Dims{Np, N, n_p, K, n_his, pstep, Dp, D, nf_p, nf_r, nf, rel_in};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CurrentDeviceGuard restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = smem_layout(Np, K, true, false, bf16_mode != 0).total;

@@ -70,6 +70,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "edge_build.cuh"
 #include "mma.cuh"
 
@@ -1120,6 +1121,7 @@ template <> int smem_bytes<bf16>(const Dims& d) { return make_tc_layout(d).total
 
 template <typename T>
 int launch(const Params& p, int B, int device, cudaStream_t stream) {
+  const CurrentDeviceGuard restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)smem_bytes<T>(p.d);

@@ -11,7 +11,23 @@ optax's global-norm clip. ``make_train_steps`` / ``make_eval_steps`` run K
 steps per call over a stacked superbatch: on the card one step captured in a
 CUDA graph and replayed K times (the JAX ``lax.scan``). ``train`` adds the
 epoch loop with validation, the metrics log, checkpoints that the JAX
-package can read, loss curves and ``resume``. One device; no mesh.
+package can read, loss curves and ``resume``.
+
+Data parallel (the JAX ``shard_map`` step): with a ``mesh`` of more than one
+entry (``parallel/mesh.py``, a device list) the parameter leaves and the
+Adam state are replicated, one copy per entry, and the batch is split into
+one equal part per entry. Each shard runs ``multi_step_loss`` and its
+gradient (K2 and K3 on a card) on its device; the per-shard losses and
+gradients are averaged as JAX's ``pmean`` averages them, the plain mean of
+the shard means, summed on ``mesh[0]`` in shard order, and every replica
+takes the same Adam step with the mean copied to it, so the replicas stay
+equal. Two departures, kept: the augmentation is drawn for the whole batch
+from the caller's generator and split by shard (JAX folds the shard index
+into each shard's key), so the sharded step augments as the unsharded one
+does; and K steps per call on a mesh of more than one entry run as a loop of
+sharded steps, not a CUDA graph (a graph captures one device's stream). On
+a one-entry mesh the sharded step is the unsharded step bit for bit, and
+its K steps are the unsharded ones, graph included.
 """
 
 import dataclasses
@@ -28,6 +44,8 @@ from adaptigraph_tpu_torch.models.gnn import GNNConfig, init_params, params_from
 from adaptigraph_tpu_torch.ops import fused_gnn, fused_gnn_train
 from adaptigraph_tpu_torch.ops.fused_gnn_train import make_fused_train_forward
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig, build_neighbor_graph_batch
+from adaptigraph_tpu_torch.parallel.mesh import (count_launches, device_scope, launch_tallies,
+                                                 replicate, split_batch)
 from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
 
@@ -95,15 +113,30 @@ def draw_augment(batch, generator, state_noise, phys_noise):
     """The random draws of one augmentation, from ``generator`` on the
     batch's device: uniform state noise in [-state_noise, state_noise], one
     angle per sample in [-pi, pi], uniform physics noise."""
-    state, phys = batch["state"], batch["physics_param"]
+    return _draws(batch["state"].shape, batch["physics_param"].shape, batch["state"].device,
+                  generator, state_noise, phys_noise)
 
+
+def _draws(state_shape, phys_shape, device, generator, state_noise, phys_noise):
     def uniform(shape, lo, hi):
-        u = torch.rand(shape, generator=generator, device=state.device, dtype=torch.float32)
+        u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
         return lo + (hi - lo) * u
 
-    return {"noise": uniform(state.shape, -state_noise, state_noise),
-            "theta": uniform(state.shape[:1], -np.pi, np.pi),
-            "phys_noise": uniform(phys.shape, -phys_noise, phys_noise)}
+    return {"noise": uniform(state_shape, -state_noise, state_noise),
+            "theta": uniform(state_shape[:1], -np.pi, np.pi),
+            "phys_noise": uniform(phys_shape, -phys_noise, phys_noise)}
+
+
+def draw_augment_shards(shards, generator, state_noise, phys_noise):
+    """``draw_augment`` for the batch whose parts are ``shards``: the whole
+    batch's draws, made on the first shard's device in the unsharded step's
+    order, split by shard and each part copied to its shard's device."""
+    sizes = [b["state"].shape[0] for b in shards]
+    state, phys = shards[0]["state"], shards[0]["physics_param"]
+    whole = _draws((sum(sizes),) + tuple(state.shape[1:]), (sum(sizes),) + tuple(phys.shape[1:]),
+                   state.device, generator, state_noise, phys_noise)
+    parts = {k: torch.split(v, sizes) for k, v in whole.items()}
+    return [{k: parts[k][i].to(b["state"].device) for k in whole} for i, b in enumerate(shards)]
 
 
 def augment(batch, noise, theta, phys_noise):
@@ -191,14 +224,53 @@ def adam_step(leaves, grads, state, lr, clip_norm=0.0):
         p.add_(-lr * ((mu / c1) / (torch.sqrt(nu / c2) + eps)))
 
 
-def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
+# the wrappers whose ``launches`` counters a train or eval step bumps (K2,
+# K3), held here so that a caller's patch of the module attribute (a plain
+# version in place of the kernel) leaves the counters in place
+_LAUNCH_COUNTERS = (fused_gnn.gnn_forward, fused_gnn_train.gnn_train_bwd)
+
+
+def pmean(values, device):
+    """The plain mean of per-shard values, as JAX's ``pmean`` takes it: the
+    values summed on ``device`` in shard order, then divided by their count."""
+    total = values[0].to(device)
+    for v in values[1:]:
+        total = total + v.to(device)
+    return total / len(values)
+
+
+def _shard_parts(mesh, shards, gnn_cfg, hyper, generator, state_noise, phys_noise):
+    """Each shard's expanded batch, augmented with its part of the whole
+    batch's draws when augmentation is on."""
+    shards = [expand_compact_batch(b, gnn_cfg) for b in shards]
+    if not hyper.use_augmentation:
+        return shards
+    draws = draw_augment_shards(shards, generator, state_noise, phys_noise)
+    out = []
+    for d, b, dr in zip(mesh, shards, draws):
+        with device_scope(d):
+            out.append(augment(b, **dr))
+    return out
+
+
+def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None,
+                    mesh=None):
     """``step(leaves, opt_state, batch, generator) -> loss``: one optimizer
     step in place on the parameter leaves (``LEAF_ORDER``, float32,
     requiring grad) and the Adam state, through ``fused_fn``
     (``fused_train_fn``'s function; None builds the float32 one). The
     parameters, the Adam state, the loss and the gradients stay float32
-    whatever dtype ``fused_fn`` computes in."""
+    whatever dtype ``fused_fn`` computes in.
+
+    With ``mesh``: ``step(replicas, opt_states, shards, generator) -> loss``
+    on ``mesh[0]``, with ``replicate``'s copies of the leaves and the Adam
+    state and ``shard_batch``'s parts of the batch, one per entry (see the
+    module docstring). ``step.shard_launches`` holds, per shard, the K2 and
+    K3 launches (``gnn_forward``, ``gnn_train_bwd``) its work made, summed
+    over the calls."""
     fused_fn = fused_fn or fused_train_fn(gnn_cfg, edge_cfg)
+    if mesh is not None:
+        return _sharded_train_step(gnn_cfg, edge_cfg, hyper, fused_fn, list(mesh))
 
     def step(leaves, opt_state, batch, generator):
         batch = expand_compact_batch(batch, gnn_cfg)
@@ -214,10 +286,36 @@ def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper,
     return step
 
 
-def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
+def _sharded_train_step(gnn_cfg, edge_cfg, hyper, fused_fn, mesh):
+    def step(replicas, opt_states, shards, generator):
+        shards = _shard_parts(mesh, shards, gnn_cfg, hyper, generator, hyper.state_noise_train,
+                              hyper.phys_noise_train)
+        losses, grads = [], []
+        for d, leaves, batch, tally in zip(mesh, replicas, shards, step.shard_launches):
+            with device_scope(d), count_launches(_LAUNCH_COUNTERS, tally):
+                loss = multi_step_loss(ckpt.tree_from_leaves(leaves), batch, gnn_cfg, edge_cfg,
+                                       hyper.n_future, hyper.store_rest_state, fused_fn)
+                grads.append(torch.autograd.grad(loss, leaves))
+            losses.append(loss.detach())
+        mean = [pmean(g, mesh[0]) for g in zip(*grads)]
+        for d, leaves, state in zip(mesh, replicas, opt_states):
+            with device_scope(d):
+                adam_step(leaves, [g.to(d) for g in mean], state, hyper.lr, hyper.grad_clip_norm)
+        return pmean(losses, mesh[0])
+
+    step.shard_launches = launch_tallies(_LAUNCH_COUNTERS, len(mesh))
+    return step
+
+
+def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None,
+                   mesh=None):
     """``evaluate(leaves, batch, generator) -> loss`` with the validation
-    noise, through ``fused_fn`` (None: the float32 one)."""
+    noise, through ``fused_fn`` (None: the float32 one). With ``mesh``:
+    ``evaluate(replicas, shards, generator)``, the ``pmean`` of the shards'
+    losses on ``mesh[0]``."""
     fused_fn = fused_fn or fused_train_fn(gnn_cfg, edge_cfg)
+    if mesh is not None:
+        return _sharded_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn, list(mesh))
 
     @torch.no_grad()
     def evaluate(leaves, batch, generator):
@@ -231,10 +329,21 @@ def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, 
     return evaluate
 
 
-# the wrappers whose ``launches`` counters a train or eval step bumps (K2,
-# K3), held here so that a caller's patch of the module attribute (a plain
-# version in place of the kernel) leaves the counters in place
-_LAUNCH_COUNTERS = (fused_gnn.gnn_forward, fused_gnn_train.gnn_train_bwd)
+def _sharded_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn, mesh):
+    @torch.no_grad()
+    def evaluate(replicas, shards, generator):
+        shards = _shard_parts(mesh, shards, gnn_cfg, hyper, generator, hyper.state_noise_valid,
+                              hyper.phys_noise_valid)
+        losses = []
+        for d, leaves, batch, tally in zip(mesh, replicas, shards, evaluate.shard_launches):
+            with device_scope(d), count_launches(_LAUNCH_COUNTERS, tally):
+                losses.append(multi_step_loss(ckpt.tree_from_leaves(leaves), batch, gnn_cfg,
+                                              edge_cfg, hyper.n_future, hyper.store_rest_state,
+                                              fused_fn))
+        return pmean(losses, mesh[0])
+
+    evaluate.shard_launches = launch_tallies(_LAUNCH_COUNTERS, len(mesh))
+    return evaluate
 
 
 def _n_slices(superbatch):
@@ -319,13 +428,20 @@ class GraphedStep:
         return out
 
 
-def make_train_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
+def make_train_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None,
+                     mesh=None):
     """``steps(leaves, opt_state, superbatch, generator) -> losses (K,)``: K
     optimizer steps over a (K, B, ...) superbatch, each with the numerics of
     ``make_train_step`` (the JAX ``make_train_steps``, a ``lax.scan`` whose
     body is compiled once). On CUDA tensors one step is captured in a CUDA
     graph and replayed per slice (``GraphedStep``, ``steps.graphed``); on
-    CPU tensors it is a loop of the step."""
+    CPU tensors it is a loop of the step.
+
+    With ``mesh``: ``steps(replicas, opt_states, superbatches, generator)``
+    with ``shard_batch(superbatch, mesh, batch_axis=1)``'s parts; a
+    one-entry mesh runs the unsharded steps on its copies (the graph on a
+    card), a longer one a loop of ``make_train_step(mesh=mesh)``'s step
+    (``steps.shard_launches``)."""
     step = make_train_step(gnn_cfg, edge_cfg, hyper, fused_fn)
     graphed = GraphedStep(step)
 
@@ -336,13 +452,17 @@ def make_train_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper
                             for k in range(_n_slices(superbatch))])
 
     steps.graphed = graphed
-    return steps
+    return _steps_on(steps, mesh, lambda: make_train_step(gnn_cfg, edge_cfg, hyper, fused_fn,
+                                                          mesh))
 
 
-def make_eval_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None):
+def make_eval_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None,
+                    mesh=None):
     """``evaluate(leaves, superbatch, generator) -> losses (K,)``: K eval
     steps (``make_eval_step``'s) over a (K, B, ...) superbatch; on CUDA
-    tensors one captured in a CUDA graph and replayed per slice."""
+    tensors one captured in a CUDA graph and replayed per slice. With
+    ``mesh``: ``evaluate(replicas, superbatches, generator)``, as
+    ``make_train_steps``."""
     evaluate = make_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn)
     graphed = GraphedStep(evaluate)
 
@@ -353,7 +473,38 @@ def make_eval_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper,
                             for k in range(_n_slices(superbatch))])
 
     steps.graphed = graphed
-    return steps
+    return _steps_on(steps, mesh, lambda: make_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn,
+                                                         mesh))
+
+
+def _steps_on(steps, mesh, make_sharded):
+    """K steps per call for a mesh's calling convention (per-entry lists of
+    the state arguments and of the superbatch, then the generator). A
+    graph captures one device's stream, so a one-entry mesh runs ``steps``
+    (the unsharded K steps, the graph on a card) on the entry's parts; the
+    sharded step of one entry is the unsharded step bit for bit. A longer
+    mesh loops ``make_sharded()``'s step over the slices.
+    ``shard_launches``: each shard's K2 and K3 launches, summed over the
+    calls."""
+    if mesh is None:
+        return steps
+    if len(mesh) == 1:
+        def run(*args):
+            with count_launches(_LAUNCH_COUNTERS, run.shard_launches[0]):
+                return steps(*[a[0] for a in args[:-1]], args[-1])
+
+        run.graphed = steps.graphed
+        run.shard_launches = launch_tallies(_LAUNCH_COUNTERS, 1)
+        return run
+    sharded = make_sharded()
+
+    def looped(*args):
+        *state, superbatches, generator = args
+        return torch.stack([sharded(*state, [_slice(sb, k) for sb in superbatches], generator)
+                            for k in range(_n_slices(superbatches[0]))])
+
+    looped.shard_launches = sharded.shard_launches
+    return looped
 
 
 class DevicePrefetcher:
@@ -362,13 +513,17 @@ class DevicePrefetcher:
     sent on a side CUDA stream, so the copy overlaps the previous step; the
     consumer's stream waits for the copy's event. On the CPU it only wraps
     the arrays as tensors. An exception in the thread is raised in the
-    consumer."""
+    consumer. With ``mesh``, each batch is split along ``batch_axis`` into
+    one part per entry (``parallel.mesh.split_batch``), each staged onto its
+    own device, and the consumer gets the list of parts."""
 
-    def __init__(self, loader, device, depth=2):
+    def __init__(self, loader, device, depth=2, mesh=None, batch_axis=0):
         self._loader = loader
-        self._device = torch.device(device)
-        self._cuda = self._device.type == "cuda"
-        self._stream = torch.cuda.Stream(self._device) if self._cuda else None
+        self._mesh = None if mesh is None else [torch.device(d) for d in mesh]
+        self._devices = self._mesh or [torch.device(device)]
+        self._batch_axis = batch_axis
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self._devices]
         self._q = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -376,14 +531,20 @@ class DevicePrefetcher:
 
     def _stage(self, batch):
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
-        if not self._cuda:
-            return host, None
-        host = {k: v.pin_memory() for k, v in host.items()}
-        with torch.cuda.stream(self._stream):
-            dev = {k: v.to(self._device, non_blocking=True) for k, v in host.items()}
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        return dev, (done, host)
+        parts = ([host] if self._mesh is None
+                 else split_batch(host, len(self._mesh), self._batch_axis))
+        staged = []
+        for d, stream, part in zip(self._devices, self._streams, parts):
+            if stream is None:
+                staged.append((part, None))
+                continue
+            part = {k: v.pin_memory() for k, v in part.items()}
+            with torch.cuda.stream(stream):
+                dev = {k: v.to(d, non_blocking=True) for k, v in part.items()}
+                done = torch.cuda.Event()
+                done.record(stream)
+            staged.append((dev, (done, part)))
+        return staged
 
     def _put(self, item):
         while not self._stop.is_set():
@@ -409,14 +570,16 @@ class DevicePrefetcher:
         item = self._q.get()
         if isinstance(item, Exception):
             raise item
-        batch, pending = item
-        if pending is not None:
-            done, _host = pending  # the pinned buffers live until the copy is waited for
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(done)
-            for v in batch.values():
-                v.record_stream(stream)
-        return batch
+        batches = []
+        for d, (batch, pending) in zip(self._devices, item):
+            if pending is not None:
+                done, _host = pending  # the pinned buffers live until the copy is waited for
+                stream = torch.cuda.current_stream(d)
+                stream.wait_event(done)
+                for v in batch.values():
+                    v.record_stream(stream)
+            batches.append(batch)
+        return batches if self._mesh is not None else batches[0]
 
     def close(self):
         self._stop.set()
@@ -445,7 +608,7 @@ def _start_epoch(out_dir):
 
 
 def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loader, valid_loader,
-          out_dir, device="cuda", log_every=50, params=None, resume=False):
+          out_dir, device="cuda", log_every=50, params=None, resume=False, mesh=None):
     """The training loop: ``hyper.n_epochs`` epochs of ``n_iters_train``
     optimizer steps and ``n_iters_valid`` validation batches each, a metrics
     line (``metrics.jsonl``), a checkpoint (``checkpoints/``) and the loss
@@ -454,9 +617,15 @@ def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loa
     ``make_eval_steps`` (on the card a CUDA graph per step kind). The train
     loss of an epoch is the mean over the logged calls' steps. With
     ``resume``, the latest parameters and optimizer state in ``out_dir`` are
-    restored and the epoch count continues. Returns (params, curves)."""
+    restored and the epoch count continues. With ``mesh`` (a device list,
+    ``parallel.mesh.make_mesh``) each batch is split over its entries and
+    every step is data parallel (the module docstring); the run's device is
+    ``mesh[0]``. Returns (params, curves)."""
     from adaptigraph_tpu_torch.utils.metrics import MetricsLogger
 
+    if mesh is not None:
+        mesh = [torch.device(d) for d in mesh]
+        device = mesh[0]
     device = torch.device(device)
     os.makedirs(out_dir, exist_ok=True)
     if params is None:
@@ -486,21 +655,25 @@ def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loa
     K = getattr(train_loader, "stack_steps", 1)
     KV = getattr(valid_loader, "stack_steps", 1)
     if K > 1:
-        step = make_train_steps(gnn_cfg, edge_cfg, hyper)
+        step = make_train_steps(gnn_cfg, edge_cfg, hyper, mesh=mesh)
     else:
-        one_step = make_train_step(gnn_cfg, edge_cfg, hyper)
+        one_step = make_train_step(gnn_cfg, edge_cfg, hyper, mesh=mesh)
 
         def step(leaves, opt_state, batch, generator):
             return one_step(leaves, opt_state, batch, generator)[None]
     if KV > 1:
-        evaluate = make_eval_steps(gnn_cfg, edge_cfg, hyper)
+        evaluate = make_eval_steps(gnn_cfg, edge_cfg, hyper, mesh=mesh)
     else:
-        one_eval = make_eval_step(gnn_cfg, edge_cfg, hyper)
+        one_eval = make_eval_step(gnn_cfg, edge_cfg, hyper, mesh=mesh)
 
         def evaluate(leaves, batch, generator):
             return one_eval(leaves, batch, generator)[None]
-    train_stage = DevicePrefetcher(train_loader, device)
-    valid_stage = DevicePrefetcher(valid_loader, device)
+    # on a mesh the steps take one copy of the leaves and of the Adam state
+    # per entry; the first copies are the ones saved
+    if mesh is not None:
+        leaves, opt_state = replicate(leaves, mesh), replicate(opt_state, mesh)
+    train_stage = DevicePrefetcher(train_loader, device, mesh=mesh, batch_axis=int(K > 1))
+    valid_stage = DevicePrefetcher(valid_loader, device, mesh=mesh, batch_axis=int(KV > 1))
     metrics = MetricsLogger(out_dir)
     curves = {"train": [], "valid": []}
     n_calls_train = max(1, hyper.n_iters_train // K)
@@ -522,10 +695,11 @@ def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loa
             metrics.log("epoch", step=epoch, train_loss=curves["train"][-1],
                         valid_loss=curves["valid"][-1], seconds=time.time() - t0,
                         train_seconds=train_seconds, train_steps=n_calls_train * K)
-            ckpt.save_checkpoint(out_dir, epoch, params_to_numpy(ckpt.tree_from_leaves(leaves)),
-                                 {"count": int(opt_state["count"]),
-                                  "mu": [t.cpu().numpy() for t in opt_state["mu"]],
-                                  "nu": [t.cpu().numpy() for t in opt_state["nu"]]})
+            saved, saved_state = (leaves, opt_state) if mesh is None else (leaves[0], opt_state[0])
+            ckpt.save_checkpoint(out_dir, epoch, params_to_numpy(ckpt.tree_from_leaves(saved)),
+                                 {"count": int(saved_state["count"]),
+                                  "mu": [t.cpu().numpy() for t in saved_state["mu"]],
+                                  "nu": [t.cpu().numpy() for t in saved_state["nu"]]})
             np.savez(os.path.join(out_dir, "loss_curves.npz"),
                      **{k: np.asarray(v) for k, v in curves.items()})
             _plot_curves(curves, out_dir)
@@ -535,7 +709,8 @@ def train(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, train_loa
         train_stage.close()
         valid_stage.close()
         metrics.close()
-    return ckpt.tree_from_leaves([p.detach() for p in leaves]), curves
+    saved = leaves if mesh is None else leaves[0]
+    return ckpt.tree_from_leaves([p.detach() for p in saved]), curves
 
 
 def _plot_curves(curves, out_dir):

@@ -74,25 +74,32 @@ class TaskConfig:
 def make_reward_fn(task: TaskConfig, target, device="cuda"):
     """reward = -normalised final error - 5 * mean collision penalty
     - 5 * mean workspace penalty. The error is normalised by 2/max within
-    each scored batch (one MPPI chunk)."""
+    each scored batch (one MPPI chunk). The target and the workspace box
+    are made on ``device`` and copied once to any other device whose chunks
+    are scored (the shards of a sharded solve)."""
     penalty = PENALTIES[task.penalty_type]
     bbox = (torch.as_tensor(task.workspace_bbox, dtype=torch.float32, device=device)
             if task.workspace_bbox is not None else None)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    on_device = {target.device: (target, bbox)}
 
     def reward_fn(state_seqs, act_seqs, state_cur):
+        dev = state_seqs.device
+        if dev not in on_device:
+            on_device[dev] = (target.to(dev), bbox.to(dev) if bbox is not None else None)
+        target_d, bbox_d = on_device[dev]
         B = state_seqs.shape[0]
         final = state_seqs[:, -1]
         if task.target_type == "box":
-            error = box_loss(final, target)
+            error = box_loss(final, target_d)
         else:
-            error = chamfer(final, target[None].expand(B, *target.shape))
+            error = chamfer(final, target_d[None].expand(B, *target_d.shape))
         error_weight = 2.0 / (error.max() + 1e-6)
         r = -error_weight * error
         if penalty is not None:
             r = r - 5.0 * penalty(state_seqs, act_seqs, state_cur).mean(dim=1)
-        if bbox is not None:
-            r = r - 5.0 * bbox_penalty(state_seqs, bbox).mean(dim=1)
+        if bbox_d is not None:
+            r = r - 5.0 * bbox_penalty(state_seqs, bbox_d).mean(dim=1)
         return r
 
     return reward_fn
@@ -150,7 +157,7 @@ def _mid_action_seq(task: TaskConfig, device):
 
 def run_plan(env, params, task: TaskConfig, target, pm: PerceptionModule = None,
              save_dir=None, seed=0, use_ppo=True, verbose=True, state_fn=None, resume=False,
-             true_phys=None, phys_override=None, ppo_warmup=0, device="cuda"):
+             true_phys=None, phys_override=None, ppo_warmup=0, device="cuda", mesh=None):
     """Target-driven closed loop.
 
     env: an environment with ``SimRealEnv``'s contract. params: the nested
@@ -165,11 +172,13 @@ def run_plan(env, params, task: TaskConfig, target, pm: PerceptionModule = None,
     phys_override: plan with this fixed parameter instead of 0.5 when
     adaptation is off. ppo_warmup: execute this many uniformly random pushes
     before the MPC loop, recorded as interactions for the estimate.
+    mesh: a device list (``parallel.mesh.make_mesh``) over which each
+    solve's sample budget is sharded; the run's device is then ``mesh[0]``.
 
     Returns a dict with the per-step errors, actions and estimates, the
     initial error and the final estimate.
     """
-    device = torch.device(device)
+    device = torch.device(mesh[0] if mesh is not None else device)
     cd = _compute_dtype(device)
     pm = pm or PerceptionModule(stride=2)
     rng = np.random.RandomState(seed)
@@ -179,7 +188,7 @@ def run_plan(env, params, task: TaskConfig, target, pm: PerceptionModule = None,
 
     reward_fn = make_reward_fn(task, target, device)
     solve = make_mppi_solver(task.dcfg, task.mcfg, reward_fn, task.action_lower_lim,
-                             task.action_upper_lim, device=device, compute_dtype=cd)
+                             task.action_upper_lim, device=device, compute_dtype=cd, mesh=mesh)
     ppo = PhysicsParamOnlineOptimizer(
         task.dcfg, params, phys_dim=task.dcfg.gnn.phys_dim, save_dir=save_dir, seed=seed,
         device=device, compute_dtype=cd) if use_ppo else None

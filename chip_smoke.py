@@ -3,6 +3,8 @@
     python3 chip_smoke.py          # needs one CUDA card
     python3 chip_smoke.py --k1     # phases 0-3 alone: the rollout kernel, the solve
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
+    python3 chip_smoke.py --mesh   # phases 0-1 and 18: the multi-device paths
+    python3 chip_smoke.py --io     # phases 0-1 and 19: the real-robot I/O tier
 
 Phases, each printing JSON lines; any failure exits non-zero:
   0. card name and power limit, torch and CUDA versions; TF32 off.
@@ -109,11 +111,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
      falling loss; ``rollout --all_episodes`` with its K2 launches and step
      1 against the plain version (``softbody``). ``python3 chip_smoke.py
      --softbody`` runs phases 0-1 and this one alone.
+ 18. the multi-device paths (``mesh``), on every card there is and on card
+     0 named twice (two shards on one card): the rope solve sharded (K1 per
+     shard; 20,000 samples, 10 chunks, bf16, 2 iterations) against the
+     unsharded one, best reward and sequence bit for bit; the data-parallel
+     train step and K 10 steps (K2 and K3 per shard; B 128 at the fixture's
+     density, f32 and bf16) against the unsharded ones, the replicas equal
+     and the one-card mesh bit for bit; launches per shard; the current
+     device unchanged after each sharded call; ``train --n_devices 1``, a
+     refused ``--n_devices <cards + 1>``, ``plan --mesh auto`` and a two-shard
+     ``run_plan`` push equal to the unsharded one. ``--mesh`` runs phases 0-1
+     and the dataset, then this one.
+ 19. the real-robot I/O tier (``io``): four spawned synthetic cameras of the
+     rope plan's rig streaming through the port's shared-memory ring at 30
+     fps, the aligned frames equal to the renders, the state perceived from
+     them and a K1 solve from it equal to the direct ones, ``set_fps(5)``
+     through the command queues, no segment or process left. ``--io`` runs
+     phases 0-1 and this one.
 The last lines are the script's wall seconds, the kernel table, the card
 line, and the ok line. On every way out, the script ends the processes it
 started that still run (``stop_processes``).
 """
 
+import contextlib
 import ctypes
 import json
 import os
@@ -121,6 +141,7 @@ import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -2364,8 +2385,9 @@ def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32, config="rop
         return ckpt.tree_from_leaves([torch.nextafter(p, torch.zeros_like(p))
                                       for p in ckpt.tree_leaves(init(generator, cfg))])
 
-    def steps_recorded(gnn, edge, hyper):
-        steps = make_steps(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
+    def steps_recorded(gnn, edge, hyper, mesh=None):
+        steps = make_steps(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd),
+                           mesh=mesh)
 
         def recorded(*a):  # the K losses of each call
             losses.append(steps(*a))
@@ -2373,8 +2395,9 @@ def cli_train(prep, tag, plain=False, nudge=False, cd=torch.float32, config="rop
 
         return recorded
 
-    def eval_steps(gnn, edge, hyper):
-        return make_evals(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd))
+    def eval_steps(gnn, edge, hyper, mesh=None):
+        return make_evals(gnn, edge, hyper, fused_fn=train.fused_train_fn(gnn, edge, cd),
+                          mesh=mesh)
 
     argv = ["train", "--config", config, "--prep_dir", prep,
             "--out_dir", os.path.join(TRAIN_DIR, tag)] + args
@@ -3212,6 +3235,538 @@ def phase_softbody(dev):
                 k3_launches=k3_train + steps_launches[1])
 
 
+# ---------------------------------------------------------------------------
+# the multi-device paths (the sharded solve on K1, data-parallel training on
+# K2/K3) and the real-robot I/O tier
+# ---------------------------------------------------------------------------
+
+MESH_ITERS = 2  # update iterations of the sharded solve
+# K steps on several shards against the unsharded run (see mesh_train): the
+# runs agree on the first step and drift apart after it, as two sound runs
+# a float32 rounding apart do. Limits on the drift over the K steps: each
+# loss's relative difference, the share of leaf elements outside rtol 1e-4 /
+# atol 1e-6, and the largest leaf difference. Two shards on an H100 read
+# 5.6e-7, 3.0e-4 and 1.6e-5 in float32 and 4.8e-3, 2.1e-2 and 3.3e-4 in
+# bf16 (every step rounds the drifted weights to bf16); the limits sit 2-5x
+# above, the float32 loss's at the one-step gate's rtol 1e-5.
+K_STEP_LIMITS = {torch.float32: dict(loss_rtol=1e-5, leaf_frac=1e-3, leaf_max_abs=5e-5),
+                 torch.bfloat16: dict(loss_rtol=1e-2, leaf_frac=0.1, leaf_max_abs=1e-3)}
+MESH_REPS = 5  # timed calls per mesh, alternating with the unsharded ones
+
+
+def card_meshes():
+    """The two meshes every ``mesh`` check runs on: every card there is
+    (``make_mesh()``; one on a one-card machine) and card 0 named twice,
+    which runs the whole sharded code, two shards, on one card."""
+    from adaptigraph_tpu_torch.parallel.mesh import make_mesh
+
+    return {"all_cards": make_mesh(), "cuda0_twice": make_mesh(devices=["cuda:0", "cuda:0"])}
+
+
+def replicas_equal(reps, states):
+    """Whether every replica of the leaves and of the Adam state equals the
+    first bit for bit. Each is compared on the first replica's device: the
+    replicas of a mesh of several cards lie on different cards."""
+    def same(a, b):
+        return torch.equal(a.to(b.device), b)
+
+    return bool(all(same(a, b) for r in reps[1:] for a, b in zip(r, reps[0]))
+                and all(same(a, b) for s in states[1:] for n in ("mu", "nu")
+                        for a, b in zip(s[n], states[0][n]))
+                and all(int(s["count"]) == int(states[0]["count"]) for s in states))
+
+
+def on_same_device(fn):
+    """fn() (synchronised) and whether the thread's current CUDA device is
+    the one it was before."""
+    before = torch.cuda.current_device()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.current_device() == before
+
+
+def sync_ms(fn):
+    """Host ms of fn() between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mesh_solve(rope, dev, meshes):
+    """The rope solve (fixture weights, 20,000 samples in 10 chunks of
+    2,000, bf16 K1, MESH_ITERS iterations; on a mesh whose size does not
+    divide 10, the chunk that ``plan --mesh`` picks, ``cli.mesh_chunk``)
+    sharded over each mesh against the unsharded solve of the same budget
+    with the same generator seed: the best reward and the
+    best sequence equal bit for bit, the MPPI sequence and the best final
+    state within rtol 1e-4 / atol 1e-5 (``tests/test_fused_multichip.py``'s;
+    which tensors are bit-equal is reported too); K1's launches counted from
+    0: n_chunks per iteration in all, n_chunks / n per shard
+    (``solve.shard_launches``);
+    the current device unchanged by the call. ms per solve, sharded and
+    unsharded, alternating, median of MESH_REPS."""
+    import dataclasses
+
+    from adaptigraph_tpu_torch.cli import mesh_chunk
+    from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk
+    from adaptigraph_tpu_torch.planning.mppi_solve import make_mppi_solver
+
+    tcfg, params = rope[:2]
+    reward_fn, state, phys, lo, hi, act0 = rope_task(rope, dev)
+
+    def run(solve, seed=1):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return solve(params, state, act0, g, phys)
+
+    lines, launches = {}, 0
+    for name, mesh in meshes.items():
+        mcfg = mesh_chunk(dataclasses.replace(tcfg.mcfg, n_update_iter=MESH_ITERS), len(mesh))
+        n_chunks = mcfg.n_sample // mcfg.n_sample_chunk
+        plain = make_mppi_solver(tcfg.dcfg, mcfg, reward_fn, lo, hi, device=dev)
+        want = run(plain)
+        solve = make_mppi_solver(tcfg.dcfg, mcfg, reward_fn, lo, hi, device=dev, mesh=mesh)
+        fused_rollout_chunk.launches = 0
+        got, same_dev = on_same_device(lambda: run(solve))
+        total = fused_rollout_chunk.launches
+        launches += total
+        per_shard = [s["fused_rollout_chunk"] for s in solve.shard_launches]
+        exact = {k: bool(torch.equal(got[k], want[k])) for k in want}
+        close = all(torch.allclose(got[k], want[k], rtol=1e-4, atol=1e-5)
+                    for k in ("mppi_seq", "best_final_state"))
+        sharded_ms, plain_ms = [], []
+        for r in range(MESH_REPS):
+            sharded_ms.append(sync_ms(lambda: run(solve, 10 + r)))
+            plain_ms.append(sync_ms(lambda: run(plain, 10 + r)))
+        ok = (exact["best_reward"] and exact["act_seq"] and close and same_dev
+              and total == n_chunks * MESH_ITERS
+              and per_shard == [n_chunks * MESH_ITERS // len(mesh)] * len(mesh))
+        lines[name] = dict(devices=[str(d) for d in mesh], n_sample_chunk=mcfg.n_sample_chunk,
+                           k1_launches=total,
+                           k1_launches_per_shard=per_shard, bit_equal=exact, within_tol=close,
+                           current_device_unchanged=same_dev,
+                           best_reward=float(got["best_reward"]),
+                           ms_per_solve_sharded=float(np.median(sharded_ms)),
+                           ms_per_solve_unsharded=float(np.median(plain_ms)), ok=bool(ok))
+    return lines, launches
+
+
+def mesh_train(dev, meshes, K=10):
+    """The data-parallel train step at the rope config's width on B 128 at
+    the fixture's density (``fixture_batch``, ~960 real edges a sample;
+    augmentation on, drawn for the whole batch and split), f32 and bf16: one
+    ``make_train_step`` and one ``make_train_steps`` call of K steps over
+    each mesh (``replicate``'s copies, ``shard_batch``'s parts) against the
+    unsharded step and steps from the same weights, batch and generator
+    seed. Gates: the step's loss within rtol 1e-5 and its leaves within rtol
+    1e-4 / atol 1e-6 (``tests/test_fused_multichip.py``'s); the K steps
+    equal K calls of the sharded step bit for bit; against the unsharded K
+    steps their first loss (same weights) within rtol 1e-5, and after it the
+    runs drift apart as two correct runs that differ in float32 rounding do
+    (the mean of the shard means rounds otherwise than the full-batch mean;
+    Adam's step on a gradient element near 0 takes its sign; bf16 rounds the
+    drifted weights), within K_STEP_LIMITS (``drift``). On the one-card mesh
+    all bit for bit (graph included). The replicas equal bit for bit,
+    compared on the first replica's device; K2 and K3 launched 3 and 3
+    times a step on each shard; the current device unchanged. ms per step,
+    sharded and unsharded, alternating (host ms between synchronisations,
+    median of MESH_REPS)."""
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.parallel.mesh import replicate, shard_batch
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    gnn, edge, _, hyper = train_objects(load_dynamics_config("rope"))
+    batch = fixture_batch("rope", dev)[0]
+    parts = [fixture_batch("rope", dev, seed=60 + k)[0] for k in range(K)]
+    sb = {n: torch.stack([p[n] for p in parts]) for n in parts[0]}
+    base = ckpt.tree_leaves(init_params(torch.Generator().manual_seed(0), gnn))
+
+    def fresh(mesh):
+        leaves = [p.to(dev).clone().requires_grad_(True) for p in base]
+        state = train.adam_init(leaves)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        if mesh is None:
+            return leaves, state, gen
+        return replicate(leaves, mesh), replicate(state, mesh), gen
+
+    def matches(loss, leaves, ref_loss, ref_leaves, exact):
+        if exact:
+            return bool(torch.equal(loss, ref_loss)
+                        and all(torch.equal(a, b) for a, b in zip(leaves, ref_leaves)))
+        return bool(torch.allclose(loss, ref_loss, rtol=1e-5, atol=0)
+                    and all(torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+                            for a, b in zip(leaves, ref_leaves)))
+
+    def drift(losses, ref_losses, leaves, ref_leaves, cd):
+        """How far the K steps' losses and leaves drifted from the unsharded
+        run's, and whether within the K-step gate."""
+        rel = ((losses - ref_losses).abs() / ref_losses.abs()).tolist()
+        diff = torch.cat([(a.detach() - b).abs().flatten() for a, b in zip(leaves, ref_leaves)])
+        over = diff > torch.cat([(1e-6 + 1e-4 * b.abs()).flatten() for b in ref_leaves])
+        lim = K_STEP_LIMITS[cd]
+        out = dict(loss_rel_diff_per_step=rel, leaf_frac_over_tol=float(over.double().mean()),
+                   leaf_max_abs_diff=float(diff.max()), limits=lim)
+        out["ok"] = bool(rel[0] <= 1e-5 and max(rel) <= lim["loss_rtol"]
+                         and out["leaf_frac_over_tol"] <= lim["leaf_frac"]
+                         and out["leaf_max_abs_diff"] <= lim["leaf_max_abs"])
+        return out
+
+    def step_loop(mesh, parts_k):
+        """K calls of the sharded step on fresh replicas: the losses and the
+        first replica."""
+        reps, states, g = fresh(mesh)
+        step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
+        losses = torch.stack([step(reps, states, [{n: v[k] for n, v in p.items()}
+                                                  for p in parts_k], g) for k in range(K)])
+        return losses, reps[0]
+
+    lines, launches = {}, [0, 0]
+    for cd in (torch.float32, torch.bfloat16):
+        dname = str(cd).split(".")[-1]
+        fused = train.fused_train_fn(gnn, edge, cd)
+        leaves, state, gen = fresh(None)
+        one = train.make_train_step(gnn, edge, hyper, fused_fn=fused)
+        ref_loss = one(leaves, state, batch, gen)
+        ref_leaves = [p.detach().clone() for p in leaves]
+        leaves_k, state_k, gen_k = fresh(None)
+        ref_steps = train.make_train_steps(gnn, edge, hyper, fused_fn=fused)
+        ref_losses = ref_steps(leaves_k, state_k, sb, gen_k)
+        ref_leaves_k = [p.detach().clone() for p in leaves_k]
+        for name, mesh in meshes.items():
+            n = len(mesh)
+            reps, states, g = fresh(mesh)
+            step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
+            one_batch = shard_batch(batch, mesh)
+            gnn_forward.launches = gnn_train_bwd.launches = 0
+            loss, same1 = on_same_device(lambda: step(reps, states, one_batch, g))
+            step_launches = [gnn_forward.launches, gnn_train_bwd.launches]
+            reps_k, states_k, g_k = fresh(mesh)
+            steps = train.make_train_steps(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
+            parts_k = shard_batch(sb, mesh, batch_axis=1)
+            gnn_forward.launches = gnn_train_bwd.launches = 0
+            losses, same2 = on_same_device(lambda: steps(reps_k, states_k, parts_k, g_k))
+            steps_launches = [gnn_forward.launches, gnn_train_bwd.launches]
+            launches = [a + b + c for a, b, c in zip(launches, step_launches, steps_launches)]
+            # per shard: the step's K2, K3, the K steps' K2, K3
+            per_shard = [[a["gnn_forward"], a["gnn_train_bwd"], b["gnn_forward"],
+                          b["gnn_train_bwd"]]
+                         for a, b in zip(step.shard_launches, steps.shard_launches)]
+            step_ok = matches(loss, reps[0], ref_loss, ref_leaves, n == 1)
+            steps_drift = drift(losses, ref_losses, reps_k[0], ref_leaves_k, cd)
+            steps_ok = (matches(losses, reps_k[0], ref_losses, ref_leaves_k, True) if n == 1
+                        else steps_drift["ok"])
+            loop_losses, loop_leaves = step_loop(mesh, parts_k)
+            loop_ok = matches(losses, reps_k[0], loop_losses, loop_leaves, True)
+            reps_ok = replicas_equal(reps, states) and replicas_equal(reps_k, states_k)
+            record = dict(
+                shards=n, tolerance="bit for bit" if n == 1 else "loss rtol 1e-5, leaves "
+                                                                  "rtol 1e-4 atol 1e-6",
+                step_loss=float(loss), unsharded_step_loss=float(ref_loss),
+                steps_last_loss=float(losses[-1]), unsharded_steps_last_loss=float(ref_losses[-1]),
+                steps_drift=steps_drift, step_matches=step_ok, steps_matches=steps_ok,
+                steps_equal_step_loop=loop_ok,
+                replicas_equal=reps_ok,
+                launches_per_shard_step_k2_k3_steps_k2_k3=per_shard,
+                current_device_unchanged=same1 and same2)
+            timed = {"sharded": [], "unsharded": [], "sharded_k_steps": [], "unsharded_k_steps": []}
+            for _ in range(MESH_REPS):
+                timed["sharded"].append(sync_ms(lambda: step(reps, states, one_batch, g)))
+                timed["unsharded"].append(sync_ms(lambda: one(leaves, state, batch, gen)))
+                timed["sharded_k_steps"].append(
+                    sync_ms(lambda: steps(reps_k, states_k, parts_k, g_k)) / K)
+                timed["unsharded_k_steps"].append(
+                    sync_ms(lambda: ref_steps(leaves_k, state_k, sb, gen_k)) / K)
+            ok = (step_ok and steps_ok and loop_ok and reps_ok and same1 and same2
+                  and per_shard == [[3, 3, 3 * K, 3 * K]] * n)
+            lines[f"{dname}_{name}"] = dict(record, **{f"ms_per_step_{k}": float(np.median(v))
+                                                       for k, v in timed.items()}, ok=bool(ok))
+    return lines, launches
+
+
+def mesh_cli(prep, rope, dev, meshes):
+    """The CLI on a mesh: ``train --config rope --n_devices 1
+    --steps_per_call 10`` for 20 steps on the synthetic dataset in process
+    (K2/K3 launches counted, a finite loss, the checkpoint written); ``train
+    --n_devices <cards + 1>`` exits non-zero; ``plan --config rope --ckpt_dir
+    fixtures/rope_demo --n_actions 1 --mesh auto`` in process (on one card
+    the unsharded path, as in JAX; K1 launches as ``plan_k1_launches``); on
+    a machine with several cards also ``train --n_devices <cards>``; and
+    ``run_plan`` for one push on card 0 named twice, whose executed action
+    and error must equal the unsharded plan's."""
+    from adaptigraph_tpu_torch import cli
+    from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk, gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.planning.closed_loop import run_plan
+    from adaptigraph_tpu_torch.realworld.env import SimRealEnv
+    from adaptigraph_tpu_torch.realworld.perception import PerceptionModule
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+    from adaptigraph_tpu_torch.utils.config import load_planning_config
+
+    out = os.path.join(TRAIN_DIR, "mesh_train")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["train", "--config", "rope", "--prep_dir", prep, "--out_dir", out, "--epochs", "1",
+            "--iters", "20", "--batch_size", str(B_TRAIN), "--steps_per_call", "10"]
+    gnn_forward.launches = gnn_train_bwd.launches = 0
+    t0 = time.time()
+    _, curves = cli.main(argv + ["--n_devices", "1"])
+    train_line = dict(argv=argv[1:] + ["--n_devices", "1"], seconds=time.time() - t0,
+                      k2_launches=gnn_forward.launches, k3_launches=gnn_train_bwd.launches,
+                      k2_launches_expected=20 * 3 + 10 * 3, k3_launches_expected=20 * 3,
+                      train_loss=curves["train"][-1], valid_loss=curves["valid"][-1],
+                      checkpoint=os.path.exists(ckpt.latest_name(out)))
+    train_ok = (np.isfinite(curves["train"][-1]) and train_line["checkpoint"]
+                and (train_line["k2_launches"], train_line["k3_launches"]) == (90, 60))
+    n_cards = torch.cuda.device_count()
+    every_card = None
+    if n_cards > 1:  # data parallel over every card, the prefetcher staging each shard
+        out_n = os.path.join(TRAIN_DIR, "mesh_train_cards")
+        shutil.rmtree(out_n, ignore_errors=True)
+        argv_n = argv[:argv.index("--out_dir") + 1] + [out_n] + argv[argv.index("--out_dir") + 2:]
+        gnn_forward.launches = gnn_train_bwd.launches = 0
+        _, curves_n = cli.main(argv_n + ["--n_devices", str(n_cards)])
+        every_card = dict(n_devices=n_cards, k2_launches=gnn_forward.launches,
+                          k3_launches=gnn_train_bwd.launches, train_loss=curves_n["train"][-1],
+                          train_loss_one_device=curves["train"][-1])
+        every_card["ok"] = bool((every_card["k2_launches"], every_card["k3_launches"])
+                                == (90 * n_cards, 60 * n_cards)
+                                and np.isfinite(curves_n["train"][-1]))
+    too_many = str(n_cards + 1)
+    try:
+        cli.main(argv + ["--n_devices", too_many, "--epochs", "1"])
+        refused = None
+    except SystemExit as e:
+        refused = str(e.code)
+    refused_ok = refused is not None and refused not in ("0", "None")
+
+    fixture = os.path.join(ROOT, "fixtures", "rope_demo")
+    tcfg, _ = cli._task_objects(load_planning_config("rope"))
+    if n_cards > 1:  # --mesh auto shards over every card, with plan's chunk
+        tcfg.mcfg = cli.mesh_chunk(tcfg.mcfg, n_cards)
+    fused_rollout_chunk.launches = 0
+    t0 = time.time()
+    hist = cli.main(["plan", "--config", "rope", "--ckpt_dir", fixture, "--n_actions", "1",
+                     "--mesh", "auto", "--seed", "0"])
+    plan_line = dict(seconds=time.time() - t0, errors=hist["errors"],
+                     k1_launches=fused_rollout_chunk.launches,
+                     k1_launches_expected=plan_k1_launches(tcfg, 1)[0])
+    plan_ok = (len(hist["errors"]) == 1 and np.isfinite(hist["errors"]).all()
+               and plan_line["k1_launches"] == plan_line["k1_launches_expected"])
+
+    tcfg.n_actions = 1
+    params = cli.load_params(fixture, tcfg.dcfg.gnn, dev)
+    runs, same_dev = {}, True
+    for name, mesh in (("unsharded", None), ("cuda0_twice", meshes["cuda0_twice"])):
+        env = SimRealEnv("rope", seed=0, sim_real_ratio=tcfg.sim_real_ratio)
+        target = cli._plan_target(SimpleNamespace(target=None, seed=0), tcfg, env)
+        pm = PerceptionModule(stride=2, k_filter=tcfg.k_filter, obj_prompts=tcfg.obj_list,
+                              max_n=tcfg.max_n)
+        runs[name], same = on_same_device(lambda: run_plan(
+            env, params, tcfg, target, pm=pm, seed=0, use_ppo=False, verbose=False, device=dev,
+            mesh=mesh))
+        same_dev = same_dev and same
+    a, b = runs["unsharded"], runs["cuda0_twice"]
+    run_plan_ok = (np.array_equal(np.asarray(a["actions"]), np.asarray(b["actions"]))
+                   and a["errors"] == b["errors"] and same_dev)
+    lines = dict(train=dict(train_line, ok=bool(train_ok)),
+                 too_many_cards=dict(n_devices=int(too_many), exit=refused, ok=refused_ok),
+                 plan_mesh_auto=dict(plan_line, ok=bool(plan_ok)),
+                 run_plan_two_shards=dict(action=np.asarray(b["actions"]).tolist(),
+                                          unsharded_action=np.asarray(a["actions"]).tolist(),
+                                          errors=b["errors"], unsharded_errors=a["errors"],
+                                          current_device_unchanged=same_dev,
+                                          ok=bool(run_plan_ok)))
+    if every_card is not None:
+        lines["train_every_card"] = every_card
+    return lines, plan_line["k1_launches"]
+
+
+def phase_mesh(rope, prep, dev):
+    """The multi-device paths on the card: the sharded solve (K1 per
+    shard), the data-parallel train step (K2 and K3 per shard) and the CLI's
+    ``train --n_devices`` and ``plan --mesh``, each on every card there is
+    and on card 0 named twice (``card_meshes``). No time here is a
+    multi-card time: a one-card machine runs the shards one after another on
+    one card."""
+    meshes = card_meshes()
+    t0 = time.time()
+    solve, k1_solve = mesh_solve(rope, dev, meshes)
+    steps, (k2, k3) = mesh_train(dev, meshes)
+    cli_lines, k1_plan = mesh_cli(prep, rope, dev, meshes)
+    ok = (all(v["ok"] for v in solve.values()) and all(v["ok"] for v in steps.values())
+          and all(v["ok"] for v in cli_lines.values()))
+    emit(phase="mesh", device_count=torch.cuda.device_count(), card=card_line(),
+         meshes={k: [str(d) for d in m] for k, m in meshes.items()}, solve=solve, train=steps,
+         cli=cli_lines, seconds=time.time() - t0, ok=bool(ok))
+    if not ok:
+        fail("the multi-device paths failed their checks (see the mesh line)")
+    return dict(k1_launches=k1_solve, k2_launches=k2, k3_launches=k3,
+                ms_per_solve_two_shards=solve["cuda0_twice"]["ms_per_solve_sharded"],
+                ms_per_step_two_shards=steps["float32_cuda0_twice"]["ms_per_step_sharded"])
+
+
+IO_OBS = 20  # get_obs calls
+
+
+@contextlib.contextmanager
+def main_file_hidden():
+    """multiprocessing's spawn runs the parent's main script again in each
+    child, before the child's target, when the script has a file; this one
+    imports torch at its top. With the file hidden, as for a main module
+    typed in at a prompt, a spawned child imports only what its target
+    needs."""
+    main = sys.modules["__main__"]
+    path = main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            main.__file__ = path
+
+
+def maps_torch(pid):
+    """Whether process ``pid`` has torch's library mapped (has imported
+    torch)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+class RingEnv:
+    """The environment with its observation taken from the cameras' ring:
+    ``get_obs`` returns the aligned frames, every other attribute is the
+    environment's."""
+
+    def __init__(self, env, obs):
+        self._env, self._obs = env, obs
+
+    def get_obs(self):
+        return self._obs
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+
+def phase_io(rope, dev):
+    """The real-robot I/O tier on the card's host at the rope plan's camera
+    settings: the ring's library built (timed); ``MultiCamera`` over the four
+    cameras of ``SimRealEnv(render_color=False)`` on the rope scene, one
+    spawned process each rendering the scene's board-frame points into its
+    shared-memory ring at 30 fps; ``get_obs(k=4)`` IO_OBS times, every aligned
+    frame equal to ``render_depth`` of the same points bit for bit; the state
+    perceived from the ring's frames (``get_state_cur`` through ``RingEnv``)
+    equal to the one perceived from the environment with the same FPS seed,
+    and one bf16 rope solve (K1) from each, equal bit for bit;
+    ``set_fps(5)`` through the command queues slows every camera; no camera
+    process has torch loaded (the cameras are started with the script's
+    file hidden from spawn, ``main_file_hidden``); at the end no
+    ``/dev/shm`` segment of the run and no camera process is left. Frames
+    per second per camera, ms per ``get_obs``, the build seconds."""
+    import multiprocessing as mp
+
+    from adaptigraph_tpu_torch.ops.fused_gnn import fused_rollout_chunk
+    from adaptigraph_tpu_torch.planning.closed_loop import _pad_state, make_reward_fn
+    from adaptigraph_tpu_torch.planning.mppi_solve import make_mppi_solver
+    from adaptigraph_tpu_torch.realworld import shm
+    from adaptigraph_tpu_torch.realworld.camera import MultiCamera
+    from adaptigraph_tpu_torch.realworld.env import SimRealEnv, sim_to_board
+    from adaptigraph_tpu_torch.realworld.perception import PerceptionModule, get_state_cur
+
+    tcfg, params = rope[:2]
+    t0 = time.perf_counter()
+    shm.build_library()
+    build_s = time.perf_counter() - t0
+    env = SimRealEnv("rope", seed=0, sim_real_ratio=tcfg.sim_real_ratio, render_color=False)
+    pts = sim_to_board(env.env.get_positions(), env.sim_real_ratio)
+    renders = [cam.render_depth(pts, table_axis=2, table_offset=0.0) for cam in env.cams]
+    prefix = f"agtt_smoke_{os.getpid()}"
+    shm_free = os.statvfs("/dev/shm")
+    mc = MultiCamera(env.cams, pts, fps=30.0, prefix=prefix)
+    t0 = time.perf_counter()
+    with main_file_hidden():
+        mc.start()
+    start_s = time.perf_counter() - t0
+    try:
+        torch_in_children = [p.pid for p in mc.procs if maps_torch(p.pid)]
+        obs_ms, frames_equal, spread = [], [], []
+        for _ in range(IO_OBS):
+            t = time.perf_counter()
+            obs = mc.get_obs(k=4)
+            obs_ms.append((time.perf_counter() - t) * 1e3)
+            frames_equal.append(all(np.array_equal(obs[f"depth_{i}"], r)
+                                    for i, r in enumerate(renders)))
+            ts = [obs[f"timestamp_{i}"] for i in range(len(renders))]
+            spread.append(max(ts) - min(ts))
+            time.sleep(1 / 30)
+
+        def rates(seconds=1.0):
+            c0, t = [r.count for r in mc.rings], time.time()
+            time.sleep(seconds)
+            return [(r.count - c) / (time.time() - t) for r, c in zip(mc.rings, c0)]
+
+        fast = rates()
+        mc.set_fps(5.0)
+        time.sleep(0.3)  # the frames in flight
+        slow = rates()
+        obs = mc.get_obs(k=4)
+        ring_obs = {}
+        for i in range(len(renders)):
+            ring_obs[f"depth_{i}"], ring_obs[f"color_{i}"] = obs[f"depth_{i}"], None
+    finally:
+        mc.stop()
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+    alive = [p.pid for p in mc.procs if p.is_alive()] + [p.pid for p in mp.active_children()]
+
+    kw = dict(fps_radius=tcfg.fps_radius, sim_real_ratio=tcfg.sim_real_ratio,
+              max_nobj=tcfg.dcfg.gnn.max_nobj, use_raw=tcfg.use_raw)
+    pm = PerceptionModule(stride=2, k_filter=tcfg.k_filter, obj_prompts=tcfg.obj_list,
+                          max_n=tcfg.max_n)
+    s_ring, _ = get_state_cur(RingEnv(env, ring_obs), pm, rng=np.random.RandomState(0), **kw)
+    s_env, _ = get_state_cur(env, pm, rng=np.random.RandomState(0), **kw)
+    state_equal = s_ring.shape == s_env.shape and np.array_equal(s_ring, s_env)
+    M = tcfg.dcfg.gnn.max_nobj
+    target = _pad_state(s_env, M)[0] + np.array([0.5, 0.0, 0.3], np.float32)
+    solve = make_mppi_solver(tcfg.dcfg, tcfg.mcfg, make_reward_fn(tcfg, target, dev),
+                             tcfg.action_lower_lim, tcfg.action_upper_lim, device=dev)
+    act0 = np.tile((tcfg.action_lower_lim + tcfg.action_upper_lim) / 2,
+                   (tcfg.mcfg.n_look_ahead, 1)).astype(np.float32)
+    fused_rollout_chunk.launches = 0
+    results = []
+    for s in (s_ring, s_env):
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        results.append(solve(params, _pad_state(s, M)[0], act0, g,
+                             np.array([0.5], np.float32)))
+    torch.cuda.synchronize()
+    k1 = fused_rollout_chunk.launches
+    solve_equal = all(torch.equal(results[0][k], results[1][k]) for k in results[0])
+    n_chunks = tcfg.mcfg.n_sample // tcfg.mcfg.n_sample_chunk
+    ok = (all(frames_equal) and state_equal and solve_equal and k1 == 2 * n_chunks
+          and all(f > 2 * s_ for f, s_ in zip(fast, slow)) and max(slow) < 10
+          and not left and not alive and not torch_in_children)
+    emit(phase="io", cameras=len(renders), frame_shape=list(renders[0].shape), fps_asked=30.0,
+         ring_frames=mc.procs[0].capacity,
+         dev_shm_free_mb=shm_free.f_bavail * shm_free.f_frsize / 2**20,
+         children_with_torch=torch_in_children,
+         ring_build_seconds=build_s, cameras_start_seconds=start_s,
+         get_obs_ms_median=float(np.median(obs_ms)), get_obs_ms_max=float(np.max(obs_ms)),
+         aligned_timestamp_spread_ms_max=float(np.max(spread) * 1e3),
+         frames_equal_render=all(frames_equal), fps_per_camera=fast,
+         fps_per_camera_after_set_fps_5=slow, perceived_points=int(len(s_env)),
+         perceived_state_equal=bool(state_equal), k1_launches=k1,
+         solve_from_ring_equals_direct=bool(solve_equal),
+         best_reward=float(results[0]["best_reward"]), shm_segments_left=left,
+         processes_left=alive, card=card_line(), ok=bool(ok))
+    if not ok:
+        fail("the I/O tier failed its checks (see the io line)")
+    return k1
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3241,6 +3796,15 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--softbody"]:
         phase_softbody(dev)
+        print(card, flush=True)
+        return
+    if sys.argv[1:] == ["--mesh"]:
+        _, prep = phase_dataset()
+        phase_mesh(material("rope", dev), prep, dev)
+        print(card, flush=True)
+        return
+    if sys.argv[1:] == ["--io"]:
+        phase_io(material("rope", dev), dev)
         print(card, flush=True)
         return
     rope, main_err = phase_kernels(dev)
@@ -3279,6 +3843,8 @@ def main():
     k1_planner_launches, mppi_ms_per_iter = phase_planner_mppi(rope, dev)
     (k2_gd_launches, k3_gd_launches), gd_ms_per_iter, _ = phase_planner_gd(rope, dev)
     sb = phase_softbody(dev)
+    mesh = phase_mesh(rope, prep, dev)
+    k1_io_launches = phase_io(rope, dev)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3304,7 +3870,10 @@ def main():
              ms_per_push_plan=plan_ms_per_push, launches_granular_solve=k1_granular_launches,
              ms_per_solve_granular=granular_ms_per_solve,
              launches_planner_mppi=k1_planner_launches,
-             ms_per_iteration_planner_mppi=mppi_ms_per_iter),
+             ms_per_iteration_planner_mppi=mppi_ms_per_iter,
+             launches_mesh_solves=mesh["k1_launches"],
+             ms_per_solve_two_shards_one_card=mesh["ms_per_solve_two_shards"],
+             launches_io_solves=k1_io_launches),
         dict(row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
                  "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
              device_ms=ttime["k2"]["device_ms"],
@@ -3319,7 +3888,8 @@ def main():
              bound_ms_rollout=rollout_time["k2_bound_ms"],
              launches_masked_tools=k2_masked_launches,
              ms_per_substep_masked_tools=masked_ms, max_abs_err_masked_tools=masked_err,
-             **softbody("k2")),
+             launches_mesh_train=mesh["k2_launches"],
+             ms_per_step_two_shards_one_card=mesh["ms_per_step_two_shards"], **softbody("k2")),
         dict(row("gnn_train_bwd", "adaptigraph_tpu_torch/csrc/gnn_train_bwd.cu",
                  "adaptigraph_tpu/ops/fused_gnn_train.py:76", k3_launches, k3_err, ttime["k3"]),
              device_ms=ttime["k3"]["device_ms"], device_ms_bf16=ttime["k3_bf16"]["device_ms"],
@@ -3330,7 +3900,8 @@ def main():
              bound_ms_present_design_bf16=ttime["k3_bf16"]["bound_ms_present_design"],
              max_abs_err_bf16=k3_bf16_err,
              launches_bf16=k3_bf16_launches, launches_train_steps=k3_steps_launches,
-             launches_planner_gd=k3_gd_launches, **softbody("k3")),
+             launches_planner_gd=k3_gd_launches, launches_mesh_train=mesh["k3_launches"],
+             **softbody("k3")),
         row("gnn_forward_edges", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
             "adaptigraph_tpu/ops/fused_gnn.py:115", k2e_launches, k2e_err, k2e_time),
         dict(row("kernel_parts", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",

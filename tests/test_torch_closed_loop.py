@@ -353,7 +353,16 @@ def test_random_interact_cli_cpu(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--learned_perception"])
-def test_plan_cli_refuses_left_out_flags(flag):
+def test_plan_cli_refuses_left_out_flags(monkeypatch, flag):
+    """``--learned_perception`` is left out (GroundingDINO and SAM weights are
+    not in the repository): the parser refuses it. ``--mesh`` is ported: a
+    mesh of more cards than there are is refused before anything runs."""
+    if flag == "--mesh":
+        monkeypatch.setattr("torch.cuda.is_available", lambda: True)
+        monkeypatch.setattr("torch.cuda.device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="a mesh of 2 needs 2"):
+            cli.main(["plan", "--config", "rope", "--mesh", "2"])
+        return
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["plan", "--config", "rope", flag, "auto"])
 

@@ -176,3 +176,34 @@ def test_missing_dynamics_copy_is_an_error(tmp_path, monkeypatch):
                                        "softbody.yaml"))
     with pytest.raises(FileNotFoundError, match="softbody.yaml"):
         config.load_planning_config(str(path))
+
+
+def test_mesh_defaults_to_the_card():
+    """``make_mesh`` lists cards unless asked for other devices; ``train
+    --n_devices`` defaults to one device and ``plan --mesh`` to none."""
+    from adaptigraph_tpu_torch.cli import build_parser
+    from adaptigraph_tpu_torch.parallel.mesh import make_mesh
+
+    assert inspect.signature(make_mesh).parameters["device_type"].default == "cuda"
+    assert build_parser().parse_args(["train", "--config", "rope"]).n_devices == 1
+    args = build_parser().parse_args(["plan", "--config", "rope"])
+    assert args.mesh is None and args.device == "cuda"
+    assert build_parser().parse_args(["plan", "--config", "rope", "--mesh", "auto"]).mesh == "auto"
+
+
+def test_io_tier_imports_neither_torch_nor_jax():
+    """The camera child processes import the I/O tier's modules afresh
+    (spawned): those modules load numpy only, no torch (so no CUDA) and no
+    JAX."""
+    code = ("import sys\n"
+            "import adaptigraph_tpu_torch.realworld.camera, adaptigraph_tpu_torch.realworld.calibrate\n"
+            "import adaptigraph_tpu_torch.realworld.xarm, adaptigraph_tpu_torch.utils.nested\n"
+            "import adaptigraph_tpu_torch.ops.padding\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('torch',)!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

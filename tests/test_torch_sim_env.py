@@ -129,15 +129,22 @@ def test_sim_to_board_matches_jax():
 
 
 def test_real_env_hardware_tier_is_not_ported():
-    """The package re-exports nothing, and has none of the hardware tier's
-    modules (cameras and arm drivers, shared memory, accumulation)."""
+    """The hardware ``RealEnv`` (RealSense cameras and the xArm driving one
+    scene) has no counterpart; the I/O tier beneath it is ported, and the
+    package re-exports what the JAX package's does of it: the shared-memory
+    ring and queue and the timestamp accumulators."""
     import types
 
+    import adaptigraph_tpu.realworld as jax_rw
     import adaptigraph_tpu_torch.realworld as rw
 
     assert not hasattr(port_env, "RealEnv")
-    assert [n for n, v in vars(rw).items()
-            if not n.startswith("__") and not isinstance(v, types.ModuleType)] == []
+    exported = sorted(n for n, v in vars(rw).items()
+                      if not n.startswith("__") and not isinstance(v, types.ModuleType))
+    assert exported == ["ShmQueue", "ShmRingBuffer", "TimestampActionAccumulator",
+                        "TimestampObsAccumulator", "accumulate_timestamp_idxs",
+                        "align_to_global_idxs"]
+    assert all(hasattr(jax_rw, n) for n in exported)
     here = os.listdir(os.path.dirname(rw.__file__))
     for name in ("shm.py", "accumulate.py", "camera.py", "xarm.py", "calibrate.py", "cpp"):
-        assert name not in here
+        assert name in here
