@@ -18,8 +18,9 @@ Commands run on the CUDA card unless ``--device cpu`` is given; ``datagen``,
 ``train --n_devices N`` (N > 1) trains data parallel over the first N cards
 (with ``--device cpu``, N shards on the CPU), and ``plan --mesh auto|N``
 shards each solve's samples likewise; either exits non-zero when N cards are
-not there. ``plan`` has no ``--learned_perception`` (GroundingDINO + SAM need
-weights the repository does not hold).
+not there. ``plan --learned_perception`` perceives through GroundingDINO + SAM
+(``realworld/detect.py``) on the run's device; it needs ``transformers`` and
+the models' weights, and exits non-zero without ``transformers``.
 """
 
 import argparse
@@ -450,7 +451,7 @@ def cmd_plan(args):
     execute, re-estimate the physics parameter; one ``step_*.npz`` per push
     under ``--save_dir``."""
     from adaptigraph_tpu_torch.planning.closed_loop import run_plan
-    from adaptigraph_tpu_torch.realworld.detect import color_spread_mask_fn
+    from adaptigraph_tpu_torch.realworld.detect import color_spread_mask_fn, make_mask_fn
     from adaptigraph_tpu_torch.realworld.env import SimRealEnv
     from adaptigraph_tpu_torch.realworld.perception import PerceptionModule
     from adaptigraph_tpu_torch.utils.config import load_planning_config
@@ -496,6 +497,13 @@ def cmd_plan(args):
         # colour segmentation of the rendered scene: the non-use_raw path
         # (mask_fn and the voxel/outlier passes) without a detector
         mask_fn = color_spread_mask_fn()
+        tcfg.use_raw = False
+    elif args.learned_perception:
+        # GroundingDINO + SAM, loaded at the first perception
+        mask_fn = make_mask_fn(tcfg.obj_list, max_n=tcfg.max_n, device=device)
+        if mask_fn is None:
+            raise SystemExit("--learned_perception needs torch+transformers "
+                             "and task obj_list prompts")
         tcfg.use_raw = False
     pm = PerceptionModule(stride=2, k_filter=tcfg.k_filter, obj_prompts=tcfg.obj_list,
                           max_n=tcfg.max_n, mask_fn=mask_fn)
@@ -680,6 +688,9 @@ def build_parser():
                                    "or this many devices (with --device cpu, shards on the CPU)")
     pl.add_argument("--sim_mask", action="store_true",
                     help="colour-spread mask_fn: the non-use_raw perception path")
+    pl.add_argument("--learned_perception", action="store_true",
+                    help="GroundingDINO + SAM mask_fn from the task's obj_list prompts "
+                         "(needs transformers and the models' weights)")
     pl.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     pl.set_defaults(fn=cmd_plan)
 

@@ -155,6 +155,15 @@ def init_params(generator, cfg: GNNConfig):
     }
 
 
+def count_params(params):
+    """Number of scalars in a parameter nesting (tensors or numpy arrays)."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(np.prod(params.shape))
+
+
 def _linear(p, x):
     return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
 
@@ -275,3 +284,15 @@ def forward_batch(params, graphs, cfg: GNNConfig, compute_dtype=torch.float32):
     clamped = torch.clamp(motion, -cfg.motion_clamp, cfg.motion_clamp)
     pred_pos = state[:, -1, :n_p] + clamped
     return pred_pos.float(), motion.float()
+
+
+def forward(params, graph, cfg: GNNConfig, compute_dtype=torch.float32):
+    """Single-sample forward: ``forward_batch`` on a batch of one. The graph's
+    fields are ``forward_batch``'s without the batch axis (physics_param
+    (phys_dim,) or (max_nobj,); particle_den a scalar). Returns pred_pos and
+    the unclamped motion, both (max_nobj, 3) f32."""
+    batch = {k: torch.as_tensor(v)[None] for k, v in graph.items()}
+    if "particle_den" in batch:
+        batch["particle_den"] = batch["particle_den"].reshape(1)
+    pred_pos, motion = forward_batch(params, batch, cfg, compute_dtype)
+    return pred_pos[0], motion[0]

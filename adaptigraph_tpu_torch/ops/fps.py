@@ -102,8 +102,13 @@ def fps_downsample(pcd, max_num, radius, rng=None, start_idx=None):
         return np.asarray(idxs, dtype=np.int64)
     idx1 = fps_numpy(pcd, max_num, start_idx=start_idx, rng=rng)
     # deterministic start for stage 2 keeps the first FPS point first
-    idx2 = _fps_rad(_SqDist(np.asarray(pcd)[idx1]), radius, 0)
+    idx2 = fps_rad_numpy_from(np.asarray(pcd)[idx1], radius, start=0)
     return idx1[idx2]
+
+
+def fps_rad_numpy_from(pcd, radius, start=0):
+    """Radius-capped FPS from a given start index."""
+    return _fps_rad(_SqDist(pcd), radius, start)
 
 
 def fps_device(pcd, mask, num, start_idx=0):

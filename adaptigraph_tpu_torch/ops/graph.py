@@ -157,6 +157,42 @@ def build_neighbor_graph_batch(states, node_mask, tool_mask, adj_radius, cfg: Ed
     return neighbors, mask
 
 
+def build_neighbor_graph(states, node_mask, tool_mask, adj_radius, cfg: EdgeConfig,
+                         knn_frac=1.0):
+    """One state's graph: ``build_neighbor_graph_batch`` on a batch of one.
+    states (N, 3), node_mask and tool_mask (N,); returns neighbors (N, K)
+    int32 and mask (N, K) bool."""
+    r, f = (torch.as_tensor(v, dtype=torch.float32, device=states.device).reshape(1)
+            for v in (adj_radius, knn_frac))
+    neighbors, mask = build_neighbor_graph_batch(states[None], node_mask[None], tool_mask[None],
+                                                 r, cfg, f)
+    return neighbors[0], mask[0]
+
+
+def neighbor_gather(x, neighbors):
+    """Sender features ``x (..., N, F) -> (..., N, K, F)`` for any leading
+    batch dims shared by ``x`` and ``neighbors``."""
+    idx = neighbors.long()
+    lead = torch.broadcast_shapes(x.shape[:-2], idx.shape[:-2])
+    x = x.expand(*lead, *x.shape[-2:])
+    idx = idx.expand(*lead, *idx.shape[-2:])
+    flat = idx.reshape(*lead, -1, 1).expand(*lead, -1, x.shape[-1])
+    return torch.gather(x, -2, flat).reshape(*idx.shape, x.shape[-1])
+
+
+def neighbor_aggregate(edge_vals, mask):
+    """Masked sum over the K slots: ``(..., N, K, F) -> (..., N, F)``; the
+    receiver of slot (i, k) is i."""
+    return torch.where(mask[..., None], edge_vals, torch.zeros_like(edge_vals)).sum(-2)
+
+
+def graph_to_edge_set(neighbors, mask):
+    """Host-side: the (receiver, sender) edge set, for tests and plots."""
+    neighbors = torch.as_tensor(neighbors).cpu()
+    rec, slot = torch.nonzero(torch.as_tensor(mask).cpu(), as_tuple=True)
+    return set(zip(rec.tolist(), neighbors[rec, slot].tolist()))
+
+
 def _non_fixed_receivers(states, receiver_is_obj, cfg: EdgeConfig):
     """Object receivers above the bottom ``fixed_bottom_frac`` of the y-range
     of the (padded) object block."""

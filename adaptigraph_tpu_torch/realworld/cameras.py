@@ -160,3 +160,8 @@ def make_multiview_cameras(n=4, cam_dis=6.0, cam_height=10.0, fov_deg=45.0,
         cams.append(VirtualCamera(R=R, t=pos, intr=intr.copy(),
                                   width=width, height=height))
     return cams
+
+
+def table_axis_for_frame(frame):
+    """The table normal's axis: y in the sim's ``y_up`` frame, else z."""
+    return 1 if frame == "y_up" else 2

@@ -4,8 +4,8 @@ observation contract of the reference's ``RealEnv``
 (``src/planning/real_world/real_env.py:22-587``): ``get_obs`` -> per-camera
 color/depth, ``get_intrinsics``, ``get_extrinsics`` (camera->board R, t),
 ``get_bbox`` (board-frame crop box), ``step(decoded_action)`` -> one push
-primitive, on top of the C++ XPBD simulator with virtual cameras. The
-hardware ``RealEnv`` has no counterpart.
+primitive, on top of the C++ XPBD simulator with virtual cameras.
+``RealEnv``, the hardware environment, is JAX's stub: it raises.
 """
 
 import numpy as np
@@ -97,3 +97,21 @@ class SimRealEnv:
     # -- test/metric helpers --------------------------------------------------
     def get_particles_sim(self):
         return self.env.get_positions()
+
+
+class RealEnv:
+    """Hardware environment (cameras + xArm6 + calibration), a stub as in the
+    JAX package: it needs ``pyrealsense2`` and an xArm SDK, and raises
+    ``NotImplementedError`` when they are there. ``SimRealEnv`` implements
+    the planner-facing contract."""
+
+    def __init__(self, *args, **kwargs):
+        try:
+            import pyrealsense2  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "RealEnv needs pyrealsense2 + an xArm SDK; use SimRealEnv "
+                "for hardware-free operation") from e
+        raise NotImplementedError(
+            "hardware bring-up tracked separately; SimRealEnv implements the "
+            "full planner-facing contract")

@@ -10,8 +10,14 @@ holds them), so JAX ``load_pytree`` reads the port's parameter files.
 
 The optimizer state (``latest_optim.npz``: Adam's ``count``, ``mu_i`` and
 ``nu_i`` in ``LEAF_ORDER``) is the port's own format, read by ``--resume``.
+
+``save_pytree``/``load_pytree`` take any nesting of dicts, lists and tuples.
+The parameter nesting is written with JAX's treedef; any other nesting, whose
+treedef only JAX can write, gets the port's own structure record
+(``__structure__``, JSON), which JAX's ``load_pytree`` does not read.
 """
 
+import json
 import os
 
 import numpy as np
@@ -62,6 +68,70 @@ def save_params(path, tree):
     treedef = np.fromfile(TREEDEF_PATH, dtype=np.uint8)
     leaves = {f"leaf_{i}": np.asarray(x) for i, x in enumerate(tree_leaves(tree))}
     np.savez(path, __treedef__=treedef, **leaves)
+
+
+def _is_params(tree):
+    """Whether ``tree`` has the GNN parameter dict's nesting."""
+    layer = {"b", "w"}
+    mlp = ("non_rigid_predictor", "particle_encoder", "relation_encoder")
+    return (isinstance(tree, dict) and set(tree) == set(mlp) | {"particle_propagator",
+                                                                "relation_propagator"}
+            and all(isinstance(tree[m], list) and len(tree[m]) == 3
+                    and all(isinstance(l, dict) and set(l) == layer for l in tree[m])
+                    for m in mlp)
+            and all(isinstance(tree[m], dict) and set(tree[m]) == layer
+                    for m in ("particle_propagator", "relation_propagator")))
+
+
+def _flatten(tree, leaves):
+    """Leaves in JAX's flatten order (dict keys sorted; None has no leaf) and
+    the nesting as JSON-ready data."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        if not all(isinstance(k, str) for k in keys):
+            raise TypeError("save_pytree: dict keys must be strings")
+        return {"dict": [[k, _flatten(tree[k], leaves)] for k in keys]}
+    if isinstance(tree, (list, tuple)):
+        return {type(tree).__name__: [_flatten(x, leaves) for x in tree]}
+    if tree is None:
+        return {"none": None}
+    leaves.append(np.asarray(tree.detach().cpu() if hasattr(tree, "detach") else tree))
+    return {"leaf": None}
+
+
+def _unflatten(spec, leaves):
+    (kind, body), = spec.items()
+    if kind == "dict":
+        return {k: _unflatten(v, leaves) for k, v in body}
+    if kind in ("list", "tuple"):
+        out = [_unflatten(v, leaves) for v in body]
+        return out if kind == "list" else tuple(out)
+    return None if kind == "none" else next(leaves)
+
+
+def save_pytree(path, tree):
+    """Write a nesting of arrays (numpy or torch) as an npz of ``leaf_i``."""
+    if _is_params(tree):
+        save_params(path, tree)
+        return
+    leaves = []
+    spec = json.dumps(_flatten(tree, leaves)).encode()
+    np.savez(path, __structure__=np.frombuffer(spec, dtype=np.uint8),
+             **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+
+
+def load_pytree(path):
+    """Read what ``save_pytree`` (either package's) wrote, as numpy arrays. A
+    JAX file of a nesting other than the parameters' needs JAX to read."""
+    with np.load(path, allow_pickle=False) as z:
+        leaves = [np.asarray(z[f"leaf_{i}"]) for i in range(len(z.files) - 1)]
+        if "__structure__" in z.files:
+            return _unflatten(json.loads(z["__structure__"].tobytes()), iter(leaves))
+        treedef = z["__treedef__"].tobytes()
+    if treedef != np.fromfile(TREEDEF_PATH, dtype=np.uint8).tobytes():
+        raise ValueError(f"{path}: a JAX treedef other than the GNN parameters'; "
+                         "only JAX can read it")
+    return tree_from_leaves(leaves)
 
 
 def save_checkpoint(out_dir, epoch, params, opt_state=None):

@@ -1,6 +1,5 @@
-"""Rollout videos and error plots (numpy copy of the parts of
-``adaptigraph_tpu/utils/viz.py`` that the rollout evaluator and ``plan``
-use).
+"""Graph overlays, rollout videos and error plots (numpy copy of
+``adaptigraph_tpu/utils/viz.py``).
 
 ``cv2`` draws, ``imageio`` writes a gif where no mp4 codec is available, and
 ``matplotlib`` plots; each is imported inside the function that needs it, so
@@ -25,16 +24,25 @@ def project_points(points, intr, extr):
     return np.stack([u, v], axis=1), pc[:, 2]
 
 
-def draw_points(img, points, intr, extr, color, radius=3):
-    """Projected particles drawn on an image (the JAX ``draw_graph`` without
-    edges)."""
+def draw_graph(img, points, intr, extr, neighbors=None, nbr_mask=None,
+               color=(0, 255, 0), edge_color=(0, 180, 255), radius=3):
+    """Projected particles, and the neighbor graph's edges when given,
+    drawn on an image (reference: rollout/graph.py:175-250)."""
     import cv2
 
     img = np.ascontiguousarray(img)
     uv, z = project_points(points, intr, extr)
-    for i in range(len(uv)):
-        if z[i] > 0:
-            cv2.circle(img, tuple(np.round(uv[i]).astype(int)), radius, color, -1)
+    ok = z > 0
+    px = np.round(uv).astype(int)
+    if neighbors is not None:
+        nb = np.asarray(neighbors)
+        mk = np.asarray(nbr_mask) if nbr_mask is not None else np.ones(nb.shape, bool)
+        for i, k in zip(*np.nonzero(mk)):
+            j = int(nb[i, k])
+            if ok[i] and j < len(uv) and ok[j]:
+                cv2.line(img, tuple(px[i]), tuple(px[j]), edge_color, 1)
+    for i in np.nonzero(ok)[0]:
+        cv2.circle(img, tuple(px[i]), radius, color, -1)
     return img
 
 
@@ -45,11 +53,12 @@ def render_rollout_frames(pred_seq, gt_seq, intr, extr, img_size=(360, 360), n_v
     h, w = img_size
     for t in range(len(pred_seq)):
         canvas = np.full((h, w * 3, 3), 255, np.uint8)
-        canvas[:, :w] = draw_points(canvas[:, :w].copy(), pred_seq[t][:n], intr, extr, (0, 0, 255))
-        canvas[:, w:2 * w] = draw_points(canvas[:, w:2 * w].copy(), gt_seq[t][:n], intr, extr,
-                                         (0, 255, 0))
-        both = draw_points(canvas[:, 2 * w:].copy(), gt_seq[t][:n], intr, extr, (0, 255, 0))
-        canvas[:, 2 * w:] = draw_points(both, pred_seq[t][:n], intr, extr, (0, 0, 255))
+        canvas[:, :w] = draw_graph(canvas[:, :w].copy(), pred_seq[t][:n], intr, extr,
+                                   color=(0, 0, 255))
+        canvas[:, w:2 * w] = draw_graph(canvas[:, w:2 * w].copy(), gt_seq[t][:n], intr, extr,
+                                        color=(0, 255, 0))
+        both = draw_graph(canvas[:, 2 * w:].copy(), gt_seq[t][:n], intr, extr, color=(0, 255, 0))
+        canvas[:, 2 * w:] = draw_graph(both, pred_seq[t][:n], intr, extr, color=(0, 0, 255))
         frames.append(canvas)
     return frames
 

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
     python3 chip_smoke.py --mesh   # phases 0-1 and 18: the multi-device paths
     python3 chip_smoke.py --io     # phases 0-1 and 19: the real-robot I/O tier
+    python3 chip_smoke.py --learned  # phases 0-1, 13, 20 and 21: the plan, learned, public names
 
 Phases, each printing JSON lines; any failure exits non-zero:
   0. card name and power limit, torch and CUDA versions; TF32 off.
@@ -128,6 +129,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
      them and a K1 solve from it equal to the direct ones, ``set_fps(5)``
      through the command queues, no segment or process left. ``--io`` runs
      phases 0-1 and this one.
+ 20. phase 13 again with ``--learned_perception`` (``learned_plan``):
+     ``make_mask_fn`` gives a ``GroundedSAMMask`` on the card with a detector
+     driven by the render (the bounding box of each view's colour-spread
+     mask, score 0.9) and ``boxes_to_masks`` as its segmenter, so no weights
+     are loaded; phase 13's gates, and every perception through the
+     keep-mask once per camera. Whether ``transformers`` imports is printed.
+ 21. the single-sample public names on the card (``public_names``):
+     ``build_neighbor_graph`` bit for bit against row 0 of
+     ``build_neighbor_graph_batch``; ``forward`` bit for bit against
+     ``forward_batch`` on a batch of one and within 1e-5 of each row of a
+     batch of 8. ``--learned`` runs phases 0-1, 13, 20 and 21.
 The last lines are the script's wall seconds, the kernel table, the card
 line, and the ok line. On every way out, the script ends the processes it
 started that still run (``stop_processes``).
@@ -2729,22 +2741,48 @@ def plan_step0_vs_plain(tcfg, params, dev):
     return float((ref[:n].cpu() - torch.tensor(pred)).abs().max())
 
 
-def phase_plan(dev):
+def colour_box_detector(spread=20.0, score=0.9):
+    """A detector driven by the render, in place of GroundingDINO (whose
+    weights neither the card's host nor the repository holds): the bounding
+    box of the view's colour-spread mask as one "rope" detection."""
+    from adaptigraph_tpu_torch.realworld.detect import color_spread_mask_fn
+
+    spread_mask = color_spread_mask_fn(spread)
+
+    def detect(rgb):
+        ys, xs = np.nonzero(spread_mask(rgb))
+        if not len(xs):
+            return np.zeros((0, 4), np.float32), np.zeros(0, np.float32), []
+        return (np.array([[xs.min(), ys.min(), xs.max(), ys.max()]], np.float32),
+                np.array([score], np.float32), ["rope"])
+
+    return detect
+
+
+def phase_plan(dev, learned=False):
     """``python -m adaptigraph_tpu_torch plan --config rope --ckpt_dir
     fixtures/rope_demo --n_actions 3 --seed 0`` in process at the published
     width (20,000 samples in chunks of 2,000, bf16, adaptation on): K1's
     launches counted from 0 around the run and held to ``plan_k1_launches``;
     three finite errors, ``initial.npz`` and ``step_00{0,1,2}.npz`` written,
-    the estimate inside [-0.2, 1.2], the true parameter recorded; step 0's
+    the estimate inside [-0.2, 1.2] (the float32 values of the bounds, which
+    the estimator returns when it clips), the true parameter recorded; step 0's
     prediction within 0.05 of the plain rollout of its push. ms per executed
     push (``run_plan``'s wall time over its pushes) and its split: perceive
     (camera render, fusion, FPS), solve, execute (the simulator's push),
-    adapt (the estimate) and the rest."""
+    adapt (the estimate) and the rest.
+
+    ``learned``: the same run with ``--learned_perception``, ``make_mask_fn``
+    giving a ``GroundedSAMMask`` on the card whose detector is
+    ``colour_box_detector`` and whose segmenter is ``boxes_to_masks`` (no
+    weights are loaded); also gated on every perception going through its
+    keep-mask, once per camera (``learned_plan``)."""
     from adaptigraph_tpu_torch import cli
     from adaptigraph_tpu_torch.ops import fused_gnn
     from adaptigraph_tpu_torch.planning import closed_loop
     from adaptigraph_tpu_torch.planning.physics_optimizer import (PARAM_HI, PARAM_LO,
                                                                   PhysicsParamOnlineOptimizer)
+    from adaptigraph_tpu_torch.realworld import detect
     from adaptigraph_tpu_torch.realworld.env import SimRealEnv
     from adaptigraph_tpu_torch.utils.config import load_planning_config
 
@@ -2760,15 +2798,27 @@ def phase_plan(dev):
             "--seed", "0", "--save_dir", PLAN_DIR, "--device", dev.type]
     sync = dev.type == "cuda"
     parts = dict.fromkeys(("perceive", "solve", "execute", "adapt", "run_plan"), 0.0)
-    real_make = closed_loop.make_mppi_solver
+    real_make, real_perceive = closed_loop.make_mppi_solver, closed_loop.get_state_cur
+    perceptions, made, masked = [], [], []  # cameras per perception, mask_fns made, masks
 
     def make_solver(*a, **k):
         return timed_calls(parts, "solve", real_make(*a, **k), sync)
 
+    def perceive(env, *a, **k):
+        perceptions.append(env.n_cameras)
+        return real_perceive(env, *a, **k)
+
+    def make_mask_fn(obj_prompts, max_n=1, box_threshold=0.5, device="cuda"):
+        made.append((tuple(obj_prompts), max_n, str(device)))
+        gm = detect.GroundedSAMMask(obj_prompts, max_n=max_n, box_threshold=box_threshold,
+                                    detector=colour_box_detector(),
+                                    segmenter=detect.boxes_to_masks, device=device)
+        return lambda rgb: masked.append(1) or gm(rgb)
+
     patches = [
         mock.patch.object(closed_loop, "make_mppi_solver", make_solver),
-        mock.patch.object(closed_loop, "get_state_cur",
-                          timed_calls(parts, "perceive", closed_loop.get_state_cur, False)),
+        mock.patch.object(closed_loop, "get_state_cur", timed_calls(parts, "perceive", perceive,
+                                                                    False)),
         mock.patch.object(SimRealEnv, "step",
                           timed_calls(parts, "execute", SimRealEnv.step, False)),
         mock.patch.object(PhysicsParamOnlineOptimizer, "optimize",
@@ -2776,6 +2826,9 @@ def phase_plan(dev):
         mock.patch.object(closed_loop, "run_plan",
                           timed_calls(parts, "run_plan", closed_loop.run_plan, sync)),
     ]
+    if learned:
+        argv.append("--learned_perception")
+        patches.append(mock.patch.object(detect, "make_mask_fn", make_mask_fn))
     for p in patches:
         p.start()
     try:
@@ -2799,18 +2852,91 @@ def phase_plan(dev):
     ms = {k: v / max(n_push, 1) * 1e3 for k, v in parts.items()}
     split = {k: ms[k] for k in ("perceive", "solve", "execute", "adapt")}
     split["rest"] = ms["run_plan"] - sum(split.values())
+    # the estimator clips to [PARAM_LO, PARAM_HI] and returns float32, whose
+    # -0.2 lies 3e-9 below the float64 bound: the range it can return
+    lo, hi = float(np.float32(PARAM_LO)), float(np.float32(PARAM_HI))
     ok = bool(n_push == PLAN_PUSHES and np.isfinite(hist["errors"]).all() and written
-              and len(est) == n_push and all(PARAM_LO <= e <= PARAM_HI for e in est)
+              and len(est) == n_push and all(lo <= e <= hi for e in est)
               and hist.get("true_phys") is not None and true_on_disk
               and launches == expected and pred_err <= 0.05)
-    emit(phase="plan", pushes=n_push, errors=hist["errors"], initial_error=hist["initial_error"],
+    extra = {}
+    if learned:
+        try:
+            import transformers  # noqa: F401
+            have_transformers = True
+        except ImportError:
+            have_transformers = False
+        extra = dict(mask_fn_made=made, perceptions=len(perceptions),
+                     mask_calls=len(masked), mask_calls_expected=sum(perceptions),
+                     transformers_imports=have_transformers)
+        # the CLI hands make_mask_fn the device it resolved from --device
+        ok = ok and (made == [(("rope",), tcfg.max_n, str(cli.resolve_device(dev.type)))]
+                     and len(perceptions) > 0 and len(masked) == sum(perceptions))
+    phase = "learned_plan" if learned else "plan"
+    emit(phase=phase, pushes=n_push, errors=hist["errors"], initial_error=hist["initial_error"],
          estimates=est, true_phys=[float(x) for x in hist.get("true_phys", [])],
          k1_launches=launches, expected_k1_launches=expected, k1_per_solve=per_solve,
          k1_per_estimate=per_estimate, step0_pred_vs_plain=pred_err, pred_tol=0.05,
-         files_written=written, seconds=secs, ms_per_push=ms["run_plan"], ms_split=split, ok=ok)
+         files_written=written, seconds=secs, ms_per_push=ms["run_plan"], ms_split=split,
+         **extra, ok=ok)
     if not ok:
-        fail("the closed-loop plan failed its checks (see the plan line)")
+        fail(f"the closed-loop {phase} failed its checks (see the {phase} line)")
     return launches, ms["run_plan"], split
+
+
+def phase_public_names(rope, dev):
+    """The single-sample names on the card (``public_names``):
+    ``build_neighbor_graph`` against row 0 of ``build_neighbor_graph_batch``
+    on a batch of 8 rope fixture states, bit for bit; ``forward`` bit for bit
+    against ``forward_batch`` on a batch of that one sample, and against
+    every row of the batch of 8 within JAX's own check of the same (rtol and
+    atol 1e-5, ``tests/test_model.py``): cuBLAS picks its kernels by the
+    number of rows, so a row of a larger batch may round otherwise."""
+    from adaptigraph_tpu_torch.models.gnn import forward, forward_batch
+    from adaptigraph_tpu_torch.ops.graph import build_neighbor_graph, build_neighbor_graph_batch
+
+    tcfg, params, state, _ = rope
+    d = tcfg.dcfg
+    cfg, ecfg, N = d.gnn, d.edge, d.gnn.n_nodes
+    g = torch.Generator(device=dev).manual_seed(3)
+    B = 8
+    obj = torch.as_tensor(state, device=dev).float()
+    eef = obj[:cfg.max_neef] + torch.tensor([0.0, 0.0, 0.05], device=dev)
+    states = torch.cat([obj, eef])[None] + 0.01 * torch.randn(B, N, 3, generator=g, device=dev)
+    node_mask = torch.ones(B, N, dtype=torch.bool, device=dev)
+    tool_mask = torch.zeros(B, N, dtype=torch.bool, device=dev)
+    tool_mask[:, cfg.max_nobj:] = True
+    nbr, msk = build_neighbor_graph_batch(states, node_mask, tool_mask, d.adj_thresh, ecfg)
+    one_nbr, one_msk = build_neighbor_graph(states[0], node_mask[0], tool_mask[0], d.adj_thresh,
+                                            ecfg)
+    graph_equal = bool(torch.equal(one_nbr[one_msk], nbr[0][msk[0]])
+                       and torch.equal(one_msk, msk[0]))
+    graphs = {
+        "state": states[:, None].expand(B, cfg.n_his, N, 3).contiguous(),
+        "attrs": torch.cat([torch.ones(B, N, 1, device=dev) * (~tool_mask[..., None]),
+                            torch.ones(B, N, 1, device=dev) * tool_mask[..., None]], -1),
+        "neighbors": nbr, "nbr_mask": msk,
+        "action": 0.05 * torch.randn(B, N, 3, generator=g, device=dev) * tool_mask[..., None],
+        "p_instance": torch.ones(B, cfg.max_nobj, cfg.n_instance, device=dev),
+        "physics_param": torch.rand(B, cfg.phys_dim, generator=g, device=dev),
+    }
+    pos_b, motion_b = forward_batch(params, graphs, cfg)
+    one = forward_batch(params, {k: v[:1] for k, v in graphs.items()}, cfg)
+    single = [forward(params, {k: v[b] for k, v in graphs.items()}, cfg) for b in range(B)]
+    forward_equal = bool(torch.equal(single[0][0], one[0][0])
+                         and torch.equal(single[0][1], one[1][0]))
+    rows_close = all(torch.allclose(p, pos_b[b], rtol=1e-5, atol=1e-5)
+                     and torch.allclose(m, motion_b[b], rtol=1e-5, atol=1e-5)
+                     for b, (p, m) in enumerate(single))
+    row_diff = max(float((p - pos_b[b]).abs().max()) for b, (p, _) in enumerate(single))
+    ok = (graph_equal and forward_equal and rows_close
+          and all(bool(torch.isfinite(p).all()) for p, _ in single))
+    emit(phase="public_names", batch=B, n_nodes=N, real_edges=int(one_msk.sum()),
+         build_neighbor_graph_equals_row0=graph_equal,
+         forward_equals_batch_of_one=forward_equal, forward_rows_within_1e5=rows_close,
+         forward_max_abs_diff_rows=row_diff, ok=ok)
+    if not ok:
+        fail("the single-sample public names disagree with their batched forms")
 
 
 def phase_granular_solve(dev):
@@ -3778,7 +3904,11 @@ def main():
     # container need not reap them (PR_SET_CHILD_SUBREAPER)
     ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
     # the port and its fixtures must be here before anything is printed
-    from adaptigraph_tpu_torch.ops import kernels  # noqa: F401
+    try:
+        from adaptigraph_tpu_torch.ops import kernels  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"chip_smoke: the adaptigraph_tpu_torch package is not beside the "
+                         f"script ({e})") from None
 
     if not os.path.isdir(os.path.join(ROOT, "fixtures", "rope_demo")):
         raise SystemExit("chip_smoke: fixtures/ not found beside the script")
@@ -3805,6 +3935,12 @@ def main():
         return
     if sys.argv[1:] == ["--io"]:
         phase_io(material("rope", dev), dev)
+        print(card, flush=True)
+        return
+    if sys.argv[1:] == ["--learned"]:
+        phase_plan(dev)
+        phase_plan(dev, learned=True)
+        phase_public_names(material("rope", dev), dev)
         print(card, flush=True)
         return
     rope, main_err = phase_kernels(dev)
@@ -3845,6 +3981,8 @@ def main():
     sb = phase_softbody(dev)
     mesh = phase_mesh(rope, prep, dev)
     k1_io_launches = phase_io(rope, dev)
+    k1_learned_launches, learned_ms_per_push, _ = phase_plan(dev, learned=True)
+    phase_public_names(rope, dev)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3873,7 +4011,8 @@ def main():
              ms_per_iteration_planner_mppi=mppi_ms_per_iter,
              launches_mesh_solves=mesh["k1_launches"],
              ms_per_solve_two_shards_one_card=mesh["ms_per_solve_two_shards"],
-             launches_io_solves=k1_io_launches),
+             launches_io_solves=k1_io_launches, launches_learned_plan=k1_learned_launches,
+             ms_per_push_learned_plan=learned_ms_per_push),
         dict(row("gnn_forward", "adaptigraph_tpu_torch/csrc/gnn_forward.cu",
                  "adaptigraph_tpu/ops/fused_gnn.py:214", k2_launches, k2_err, ttime["k2"]),
              device_ms=ttime["k2"]["device_ms"],

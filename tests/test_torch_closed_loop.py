@@ -5,6 +5,7 @@ on the CPU (float32, the plain versions; JAX through its XLA path)."""
 import dataclasses
 import glob
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,12 @@ from adaptigraph_tpu_torch.models.gnn import GNNConfig, params_from_numpy
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig
 from adaptigraph_tpu_torch.planning import closed_loop
 from adaptigraph_tpu_torch.planning.forward import DynamicsConfig
+from adaptigraph_tpu_torch.realworld import detect
 from adaptigraph_tpu_torch.realworld.env import SimRealEnv
+from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import colour_box_detector  # noqa: E402  (the smoke's detector, at the repo root)
 
 torch.set_num_threads(2)
 LOWER = np.asarray([-3.0, -3.0, -np.pi, 1.0], np.float32)
@@ -97,14 +103,14 @@ def _uniform_samples(key, n, L):
     return LOWER + (UPPER - LOWER) * u
 
 
-@pytest.mark.parametrize("use_ppo", [True, False], ids=["ppo", "no_ppo"])
-def test_run_plan_matches_jax_with_identical_samples(monkeypatch, tmp_path, weights, use_ppo):
+def run_plans_with_identical_samples(monkeypatch, tmp_path, weights, use_ppo, n_steps=3,
+                                     pm_factory=None, **task_kw):
     """Both loops on fresh environments with the same seed; the k-th solve of
     each gets the same samples (uniform over the action box, drawn with the
-    key the JAX loop gives its k-th solve). Per step the executed actions,
-    errors, predicted errors and estimates agree, and so do the files."""
+    key the JAX loop gives its k-th solve). ``pm_factory(jax_side)`` gives
+    each side's PerceptionModule. Returns (JAX's history, the port's)."""
     jp, tp = weights
-    seed, n_steps, n_sample = 2, 3, 16
+    seed, n_sample = 2, 16
     keys = _sample_keys(seed, n_steps)
     calls = []
 
@@ -120,18 +126,25 @@ def test_run_plan_matches_jax_with_identical_samples(monkeypatch, tmp_path, weig
 
     hists = []
     for jax_side in (True, False):
-        task = make_task(jax_side, n_sample=n_sample, chunk=8, penalty_type="rope")
+        task = make_task(jax_side, n_sample=n_sample, chunk=8, penalty_type="rope", **task_kw)
         task.n_actions = n_steps
         Env, run = ((JaxSimRealEnv, jax_closed_loop.run_plan) if jax_side else
                     (SimRealEnv, closed_loop.run_plan))
         env = Env("rope", seed=seed, img_size=240)
         kw = {} if jax_side else {"device": "cpu"}
+        if pm_factory is not None:
+            kw["pm"] = pm_factory(jax_side)
         hists.append(run(env, jp if jax_side else tp, task, target_near(env),
                          save_dir=str(tmp_path / ("jax" if jax_side else "port")), seed=seed,
                          use_ppo=use_ppo, verbose=False, true_phys=np.array([0.4], np.float32),
                          **kw))
-    want, got = hists
     assert len(calls) == n_steps
+    return hists
+
+
+def assert_plans_agree(want, got, tmp_path, use_ppo, n_steps=3):
+    """Per step the executed actions, errors, predicted errors and estimates
+    agree, and so do the files the two loops wrote."""
     assert len(got["errors"]) == len(want["errors"]) == n_steps
     for a, b in zip(got["actions"], want["actions"]):
         np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL)
@@ -155,6 +168,13 @@ def test_run_plan_matches_jax_with_identical_samples(monkeypatch, tmp_path, weig
                 else:
                     np.testing.assert_allclose(g[k], w[k], rtol=TOL, atol=TOL,
                                                err_msg=f"{name}:{k}")
+
+
+@pytest.mark.parametrize("use_ppo", [True, False], ids=["ppo", "no_ppo"])
+def test_run_plan_matches_jax_with_identical_samples(monkeypatch, tmp_path, weights, use_ppo):
+    """The two loops with identical samples per solve agree step by step."""
+    want, got = run_plans_with_identical_samples(monkeypatch, tmp_path, weights, use_ppo)
+    assert_plans_agree(want, got, tmp_path, use_ppo)
 
 
 def test_run_plan_closed_loop(tmp_path, weights):
@@ -353,18 +373,44 @@ def test_random_interact_cli_cpu(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--learned_perception"])
-def test_plan_cli_refuses_left_out_flags(monkeypatch, flag):
-    """``--learned_perception`` is left out (GroundingDINO and SAM weights are
-    not in the repository): the parser refuses it. ``--mesh`` is ported: a
-    mesh of more cards than there are is refused before anything runs."""
+def test_plan_cli_refuses_left_out_flags(monkeypatch, tmp_path, capsys, flag):
+    """``--mesh``: a mesh of more cards than there are is refused before
+    anything runs. ``--learned_perception`` parses and plans, with
+    ``make_mask_fn`` giving a GroundedSAMMask whose detector is driven by the
+    render (``chip_smoke.py``'s) and whose segmenter is ``boxes_to_masks`` (no
+    weights loaded):
+    every perception goes through its keep-mask, once per camera."""
     if flag == "--mesh":
         monkeypatch.setattr("torch.cuda.is_available", lambda: True)
         monkeypatch.setattr("torch.cuda.device_count", lambda: 1)
         with pytest.raises(SystemExit, match="a mesh of 2 needs 2"):
             cli.main(["plan", "--config", "rope", "--mesh", "2"])
         return
-    with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["plan", "--config", "rope", flag, "auto"])
+    _tiny_cli_task(monkeypatch)
+    made, calls = [], []
+
+    def make_mask_fn(obj_prompts, max_n=1, box_threshold=0.5, device="cuda"):
+        made.append((tuple(obj_prompts), max_n, str(device)))
+        gm = detect.GroundedSAMMask(obj_prompts, max_n=max_n, detector=colour_box_detector(),
+                                    segmenter=detect.boxes_to_masks, device=device)
+        return lambda rgb: calls.append(1) or gm(rgb)
+
+    perceptions = []
+    real_perceive = closed_loop.get_state_cur
+
+    def perceive(env, *a, **k):
+        perceptions.append(env.n_cameras)
+        return real_perceive(env, *a, **k)
+
+    monkeypatch.setattr(detect, "make_mask_fn", make_mask_fn)
+    monkeypatch.setattr(closed_loop, "get_state_cur", perceive)
+    hist = cli.main(["plan", "--config", "rope", "--n_actions", "2", "--seed", "0",
+                     "--save_dir", str(tmp_path), "--learned_perception", "--device", "cpu"])
+    assert "plan done" in capsys.readouterr().out
+    assert made == [(("rope",), 1, "cpu")]
+    assert len(hist["errors"]) == 2 and all(np.isfinite(hist["errors"]))
+    assert perceptions and set(perceptions) == {4}
+    assert len(calls) == sum(perceptions)
 
 
 @pytest.mark.parametrize("argv", [["plan", "--config", "rope"],

@@ -23,6 +23,7 @@ from adaptigraph_tpu_torch.dynamics.train import expand_compact_batch
 from adaptigraph_tpu_torch.models.gnn import GNNConfig
 from adaptigraph_tpu_torch.ops import fps
 from adaptigraph_tpu_torch.sim.synthetic import SYNTH_EEF_OFFSETS, gen_rope_dataset, simulate_rope_dataset
+from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
 
 PHYS_SPECS = [{"name": "stiffness", "use": True, "min": 0.0, "max": 1.0},
               {"name": "length", "use": False, "min": 2.5, "max": 5.0}]

@@ -25,6 +25,7 @@ from adaptigraph_tpu_torch.sim import box2d, datagen, filter as sim_filter, mesh
 from adaptigraph_tpu_torch.sim import io as sim_io
 from adaptigraph_tpu_torch.sim.engine import XPBDScene
 from adaptigraph_tpu_torch.sim.env import ACTION_KINDS, PushEnv
+from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
 
 
 def _h5_tree(path):

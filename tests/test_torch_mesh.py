@@ -37,6 +37,7 @@ from adaptigraph_tpu_torch.parallel.mesh import (count_launches, launch_tallies,
 from adaptigraph_tpu_torch.planning import closed_loop
 from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 from adaptigraph_tpu_torch.utils.config import load_planning_config
+from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

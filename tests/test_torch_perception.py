@@ -11,6 +11,7 @@ from adaptigraph_tpu.realworld import perception as jax_perception
 from adaptigraph_tpu.realworld.env import SimRealEnv as JaxSimRealEnv
 from adaptigraph_tpu_torch.realworld import detect, perception
 from adaptigraph_tpu_torch.realworld.env import SimRealEnv, sim_to_board
+from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -3,10 +3,12 @@ entry points default to the CUDA card, and its copied yaml files equal the
 originals."""
 
 import ast
+import importlib
 import inspect
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 import yaml
@@ -207,3 +209,94 @@ def test_io_tier_imports_neither_torch_nor_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+JAX_PKG = os.path.join(ROOT, "adaptigraph_tpu")
+# JAX modules and names the port leaves out or renames, each with its reason
+NOT_PORTED_MODULES = {
+    "utils/jaxcache.py": "the persistent XLA compilation cache of the remote TPU backend",
+    "utils/finalize.py": "the remote TPU backend's hard-exit teardown",
+}
+NOT_PORTED_NAMES = {
+    ("cli.py", "console_main"): "the remote TPU backend's hard-exit teardown around main",
+}
+RENAMED_NAMES = {
+    ("ops/fps.py", "fps_jax"): "fps_device",
+    ("ops/__init__.py", "fps_jax"): "fps_device",
+    ("utils/profiling.py", "time_jitted"): "time_synced",
+}
+
+
+def _public_top_level_names(path):
+    """Names a module defines or assigns at top level, and in an
+    ``__init__.py`` also the names it imports; without a leading underscore."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)) and path.endswith("__init__.py"):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _jax_modules():
+    out = []
+    for d, _, files in os.walk(JAX_PKG):
+        out += [os.path.relpath(os.path.join(d, f), JAX_PKG) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_every_jax_module_has_a_counterpart():
+    missing = [rel for rel in _jax_modules() if rel not in NOT_PORTED_MODULES
+               and not os.path.exists(os.path.join(PKG, rel))]
+    assert missing == []
+    assert all(os.path.exists(os.path.join(JAX_PKG, rel)) for rel in NOT_PORTED_MODULES)
+
+
+@pytest.mark.parametrize("rel", [r for r in _jax_modules() if r not in NOT_PORTED_MODULES])
+def test_public_names_match_jax(rel):
+    """Every public top-level name of the JAX module is an attribute of the
+    port's (imported, so lazy package exports count), under the port's name
+    where it was renamed."""
+    if rel.endswith("__main__.py"):  # importing it would run the CLI
+        port = types.SimpleNamespace(**dict.fromkeys(
+            _public_top_level_names(os.path.join(PKG, rel))))
+    else:
+        mod = rel[:-3].replace(os.sep, ".")
+        mod = "" if mod == "__init__" else mod.removesuffix(".__init__")
+        port = importlib.import_module("adaptigraph_tpu_torch" + (f".{mod}" if mod else ""))
+    missing = sorted(n for n in _public_top_level_names(os.path.join(JAX_PKG, rel))
+                     if (rel, n) not in NOT_PORTED_NAMES
+                     and not hasattr(port, RENAMED_NAMES.get((rel, n), n)))
+    assert missing == []
+
+
+def test_listed_exceptions_exist_in_jax():
+    """The exception lists name only what the JAX package has."""
+    for rel, name in list(NOT_PORTED_NAMES) + list(RENAMED_NAMES):
+        assert name in _public_top_level_names(os.path.join(JAX_PKG, rel)), (rel, name)
+
+
+def test_lazy_exports_keep_the_io_tier_torch_free():
+    """Importing the I/O tier's packages (``realworld``, ``ops``, ``utils``)
+    loads no torch; reading one of their lazy exports does."""
+    code = ("import sys\n"
+            "import adaptigraph_tpu_torch.realworld as rw, adaptigraph_tpu_torch.realworld.camera\n"
+            "import adaptigraph_tpu_torch.ops.padding, adaptigraph_tpu_torch.utils.nested\n"
+            "before = sorted(m for m in sys.modules if m.split('.')[0] == 'torch')\n"
+            "assert 'SimRealEnv' in dir(rw) and rw.ShmRingBuffer\n"
+            "rw.PerceptionModule\n"
+            "after = 'torch' in sys.modules\n"
+            "print(before, after)\n"
+            "sys.exit(0 if not before and after else 1)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+

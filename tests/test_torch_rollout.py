@@ -34,6 +34,7 @@ from adaptigraph_tpu_torch.ops import fused_gnn
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig
 from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 from adaptigraph_tpu_torch.utils import viz
+from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -14,6 +14,7 @@ from adaptigraph_tpu_torch.realworld import env as port_env
 from adaptigraph_tpu_torch.realworld.env import SimRealEnv, sim_to_board
 from adaptigraph_tpu_torch.sim import engine
 from adaptigraph_tpu_torch.sim.env import PushEnv
+from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PUSHES = [[0.02, -0.03, -0.06, 0.05], [-0.05, 0.04, 0.04, -0.02], [0.0, 0.06, 0.0, -0.06]]
@@ -128,23 +129,35 @@ def test_sim_to_board_matches_jax():
     np.testing.assert_array_equal(sim_to_board(pts, 10.0), jax_sim_to_board(pts, 10.0))
 
 
-def test_real_env_hardware_tier_is_not_ported():
-    """The hardware ``RealEnv`` (RealSense cameras and the xArm driving one
-    scene) has no counterpart; the I/O tier beneath it is ported, and the
-    package re-exports what the JAX package's does of it: the shared-memory
-    ring and queue and the timestamp accumulators."""
+def test_real_env_hardware_tier_is_not_ported(monkeypatch):
+    """The hardware ``RealEnv`` is JAX's stub: without pyrealsense2 it raises
+    JAX's ImportError, with it JAX's NotImplementedError. The I/O tier beneath
+    it is ported, and the package exports what the JAX package's does: the
+    shared-memory ring and queue and the timestamp accumulators at import,
+    perception, the point clouds, the cameras and ``SimRealEnv`` lazily."""
+    import sys
     import types
 
     import adaptigraph_tpu.realworld as jax_rw
+    import adaptigraph_tpu.realworld.env as jax_env
     import adaptigraph_tpu_torch.realworld as rw
 
-    assert not hasattr(port_env, "RealEnv")
-    exported = sorted(n for n, v in vars(rw).items()
-                      if not n.startswith("__") and not isinstance(v, types.ModuleType))
-    assert exported == ["ShmQueue", "ShmRingBuffer", "TimestampActionAccumulator",
-                        "TimestampObsAccumulator", "accumulate_timestamp_idxs",
-                        "align_to_global_idxs"]
-    assert all(hasattr(jax_rw, n) for n in exported)
+    monkeypatch.setitem(sys.modules, "pyrealsense2", None)
+    for mod in (jax_env, port_env):
+        with pytest.raises(ImportError, match="RealEnv needs pyrealsense2"):
+            mod.RealEnv()
+    monkeypatch.setitem(sys.modules, "pyrealsense2", types.ModuleType("pyrealsense2"))
+    msgs = []
+    for mod in (jax_env, port_env):
+        with pytest.raises(NotImplementedError) as exc:
+            mod.RealEnv()
+        msgs.append(str(exc.value))
+    assert msgs[1] == msgs[0]
+    want = sorted(n for n, v in vars(jax_rw).items()
+                  if not n.startswith("__") and not isinstance(v, types.ModuleType))
+    assert len(want) == 18
+    assert [n for n in want if not hasattr(rw, n)] == []
+    assert rw.SimRealEnv is port_env.SimRealEnv
     here = os.listdir(os.path.dirname(rw.__file__))
     for name in ("shm.py", "accumulate.py", "camera.py", "xarm.py", "calibrate.py", "cpp"):
         assert name in here
