@@ -17,17 +17,21 @@ Data parallel (the JAX ``shard_map`` step): with a ``mesh`` of more than one
 entry (``parallel/mesh.py``, a device list) the parameter leaves and the
 Adam state are replicated, one copy per entry, and the batch is split into
 one equal part per entry. Each shard runs ``multi_step_loss`` and its
-gradient (K2 and K3 on a card) on its device; the per-shard losses and
-gradients are averaged as JAX's ``pmean`` averages them, the plain mean of
-the shard means, summed on ``mesh[0]`` in shard order, and every replica
-takes the same Adam step with the mean copied to it, so the replicas stay
-equal. Two departures, kept: the augmentation is drawn for the whole batch
-from the caller's generator and split by shard (JAX folds the shard index
-into each shard's key), so the sharded step augments as the unsharded one
-does; and K steps per call on a mesh of more than one entry run as a loop of
-sharded steps, not a CUDA graph (a graph captures one device's stream). On
-a one-entry mesh the sharded step is the unsharded step bit for bit, and
-its K steps are the unsharded ones, graph included.
+gradient (K2 and K3 on a card) on its device and its own CUDA stream, all
+shards at once (``parallel.mesh.run_shards``: no host wait inside the
+step); each shard's loss and gradients go into one flat buffer, and the
+buffers are averaged as JAX's ``pmean`` averages them, the plain mean of the
+shard means, summed on ``mesh[0]`` in shard order; every replica then takes
+the same Adam step, on its own stream, with the mean copied to it, so the
+replicas stay equal. K steps per call on such a mesh replay CUDA graphs
+(``ShardedGraphs``: per shard one graph of its loss and gradients and one
+of its Adam step, the draws and the mean between them), equal bit for bit
+to K calls of the sharded step. One departure, kept: the augmentation is
+drawn for the whole batch from the caller's generator and split by shard
+(JAX folds the shard index into each shard's key), so the sharded step
+augments as the unsharded one does. On a one-entry mesh the sharded step is
+the unsharded step bit for bit, and its K steps are the unsharded ones,
+graph included.
 """
 
 import dataclasses
@@ -44,8 +48,9 @@ from adaptigraph_tpu_torch.models.gnn import GNNConfig, init_params, params_from
 from adaptigraph_tpu_torch.ops import fused_gnn, fused_gnn_train
 from adaptigraph_tpu_torch.ops.fused_gnn_train import make_fused_train_forward
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig, build_neighbor_graph_batch
-from adaptigraph_tpu_torch.parallel.mesh import (count_launches, device_scope, launch_tallies,
-                                                 replicate, split_batch)
+from adaptigraph_tpu_torch.parallel.mesh import (count_launches, launch_tallies, replicate,
+                                                 run_shards, shard_scope, shard_streams,
+                                                 split_batch, tree_map)
 from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 
 
@@ -130,13 +135,14 @@ def _draws(state_shape, phys_shape, device, generator, state_noise, phys_noise):
 def draw_augment_shards(shards, generator, state_noise, phys_noise):
     """``draw_augment`` for the batch whose parts are ``shards``: the whole
     batch's draws, made on the first shard's device in the unsharded step's
-    order, split by shard and each part copied to its shard's device."""
+    order, split by shard (views on that device; each shard copies its part
+    to its own device)."""
     sizes = [b["state"].shape[0] for b in shards]
     state, phys = shards[0]["state"], shards[0]["physics_param"]
     whole = _draws((sum(sizes),) + tuple(state.shape[1:]), (sum(sizes),) + tuple(phys.shape[1:]),
                    state.device, generator, state_noise, phys_noise)
     parts = {k: torch.split(v, sizes) for k, v in whole.items()}
-    return [{k: parts[k][i].to(b["state"].device) for k in whole} for i, b in enumerate(shards)]
+    return [{k: parts[k][i] for k in whole} for i in range(len(shards))]
 
 
 def augment(batch, noise, theta, phys_noise):
@@ -239,18 +245,90 @@ def pmean(values, device):
     return total / len(values)
 
 
-def _shard_parts(mesh, shards, gnn_cfg, hyper, generator, state_noise, phys_noise):
-    """Each shard's expanded batch, augmented with its part of the whole
-    batch's draws when augmentation is on."""
-    shards = [expand_compact_batch(b, gnn_cfg) for b in shards]
-    if not hyper.use_augmentation:
-        return shards
-    draws = draw_augment_shards(shards, generator, state_noise, phys_noise)
-    out = []
-    for d, b, dr in zip(mesh, shards, draws):
-        with device_scope(d):
-            out.append(augment(b, **dr))
-    return out
+def flat_loss_grads(loss, grads=()):
+    """A shard's loss and gradients in one float32 buffer, the loss first:
+    the mean over shards then copies and sums one tensor a shard.
+    ``pmean`` of such buffers is, element for element, ``pmean`` of each
+    leaf."""
+    return torch.cat([loss.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+
+
+def unflat_grads(flat, like):
+    """The gradients of ``flat_loss_grads``' buffer, as views shaped like
+    the leaves ``like``."""
+    grads = torch.split(flat[1:], [t.numel() for t in like])
+    return [g.view_as(t) for g, t in zip(grads, like)]
+
+
+class ShardedStep:
+    """The data-parallel train or eval step over a mesh (the JAX
+    ``shard_map`` step): the augmentation draws on ``mesh[0]``
+    (``draw_augment_shards``), every shard's loss and, training, gradients
+    at once (``loss_part``, each shard on its own stream,
+    ``parallel.mesh.run_shards``), their ``pmean`` on ``mesh[0]``, then
+    every replica's Adam step at once (``update_part``). ``run`` takes the
+    parts per shard as callables, so that ``ShardedGraphs`` can put graph
+    replays in their place. ``shard_launches``: each shard's K2 and K3
+    launches, summed over the calls."""
+
+    def __init__(self, gnn_cfg, edge_cfg, hyper, fused_fn, mesh, train_mode):
+        self.gnn_cfg, self.edge_cfg, self.hyper, self.fused_fn = gnn_cfg, edge_cfg, hyper, fused_fn
+        self.mesh = [torch.device(d) for d in mesh]
+        self.train_mode = train_mode
+        self.streams = shard_streams(self.mesh)
+        self.shard_launches = launch_tallies(_LAUNCH_COUNTERS, len(self.mesh))
+
+    def draws(self, shards, generator):
+        """Each shard's part of the whole batch's draws (None each without
+        augmentation), on ``mesh[0]``."""
+        h = self.hyper
+        if not h.use_augmentation:
+            return [None] * len(shards)
+        noise = ((h.state_noise_train, h.phys_noise_train) if self.train_mode
+                 else (h.state_noise_valid, h.phys_noise_valid))
+        return draw_augment_shards(shards, generator, *noise)
+
+    def loss_part(self, leaves, batch, draws):
+        """One shard's expanded, augmented batch through ``multi_step_loss``:
+        its loss and, training, its gradients, as ``flat_loss_grads``."""
+        h = self.hyper
+        batch = expand_compact_batch(batch, self.gnn_cfg)
+        if draws is not None:
+            dev = batch["state"].device
+            batch = augment(batch, **{k: v.to(dev) for k, v in draws.items()})
+        with torch.set_grad_enabled(self.train_mode):
+            loss = multi_step_loss(ckpt.tree_from_leaves(leaves), batch, self.gnn_cfg,
+                                   self.edge_cfg, h.n_future, h.store_rest_state, self.fused_fn)
+        if not self.train_mode:
+            return flat_loss_grads(loss)
+        return flat_loss_grads(loss, torch.autograd.grad(loss, leaves))
+
+    def update_part(self, leaves, state, mean):
+        """One replica's Adam step with the mean gradients of ``mean``,
+        copied to the replica's device."""
+        adam_step(leaves, unflat_grads(mean.to(leaves[0].device), leaves), state, self.hyper.lr,
+                  self.hyper.grad_clip_norm)
+
+    def run(self, shards, draws, loss_parts, update_parts=None):
+        """One step: ``loss_parts[s](shards[s], draws[s])`` on every shard,
+        the mean on ``mesh[0]``, then ``update_parts[s](mean)`` on every
+        shard. Returns the mean loss on ``mesh[0]``."""
+        flats = run_shards(self.mesh, self.streams, loss_parts, list(zip(shards, draws)),
+                           _LAUNCH_COUNTERS, self.shard_launches)
+        mean = pmean(flats, self.mesh[0])
+        if update_parts is not None:
+            run_shards(self.mesh, self.streams, update_parts, [(mean,)] * len(self.mesh),
+                       _LAUNCH_COUNTERS, self.shard_launches)
+        return mean[0]
+
+    def eager_parts(self, replicas, opt_states=None):
+        """The parts of ``run`` computed as they are issued: each shard's
+        ``loss_part`` and, given the Adam states, ``update_part``."""
+        loss_parts = [lambda b, dr, r=r: self.loss_part(r, b, dr) for r in replicas]
+        if opt_states is None:
+            return loss_parts, None
+        return loss_parts, [lambda m, r=r, st=st: self.update_part(r, st, m)
+                            for r, st in zip(replicas, opt_states)]
 
 
 def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None,
@@ -287,23 +365,14 @@ def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper,
 
 
 def _sharded_train_step(gnn_cfg, edge_cfg, hyper, fused_fn, mesh):
-    def step(replicas, opt_states, shards, generator):
-        shards = _shard_parts(mesh, shards, gnn_cfg, hyper, generator, hyper.state_noise_train,
-                              hyper.phys_noise_train)
-        losses, grads = [], []
-        for d, leaves, batch, tally in zip(mesh, replicas, shards, step.shard_launches):
-            with device_scope(d), count_launches(_LAUNCH_COUNTERS, tally):
-                loss = multi_step_loss(ckpt.tree_from_leaves(leaves), batch, gnn_cfg, edge_cfg,
-                                       hyper.n_future, hyper.store_rest_state, fused_fn)
-                grads.append(torch.autograd.grad(loss, leaves))
-            losses.append(loss.detach())
-        mean = [pmean(g, mesh[0]) for g in zip(*grads)]
-        for d, leaves, state in zip(mesh, replicas, opt_states):
-            with device_scope(d):
-                adam_step(leaves, [g.to(d) for g in mean], state, hyper.lr, hyper.grad_clip_norm)
-        return pmean(losses, mesh[0])
+    sharded = ShardedStep(gnn_cfg, edge_cfg, hyper, fused_fn, mesh, train_mode=True)
 
-    step.shard_launches = launch_tallies(_LAUNCH_COUNTERS, len(mesh))
+    def step(replicas, opt_states, shards, generator):
+        return sharded.run(shards, sharded.draws(shards, generator),
+                           *sharded.eager_parts(replicas, opt_states))
+
+    step.sharded = sharded
+    step.shard_launches = sharded.shard_launches
     return step
 
 
@@ -330,19 +399,14 @@ def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, 
 
 
 def _sharded_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn, mesh):
-    @torch.no_grad()
-    def evaluate(replicas, shards, generator):
-        shards = _shard_parts(mesh, shards, gnn_cfg, hyper, generator, hyper.state_noise_valid,
-                              hyper.phys_noise_valid)
-        losses = []
-        for d, leaves, batch, tally in zip(mesh, replicas, shards, evaluate.shard_launches):
-            with device_scope(d), count_launches(_LAUNCH_COUNTERS, tally):
-                losses.append(multi_step_loss(ckpt.tree_from_leaves(leaves), batch, gnn_cfg,
-                                              edge_cfg, hyper.n_future, hyper.store_rest_state,
-                                              fused_fn))
-        return pmean(losses, mesh[0])
+    sharded = ShardedStep(gnn_cfg, edge_cfg, hyper, fused_fn, mesh, train_mode=False)
 
-    evaluate.shard_launches = launch_tallies(_LAUNCH_COUNTERS, len(mesh))
+    def evaluate(replicas, shards, generator):
+        return sharded.run(shards, sharded.draws(shards, generator),
+                           *sharded.eager_parts(replicas))
+
+    evaluate.sharded = sharded
+    evaluate.shard_launches = sharded.shard_launches
     return evaluate
 
 
@@ -354,6 +418,62 @@ def _slice(superbatch, k):
     return {name: v[k] for name, v in superbatch.items()}
 
 
+def _graph_key(state, superbatches, generator=None):
+    """What a capture bakes in: the addresses of the state's tensors, the
+    generator registered with it, and the slices' shapes."""
+    ptrs = []
+    tree_map(lambda x: ptrs.append(x.data_ptr()) if isinstance(x, torch.Tensor) else None, state)
+    return (tuple(ptrs), id(generator), tuple((name, tuple(v.shape[1:]), v.dtype, v.device)
+                                              for sb in superbatches for name, v in sb.items()))
+
+
+def _copy_into(static, values):
+    """Copies each tensor of ``values`` into the tensor at its place in
+    ``static`` (dicts, lists and tuples of tensors or None)."""
+    if isinstance(static, torch.Tensor):
+        static.copy_(values)
+    elif isinstance(static, dict):
+        for k, v in static.items():
+            _copy_into(v, values[k])
+    elif isinstance(static, (list, tuple)):
+        for a, b in zip(static, values):
+            _copy_into(a, b)
+
+
+class _Replay:
+    """``fn(*inputs)`` captured once in a CUDA graph on the current device
+    and stream, on copies of ``inputs`` made on ``device`` (with
+    ``generator`` registered, so that replay k draws the numbers the eager
+    call k would); a call copies its inputs into those copies and replays
+    the graph on the current stream. Returns the captured output, which the
+    next replay overwrites. ``counted``: the launches per kernel counter
+    (``_LAUNCH_COUNTERS``) that the capture recorded; a replay adds them, as
+    the kernels' wrappers, which do not run on replay, would. A failed
+    capture raises."""
+
+    def __init__(self, fn, inputs, device, generator=None):
+        self.static = tree_map(lambda x: x.to(device, copy=True)
+                               if isinstance(x, torch.Tensor) else x, inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        before = [c.launches for c in _LAUNCH_COUNTERS]
+        # thread_local: the batch prefetcher's thread pins and copies meanwhile
+        with torch.cuda.graph(self.graph, stream=torch.cuda.current_stream(device),
+                              capture_error_mode="thread_local"):
+            self.out = fn(*self.static)
+        self.counted = [c.launches - b for c, b in zip(_LAUNCH_COUNTERS, before)]
+        for c, n in zip(_LAUNCH_COUNTERS, self.counted):  # the capture launched nothing
+            c.launches -= n
+
+    def __call__(self, *inputs):
+        _copy_into(self.static, inputs)
+        self.graph.replay()
+        for c, n in zip(_LAUNCH_COUNTERS, self.counted):
+            c.launches += n
+        return self.out
+
+
 class GraphedStep:
     """``fn(*state, batch, generator) -> loss`` run on each slice of a
     (K, B, ...) superbatch on the card, captured once in a CUDA graph.
@@ -361,70 +481,102 @@ class GraphedStep:
     The first call (and the first after the state's tensors, the generator
     or the batch's shapes change) runs slice 0 eagerly on a side stream,
     which also warms up what a step sets up at first use, then captures one
-    call on static batch buffers. Every later slice is copied into those
-    buffers and the graph replayed. The state (parameter leaves, optimizer
-    state) is updated in place, so its addresses, baked into the graph, stay
-    valid; the generator is registered with the graph, so replay k draws
-    the numbers the eager step k would. A failed capture raises.
-    ``counted``: the launches per kernel counter that the capture recorded
-    (``_LAUNCH_COUNTERS``); a replay adds them, as the kernels' wrappers,
-    which do not run on replay, would."""
+    call there on static batch buffers (``_Replay``). Every later slice is
+    copied into those buffers and the graph replayed. The state (parameter
+    leaves, optimizer state) is updated in place, so its addresses, baked
+    into the graph, stay valid; the generator is registered with the graph,
+    so replay k draws the numbers the eager step k would. A failed capture
+    raises. ``counted``: the launches per kernel counter that the capture
+    recorded; ``replays``: the replays so far."""
 
     def __init__(self, fn):
         self.fn = fn
         self.key = None
-        self.graph = None
-        self.counted = None
+        self.replay = None
+        self.replays = 0
 
-    @staticmethod
-    def _key(state, superbatch, generator):
-        tensors = []
-        for part in state:
-            items = part.values() if isinstance(part, dict) else part
-            for x in items:
-                tensors += x if isinstance(x, (list, tuple)) else [x]
-        return (tuple(t.data_ptr() for t in tensors), id(generator),
-                tuple((name, tuple(v.shape[1:]), v.dtype, v.device)
-                      for name, v in superbatch.items()))
+    @property
+    def counted(self):
+        return self.replay.counted
 
     def _capture(self, state, superbatch, generator, out):
         dev = out.device
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):  # slice 0, eagerly: the warm-up
+        with torch.cuda.stream(side):  # slice 0, eagerly: the warm-up; then the capture
             out[0].copy_(self.fn(*state, _slice(superbatch, 0), generator))
+            self.replay = self.key = None  # frees an earlier capture's memory first
+            self.replay = _Replay(lambda batch: self.fn(*state, batch, generator),
+                                  (_slice(superbatch, 0),), dev, generator)
         cur.wait_stream(side)
-        self.graph = self.key = None  # frees an earlier capture's memory first
-        self.static = {name: v[0].clone() for name, v in superbatch.items()}
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-        before = [c.launches for c in _LAUNCH_COUNTERS]
-        # thread_local: the batch prefetcher's thread pins and copies meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.loss = self.fn(*state, self.static, generator)
-        self.counted = [c.launches - b for c, b in zip(_LAUNCH_COUNTERS, before)]
-        for c, n in zip(_LAUNCH_COUNTERS, self.counted):  # the capture launched nothing
-            c.launches -= n
-        self.graph = graph
-        self.key = self._key(state, superbatch, generator)
+        self.key = _graph_key(state, [superbatch], generator)
 
     def __call__(self, state, superbatch, generator):
         K = _n_slices(superbatch)
         dev = next(iter(superbatch.values())).device
         out = torch.empty(K, dtype=torch.float32, device=dev)
         start = 0
-        if self.graph is None or self.key != self._key(state, superbatch, generator):
+        if self.replay is None or self.key != _graph_key(state, [superbatch], generator):
             self._capture(state, superbatch, generator, out)
             start = 1
         for k in range(start, K):
-            for name, buf in self.static.items():
-                buf.copy_(superbatch[name][k])
-            self.graph.replay()
-            out[k].copy_(self.loss)  # the next replay overwrites it
-            for c, n in zip(_LAUNCH_COUNTERS, self.counted):
-                c.launches += n
+            out[k].copy_(self.replay(_slice(superbatch, k)))  # the next replay overwrites it
+            self.replays += 1
+        return out
+
+
+class ShardedGraphs:
+    """K steps per call of a ``ShardedStep`` over per-shard (K, B, ...)
+    superbatches as CUDA graph replays (the JAX sharded ``lax.scan``). The
+    first call, and the first after the state's tensors or the batch's
+    shapes change, runs slice 0 as the eager sharded step, which also warms
+    up what a step sets up at first use, then captures per shard, on its own
+    stream, one graph of ``loss_part`` and, training, one of
+    ``update_part``. Every later slice runs ``ShardedStep.run`` with the
+    replays in place of the parts: the draws and the mean stay between the
+    graphs on ``mesh[0]`` (they cross cards), and the shards' graphs run at
+    once. Equal bit for bit to K calls of the sharded step. ``replays``:
+    the graph replays so far."""
+
+    def __init__(self, sharded):
+        self.sharded = sharded
+        self.key = None
+        self.parts = None
+        self.replays = 0
+
+    def _capture(self, state, shards, draws):
+        sh = self.sharded
+        self.parts = self.key = None  # frees an earlier capture's graphs first
+        eager_loss, eager_update = sh.eager_parts(*state)
+        loss_parts, update_parts = [], []
+        for s, (d, stream) in enumerate(zip(sh.mesh, sh.streams)):
+            with shard_scope(d, stream):
+                loss_parts.append(_Replay(eager_loss[s], (shards[s], draws[s]), d))
+                if eager_update is not None:  # a mean buffer's shape: the loss, then the leaves
+                    size = 1 + sum(t.numel() for t in state[0][s])
+                    update_parts.append(_Replay(eager_update[s], (torch.zeros(size, device=d),),
+                                                d))
+        self.parts = (loss_parts, update_parts or None)
+
+    def __call__(self, *args):
+        *state, superbatches, generator = args
+        sh = self.sharded
+        K = _n_slices(superbatches[0])
+        out = torch.empty(K, dtype=torch.float32, device=sh.mesh[0])
+        key = _graph_key(state, superbatches)
+        start = 0
+        if self.parts is None or self.key != key:
+            shards = [_slice(sb, 0) for sb in superbatches]
+            draws = sh.draws(shards, generator)
+            out[0].copy_(sh.run(shards, draws, *sh.eager_parts(*state)))
+            self._capture(state, shards, draws)
+            self.key = key
+            start = 1
+        for k in range(start, K):
+            shards = [_slice(sb, k) for sb in superbatches]
+            out[k].copy_(sh.run(shards, sh.draws(shards, generator), *self.parts))
+            self.replays += sum(len(p) for p in self.parts if p is not None)
         return out
 
 
@@ -440,8 +592,9 @@ def make_train_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper
     With ``mesh``: ``steps(replicas, opt_states, superbatches, generator)``
     with ``shard_batch(superbatch, mesh, batch_axis=1)``'s parts; a
     one-entry mesh runs the unsharded steps on its copies (the graph on a
-    card), a longer one a loop of ``make_train_step(mesh=mesh)``'s step
-    (``steps.shard_launches``)."""
+    card), a longer one ``make_train_step(mesh=mesh)``'s step as
+    ``ShardedGraphs`` replays on the cards, a loop of it on the CPU
+    (``steps.shard_launches``, ``steps.graphed``)."""
     step = make_train_step(gnn_cfg, edge_cfg, hyper, fused_fn)
     graphed = GraphedStep(step)
 
@@ -480,12 +633,12 @@ def make_eval_steps(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper,
 def _steps_on(steps, mesh, make_sharded):
     """K steps per call for a mesh's calling convention (per-entry lists of
     the state arguments and of the superbatch, then the generator). A
-    graph captures one device's stream, so a one-entry mesh runs ``steps``
-    (the unsharded K steps, the graph on a card) on the entry's parts; the
-    sharded step of one entry is the unsharded step bit for bit. A longer
-    mesh loops ``make_sharded()``'s step over the slices.
-    ``shard_launches``: each shard's K2 and K3 launches, summed over the
-    calls."""
+    one-entry mesh runs ``steps`` (the unsharded K steps, the graph on a
+    card) on the entry's parts; the sharded step of one entry is the
+    unsharded step bit for bit. A longer mesh runs ``make_sharded()``'s
+    step: on the cards as ``ShardedGraphs`` replays, on the CPU as a loop.
+    ``graphed``: the graphs (``.replays``); ``shard_launches``: each shard's
+    K2 and K3 launches, summed over the calls."""
     if mesh is None:
         return steps
     if len(mesh) == 1:
@@ -497,14 +650,18 @@ def _steps_on(steps, mesh, make_sharded):
         run.shard_launches = launch_tallies(_LAUNCH_COUNTERS, 1)
         return run
     sharded = make_sharded()
+    graphed = ShardedGraphs(sharded.sharded)
 
-    def looped(*args):
+    def run(*args):
         *state, superbatches, generator = args
+        if all(s is not None for s in graphed.sharded.streams):  # every entry a card
+            return graphed(*args)
         return torch.stack([sharded(*state, [_slice(sb, k) for sb in superbatches], generator)
                             for k in range(_n_slices(superbatches[0]))])
 
-    looped.shard_launches = sharded.shard_launches
-    return looped
+    run.graphed = graphed
+    run.shard_launches = sharded.shard_launches
+    return run
 
 
 class DevicePrefetcher:

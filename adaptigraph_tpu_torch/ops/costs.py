@@ -15,7 +15,7 @@ def chamfer(x, y, x_mask=None, y_mask=None, eps=1e-12):
     (..., N) / (..., M). Returns (...,)."""
     diff = x[..., :, None, :] - y[..., None, :, :]
     dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eps)
-    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
+    inf = float("inf")  # a Python number: a tensor made from it would be a host-to-device copy
     if x_mask is not None:
         dist = torch.where(x_mask[..., :, None], dist, inf)
     if y_mask is not None:
@@ -58,9 +58,11 @@ def box_loss(state, target, mask=None):
 
 def _prev_states_2d(state_pred, state_init, B):
     """(B, L, N, 2) x/z of the state each step starts from: the initial state,
-    then the predicted states of the earlier steps."""
-    init_2d = state_init[:, [0, 2]].expand(B, 1, *state_init[:, [0, 2]].shape)
-    return torch.cat([init_2d, state_pred[:, :-1][..., [0, 2]]], dim=1)
+    then the predicted states of the earlier steps. (x, z) is the stride-2
+    slice of (x, y, z): an index list would be copied to the card and read
+    there after a host wait."""
+    init_2d = state_init[:, ::2].expand(B, 1, *state_init[:, ::2].shape)
+    return torch.cat([init_2d, state_pred[:, :-1][..., ::2]], dim=1)
 
 
 def rope_penalty(state_pred, action, state_init, sim_real_ratio=10.0):
@@ -77,7 +79,7 @@ def rope_penalty(state_pred, action, state_init, sim_real_ratio=10.0):
 def cloth_penalty(state_pred, action, state_init, sim_real_ratio=10.0):
     """Encourage the gripper to grasp near the cloth edge."""
     pt = action[..., :2]
-    state_2d = state_init[:, [0, 2]]
+    state_2d = state_init[:, ::2]
     d = torch.linalg.norm(pt[:, :, None] - state_2d[None, None], dim=-1)
     d_min = torch.clamp(d.amin(dim=-1) - 0.005 * sim_real_ratio, min=0.0)
     d_max = torch.clamp(d.amax(dim=-1), max=0.4 * sim_real_ratio)
@@ -123,7 +125,7 @@ def hausdorff(x, y, x_mask=None, y_mask=None, eps=1e-12):
     masks (..., N) / (..., M). Returns (...,)."""
     diff = x[..., :, None, :] - y[..., None, :, :]
     dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eps)
-    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
+    inf = float("inf")
     if x_mask is not None:
         dist = torch.where(x_mask[..., :, None], dist, inf)
     if y_mask is not None:

@@ -104,7 +104,7 @@ def build_neighbor_graph_batch(states, node_mask, tool_mask, adj_radius, cfg: Ed
     dis_eff = torch.where(valid_pair & ~tool_pair, dis, torch.full_like(dis, BIG))
 
     # radius² in float32, as the JAX graph construction squares a float32 radius
-    r = torch.as_tensor(adj_radius, dtype=torch.float32, device=dev)
+    r = _f32_on(adj_radius, dev)
     thresh = (r * r).reshape(-1, 1, 1) if r.dim() else r * r
     topk_dis, topk_idx = smallest_k(dis_eff, cfg.topk)
     topk_mask = (topk_dis < thresh) & (topk_dis < BIG * 0.5) & node_mask[:, :, None]
@@ -133,7 +133,7 @@ def build_neighbor_graph_batch(states, node_mask, tool_mask, adj_radius, cfg: Ed
         if cfg.policy == POLICY_NON_FIXED:
             eligible = _non_fixed_receivers(states, receiver_is_obj, cfg)
             pair_ok = eligible[:, :, None] & tool_valid
-            frac = torch.as_tensor(knn_frac, dtype=torch.float32, device=dev).expand(B)
+            frac = _f32_on(knn_frac, dev).expand(B)
             tool_slot_mask = torch.where(((frac < 1.0) & (frac > 0.0))[:, None, None],
                                          _nearest_pairs(dis[:, :, tool_ids], pair_ok, frac),
                                          pair_ok) & check
@@ -155,6 +155,15 @@ def build_neighbor_graph_batch(states, node_mask, tool_mask, adj_radius, cfg: Ed
         neighbors = torch.cat([neighbors, neighbors.new_zeros(B, N, pad)], dim=-1)
         mask = torch.cat([mask, mask.new_zeros(B, N, pad)], dim=-1)
     return neighbors, mask
+
+
+def _f32_on(value, dev):
+    """``value`` (a number, array or tensor) as a float32 tensor on ``dev``;
+    a Python number is filled in on the device, since a tensor made from it
+    on the host would be copied to the card after a host wait."""
+    if isinstance(value, (int, float)):
+        return torch.full((), value, dtype=torch.float32, device=dev)
+    return torch.as_tensor(value, dtype=torch.float32, device=dev)
 
 
 def build_neighbor_graph(states, node_mask, tool_mask, adj_radius, cfg: EdgeConfig,

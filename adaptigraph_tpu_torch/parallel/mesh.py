@@ -2,13 +2,25 @@
 ``adaptigraph_tpu/parallel/mesh.py``).
 
 The JAX package shards the batch or sample axis over a 1-D
-``jax.sharding.Mesh``, one process driving every chip. The port stays one
-process driving a device list: a mesh is a plain list of ``torch.device``s,
-and the sharded solve and train step (``planning/mppi_solve.py``,
-``dynamics/train.py``) run each shard's work on its entry, gathering onto
-``mesh[0]``. No ``torch.distributed``. A list may name one device more than
-once: the whole sharded code then runs, with that many shards, on one card or
-on the CPU.
+``jax.sharding.Mesh``, one process driving every chip, and ``shard_map``
+runs the shards at once. The port stays one process driving a device list:
+a mesh is a plain list of ``torch.device``s, and the sharded solve and train
+step (``planning/mppi_solve.py``, ``dynamics/train.py``) run each shard's
+work on its entry, gathering onto ``mesh[0]``. No ``torch.distributed``. A
+list may name one device more than once: the whole sharded code then runs,
+with that many shards, on one card or on the CPU.
+
+Each entry on a card gets a CUDA stream of its own (``shard_streams``; two
+for a card named twice), and a shard's work runs on it with its card
+current (``shard_scope``), so the host issues every shard's work without
+waiting for a card and the shards run at once. The hand-offs go through
+events: the shards start once the work queued so far on ``mesh[0]``'s
+current stream (the caller's, where their inputs were made) is done
+(``fork``), and that stream goes on once every shard is done (``join``). A
+tensor used on a stream other than the one it was made on is marked as used
+there (``used_on``, ``record_stream``), so the caching allocator does not
+hand its memory on before that stream is done with it. On the CPU every one
+of these is a no-op.
 """
 
 import contextlib
@@ -48,6 +60,99 @@ def device_scope(device):
     return contextlib.nullcontext()
 
 
+def shard_streams(mesh):
+    """A new CUDA stream for each mesh entry on a card, None for a CPU entry.
+    A sharded function makes its streams once and runs each shard on its
+    own."""
+    return [torch.cuda.Stream(d) if d.type == "cuda" else None
+            for d in (torch.device(d) for d in mesh)]
+
+
+@contextlib.contextmanager
+def shard_scope(device, stream):
+    """``device_scope(device)`` with ``stream`` current as well (None: the
+    card's current stream stays): the kernels' launchers, the caching
+    allocator and PyTorch's own kernels then all use the shard's stream."""
+    with device_scope(device), (torch.cuda.stream(stream) if stream is not None
+                                else contextlib.nullcontext()):
+        yield
+
+
+def _home_stream(home):
+    return torch.cuda.current_stream(home) if torch.device(home).type == "cuda" else None
+
+
+def fork(streams, home):
+    """Every shard's stream waits for the work queued so far on ``home``'s
+    current stream (the caller's). No host wait."""
+    cur = _home_stream(home)
+    if cur is None or all(s is None for s in streams):
+        return
+    event = torch.cuda.Event()
+    event.record(cur)
+    for s in streams:
+        if s is not None:
+            s.wait_event(event)
+
+
+def join(streams, home):
+    """``home``'s current stream waits for the work queued so far on every
+    shard's stream. No host wait."""
+    cur = _home_stream(home)
+    for s in streams:
+        if s is not None and cur is not None:
+            cur.wait_stream(s)
+
+
+def used_on(tree, stream):
+    """Marks every tensor in ``tree`` (dicts, lists and tuples of tensors and
+    other values) that lies on ``stream``'s card as used on ``stream``
+    (``record_stream``); nothing when ``stream`` is None. A tensor on
+    another card reaches the stream only through a copy, which PyTorch
+    orders on both cards' current streams."""
+    if stream is not None:
+        tree_map(lambda x: x.record_stream(stream)
+                 if isinstance(x, torch.Tensor) and x.device == stream.device else None, tree)
+
+
+def run_shards(mesh, streams, fns, args, counters, tallies):
+    """``fns[s](*args[s])`` for every shard s at once (the body of JAX's
+    ``shard_map``): each on ``streams[s]`` with its card current, all issued
+    from this thread without a host wait, between a ``fork`` from and a
+    ``join`` to ``mesh[0]``'s current stream. Shard s's arguments are marked
+    as used on its stream, and the launches of the wrappers in ``counters``
+    that it made are added to ``tallies[s]``. Returns each shard's output
+    (a tensor, or None) on ``mesh[0]``, marked as used on its current stream.
+    State that outlives the call (the parameters, the optimizer state) is
+    the caller's, made on the caller's stream, which waits for the shards."""
+    home = torch.device(mesh[0])
+    fork(streams, home)
+    outs = []
+    for d, stream, fn, a, tally in zip(mesh, streams, fns, args, tallies):
+        used_on(a, stream)
+        with shard_scope(d, stream), count_launches(counters, tally):
+            outs.append(fn(*a))
+    outs = gather(outs, mesh, streams)
+    join(streams, home)
+    used_on(outs, _home_stream(home))
+    return outs
+
+
+def gather(outs, mesh, streams):
+    """Each shard's output (a tensor, a list of tensors or None) on
+    ``mesh[0]``, copied from another card on the shard's stream. Issue it
+    only once every shard's work is queued: a copy from another card makes
+    ``mesh[0]``'s current stream wait for that shard, and a later copy of
+    another shard's inputs, which runs on that stream, would wait too."""
+    home = torch.device(mesh[0])
+    n = len(mesh)
+    gathered = []
+    for c, out in enumerate(outs):
+        with shard_scope(mesh[c % n], streams[c % n]):
+            gathered.append(tree_map(lambda x: None if x is None else x.to(home), out))
+    return gathered
+
+
 def launch_tallies(counters, n):
     """``n`` zeroed tallies (one per shard) of the launches of each kernel
     wrapper in ``counters``, keyed by the wrapper's name."""
@@ -67,11 +172,13 @@ def count_launches(counters, tally):
             tally[c.__name__] += c.launches - b
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of ``tree`` (dicts, lists and tuples of
+    leaves), in the same nesting."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -89,14 +196,14 @@ def split_batch(batch, n, batch_axis=0):
                              f"evenly over {n} shards")
         return x.narrow(batch_axis, i * (size // n), size // n).contiguous()
 
-    return [_tree_map(lambda x, i=i: part(x, i), batch) for i in range(n)]
+    return [tree_map(lambda x, i=i: part(x, i), batch) for i in range(n)]
 
 
 def shard_batch(batch, mesh, batch_axis=0):
     """A host batch split along ``batch_axis`` (``batch_axis=1`` for
     ``(K, B, ...)`` superbatches: the step axis stays whole), one equal part
     per mesh entry, each on its device. Returns the list of parts."""
-    return [_tree_map(lambda x, d=d: x.to(d), part)
+    return [tree_map(lambda x, d=d: x.to(d), part)
             for d, part in zip(mesh, split_batch(batch, len(mesh), batch_axis))]
 
 
@@ -113,4 +220,4 @@ def replicate(tree, mesh):
             return torch.tensor(x, device=d)
         return x
 
-    return [_tree_map(lambda x, d=d: copy(x, d), tree) for d in mesh]
+    return [tree_map(lambda x, d=d: copy(x, d), tree) for d in mesh]

@@ -68,16 +68,21 @@ def pusher_keypoints(cfg: DynamicsConfig, decoded, theta, y):
     delta = torch.stack([decoded[:, 2] - decoded[:, 0], 0.0 * decoded[:, 0],
                          decoded[:, 3] - decoded[:, 1]], dim=-1)
     if cfg.pusher_offsets and len(cfg.pusher_offsets) > 1:
-        # board pusher: points spread laterally by the configured offsets
-        offs = torch.as_tensor(cfg.pusher_offsets, dtype=torch.float32,
-                               device=decoded.device) * cfg.sim_real_ratio
+        # board pusher: points spread laterally by the configured offsets, sent
+        # to the card from pinned memory (a copy from pageable memory waits on
+        # the host)
+        offs = torch.tensor(cfg.pusher_offsets, dtype=torch.float32)
+        if decoded.is_cuda:
+            offs = offs.pin_memory().to(decoded.device, non_blocking=True)
+        offs = offs * cfg.sim_real_ratio
         xs = decoded[:, :1] + offs * torch.sin(theta)[:, None]
         zs = decoded[:, 1:2] - offs * torch.cos(theta)[:, None]
         kp = torch.stack([xs, y[:, None].expand_as(xs), zs], dim=-1)
     else:
         kp = torch.stack([decoded[:, 0], y, decoded[:, 1]], dim=-1)[:, None].expand(B, n_eef, 3)
-    if cfg.gripper_enable:
-        kp = kp + torch.tensor([0.0, 0.01 * cfg.sim_real_ratio, 0.0], device=kp.device)
+    if cfg.gripper_enable:  # (0, lift, 0), made on the device: no host-to-device copy
+        kp = kp + torch.where(torch.arange(3, device=kp.device) == 1,
+                              0.01 * cfg.sim_real_ratio, 0.0)
     return kp, delta[:, None].expand(B, n_eef, 3)
 
 
@@ -128,10 +133,11 @@ def _obj_y_fn(cfg: DynamicsConfig):
 
 
 def _substep_pushes(fwd, state, action_seqs, decoded, repeat, physics_param, cfg: DynamicsConfig,
-                    node_mask):
+                    node_mask, n_substeps=None):
     """Every look-ahead push of every sample, substep by substep
-    (``_push_substeps`` with ``fwd`` and ``node_mask``), each push from the
-    states the previous one recorded. Returns (B, L, max_nobj, 3)."""
+    (``_push_substeps`` with ``fwd``, ``node_mask`` and step li's count
+    ``n_substeps[li]``, None: read per step), each push from the states the
+    previous one recorded. Returns (B, L, max_nobj, 3)."""
     gnn = cfg.gnn
     n_p, N = gnn.max_nobj, gnn.n_nodes
     B, L = action_seqs.shape[0], action_seqs.shape[1]
@@ -145,13 +151,14 @@ def _substep_pushes(fwd, state, action_seqs, decoded, repeat, physics_param, cfg
     outs = []
     for li in range(L):
         kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
-        obj = _push_substeps(fwd, obj, kp, delta, repeat[:, li], graph, cfg, obj_y, node_mask)
+        obj = _push_substeps(fwd, obj, kp, delta, repeat[:, li], graph, cfg, obj_y, node_mask,
+                             None if n_substeps is None else n_substeps[li])
         outs.append(obj)
     return torch.stack(outs, dim=1)
 
 
 def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: DynamicsConfig,
-                             compute_dtype=torch.bfloat16, fused_substeps=True):
+                             compute_dtype=torch.bfloat16, fused_substeps=True, n_substeps=None):
     """MPPI forward model for one chunk of samples (the JAX
     ``dynamics_rollout_batched`` with ``use_fused`` and ``dynamic_substeps``).
 
@@ -169,9 +176,11 @@ def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: Dyn
       max_neef`` real slots.
 
     Per-substep branches run to the chunk's largest repeat, at most
-    ``max_repeat`` (the one host read of a look-ahead step), and record each
-    sample at its own repeat. Returns ``state_seqs`` (B, L, max_nobj, 3) and
-    the decoded ``action_seqs`` (B, L, 4).
+    ``max_repeat``, and record each sample at its own repeat. That count is
+    read on the host once per look-ahead step (``substep_counts``), unless
+    the caller gives every step's count in ``n_substeps`` (L ints, read for
+    many chunks at once). Returns ``state_seqs`` (B, L, max_nobj, 3) and the
+    decoded ``action_seqs`` (B, L, 4).
     """
     gnn, edge = cfg.gnn, cfg.edge
     B, L = action_seqs.shape[0], action_seqs.shape[1]
@@ -207,13 +216,22 @@ def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: Dyn
     node_mask = (None if kernel_edges
                  else torch.ones(B, gnn.n_nodes, dtype=torch.bool, device=action_seqs.device))
     return {"state_seqs": _substep_pushes(fwd, state, action_seqs, decoded, repeat, physics_param,
-                                          cfg, node_mask),
+                                          cfg, node_mask, n_substeps),
             "action_seqs": decoded}
 
 
-def _push_substeps(fwd, obj, kp, delta, repeat, graph, cfg: DynamicsConfig, obj_y, node_mask):
+def substep_counts(repeat, max_repeat):
+    """The substeps that pushes run: the largest repeat along the last axis
+    (the samples), at most ``max_repeat``, read on the host in one read: an
+    int for ``repeat`` (B,), nested lists of ints for more axes."""
+    return torch.clamp(repeat.amax(dim=-1), max=max_repeat).tolist()
+
+
+def _push_substeps(fwd, obj, kp, delta, repeat, graph, cfg: DynamicsConfig, obj_y, node_mask,
+                   n_steps=None):
     """One push of every sample, substep by substep, to the batch's largest
-    repeat (at most ``max_repeat``): the history starts as the object state
+    repeat (at most ``max_repeat``; ``n_steps`` when the caller read it,
+    else ``substep_counts`` here): the history starts as the object state
     (B, max_nobj, 3) and the eef keypoints kp repeated; per substep
     ``fwd(graph)`` predicts the objects (with ``node_mask`` (B, N), the
     graph is built first by ``build_neighbor_graph_batch`` on the newest
@@ -228,7 +246,8 @@ def _push_substeps(fwd, obj, kp, delta, repeat, graph, cfg: DynamicsConfig, obj_
     eef_mask = (torch.arange(gnn.n_nodes, device=obj.device) >= n_p).expand(B, gnn.n_nodes)
     graph = dict(graph, action=action)
     rec = obj
-    n_steps = min(int(repeat.max()), cfg.max_repeat) if B else 0
+    if n_steps is None:
+        n_steps = substep_counts(repeat, cfg.max_repeat) if B else 0
     for ai in range(1, n_steps + 1):
         graph["state"] = hist
         if node_mask is not None:

@@ -5,25 +5,26 @@ One solve iteration samples ``n_sample`` action sequences, orders them by
 their summed push repeats, rolls them out ``n_sample_chunk`` at a time
 through ``dynamics_rollout_batched`` (on CUDA, for edge policy ``none`` one
 rollout-kernel launch per chunk and look-ahead step; for the tool policies,
-cloth, one single-step-forward launch per chunk and substep, with one host
-read of the chunk's largest repeat per look-ahead step), scores each chunk
-with the reward, and applies the softmax update and argmax. The best
-sequence is tracked on the device.
+cloth, one single-step-forward launch per chunk and substep, each chunk's
+substep counts read on the host once per iteration, before the chunk loop),
+scores each chunk with the reward, and applies the softmax update and
+argmax. The best sequence is tracked on the device.
 
 With a ``mesh`` (``parallel/mesh.py``: a list of devices) the samples are
 drawn once on ``mesh[0]`` from the caller's generator and sorted, and whole
 chunks are dealt round-robin: chunk c goes to shard c % n, as the JAX
 ``sort_by_repeat(interleave=n)`` deals them, so each shard gets an even
 spread of push lengths. Each shard rolls out and scores its chunks on its
-device, with the weights and the state copied there; the launches go
-round-robin over the shards, so that separate cards run at once. Rewards and
-final states are gathered onto ``mesh[0]`` in chunk order, where the update
-and argmax run. A chunk's members and its place in the sample order do not
-change under the deal, so the sharded solve equals the unsharded one bit for
-bit. (JAX permutes the samples into the dealt order, so its MPPI average
-sums in another order than its unsharded solve's; the port keeps the
-unsharded order.) Without a mesh the solve is this one on the single
-device ``[device]``.
+device and its own stream, with the weights and the state copied there;
+the chunks are issued round-robin over the shards and nothing in the chunk
+loop waits on the host, so the shards run at once (``shard_rewards``).
+Rewards and final states are gathered onto ``mesh[0]`` in chunk order,
+where the update and argmax run. A chunk's members and its place in the
+sample order do not change under the deal, so the sharded solve equals the
+unsharded one bit for bit. (JAX permutes the samples into the dealt order,
+so its MPPI average sums in another order than its unsharded solve's; the
+port keeps the unsharded order.) Without a mesh the solve is this one on the
+single device ``[device]``, on the caller's stream.
 """
 
 import dataclasses
@@ -33,11 +34,13 @@ import torch
 
 from adaptigraph_tpu_torch.ops.fused_gnn import (fused_rollout_chunk, gnn_forward,
                                                  gnn_forward_edges, weight_list)
-from adaptigraph_tpu_torch.parallel.mesh import (count_launches, device_scope,
-                                                 launch_tallies)
+from adaptigraph_tpu_torch.parallel.mesh import (count_launches, fork, gather, join,
+                                                 launch_tallies, shard_scope, shard_streams,
+                                                 used_on)
 from adaptigraph_tpu_torch.planning.actions import (decode_action, optimize_action_mppi,
                                                     sample_action_seq)
-from adaptigraph_tpu_torch.planning.forward import DynamicsConfig, dynamics_rollout_batched
+from adaptigraph_tpu_torch.planning.forward import (DynamicsConfig, dynamics_rollout_batched,
+                                                    substep_counts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +71,41 @@ def sort_by_repeat(act_seqs, push_length):
 _LAUNCH_COUNTERS = (fused_rollout_chunk, gnn_forward_edges, gnn_forward)
 
 
+def shard_rewards(chunk_fn, mesh, streams, tallies, shared, act_seqs, n_chunks, counts):
+    """One iteration's chunk loop over ``mesh``: the sorted ``act_seqs``
+    dealt in ``n_chunks`` chunks (chunk c to shard c % n), each shard's
+    copies of ``shared`` (the weights, the state and the physics parameter,
+    on ``mesh[0]``) made on its device, then ``chunk_fn(weights, state,
+    chunk, physics, count)`` for every chunk, issued round-robin over the
+    shards, each on its shard's stream (``streams``, None: the device's
+    current one) with its launches added to ``tallies``; ``counts[c]`` is
+    chunk c's substep counts (None each for the kernel's whole pushes).
+    Nothing here waits on the host. Returns the rewards and final states on
+    ``mesh[0]``, in chunk order."""
+    n, home = len(mesh), mesh[0]
+    dealt = act_seqs.reshape(n_chunks // n, n, -1, *act_seqs.shape[1:])
+    fork(streams, home)
+    inputs = []
+    for s, (d, stream) in enumerate(zip(mesh, streams)):  # each shard's own copies
+        used_on((shared, act_seqs), stream)
+        with shard_scope(d, stream):
+            w, st, ph = shared
+            inputs.append(([t.to(d, copy=s > 0) for t in w], st.to(d, copy=s > 0),
+                           ph.to(d, copy=s > 0), dealt[:, s].to(d)))
+    out = [None] * n_chunks
+    for j in range(n_chunks // n):  # round-robin: chunk j * n + s on shard s
+        for s, (d, stream, (w, st, ph, acts), tally) in enumerate(zip(mesh, streams, inputs,
+                                                                       tallies)):
+            c = j * n + s
+            with shard_scope(d, stream), count_launches(_LAUNCH_COUNTERS, tally):
+                out[c] = chunk_fn(w, st, acts[j], ph, counts[c])
+    out = gather(out, mesh, streams)  # chunk c from shard c % n
+    join(streams, home)
+    rewards, finals = zip(*out)
+    used_on(out, torch.cuda.current_stream(home) if home.type == "cuda" else None)
+    return torch.cat(rewards), torch.cat(finals)
+
+
 def make_mppi_solver(dcfg: DynamicsConfig, mcfg: MPPIConfig, reward_fn: Callable, lower, upper,
                      device="cuda", compute_dtype=torch.bfloat16, mesh=None):
     """Build ``solve(params, state_cur, act_seq, generator, physics_param)``.
@@ -83,6 +121,7 @@ def make_mppi_solver(dcfg: DynamicsConfig, mcfg: MPPIConfig, reward_fn: Callable
     launches of each kernel wrapper (``_LAUNCH_COUNTERS``' names) its chunks
     made, summed over the solves.
     """
+    sharded = mesh is not None
     mesh = [torch.device(d) for d in (mesh or [device])]
     device = mesh[0]
     for d in mesh:
@@ -99,29 +138,25 @@ def make_mppi_solver(dcfg: DynamicsConfig, mcfg: MPPIConfig, reward_fn: Callable
     if n_chunks % n:
         raise ValueError(f"{n_chunks} chunks do not divide evenly over {n} devices")
 
-    def chunk_rewards(weights, state_cur, act_chunk, physics_param):
+    per_substep = dcfg.edge.policy != "none"  # the tool policies: K2 per substep
+    streams = shard_streams(mesh) if sharded else [None]
+
+    def chunk_rewards(weights, state_cur, act_chunk, physics_param, count):
         out = dynamics_rollout_batched(weights, state_cur, act_chunk, physics_param, dcfg,
-                                       compute_dtype=compute_dtype)
+                                       compute_dtype=compute_dtype, n_substeps=count)
         return reward_fn(out["state_seqs"], act_chunk, state_cur), out["state_seqs"][:, -1]
 
     def all_rewards(weights, state_cur, act_seqs, physics_param):
         act_seqs = sort_by_repeat(act_seqs, mcfg.push_length)
-        # chunk c to shard c % n: shard s holds chunks s, s + n, s + 2n, ...
-        dealt = act_seqs.reshape(n_chunks // n, n, chunk, *act_seqs.shape[1:])
-        shards = []
-        for s, d in enumerate(mesh):  # each shard's inputs on its device, its own copies
-            with device_scope(d):
-                shards.append(([w.to(d, copy=s > 0) for w in weights],
-                               state_cur.to(d, copy=s > 0), physics_param.to(d, copy=s > 0),
-                               dealt[:, s].to(d)))
-        out = []
-        for j in range(n_chunks // n):  # round-robin: chunk j * n + s on shard s
-            for d, (w, st, ph, acts), tally in zip(mesh, shards, solve.shard_launches):
-                with device_scope(d), count_launches(_LAUNCH_COUNTERS, tally):
-                    out.append(chunk_rewards(w, st, acts[j], ph))
-        rewards, finals = zip(*out)  # in chunk order
-        return (act_seqs, torch.cat([r.to(device) for r in rewards]),
-                torch.cat([f.to(device) for f in finals]))
+        counts = [None] * n_chunks
+        if per_substep:  # every chunk's substeps per look-ahead step: one host read
+            _, repeat = decode_action(act_seqs, mcfg.push_length)
+            counts = substep_counts(repeat.reshape(n_chunks, chunk, -1).transpose(1, 2),
+                                    dcfg.max_repeat)
+        rewards, finals = shard_rewards(chunk_rewards, mesh, streams, solve.shard_launches,
+                                        (weights, state_cur, physics_param), act_seqs, n_chunks,
+                                        counts)
+        return act_seqs, rewards, finals
 
     def solve_iter(weights, state_cur, act_seq, generator, physics_param, iter_index):
         act_seqs = sample_action_seq(generator, act_seq, lower, upper, mcfg.n_sample,
@@ -130,8 +165,8 @@ def make_mppi_solver(dcfg: DynamicsConfig, mcfg: MPPIConfig, reward_fn: Callable
         act_seqs, rewards, finals = all_rewards(weights, state_cur, act_seqs, physics_param)
         new_seq = optimize_action_mppi(act_seqs, rewards, mcfg.reward_weight, lower, upper,
                                        mcfg.push_length)
-        best = torch.argmax(rewards)
-        return new_seq, act_seqs[best], rewards[best], finals[best]
+        best = torch.argmax(rewards)[None]  # a tensor index: no host read
+        return new_seq, act_seqs[best][0], rewards[best][0], finals[best][0]
 
     def solve(params, state_cur, act_seq, generator, physics_param):
         weights = (params if isinstance(params, (list, tuple))

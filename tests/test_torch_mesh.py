@@ -1,5 +1,8 @@
 """The port's multi-device paths on CPU devices (``["cpu"] * n``): the mesh
-helpers, the sharded MPPI solve and the data-parallel train and eval steps
+helpers (the per-shard stream ones no-ops there), the sharded MPPI solve
+(rope, and cloth's tool policy with its substep counts read once per
+iteration) and the data-parallel train and eval steps (the flat-buffer
+``pmean`` equal to the per-leaf one)
 against the JAX package's ``shard_map`` versions on the conftest's virtual
 CPU devices (the shapes and tolerances of ``tests/test_fused_multichip.py``),
 the sharded paths against the port's own unsharded ones, ``train
@@ -32,9 +35,13 @@ from adaptigraph_tpu_torch import cli
 from adaptigraph_tpu_torch.dynamics import train
 from adaptigraph_tpu_torch.models.gnn import GNNConfig, params_from_numpy
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig
-from adaptigraph_tpu_torch.parallel.mesh import (count_launches, launch_tallies, make_mesh,
-                                                 replicate, shard_batch, split_batch)
+from adaptigraph_tpu_torch.models.gnn import init_params
+from adaptigraph_tpu_torch.parallel.mesh import (count_launches, fork, join, launch_tallies,
+                                                 make_mesh, replicate, run_shards, shard_batch,
+                                                 shard_scope, shard_streams, split_batch, used_on)
+from adaptigraph_tpu_torch.planning import forward
 from adaptigraph_tpu_torch.planning import closed_loop
+from adaptigraph_tpu_torch.sim.synthetic import cloth_sheet
 from adaptigraph_tpu_torch.utils import checkpoint as ckpt
 from adaptigraph_tpu_torch.utils.config import load_planning_config
 from test_torch_jaxsim import jax_sim_built_here  # noqa: F401  (autouse)
@@ -123,6 +130,38 @@ def test_count_launches_adds_a_blocks_launches_to_one_tally():
         k2.launches += 1
         raise RuntimeError("a launch failed")
     assert tallies == [{"k1": 0, "k2": 1}, {"k1": 2, "k2": 3}]
+
+
+def test_shard_stream_helpers_are_no_ops_on_cpu():
+    """On a CPU mesh there is no stream: ``shard_streams`` gives None per
+    entry, ``fork``, ``join``, ``used_on`` and ``shard_scope`` do nothing,
+    and ``run_shards`` runs every shard's function in shard order, returns
+    its outputs (None stays None) and tallies each shard's launches."""
+    mesh = cpus(2)
+    streams = shard_streams(mesh)
+    assert streams == [None, None]
+    x = torch.arange(4.0)
+    fork(streams, mesh[0])
+    join(streams, mesh[0])
+    used_on({"a": [x, 3], "b": None}, streams[0])
+    with shard_scope(mesh[1], streams[1]):
+        assert torch.equal(x * 2, torch.tensor([0.0, 2.0, 4.0, 6.0]))
+
+    def k():
+        pass
+
+    k.launches, order = 0, []
+
+    def fn(i, t):
+        order.append(i)
+        k.launches += i + 1
+        return t * i
+
+    tallies = launch_tallies((k,), 2)
+    outs = run_shards(mesh, streams, [fn, fn], [(0, x), (1, x)], (k,), tallies)
+    assert order == [0, 1] and tallies == [{"k": 1}, {"k": 2}]
+    assert torch.equal(outs[0], x * 0) and torch.equal(outs[1], x)
+    assert run_shards(mesh, streams, [lambda: None] * 2, [(), ()], (k,), tallies) == [None, None]
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +268,73 @@ def test_sharded_solve_equals_the_unsharded_solve(monkeypatch):
                               mesh=cpus(3))
 
 
+def test_tool_policy_sharded_solve_reads_repeats_once_per_iteration(monkeypatch):
+    """Cloth (``tools_all``, K2 per substep) cut to a small width, two
+    look-ahead steps: the solve on 2 CPU shards equals the unsharded one bit
+    for bit, and each reads every chunk's substep counts on the host once
+    per iteration (``mppi_solve``'s ``substep_counts``), none per chunk
+    (``forward``'s); each chunk gets, per look-ahead step, its largest
+    repeat capped at ``max_repeat``, and its rollout equals the one that
+    reads the count itself."""
+    tt = cli._task_objects(load_planning_config("cloth"))[0]
+    d = tt.dcfg
+    gnn = dataclasses.replace(d.gnn, nf_particle=16, nf_relation=16, nf_effect=16, pstep=2,
+                              max_nobj=20)
+    tt.dcfg = dcfg = dataclasses.replace(d, gnn=gnn, edge=dataclasses.replace(d.edge, max_nobj=20),
+                                         max_repeat=3)
+    iters, L = 2, 2
+    tt.mcfg = mppi.MPPIConfig(n_sample=16, n_sample_chunk=4, n_look_ahead=L, n_update_iter=iters,
+                              reward_weight=50.0, noise_level=0.5)
+    rng = np.random.RandomState(6)
+    samples = {it: np.stack([rng.uniform(-0.9, 0.9, (16, L)), rng.uniform(-0.9, 0.9, (16, L)),
+                             rng.uniform(-np.pi, np.pi, (16, L)), rng.uniform(1.0, 4.5, (16, L))],
+                            axis=-1).astype(np.float32) for it in range(2)}
+    monkeypatch.setattr(mppi, "sample_action_seq",
+                        lambda gen, act_seq, lo, hi, n, iter_index=0, **kw:
+                        torch.tensor(samples[iter_index]))
+    reads = {"per_iteration": 0, "per_chunk": 0}
+    real = forward.substep_counts
+
+    def counted(key):
+        def read(*a):
+            reads[key] += 1
+            return real(*a)
+        return read
+
+    monkeypatch.setattr(mppi, "substep_counts", counted("per_iteration"))
+    monkeypatch.setattr(forward, "substep_counts", counted("per_chunk"))
+    chunks = []
+    rollout = mppi.dynamics_rollout_batched
+    monkeypatch.setattr(mppi, "dynamics_rollout_batched",
+                        lambda w, s, acts, *a, **k: chunks.append((w, s, acts, a, k))
+                        or rollout(w, s, acts, *a, **k))
+    state = cloth_sheet(5, 4, 5)
+    reward = closed_loop.make_reward_fn(tt, state + np.asarray([0.3, 0.0, 0.2], np.float32), "cpu")
+    params = init_params(torch.Generator().manual_seed(0), gnn)
+    lo, hi = (np.asarray(x, np.float32) for x in (tt.action_lower_lim, tt.action_upper_lim))
+    out = {}
+    for name, mesh in (("unsharded", None), ("two_shards", cpus(2))):
+        reads.update(per_iteration=0, per_chunk=0)
+        solve = mppi.make_mppi_solver(dcfg, tt.mcfg, reward, lo, hi, device="cpu",
+                                      compute_dtype=torch.float32, mesh=mesh)
+        out[name] = solve(params, state, np.tile((lo + hi) / 2, (L, 1)), torch.Generator(),
+                          np.asarray([0.5], np.float32))
+        assert reads == {"per_iteration": iters, "per_chunk": 0}, name
+    for key in out["unsharded"]:
+        assert torch.equal(out["two_shards"][key], out["unsharded"][key]), key
+    assert len(chunks) == 2 * iters * 4
+    w, s, acts, a, k = chunks[-1]
+    _, repeat = mppi.decode_action(acts, dcfg.push_length)
+    want = [min(int(repeat[:, li].max()), dcfg.max_repeat) for li in range(L)]
+    assert k["n_substeps"] == want and len(set(c[4]["n_substeps"][0] for c in chunks)) > 1
+    reads["per_chunk"] = 0
+    itself = rollout(w, s, acts, *a, **dict(k, n_substeps=None))
+    assert reads["per_chunk"] == L
+    assert torch.equal(itself["state_seqs"], rollout(w, s, acts, *a, **k)["state_seqs"])
+    assert real(torch.tensor([[1, 5, 2], [3, 0, 9]], dtype=torch.int32), 4) == [4, 4]
+    assert real(torch.tensor([1, 5, 2], dtype=torch.int32), 10) == 5
+
+
 # ---------------------------------------------------------------------------
 # the data-parallel train and eval steps
 # ---------------------------------------------------------------------------
@@ -327,6 +433,52 @@ def test_sharded_train_step_matches_jax_sharded_step(jax_fused, masks):
         float(jeval(p8, jax_mesh.shard_batch(batch, jmesh), jax.random.PRNGKey(3))), rtol=1e-5)
 
 
+def test_two_shard_train_step_matches_jax_sharded_step(jax_fused):
+    """One step on 2 CPU shards (each shard's work through ``run_shards``)
+    against JAX's ``make_train_step(mesh=make_mesh(2))``, augmentation off:
+    loss rtol 1e-5, parameters rtol 1e-4 / atol 1e-6, the replicas equal."""
+    batch = _batch(np.random.RandomState(8), 4, masks=True)
+    hyper = dict(n_future=2, use_augmentation=False)
+    opt = optax.adam(1e-3)
+    jmesh = jax_mesh.make_mesh(2)
+    jp = _jparams()
+    jstep = jax_train.make_train_step(JGNN, JEDGE, jax_train.TrainHyper(**hyper), opt,
+                                      fused_fn=jax_fused, mesh=jmesh)
+    p2, _, jloss = jstep(jax_mesh.replicate(jp, jmesh), jax_mesh.replicate(opt.init(jp), jmesh),
+                         jax_mesh.shard_batch(batch, jmesh), jax.random.PRNGKey(7))
+    mesh = cpus(2)
+    replicas, states = _replicas(jp, mesh)
+    step = train.make_train_step(GNN, EDGE, train.TrainHyper(**hyper), mesh=mesh)
+    loss = step(replicas, states, shard_batch(batch, mesh), None)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    for got, want in zip(replicas[0], jax.tree_util.tree_leaves(p2)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-6)
+    _assert_replicas_equal(replicas, states)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_flat_pmean_equals_per_leaf_pmean(n):
+    """The mean of the shards' flat buffers (loss first, then every leaf's
+    gradient) equals JAX's ``pmean`` of each leaf and of the loss, bit for
+    bit, on values of mixed magnitudes whose sums round."""
+    rng = np.random.RandomState(n)
+    shapes = [(3, 4), (4,), (16, 16), (1,), (5, 3)]
+
+    def draw(*shape):
+        return torch.tensor((rng.randn(*shape) * 10.0 ** rng.randint(-4, 4, shape))
+                            .astype(np.float32))
+
+    losses = [draw() for _ in range(n)]
+    grads = [[draw(*s) for s in shapes] for _ in range(n)]
+    flats = [train.flat_loss_grads(l, g) for l, g in zip(losses, grads)]
+    mean = train.pmean(flats, "cpu")
+    assert torch.equal(mean[0], train.pmean(losses, "cpu"))
+    like = [torch.empty(s) for s in shapes]
+    for got, leaf in zip(train.unflat_grads(mean, like), zip(*grads)):
+        want = train.pmean(list(leaf), "cpu")
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
 def test_sharded_train_steps_match_jax_sharded_scan(jax_fused):
     """K = 2 steps per call over a (K, B, ...) superbatch on 8 CPU shards
     (a loop of sharded steps) against JAX's sharded ``make_train_steps``."""
@@ -351,6 +503,66 @@ def test_sharded_train_steps_match_jax_sharded_scan(jax_fused):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-6)
     _assert_replicas_equal(replicas, states)
     assert int(states[0]["count"]) == K
+
+
+class _RerunGraph:
+    """A stand-in for ``dynamics.train._Replay`` on the CPU, where no CUDA
+    graph can be captured: it keeps its own copies of the inputs, runs
+    nothing at capture, and each call copies its inputs into the copies and
+    runs ``fn`` on them, which is what a replay computes."""
+
+    def __init__(self, fn, inputs, device, generator=None):
+        self.fn, self.counted = fn, [0, 0]
+        self.static = [None if x is None else
+                       {k: v.clone() for k, v in x.items()} if isinstance(x, dict) else x.clone()
+                       for x in inputs]
+
+    def __call__(self, *inputs):
+        train._copy_into(self.static, inputs)
+        return self.fn(*self.static)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_graphs_equal_the_eager_sharded_steps(monkeypatch, n):
+    """``ShardedGraphs`` (the K steps on a card mesh) with each replay
+    stood in for by a rerun on its captured inputs (``_RerunGraph``): two
+    calls of K = 3 train steps and one of eval steps, augmentation on,
+    equal bit for bit 6 eager sharded steps and 3 eager evals; the first
+    call runs slice 0 eagerly and captures, the second only replays, 2
+    graphs a shard and slice (train) or 1 (eval)."""
+    monkeypatch.setattr(train, "_Replay", _RerunGraph)
+    K = 3
+    batch = _batch(np.random.RandomState(5), K * 4, masks=True)
+    sb = {k: v.reshape((K, 4) + v.shape[1:]) for k, v in batch.items()}
+    hyper = train.TrainHyper(n_future=2, state_noise_train=0.05, phys_noise_train=0.05,
+                             state_noise_valid=0.02)
+    mesh = cpus(n)
+    parts = shard_batch(sb, mesh, batch_axis=1)
+    jp = _jparams()
+    runs = []
+    for graphed in (True, False):
+        replicas, states = _replicas(jp, mesh)
+        gen = torch.Generator().manual_seed(4)
+        step = train.make_train_step(GNN, EDGE, hyper, mesh=mesh)
+        evaluate = train.make_eval_step(GNN, EDGE, hyper, mesh=mesh)
+        if graphed:
+            steps, evals = train.ShardedGraphs(step.sharded), train.ShardedGraphs(evaluate.sharded)
+            losses = [steps(replicas, states, parts, gen) for _ in range(2)]
+            assert steps.replays == (K - 1 + K) * 2 * n  # the second call captures nothing
+            valid = evals(replicas, parts, gen)
+            assert evals.replays == (K - 1) * n
+        else:
+            slices = [[{k: v[i] for k, v in p.items()} for p in parts] for i in range(K)]
+            losses = [torch.stack([step(replicas, states, sl, gen) for sl in slices])
+                      for _ in range(2)]
+            valid = torch.stack([evaluate(replicas, sl, gen) for sl in slices])
+        runs.append((torch.cat(losses), valid, replicas, states))
+    (l1, v1, r1, s1), (l2, v2, r2, s2) = runs
+    assert torch.equal(l1, l2) and torch.equal(v1, v2)
+    for a, b in zip(r1, r2):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _assert_replicas_equal(r1, s1)
+    assert int(s1[0]["count"]) == int(s2[0]["count"]) == 2 * K
 
 
 def test_smoke_replica_check_finds_any_difference():
