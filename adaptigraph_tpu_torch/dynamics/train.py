@@ -313,11 +313,13 @@ class ShardedStep:
         """One step: ``loss_parts[s](shards[s], draws[s])`` on every shard,
         the mean on ``mesh[0]``, then ``update_parts[s](mean)`` on every
         shard. Returns the mean loss on ``mesh[0]``."""
-        flats = run_shards(self.mesh, self.streams, loss_parts, list(zip(shards, draws)),
+        flats = run_shards(self.mesh, self.streams,
+                           [(s, fn, (shards[s], draws[s])) for s, fn in enumerate(loss_parts)],
                            _LAUNCH_COUNTERS, self.shard_launches)
         mean = pmean(flats, self.mesh[0])
         if update_parts is not None:
-            run_shards(self.mesh, self.streams, update_parts, [(mean,)] * len(self.mesh),
+            run_shards(self.mesh, self.streams, [(s, fn, (mean,)) for s, fn in
+                                                 enumerate(update_parts)],
                        _LAUNCH_COUNTERS, self.shard_launches)
         return mean[0]
 

@@ -14,9 +14,12 @@ Each entry on a card gets a CUDA stream of its own (``shard_streams``; two
 for a card named twice), and a shard's work runs on it with its card
 current (``shard_scope``), so the host issues every shard's work without
 waiting for a card and the shards run at once. The hand-offs go through
-events: the shards start once the work queued so far on ``mesh[0]``'s
-current stream (the caller's, where their inputs were made) is done
-(``fork``), and that stream goes on once every shard is done (``join``). A
+events. Each shard starts once the work queued so far is done on
+``mesh[0]``'s current stream (the caller's, where the shard inputs were
+made) and on its own card's current stream, where a batch that
+``dynamics.train.DevicePrefetcher`` copied to that card was ordered
+(``fork``); ``mesh[0]``'s current stream goes on once every shard is done
+(``join``). A
 tensor used on a stream other than the one it was made on is marked as used
 there (``used_on``, ``record_stream``), so the caching allocator does not
 hand its memory on before that stream is done with it. On the CPU every one
@@ -84,15 +87,19 @@ def _home_stream(home):
 
 def fork(streams, home):
     """Every shard's stream waits for the work queued so far on ``home``'s
-    current stream (the caller's). No host wait."""
-    cur = _home_stream(home)
-    if cur is None or all(s is None for s in streams):
+    current stream (the caller's) and on its own card's current stream (a
+    card other than ``home`` orders there what it was handed, such as the
+    batch prefetcher's copy). No host wait."""
+    if _home_stream(home) is None:
         return
-    event = torch.cuda.Event()
-    event.record(cur)
+    events = {}
     for s in streams:
-        if s is not None:
-            s.wait_event(event)
+        if s is None:
+            continue
+        for d in (torch.device(home), s.device):
+            if d not in events:
+                events[d] = torch.cuda.current_stream(d).record_event()
+            s.wait_event(events[d])
 
 
 def join(streams, home):
@@ -115,40 +122,41 @@ def used_on(tree, stream):
                  if isinstance(x, torch.Tensor) and x.device == stream.device else None, tree)
 
 
-def run_shards(mesh, streams, fns, args, counters, tallies):
-    """``fns[s](*args[s])`` for every shard s at once (the body of JAX's
-    ``shard_map``): each on ``streams[s]`` with its card current, all issued
-    from this thread without a host wait, between a ``fork`` from and a
-    ``join`` to ``mesh[0]``'s current stream. Shard s's arguments are marked
-    as used on its stream, and the launches of the wrappers in ``counters``
-    that it made are added to ``tallies[s]``. Returns each shard's output
-    (a tensor, or None) on ``mesh[0]``, marked as used on its current stream.
-    State that outlives the call (the parameters, the optimizer state) is
-    the caller's, made on the caller's stream, which waits for the shards."""
+def run_shards(mesh, streams, work, counters, tallies):
+    """``fn(*args)`` for every item ``(s, fn, args)`` of ``work`` (the body
+    of JAX's ``shard_map``), issued in the order given, each on shard s's
+    stream ``streams[s]`` with its card ``mesh[s]`` current, all from this
+    thread without a host wait, between a ``fork`` from and a ``join`` to
+    ``mesh[0]``'s current stream. An item's arguments are marked as used on
+    its shard's stream, and the launches of the wrappers in ``counters``
+    that it made are added to ``tallies[s]``. Returns each item's output
+    (a tensor, a tree of tensors, or None) on ``mesh[0]``, in ``work``'s
+    order, marked as used on its current stream. State that outlives the
+    call (the parameters, the optimizer state) is the caller's, made on the
+    caller's stream, which waits for the shards."""
     home = torch.device(mesh[0])
     fork(streams, home)
     outs = []
-    for d, stream, fn, a, tally in zip(mesh, streams, fns, args, tallies):
-        used_on(a, stream)
-        with shard_scope(d, stream), count_launches(counters, tally):
+    for s, fn, a in work:
+        used_on(a, streams[s])
+        with shard_scope(mesh[s], streams[s]), count_launches(counters, tallies[s]):
             outs.append(fn(*a))
-    outs = gather(outs, mesh, streams)
+    outs = gather(outs, [s for s, _, _ in work], mesh, streams)
     join(streams, home)
     used_on(outs, _home_stream(home))
     return outs
 
 
-def gather(outs, mesh, streams):
-    """Each shard's output (a tensor, a list of tensors or None) on
-    ``mesh[0]``, copied from another card on the shard's stream. Issue it
-    only once every shard's work is queued: a copy from another card makes
+def gather(outs, shards, mesh, streams):
+    """Each output (a tensor, a tree of tensors or None) on ``mesh[0]``,
+    copied from shard ``shards[i]``'s card on its stream. Issue it only once
+    every shard's work is queued: a copy from another card makes
     ``mesh[0]``'s current stream wait for that shard, and a later copy of
     another shard's inputs, which runs on that stream, would wait too."""
     home = torch.device(mesh[0])
-    n = len(mesh)
     gathered = []
-    for c, out in enumerate(outs):
-        with shard_scope(mesh[c % n], streams[c % n]):
+    for s, out in zip(shards, outs):
+        with shard_scope(mesh[s], streams[s]):
             gathered.append(tree_map(lambda x: None if x is None else x.to(home), out))
     return gathered
 

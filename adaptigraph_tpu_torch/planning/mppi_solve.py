@@ -34,9 +34,7 @@ import torch
 
 from adaptigraph_tpu_torch.ops.fused_gnn import (fused_rollout_chunk, gnn_forward,
                                                  gnn_forward_edges, weight_list)
-from adaptigraph_tpu_torch.parallel.mesh import (count_launches, fork, gather, join,
-                                                 launch_tallies, shard_scope, shard_streams,
-                                                 used_on)
+from adaptigraph_tpu_torch.parallel.mesh import launch_tallies, run_shards, shard_streams
 from adaptigraph_tpu_torch.planning.actions import (decode_action, optimize_action_mppi,
                                                     sample_action_seq)
 from adaptigraph_tpu_torch.planning.forward import (DynamicsConfig, dynamics_rollout_batched,
@@ -77,32 +75,28 @@ def shard_rewards(chunk_fn, mesh, streams, tallies, shared, act_seqs, n_chunks, 
     copies of ``shared`` (the weights, the state and the physics parameter,
     on ``mesh[0]``) made on its device, then ``chunk_fn(weights, state,
     chunk, physics, count)`` for every chunk, issued round-robin over the
-    shards, each on its shard's stream (``streams``, None: the device's
-    current one) with its launches added to ``tallies``; ``counts[c]`` is
-    chunk c's substep counts (None each for the kernel's whole pushes).
-    Nothing here waits on the host. Returns the rewards and final states on
-    ``mesh[0]``, in chunk order."""
-    n, home = len(mesh), mesh[0]
+    shards, all through one ``run_shards`` (each on its shard's stream,
+    ``streams``, None: the device's current one; its launches added to
+    ``tallies``); ``counts[c]`` is chunk c's substep counts (None each for
+    the kernel's whole pushes). Nothing here waits on the host. Returns the
+    rewards and final states on ``mesh[0]``, in chunk order."""
+    n = len(mesh)
     dealt = act_seqs.reshape(n_chunks // n, n, -1, *act_seqs.shape[1:])
-    fork(streams, home)
-    inputs = []
-    for s, (d, stream) in enumerate(zip(mesh, streams)):  # each shard's own copies
-        used_on((shared, act_seqs), stream)
-        with shard_scope(d, stream):
-            w, st, ph = shared
-            inputs.append(([t.to(d, copy=s > 0) for t in w], st.to(d, copy=s > 0),
-                           ph.to(d, copy=s > 0), dealt[:, s].to(d)))
-    out = [None] * n_chunks
-    for j in range(n_chunks // n):  # round-robin: chunk j * n + s on shard s
-        for s, (d, stream, (w, st, ph, acts), tally) in enumerate(zip(mesh, streams, inputs,
-                                                                       tallies)):
-            c = j * n + s
-            with shard_scope(d, stream), count_launches(_LAUNCH_COUNTERS, tally):
-                out[c] = chunk_fn(w, st, acts[j], ph, counts[c])
-    out = gather(out, mesh, streams)  # chunk c from shard c % n
-    join(streams, home)
+    inputs = [None] * n
+
+    def load(s, weights, state, physics, acts):  # shard s's own copies
+        d = mesh[s]
+        inputs[s] = ([t.to(d, copy=s > 0) for t in weights], state.to(d, copy=s > 0),
+                     physics.to(d, copy=s > 0), acts.to(d))
+
+    def rewards(s, j, count):  # chunk j * n + s, on shard s
+        weights, state, physics, acts = inputs[s]
+        return chunk_fn(weights, state, acts[j], physics, count)
+
+    work = [(s, load, (s, *shared, dealt[:, s])) for s in range(n)]
+    work += [(c % n, rewards, (c % n, c // n, counts[c])) for c in range(n_chunks)]
+    out = run_shards(mesh, streams, work, _LAUNCH_COUNTERS, tallies)[n:]
     rewards, finals = zip(*out)
-    used_on(out, torch.cuda.current_stream(home) if home.type == "cuda" else None)
     return torch.cat(rewards), torch.cat(finals)
 
 

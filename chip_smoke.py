@@ -5,6 +5,7 @@
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
     python3 chip_smoke.py --mesh   # phases 0-1 and 18: the multi-device paths
     python3 chip_smoke.py --overlap  # phase 18's profiled window alone (it runs it so)
+    python3 chip_smoke.py --host-waits  # phases 0-1, then every host wait of the sharded paths
     python3 chip_smoke.py --io     # phases 0-1 and 19: the real-robot I/O tier
     python3 chip_smoke.py --learned  # phases 0-1, 13, 20 and 21: the plan, learned, public names
 
@@ -122,13 +123,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
      and the one-card mesh bit for bit; launches per shard; the current
      device unchanged after each sharded call; no host wait (the solve's
      chunk loop, one sharded step and one K-step call under
-     ``torch.cuda.set_sync_debug_mode("error")``); on card 0 named twice the
-     share of shard 0's K2/K3 device time that overlaps shard 1's kernels
-     (eager steps and a graph replay, ``torch.profiler``) and the K steps
-     as CUDA graph replays, with their host and device ms a step; ``train
+     ``torch.cuda.set_sync_debug_mode("error")``); every shard's stream
+     ordered after its own card's current stream (``fork_order``); a step on
+     the batch prefetcher's parts equal to one on ``shard_batch``'s; on card
+     0 named twice the share of shard 0's K2/K3 device time that overlaps
+     shard 1's kernels (eager steps and a graph replay, ``torch.profiler``;
+     the graph replay's above OVERLAP_FLOOR) and the K steps as CUDA graph
+     replays, with their host and device ms a step; ``train
      --n_devices 1``, a refused ``--n_devices <cards + 1>``, ``plan --mesh
      auto`` and a two-shard ``run_plan`` push equal to the unsharded one.
-     ``--mesh`` runs phases 0-1 and the dataset, then this one.
+     ``--mesh`` runs phases 0-1 and the dataset, then this one;
+     ``--host-waits`` runs phases 0-1, then lists every host wait of a
+     two-shard solve and step (``host_waits``).
  19. the real-robot I/O tier (``io``): four spawned synthetic cameras of the
      rope plan's rig streaming through the port's shared-memory ring at 30
      fps, the aligned frames equal to the renders, the state perceived from
@@ -3385,6 +3391,10 @@ K_STEP_LIMITS = {torch.float32: dict(loss_rtol=1e-5, leaf_frac=1e-3, leaf_max_ab
                  torch.bfloat16: dict(loss_rtol=1e-2, leaf_frac=0.1, leaf_max_abs=1e-3)}
 MESH_REPS = 5  # timed calls per mesh, alternating with the unsharded ones
 OVERLAP_STEPS = 3  # eager sharded steps in the profiled overlap window
+# the least share of shard 0's K2/K3 time in the graph replay that overlaps
+# shard 1's kernels; an H100 read 0.87-0.90, shards run one after the other 0
+OVERLAP_FLOOR = 0.3
+FORK_SLEEP_CYCLES = 50_000_000  # ~30 ms of spinning before a card's value is written
 
 
 @contextlib.contextmanager
@@ -3400,21 +3410,51 @@ def sync_debug_error():
         torch.cuda.set_sync_debug_mode(before)
 
 
-def host_wait(fn, window=True):
+def repo_frames(frames):
+    """The frames (``traceback.FrameSummary``s) of the repo's files, as
+    ``path:line``."""
+    return [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}" for f in frames
+            if f.filename.startswith(ROOT)]
+
+
+def host_wait(fn, window=True, mode="error"):
     """fn() with a host wait made an error (``sync_debug_error``) in all of
     it, or, with ``window`` False, only where fn enters that mode itself:
     None when it ran without one; else where it waited, the error and the
-    innermost frames of the repo's files that led to it."""
+    innermost frames of the repo's files that led to it. With ``mode``
+    "warn", fn() runs in all of it under the "warn" mode instead, and every
+    host wait is kept: None when there was none; else each place (the
+    innermost three frames of the repo's files, innermost first) with its
+    count."""
     import traceback
+    import warnings
 
+    if mode == "warn":
+        places = {}
+
+        def record(message, *_args, **_kwargs):
+            if "synchronizing" in str(message):
+                key = " < ".join(reversed(repo_frames(traceback.extract_stack()[:-1])[-3:]))
+                places[key] = places.get(key, 0) + 1
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return places or None
     try:
         with sync_debug_error() if window else contextlib.nullcontext():
             fn()
     except RuntimeError as e:
         if "synchronizing" not in str(e):
             raise
-        frames = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"
-                  for f in traceback.extract_tb(e.__traceback__) if f.filename.startswith(ROOT)]
+        frames = repo_frames(traceback.extract_tb(e.__traceback__))
         torch.cuda.synchronize()
         return f"{e} at {frames[-4:]}"
     torch.cuda.synchronize()
@@ -3519,6 +3559,34 @@ def sync_ms(fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def fork_order(meshes):
+    """Whether each shard's stream is ordered after what its own card's
+    current stream was given (``parallel.mesh.fork``), as a batch that the
+    prefetcher copied to that card is: on each mesh, every shard's card
+    spins for FORK_SLEEP_CYCLES on its current stream, then writes s + 1
+    into a zeroed tensor there; one ``run_shards`` call reads each shard's
+    tensor on the shard's stream. Shard s must read s + 1 (it reads 0 if its
+    stream ran ahead); on card 0 named twice the caller's stream orders it
+    already."""
+    from adaptigraph_tpu_torch.parallel.mesh import launch_tallies, run_shards, shard_streams
+
+    out = {}
+    for name, mesh in meshes.items():
+        values = [torch.zeros(1024, device=d) for d in mesh]
+        torch.cuda.synchronize()
+        for s, (d, x) in enumerate(zip(mesh, values)):
+            with torch.cuda.device(d):
+                torch.cuda._sleep(FORK_SLEEP_CYCLES)
+                x.fill_(s + 1)
+        reads = run_shards(mesh, shard_streams(mesh),
+                           [(s, torch.clone, (x,)) for s, x in enumerate(values)], (),
+                           launch_tallies((), len(mesh)))
+        torch.cuda.synchronize()
+        got = [float(r.min()) for r in reads]
+        out[name] = dict(read=got, ok=got == [float(s + 1) for s in range(len(mesh))])
+    return out
 
 
 def mesh_solve(rope, dev, meshes):
@@ -3750,6 +3818,47 @@ def mesh_train(dev, meshes, K=10):
     return lines, launches
 
 
+def mesh_prefetched(dev, meshes):
+    """On each mesh, one float32 sharded step (B 128 at the fixture's
+    density, ``init_params`` weights, fresh replicas and step objects) on
+    the parts of the batch's host copy that ``DevicePrefetcher(mesh=mesh)``
+    staged, each copied to its card on a side stream as ``train
+    --n_devices`` gets them, against the same step on ``shard_batch``'s
+    parts: loss, leaves and Adam state bit for bit. Run last in the phase:
+    in the full run, a CUDA graph captured after such a step failed (see
+    ``phase_mesh``)."""
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.parallel.mesh import replicate, shard_batch
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    gnn, edge, _, hyper = train_objects(load_dynamics_config("rope"))
+    fused = train.fused_train_fn(gnn, edge, torch.float32)
+    batch = fixture_batch("rope", dev)[0]
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    base = ckpt.tree_leaves(init_params(torch.Generator().manual_seed(0), gnn))
+    out = {}
+    for name, mesh in meshes.items():
+        stage = train.DevicePrefetcher(iter([host]), mesh[0], mesh=mesh)
+        try:
+            staged = next(stage)
+        finally:
+            stage.close()
+        runs = []
+        for parts in (shard_batch(batch, mesh), staged):
+            leaves = [p.to(dev).clone().requires_grad_(True) for p in base]
+            reps, states = replicate(leaves, mesh), replicate(train.adam_init(leaves), mesh)
+            step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
+            loss = step(reps, states, parts, torch.Generator(device=dev).manual_seed(7))
+            runs.append((loss, reps[0], [t for s in states for t in s["mu"] + s["nu"]]))
+        (loss_a, rep_a, opt_a), (loss_b, rep_b, opt_b) = runs
+        same = bool(torch.equal(loss_a, loss_b)
+                    and all(torch.equal(a, b) for a, b in zip(rep_a + opt_a, rep_b + opt_b)))
+        out[name] = dict(loss=float(loss_b), shard_batch_loss=float(loss_a), ok=same)
+    return out
+
+
 def mesh_overlap(dev):
     """Run as ``chip_smoke.py --overlap``, a process of its own
     (``mesh_overlap_in_process``): a profiler session in a process that has
@@ -3763,7 +3872,8 @@ def mesh_overlap(dev):
     streams marked first (``mark_streams``). The share of shard 0's K2/K3
     device time in the window that overlaps shard 1's kernels
     (``stream_overlap``), and its eager and graph-replay parts. Gate: the
-    window's share above 0."""
+    graph replay's share above OVERLAP_FLOOR (the eager steps' share is
+    reported: their host issue is slower than the card)."""
     from adaptigraph_tpu_torch.dynamics import train
     from adaptigraph_tpu_torch.models.gnn import init_params
     from adaptigraph_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
@@ -3809,7 +3919,8 @@ def mesh_overlap(dev):
                 shard0_k2_k3_ms={k: sum(p[k][0] for p in pairs) for k in ("eager", "graph")},
                 shard0_k2_k3_overlap_share=window,
                 shard0_k2_k3_overlap_share_eager=share("eager"),
-                shard0_k2_k3_overlap_share_graph=share("graph"), ok=bool(window > 0))
+                shard0_k2_k3_overlap_share_graph=share("graph"), floor_graph=OVERLAP_FLOOR,
+                ok=bool((share("graph") or 0.0) > OVERLAP_FLOOR))
 
 
 def mesh_overlap_in_process():
@@ -3930,19 +4041,62 @@ def phase_mesh(rope, prep, dev):
     on two streams of one card."""
     meshes = card_meshes()
     t0 = time.time()
+    order = fork_order(meshes)
     solve, k1_solve = mesh_solve(rope, dev, meshes)
     steps, (k2, k3) = mesh_train(dev, meshes)
     cli_lines, k1_plan = mesh_cli(prep, rope, dev, meshes)
-    ok = (all(v["ok"] for v in solve.values()) and all(v["ok"] for v in steps.values())
-          and all(v["ok"] for v in cli_lines.values()))
+    # last: in the full run, with the earlier phases before it, a CUDA graph
+    # captured on card 0 named twice after a step on the prefetcher's parts
+    # failed (cudaErrorStreamCaptureInvalidated); alone (--mesh) it did not
+    fed = mesh_prefetched(dev, meshes)
+    ok = (all(v["ok"] for v in order.values()) and all(v["ok"] for v in solve.values())
+          and all(v["ok"] for v in steps.values()) and all(v["ok"] for v in cli_lines.values())
+          and all(v["ok"] for v in fed.values()))
     emit(phase="mesh", device_count=torch.cuda.device_count(), card=card_line(),
-         meshes={k: [str(d) for d in m] for k, m in meshes.items()}, solve=solve, train=steps,
-         cli=cli_lines, seconds=time.time() - t0, ok=bool(ok))
+         meshes={k: [str(d) for d in m] for k, m in meshes.items()}, fork_order=order,
+         solve=solve, train=steps, cli=cli_lines, prefetched_step=fed,
+         seconds=time.time() - t0, ok=bool(ok))
     if not ok:
         fail("the multi-device paths failed their checks (see the mesh line)")
     return dict(k1_launches=k1_solve, k2_launches=k2, k3_launches=k3,
                 ms_per_solve_two_shards=solve["cuda0_twice"]["ms_per_solve_sharded"],
                 ms_per_step_two_shards=steps["float32_cuda0_twice"]["ms_per_step_sharded"])
+
+
+def host_waits(rope, dev):
+    """Every host wait (``host_wait``'s "warn" mode) on card 0 named twice,
+    after a warm-up call, of the rope solve sharded over the two shards
+    (``rope_task``, MESH_ITERS iterations) and of one float32 data-parallel
+    train step (B 128 at the fixture's density, ``fixture_batch``): one line
+    per path with the number of host waits and each place with its count."""
+    import dataclasses
+
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.parallel.mesh import replicate, shard_batch
+    from adaptigraph_tpu_torch.planning.mppi_solve import make_mppi_solver
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    mesh = card_meshes()["cuda0_twice"]
+    tcfg, params = rope[:2]
+    reward_fn, state, phys, lo, hi, act0 = rope_task(rope, dev)
+    solve = make_mppi_solver(tcfg.dcfg, dataclasses.replace(tcfg.mcfg, n_update_iter=MESH_ITERS),
+                             reward_fn, lo, hi, device=dev, mesh=mesh)
+    act0 = torch.tensor(act0, device=dev)
+    g = torch.Generator(device=dev)
+
+    gnn, edge, _, hyper = train_objects(load_dynamics_config("rope"))
+    leaves = [p.to(dev).requires_grad_(True)
+              for p in ckpt.tree_leaves(init_params(torch.Generator().manual_seed(0), gnn))]
+    reps, states = replicate(leaves, mesh), replicate(train.adam_init(leaves), mesh)
+    step = train.make_train_step(gnn, edge, hyper, mesh=mesh)
+    parts = shard_batch(fixture_batch("rope", dev)[0], mesh)
+    for path, fn in (("rope_solve_two_shards", lambda: solve(params, state, act0, g, phys)),
+                     ("train_step_two_shards_f32", lambda: step(reps, states, parts, g))):
+        fn()  # the warm-up
+        places = host_wait(fn, mode="warn") or {}
+        emit(phase="host_waits", path=path, host_waits=sum(places.values()), places=places)
 
 
 IO_OBS = 20  # get_obs calls
@@ -4142,6 +4296,10 @@ def main():
     if sys.argv[1:] == ["--mesh"]:
         _, prep = phase_dataset()
         phase_mesh(material("rope", dev), prep, dev)
+        print(card, flush=True)
+        return
+    if sys.argv[1:] == ["--host-waits"]:
+        host_waits(material("rope", dev), dev)
         print(card, flush=True)
         return
     if sys.argv[1:] == ["--io"]:

@@ -135,8 +135,9 @@ def test_count_launches_adds_a_blocks_launches_to_one_tally():
 def test_shard_stream_helpers_are_no_ops_on_cpu():
     """On a CPU mesh there is no stream: ``shard_streams`` gives None per
     entry, ``fork``, ``join``, ``used_on`` and ``shard_scope`` do nothing,
-    and ``run_shards`` runs every shard's function in shard order, returns
-    its outputs (None stays None) and tallies each shard's launches."""
+    and ``run_shards`` runs every work item in the order given, returns
+    their outputs in that order (None stays None) and tallies each item's
+    launches to its shard."""
     mesh = cpus(2)
     streams = shard_streams(mesh)
     assert streams == [None, None]
@@ -158,10 +159,17 @@ def test_shard_stream_helpers_are_no_ops_on_cpu():
         return t * i
 
     tallies = launch_tallies((k,), 2)
-    outs = run_shards(mesh, streams, [fn, fn], [(0, x), (1, x)], (k,), tallies)
+    outs = run_shards(mesh, streams, [(0, fn, (0, x)), (1, fn, (1, x))], (k,), tallies)
     assert order == [0, 1] and tallies == [{"k": 1}, {"k": 2}]
     assert torch.equal(outs[0], x * 0) and torch.equal(outs[1], x)
-    assert run_shards(mesh, streams, [lambda: None] * 2, [(), ()], (k,), tallies) == [None, None]
+    assert run_shards(mesh, streams, [(s, lambda: None, ()) for s in (0, 1)], (k,),
+                      tallies) == [None, None]
+    # items go in the order given, each tallied to its own shard
+    order.clear()
+    outs = run_shards(mesh, streams, [(1, fn, (2, x)), (0, fn, (1, x)), (1, fn, (0, x))], (k,),
+                      tallies)
+    assert order == [2, 1, 0] and tallies == [{"k": 3}, {"k": 6}]
+    assert [o.tolist() for o in outs] == [(x * 2).tolist(), x.tolist(), (x * 0).tolist()]
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +462,33 @@ def test_two_shard_train_step_matches_jax_sharded_step(jax_fused):
     for got, want in zip(replicas[0], jax.tree_util.tree_leaves(p2)):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-6)
     _assert_replicas_equal(replicas, states)
+
+
+def test_sharded_step_on_prefetched_parts_equals_shard_batch_parts():
+    """A two-shard step on the parts that ``DevicePrefetcher(mesh=...)``
+    stages from a host batch equals, bit for bit, the same step on
+    ``shard_batch``'s parts of that batch: the loss and every replica's
+    leaves and Adam state. (On the cards each shard's stream is ordered
+    after its own card's copy by ``fork``; ``chip_smoke.py``'s ``mesh``
+    phase holds that ordering.)"""
+    batch = _batch(np.random.RandomState(9), 4, masks=True)
+    hyper = train.TrainHyper(n_future=2, use_augmentation=False)
+    mesh = cpus(2)
+    stage = train.DevicePrefetcher(iter([batch]), "cpu", mesh=mesh)
+    try:
+        staged = next(stage)
+    finally:
+        stage.close()
+    runs = []
+    for parts in (shard_batch(batch, mesh), staged):
+        replicas, states = _replicas(_jparams(), mesh)
+        step = train.make_train_step(GNN, EDGE, hyper, mesh=mesh)
+        runs.append((step(replicas, states, parts, None), replicas, states))
+    (loss_a, reps_a, states_a), (loss_b, reps_b, states_b) = runs
+    assert torch.equal(loss_a, loss_b)
+    for a, b in zip(reps_a + [s["mu"] for s in states_a] + [s["nu"] for s in states_a],
+                    reps_b + [s["mu"] for s in states_b] + [s["nu"] for s in states_b]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
