@@ -23,10 +23,11 @@ step); each shard's loss and gradients go into one flat buffer, and the
 buffers are averaged as JAX's ``pmean`` averages them, the plain mean of the
 shard means, summed on ``mesh[0]`` in shard order; every replica then takes
 the same Adam step, on its own stream, with the mean copied to it, so the
-replicas stay equal. K steps per call on such a mesh replay CUDA graphs
-(``ShardedGraphs``: per shard one graph of its loss and gradients and one
-of its Adam step, the draws and the mean between them), equal bit for bit
-to K calls of the sharded step. One departure, kept: the augmentation is
+replicas stay equal. On a mesh of cards a call, of one step or of K, replays
+CUDA graphs (``ShardedGraphs``: per shard one graph of its loss and
+gradients and one of its Adam step, the draws and the mean between them;
+the JAX step is one compiled program), equal bit for bit to the eager
+sharded step, call for call. One departure, kept: the augmentation is
 drawn for the whole batch from the caller's generator and split by shard
 (JAX folds the shard index into each shard's key), so the sharded step
 augments as the unsharded one does. On a one-entry mesh the sharded step is
@@ -35,6 +36,7 @@ graph included.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import queue
@@ -332,6 +334,13 @@ class ShardedStep:
         return loss_parts, [lambda m, r=r, st=st: self.update_part(r, st, m)
                             for r, st in zip(replicas, opt_states)]
 
+    def eager_step(self, *args):
+        """``eager_step(replicas[, opt_states], shards, generator)``: one
+        step with every operation issued as it runs (the reference that the
+        graph replays are held to, bit for bit)."""
+        *state, shards, generator = args
+        return self.run(shards, self.draws(shards, generator), *self.eager_parts(*state))
+
 
 def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None,
                     mesh=None):
@@ -345,12 +354,15 @@ def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper,
     With ``mesh``: ``step(replicas, opt_states, shards, generator) -> loss``
     on ``mesh[0]``, with ``replicate``'s copies of the leaves and the Adam
     state and ``shard_batch``'s parts of the batch, one per entry (see the
-    module docstring). ``step.shard_launches`` holds, per shard, the K2 and
-    K3 launches (``gnn_forward``, ``gnn_train_bwd``) its work made, summed
-    over the calls."""
+    module docstring); on a mesh of cards it replays per-shard CUDA graphs
+    after its first call (``step.graphed``, a ``ShardedGraphs``; None
+    elsewhere), and ``step.sharded.eager_step`` is the same step issued
+    eagerly. ``step.shard_launches`` holds, per shard, the K2 and K3
+    launches (``gnn_forward``, ``gnn_train_bwd``) its work made, summed over
+    the calls."""
     fused_fn = fused_fn or fused_train_fn(gnn_cfg, edge_cfg)
     if mesh is not None:
-        return _sharded_train_step(gnn_cfg, edge_cfg, hyper, fused_fn, list(mesh))
+        return _sharded_step(gnn_cfg, edge_cfg, hyper, fused_fn, list(mesh), train_mode=True)
 
     def step(leaves, opt_state, batch, generator):
         batch = expand_compact_batch(batch, gnn_cfg)
@@ -366,27 +378,16 @@ def make_train_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper,
     return step
 
 
-def _sharded_train_step(gnn_cfg, edge_cfg, hyper, fused_fn, mesh):
-    sharded = ShardedStep(gnn_cfg, edge_cfg, hyper, fused_fn, mesh, train_mode=True)
-
-    def step(replicas, opt_states, shards, generator):
-        return sharded.run(shards, sharded.draws(shards, generator),
-                           *sharded.eager_parts(replicas, opt_states))
-
-    step.sharded = sharded
-    step.shard_launches = sharded.shard_launches
-    return step
-
-
 def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, fused_fn=None,
                    mesh=None):
     """``evaluate(leaves, batch, generator) -> loss`` with the validation
     noise, through ``fused_fn`` (None: the float32 one). With ``mesh``:
     ``evaluate(replicas, shards, generator)``, the ``pmean`` of the shards'
-    losses on ``mesh[0]``."""
+    losses on ``mesh[0]``, as graph replays on a mesh of cards (as
+    ``make_train_step``)."""
     fused_fn = fused_fn or fused_train_fn(gnn_cfg, edge_cfg)
     if mesh is not None:
-        return _sharded_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn, list(mesh))
+        return _sharded_step(gnn_cfg, edge_cfg, hyper, fused_fn, list(mesh), train_mode=False)
 
     @torch.no_grad()
     def evaluate(leaves, batch, generator):
@@ -400,16 +401,33 @@ def make_eval_step(gnn_cfg: GNNConfig, edge_cfg: EdgeConfig, hyper: TrainHyper, 
     return evaluate
 
 
-def _sharded_eval_step(gnn_cfg, edge_cfg, hyper, fused_fn, mesh):
-    sharded = ShardedStep(gnn_cfg, edge_cfg, hyper, fused_fn, mesh, train_mode=False)
+def _on_cards(mesh):
+    """Whether a sharded step on ``mesh`` runs as CUDA graph replays
+    (``ShardedGraphs``): every entry a card."""
+    return all(torch.device(d).type == "cuda" for d in mesh)
 
-    def evaluate(replicas, shards, generator):
-        return sharded.run(shards, sharded.draws(shards, generator),
-                           *sharded.eager_parts(replicas))
 
-    evaluate.sharded = sharded
-    evaluate.shard_launches = sharded.shard_launches
-    return evaluate
+def _sharded_step(gnn_cfg, edge_cfg, hyper, fused_fn, mesh, train_mode):
+    """The sharded train (``train_mode``) or eval step of ``make_train_step``
+    / ``make_eval_step`` with a mesh. On a mesh of cards one call runs as
+    ``ShardedGraphs`` over a one-slice superbatch (the JAX ``shard_map`` step
+    is one compiled program): the first call, and the first after the
+    state's tensors or the batch's shapes change, is the eager sharded step
+    and the capture; every later one copies its shards into the graphs'
+    buffers and replays them. Elsewhere every call is the eager sharded step
+    (``ShardedStep.eager_step``)."""
+    sharded = ShardedStep(gnn_cfg, edge_cfg, hyper, fused_fn, mesh, train_mode)
+    graphed = ShardedGraphs(sharded) if _on_cards(mesh) else None
+
+    def step(*args):
+        if graphed is None:
+            return sharded.eager_step(*args)
+        *state, shards, generator = args
+        return graphed(*state, [{k: v[None] for k, v in b.items()} for b in shards],
+                       generator)[0]
+
+    step.sharded, step.graphed, step.shard_launches = sharded, graphed, sharded.shard_launches
+    return step
 
 
 def _n_slices(superbatch):
@@ -451,7 +469,8 @@ class _Replay:
     next replay overwrites. ``counted``: the launches per kernel counter
     (``_LAUNCH_COUNTERS``) that the capture recorded; a replay adds them, as
     the kernels' wrappers, which do not run on replay, would. A failed
-    capture raises."""
+    capture raises. Python's cyclic garbage collector is off during the
+    capture (see ``__init__``)."""
 
     def __init__(self, fn, inputs, device, generator=None):
         self.static = tree_map(lambda x: x.to(device, copy=True)
@@ -460,10 +479,24 @@ class _Replay:
         if generator is not None:
             self.graph.register_generator_state(generator)
         before = [c.launches for c in _LAUNCH_COUNTERS]
-        # thread_local: the batch prefetcher's thread pins and copies meanwhile
-        with torch.cuda.graph(self.graph, stream=torch.cuda.current_stream(device),
-                              capture_error_mode="thread_local"):
-            self.out = fn(*self.static)
+        # No cyclic collection during the capture: a CUDA graph that the
+        # collector frees (one left in a reference cycle) is destroyed by
+        # torch.cuda.CUDAGraph's destructor, whose cudaGraphExecDestroy CUDA
+        # refuses while a capture is underway ("operation not permitted when
+        # stream is capturing", only a warning from PyTorch), and the capture
+        # is then invalidated (cudaErrorStreamCaptureInvalidated). A
+        # collection can start on any thread that allocates, autograd's
+        # backward thread included. Garbage is collected after the capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: the batch prefetcher's thread pins and copies meanwhile
+            with torch.cuda.graph(self.graph, stream=torch.cuda.current_stream(device),
+                                  capture_error_mode="thread_local"):
+                self.out = fn(*self.static)
+        finally:
+            if collecting:
+                gc.enable()
         self.counted = [c.launches - b for c, b in zip(_LAUNCH_COUNTERS, before)]
         for c, n in zip(_LAUNCH_COUNTERS, self.counted):  # the capture launched nothing
             c.launches -= n
@@ -530,7 +563,8 @@ class GraphedStep:
 
 class ShardedGraphs:
     """K steps per call of a ``ShardedStep`` over per-shard (K, B, ...)
-    superbatches as CUDA graph replays (the JAX sharded ``lax.scan``). The
+    superbatches as CUDA graph replays (the JAX sharded ``lax.scan``; K 1
+    for the one-step call, the JAX ``shard_map`` step). The
     first call, and the first after the state's tensors or the batch's
     shapes change, runs slice 0 as the eager sharded step, which also warms
     up what a step sets up at first use, then captures per shard, on its own
@@ -638,30 +672,35 @@ def _steps_on(steps, mesh, make_sharded):
     one-entry mesh runs ``steps`` (the unsharded K steps, the graph on a
     card) on the entry's parts; the sharded step of one entry is the
     unsharded step bit for bit. A longer mesh runs ``make_sharded()``'s
-    step: on the cards as ``ShardedGraphs`` replays, on the CPU as a loop.
-    ``graphed``: the graphs (``.replays``); ``shard_launches``: each shard's
-    K2 and K3 launches, summed over the calls."""
+    step: on the cards as its ``ShardedGraphs`` replays, on the CPU as a
+    loop. ``graphed``: the graphs (``.replays``; None on a longer CPU mesh);
+    ``shard_launches``: each shard's K2 and K3 launches, summed over the
+    calls."""
     if mesh is None:
         return steps
     if len(mesh) == 1:
+        # ``run`` must not refer to itself: a function in a reference cycle
+        # keeps its graphs until Python's collector finds the cycle, which
+        # may be during another capture (``_Replay``)
+        tallies = launch_tallies(_LAUNCH_COUNTERS, 1)
+
         def run(*args):
-            with count_launches(_LAUNCH_COUNTERS, run.shard_launches[0]):
+            with count_launches(_LAUNCH_COUNTERS, tallies[0]):
                 return steps(*[a[0] for a in args[:-1]], args[-1])
 
         run.graphed = steps.graphed
-        run.shard_launches = launch_tallies(_LAUNCH_COUNTERS, 1)
+        run.shard_launches = tallies
         return run
     sharded = make_sharded()
-    graphed = ShardedGraphs(sharded.sharded)
 
     def run(*args):
         *state, superbatches, generator = args
-        if all(s is not None for s in graphed.sharded.streams):  # every entry a card
-            return graphed(*args)
+        if sharded.graphed is not None:  # every entry a card
+            return sharded.graphed(*args)
         return torch.stack([sharded(*state, [_slice(sb, k) for sb in superbatches], generator)
                             for k in range(_n_slices(superbatches[0]))])
 
-    run.graphed = graphed
+    run.graphed = sharded.graphed
     run.shard_launches = sharded.shard_launches
     return run
 

@@ -159,6 +159,7 @@ started that still run (``stop_processes``).
 
 import contextlib
 import ctypes
+import itertools
 import json
 import os
 import shutil
@@ -3561,6 +3562,19 @@ def sync_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def sync_and_event_ms(fn):
+    """``sync_ms(fn)``, and the device ms between CUDA events recorded on
+    the current stream before and after fn()."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
 def fork_order(meshes):
     """Whether each shard's stream is ordered after what its own card's
     current stream was given (``parallel.mesh.fork``), as a batch that the
@@ -3662,32 +3676,134 @@ def mesh_solve(rope, dev, meshes):
     return lines, launches
 
 
+def reserved_mb(mesh):
+    """Device memory reserved on the mesh's cards, in MB, synchronised and
+    with the cache emptied (what live tensors and graphs hold)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sum(torch.cuda.memory_reserved(d) for d in {torch.device(d) for d in mesh}) / 1e6
+
+
+def capture_memory(fn, mesh):
+    """fn() (a first call, which captures CUDA graphs) and the device memory
+    it took, summed over the mesh's cards, in MB: its peak allocation above
+    what was allocated before it, and the growth of ``reserved_mb`` over it
+    (the graphs' private pools)."""
+    cards = {torch.device(d) for d in mesh}
+    reserved = reserved_mb(mesh)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    alloc = sum(torch.cuda.memory_allocated(d) for d in cards)
+    out = fn()
+    return out, dict(
+        peak_allocated_mb=(sum(torch.cuda.max_memory_allocated(d) for d in cards) - alloc) / 1e6,
+        reserved_mb=reserved_mb(mesh) - reserved)
+
+
+def one_step_graphs(train, gnn, edge, hyper, fused, mesh, fresh, batches):
+    """The one-step sharded call on a mesh of cards (``make_train_step`` and
+    ``make_eval_step`` with ``mesh``: per-shard graph replays after the
+    first call) against the eager sharded step (``ShardedStep.eager_step``),
+    each on fresh replicas: three train calls and three eval calls in turn,
+    each on a new batch (``batches``' first six, ``shard_batch``'s parts).
+    Gates: the losses, the replicas and the Adam states bit for bit; after
+    the first call 2 graph replays a shard and call (train) and 1 (eval);
+    K2 and K3 launched 3 and 3 times a shard and train call, 3 and 0 a shard
+    and eval call; no host wait in a train or an eval call; re-replicated
+    state captures anew twice, and what stays reserved grows by less than
+    half the train capture's pools a capture (the old graphs' pools freed).
+    Reported: the first calls' capture memory (``capture_memory``)."""
+    runs = []
+    for graphed in (True, False):
+        reps, states, g = fresh(mesh)
+        step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
+        evaluate = train.make_eval_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
+        run_step = step if graphed else step.sharded.eager_step
+        run_eval = evaluate if graphed else evaluate.sharded.eager_step
+        losses, valid, replays, memory = [], [], [], {}
+        for i in range(3):
+            if i == 0 and graphed:
+                loss, memory["train"] = capture_memory(
+                    lambda: run_step(reps, states, batches[0], g), mesh)
+                vloss, memory["eval"] = capture_memory(
+                    lambda: run_eval(reps, batches[1], g), mesh)
+            else:
+                loss = run_step(reps, states, batches[2 * i], g)
+                vloss = run_eval(reps, batches[2 * i + 1], g)
+            losses.append(loss)
+            valid.append(vloss)
+            if graphed:
+                replays.append([step.graphed.replays, evaluate.graphed.replays])
+        runs.append(dict(losses=torch.stack(losses), valid=torch.stack(valid), reps=reps,
+                         states=states, replays=replays, memory=memory, step=step,
+                         evaluate=evaluate, g=g))
+    got, want = runs
+    n = len(mesh)
+    same = bool(torch.equal(got["losses"], want["losses"])
+                and torch.equal(got["valid"], want["valid"])
+                and all(torch.equal(a.to(b.device), b)
+                        for ra, rb in zip(got["reps"], want["reps"]) for a, b in zip(ra, rb))
+                and all(torch.equal(a.to(b.device), b)
+                        for sa, sb in zip(got["states"], want["states"])
+                        for a, b in zip(sa["mu"] + sa["nu"], sb["mu"] + sb["nu"])))
+    step, evaluate, reps, states, g = (got[k] for k in ("step", "evaluate", "reps", "states",
+                                                        "g"))
+    launches = [[a["gnn_forward"], a["gnn_train_bwd"], b["gnn_forward"], b["gnn_train_bwd"]]
+                for a, b in zip(step.shard_launches, evaluate.shard_launches)]
+    waits = {"train": host_wait(lambda: step(reps, states, batches[0], g)),
+             "eval": host_wait(lambda: evaluate(reps, batches[1], g))}
+    pools = got["memory"]["train"]["reserved_mb"]
+    held = [reserved_mb(mesh)]
+    for _ in range(2):  # a caller that replicates anew: a new capture each time
+        reps2, states2, g2 = fresh(mesh)
+        step(reps2, states2, batches[0], g2)
+        held.append(reserved_mb(mesh))
+    want_replays = [[2 * n * i, n * i] for i in range(3)]
+    growth = (held[-1] - held[0]) / 2
+    ok = (same and got["replays"] == want_replays and launches == [[9, 9, 9, 0]] * n
+          and all(w is None for w in waits.values()) and growth < 0.5 * max(pools, 1.0))
+    return dict(calls=3, tolerance="bit for bit", equals_eager_sharded_step=same,
+                losses=got["losses"].tolist(), valid_losses=got["valid"].tolist(),
+                replays_after_each_call_train_eval=got["replays"],
+                replays_expected=want_replays,
+                launches_per_shard_train_k2_k3_eval_k2_k3=launches, host_wait=waits,
+                capture_memory=got["memory"], reserved_mb_after_recaptures=held,
+                reserved_mb_growth_per_recapture=growth, ok=bool(ok))
+
+
 def mesh_train(dev, meshes, K=10):
     """The data-parallel train step at the rope config's width on B 128 at
     the fixture's density (``fixture_batch``, ~960 real edges a sample;
-    augmentation on, drawn for the whole batch and split), f32 and bf16: one
-    ``make_train_step`` and one ``make_train_steps`` call of K steps over
-    each mesh (``replicate``'s copies, ``shard_batch``'s parts) against the
-    unsharded step and steps from the same weights, batch and generator
-    seed. Gates: the step's loss within rtol 1e-5 and its leaves within rtol
-    1e-4 / atol 1e-6 (``tests/test_fused_multichip.py``'s); the K steps
-    equal K calls of the sharded step bit for bit; against the unsharded K
-    steps their first loss (same weights) within rtol 1e-5, and after it the
-    runs drift apart as two correct runs that differ in float32 rounding do
-    (the mean of the shard means rounds otherwise than the full-batch mean;
-    Adam's step on a gradient element near 0 takes its sign; bf16 rounds the
-    drifted weights), within K_STEP_LIMITS (``drift``). On the one-card mesh
-    all bit for bit (graph included). The replicas equal bit for bit,
-    compared on the first replica's device; K2 and K3 launched 3 and 3
-    times a step on each shard; the current device unchanged; after the
-    warm-up calls one sharded step and one call of K steps without a host
-    wait (``host_wait``); a call of K steps on several entries as 2 graph
-    replays a shard and step (``steps.graphed.replays``; K on one entry).
-    ms per step, sharded and unsharded, alternating (host ms between
-    synchronisations, median of MESH_REPS); the K steps' host and device ms
-    a step (``host_and_device_ms``). On card 0 named twice, in float32, the
-    overlap of the two shards (``mesh_overlap``, in a process of its
-    own)."""
+    augmentation on, drawn for the whole batch and split), f32 and bf16: a
+    ``make_train_step`` call (its first, which runs the eager sharded step
+    and captures the per-shard graphs) and one ``make_train_steps`` call of
+    K steps over each mesh (``replicate``'s copies, ``shard_batch``'s parts)
+    against the unsharded step and steps from the same weights, batch and
+    generator seed; and ``one_step_graphs``, the one-step call's replays
+    against the eager sharded step. Gates: the step's loss within rtol 1e-5
+    and its leaves within rtol 1e-4 / atol 1e-6
+    (``tests/test_fused_multichip.py``'s); the K steps equal K calls of the
+    eager sharded step (``step.sharded.eager_step``) bit for bit; against
+    the unsharded K steps their first loss (same weights) within rtol 1e-5,
+    and after it the runs drift apart as two correct runs that differ in
+    float32 rounding do (the mean of the shard means rounds otherwise than
+    the full-batch mean; Adam's step on a gradient element near 0 takes its
+    sign; bf16 rounds the drifted weights), within K_STEP_LIMITS
+    (``drift``). On the one-card mesh all bit for bit (graphs included).
+    The replicas equal bit for bit, compared on the first replica's device;
+    K2 and K3 launched 3 and 3 times a step on each shard; the current
+    device unchanged; after the warm-up calls one eager sharded step and one
+    call of K steps without a host wait (``host_wait``; the graphed one-step
+    calls' in ``one_step_graphs``); a call of K steps on several entries as
+    2 graph replays a shard and step (``steps.graphed.replays``; K on one
+    entry). Reported, not gated: ms per step, alternating, median of
+    MESH_REPS, of the graphed one-step call, the eager sharded step and the
+    eager unsharded step (host ms between synchronisations and device ms
+    between CUDA events, ``sync_and_event_ms``) and of the K steps sharded
+    and unsharded (host ms); the one-step call's and the K steps' host and
+    device ms a step (``host_and_device_ms``); the K steps' capture memory
+    (``capture_memory``). On card 0 named twice, in float32, the overlap of
+    the two shards (``mesh_overlap``, in a process of its own)."""
     from adaptigraph_tpu_torch.dynamics import train
     from adaptigraph_tpu_torch.models.gnn import init_params
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
@@ -3734,14 +3850,15 @@ def mesh_train(dev, meshes, K=10):
         return out
 
     def step_loop(mesh, parts_k):
-        """K calls of the sharded step on fresh replicas: the losses and the
-        first replica."""
+        """K calls of the eager sharded step on fresh replicas: the losses
+        and the first replica."""
         reps, states, g = fresh(mesh)
-        step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
+        step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh).sharded.eager_step
         losses = torch.stack([step(reps, states, [{n: v[k] for n, v in p.items()}
                                                   for p in parts_k], g) for k in range(K)])
         return losses, reps[0]
 
+    slices = [{n: v[k] for n, v in sb.items()} for k in range(K)]
     lines, launches = {}, [0, 0]
     for cd in (torch.float32, torch.bfloat16):
         dname = str(cd).split(".")[-1]
@@ -3760,15 +3877,22 @@ def mesh_train(dev, meshes, K=10):
             step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
             one_batch = shard_batch(batch, mesh)
             gnn_forward.launches = gnn_train_bwd.launches = 0
+            # the first call: the eager sharded step and the capture
             loss, same1 = on_same_device(lambda: step(reps, states, one_batch, g))
             step_launches = [gnn_forward.launches, gnn_train_bwd.launches]
             reps_k, states_k, g_k = fresh(mesh)
             steps = train.make_train_steps(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
             parts_k = shard_batch(sb, mesh, batch_axis=1)
             gnn_forward.launches = gnn_train_bwd.launches = 0
-            losses, same2 = on_same_device(lambda: steps(reps_k, states_k, parts_k, g_k))
+            (losses, steps_memory), same2 = on_same_device(
+                lambda: capture_memory(lambda: steps(reps_k, states_k, parts_k, g_k), mesh))
             steps_launches = [gnn_forward.launches, gnn_train_bwd.launches]
-            launches = [a + b + c for a, b, c in zip(launches, step_launches, steps_launches)]
+            gnn_forward.launches = gnn_train_bwd.launches = 0
+            one_step = one_step_graphs(train, gnn, edge, hyper, fused, mesh, fresh,
+                                       [shard_batch(b, mesh) for b in slices])
+            one_step_launches = [gnn_forward.launches, gnn_train_bwd.launches]
+            launches = [a + b + c + d for a, b, c, d in zip(launches, step_launches,
+                                                            steps_launches, one_step_launches)]
             # per shard: the step's K2, K3, the K steps' K2, K3
             per_shard = [[a["gnn_forward"], a["gnn_train_bwd"], b["gnn_forward"],
                           b["gnn_train_bwd"]]
@@ -3780,13 +3904,17 @@ def mesh_train(dev, meshes, K=10):
             loop_losses, loop_leaves = step_loop(mesh, parts_k)
             loop_ok = matches(losses, reps_k[0], loop_losses, loop_leaves, True)
             reps_ok = replicas_equal(reps, states) and replicas_equal(reps_k, states_k)
-            waits = {"step": host_wait(lambda: step(reps, states, one_batch, g)),
+            # the graphed one-step calls' host waits: one_step_graphs
+            waits = {"eager_step": host_wait(
+                         lambda: step.sharded.eager_step(reps, states, one_batch, g)),
                      "k_steps": host_wait(lambda: steps(reps_k, states_k, parts_k, g_k))}
             before = steps.graphed.replays
             host_ms, device_ms = host_and_device_ms(
                 lambda: steps(reps_k, states_k, parts_k, g_k), K)
             replays = (steps.graphed.replays - before) // 3  # per call
             want_replays = K * (2 * n if n > 1 else 1)
+            step_host_ms, step_device_ms = host_and_device_ms(
+                lambda: step(reps, states, one_batch, g), 1)
             record = dict(
                 shards=n, tolerance="bit for bit" if n == 1 else "loss rtol 1e-5, leaves "
                                                                   "rtol 1e-4 atol 1e-6",
@@ -3797,25 +3925,87 @@ def mesh_train(dev, meshes, K=10):
                 replicas_equal=reps_ok,
                 launches_per_shard_step_k2_k3_steps_k2_k3=per_shard,
                 current_device_unchanged=same1 and same2, host_wait=waits,
+                step_host_ms=step_host_ms, step_device_ms=step_device_ms,
+                k_steps_capture_memory=steps_memory,
                 k_steps_graph_replays_per_call=replays, k_steps_graph_replays_expected=want_replays,
-                k_steps_host_ms_per_step=host_ms, k_steps_device_ms_per_step=device_ms)
-            timed = {"sharded": [], "unsharded": [], "sharded_k_steps": [], "unsharded_k_steps": []}
+                k_steps_host_ms_per_step=host_ms, k_steps_device_ms_per_step=device_ms,
+                one_step=one_step)
+            one_step_ms = {"sharded": [], "sharded_eager": [], "unsharded": []}
+            timed = {"sharded_k_steps": [], "unsharded_k_steps": []}
             for _ in range(MESH_REPS):
-                timed["sharded"].append(sync_ms(lambda: step(reps, states, one_batch, g)))
-                timed["unsharded"].append(sync_ms(lambda: one(leaves, state, batch, gen)))
+                one_step_ms["sharded"].append(
+                    sync_and_event_ms(lambda: step(reps, states, one_batch, g)))
+                one_step_ms["sharded_eager"].append(sync_and_event_ms(
+                    lambda: step.sharded.eager_step(reps, states, one_batch, g)))
+                one_step_ms["unsharded"].append(
+                    sync_and_event_ms(lambda: one(leaves, state, batch, gen)))
                 timed["sharded_k_steps"].append(
                     sync_ms(lambda: steps(reps_k, states_k, parts_k, g_k)) / K)
                 timed["unsharded_k_steps"].append(
                     sync_ms(lambda: ref_steps(leaves_k, state_k, sb, gen_k)) / K)
+            ms = {f"ms_per_step_{k}": float(np.median(v)) for k, v in timed.items()}
+            for k, v in one_step_ms.items():
+                ms[f"ms_per_step_{k}"] = float(np.median([h for h, _ in v]))
+                ms[f"device_ms_per_step_{k}"] = float(np.median([d for _, d in v]))
             ok = (step_ok and steps_ok and loop_ok and reps_ok and same1 and same2
                   and per_shard == [[3, 3, 3 * K, 3 * K]] * n
-                  and all(w is None for w in waits.values()) and replays == want_replays)
-            lines[f"{dname}_{name}"] = dict(record, **{f"ms_per_step_{k}": float(np.median(v))
-                                                       for k, v in timed.items()}, ok=bool(ok))
+                  and all(w is None for w in waits.values()) and replays == want_replays
+                  and one_step["ok"])
+            lines[f"{dname}_{name}"] = dict(record, **ms, ok=bool(ok))
     line = lines["float32_cuda0_twice"]
     line["overlap"] = mesh_overlap_in_process()
     line["ok"] = bool(line["ok"] and line["overlap"]["ok"])
     return lines, launches
+
+
+GC_JUNK = 200_000  # container allocations inside the capture: many automatic collections
+
+
+def capture_with_collector(dev):
+    """What once invalidated a capture in the full run: Python's cyclic
+    collector freeing a CUDA graph during another capture (the destructor's
+    ``cudaGraphExecDestroy``). On card 0 with the collector on: a
+    ``dynamics.train._Replay`` left in a reference cycle and made garbage
+    inside the next ``_Replay``'s captured function, which then allocates
+    GC_JUNK containers (enough for automatic collections of every
+    generation). The capture must succeed (the collector is off while
+    ``_Replay`` captures), its replay give the captured function's value,
+    and the old graph be freed once collected after the capture."""
+    import gc
+    import weakref
+
+    from adaptigraph_tpu_torch.dynamics import train
+
+    x = torch.arange(1024, dtype=torch.float32, device=dev)
+    collecting = gc.isenabled()
+    gc.enable()
+    try:
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            old = train._Replay(lambda t: t * 2, (x,), dev)
+            freed = weakref.ref(old)
+            holder = [[old]]
+            holder[0].append(holder[0])  # a reference cycle
+            del old
+
+            def fn(t):
+                holder.clear()  # the cycle, and its graph, are garbage now
+                junk = [[i] for i in range(GC_JUNK)]
+                return t + len(junk) % 7
+
+            try:
+                new = train._Replay(fn, (x,), dev)
+                error = None
+            except RuntimeError as e:
+                new, error = None, str(e).splitlines()[0]
+            value = None if new is None else new(x + 1)
+            torch.cuda.synchronize()
+        right = new is not None and torch.equal(value, x + 1 + GC_JUNK % 7)
+        gc.collect()
+        return dict(capture_error=error, replay_right=bool(right),
+                    old_graph_freed_after=freed() is None,
+                    ok=bool(error is None and right and freed() is None))
+    finally:
+        (gc.enable if collecting else gc.disable)()
 
 
 def mesh_prefetched(dev, meshes):
@@ -3824,9 +4014,8 @@ def mesh_prefetched(dev, meshes):
     the parts of the batch's host copy that ``DevicePrefetcher(mesh=mesh)``
     staged, each copied to its card on a side stream as ``train
     --n_devices`` gets them, against the same step on ``shard_batch``'s
-    parts: loss, leaves and Adam state bit for bit. Run last in the phase:
-    in the full run, a CUDA graph captured after such a step failed (see
-    ``phase_mesh``)."""
+    parts: loss, leaves and Adam state bit for bit. Run before
+    ``mesh_train``'s captures (see ``phase_mesh``)."""
     from adaptigraph_tpu_torch.dynamics import train
     from adaptigraph_tpu_torch.models.gnn import init_params
     from adaptigraph_tpu_torch.parallel.mesh import replicate, shard_batch
@@ -3859,13 +4048,102 @@ def mesh_prefetched(dev, meshes):
     return out
 
 
+PREFETCHED_EPOCHS = 2  # train() on the prefetcher's parts: epochs,
+PREFETCHED_STEPS = 3  # steps an epoch (one a call) and
+PREFETCHED_VALID = 2  # validation batches an epoch
+
+
+class ListLoader:
+    """The given host batches (numpy dicts) in turn, without end, one step
+    each (``stack_steps`` 1): a loader as ``dynamics.train.train`` takes
+    one."""
+
+    stack_steps = 1
+
+    def __init__(self, batches):
+        self._batches = itertools.cycle(batches)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._batches)
+
+
+def mesh_train_prefetched(dev, mesh):
+    """``dynamics.train.train`` on ``mesh`` with one step a call, as ``train
+    --n_devices N --steps_per_call 1`` runs it (card 0 named twice: that
+    sequence on one card): the real ``DevicePrefetcher`` stages every batch,
+    the first train and eval calls run eagerly on its parts and capture, the
+    later ones replay. PREFETCHED_EPOCHS epochs of PREFETCHED_STEPS float32
+    steps and PREFETCHED_VALID validation batches, B 128 at the fixture's
+    density, each a new batch, every loss logged (``log_every`` 1),
+    ``init_params`` weights. Held bit for bit against a loop of the eager
+    sharded step and eval (``ShardedStep.eager_step``) on ``shard_batch``'s
+    parts of the same batches in the same order, from the same weights and
+    generator seed: each epoch's train and valid loss and the returned
+    parameters (the first replica). K2 and K3 launches counted: 3 and 3 a
+    shard and step, 3 and 0 a shard and validation batch."""
+    import dataclasses
+
+    from adaptigraph_tpu_torch.dynamics import train
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward
+    from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd
+    from adaptigraph_tpu_torch.parallel.mesh import replicate, shard_batch
+    from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    gnn, edge, _, hyper = train_objects(load_dynamics_config("rope"))
+    E, S, V = PREFETCHED_EPOCHS, PREFETCHED_STEPS, PREFETCHED_VALID
+    hyper = dataclasses.replace(hyper, n_epochs=E, n_iters_train=S, n_iters_valid=V)
+    host = [{k: v.cpu().numpy() for k, v in fixture_batch("rope", dev, seed=90 + i)[0].items()}
+            for i in range(E * S + V)]
+    train_batches, valid_batches = host[:E * S], host[E * S:]
+    params = init_params(torch.Generator().manual_seed(0), gnn)
+    out = os.path.join(TRAIN_DIR, "mesh_train_prefetched")
+    shutil.rmtree(out, ignore_errors=True)
+    gnn_forward.launches = gnn_train_bwd.launches = 0
+    t0 = time.time()
+    got, curves = train.train(gnn, edge, hyper, ListLoader(train_batches),
+                              ListLoader(valid_batches), out, log_every=1, params=params,
+                              mesh=mesh)
+    seconds = time.time() - t0
+    k2, k3 = gnn_forward.launches, gnn_train_bwd.launches
+
+    leaves = [p.detach().to(dev, torch.float32).clone().requires_grad_(True)
+              for p in ckpt.tree_leaves(params)]
+    reps, states = replicate(leaves, mesh), replicate(train.adam_init(leaves), mesh)
+    gen = torch.Generator(device=mesh[0])
+    gen.manual_seed(hyper.seed + 1)
+    step = train.make_train_step(gnn, edge, hyper, mesh=mesh).sharded.eager_step
+    evaluate = train.make_eval_step(gnn, edge, hyper, mesh=mesh).sharded.eager_step
+    tb, vb = itertools.cycle(train_batches), itertools.cycle(valid_batches)
+    ref = {"train": [], "valid": []}
+    for _ in range(E):
+        losses = [step(reps, states, shard_batch(next(tb), mesh), gen)[None] for _ in range(S)]
+        ref["train"].append(float(torch.cat(losses).mean()))
+        vl = [evaluate(reps, shard_batch(next(vb), mesh), gen)[None] for _ in range(V)]
+        ref["valid"].append(float(torch.cat(vl).mean()))
+    n = len(mesh)
+    same_params = all(torch.equal(a, b) for a, b in zip(ckpt.tree_leaves(got), reps[0]))
+    want = (3 * n * E * (S + V), 3 * n * E * S)
+    ok = curves == ref and same_params and (k2, k3) == want
+    return dict(mesh=[str(d) for d in mesh], epochs=E, steps_per_epoch=S,
+                valid_batches_per_epoch=V, seconds=seconds, curves=curves,
+                eager_loop_curves=ref, params_equal=bool(same_params),
+                k2_k3_launches=[k2, k3], k2_k3_launches_expected=list(want),
+                tolerance="bit for bit", ok=bool(ok))
+
+
 def mesh_overlap(dev):
     """Run as ``chip_smoke.py --overlap``, a process of its own
     (``mesh_overlap_in_process``): a profiler session in a process that has
     profiled before and made CUDA graphs since held no kernel record in the
     full run. On card 0 named twice, float32, B 128 at the fixture's
     density: one ``torch.profiler`` window (``utils.profiling.device_trace``)
-    over OVERLAP_STEPS calls of a warm sharded step and one call of a fresh
+    over OVERLAP_STEPS calls of a warm eager sharded step
+    (``ShardedStep.eager_step``) and one call of a fresh
     K-steps object on a 2-slice superbatch (slice 0 eagerly, the capture,
     slice 1 as graph replays; made inside the window, since a CUPTI that
     attaches after a graph was made need not trace it), each object's shard
@@ -3895,17 +4173,17 @@ def mesh_overlap(dev):
                 torch.Generator(device=dev).manual_seed(7))
 
     reps, states, g = fresh()
-    step = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
-    step(reps, states, batch, g)  # the warm-up
+    eager = train.make_train_step(gnn, edge, hyper, fused_fn=fused, mesh=mesh).sharded
+    eager.eager_step(reps, states, batch, g)  # the warm-up
     steps = train.make_train_steps(gnn, edge, hyper, fused_fn=fused, mesh=mesh)
     reps2, states2, g2 = fresh()
-    streams = step.sharded.streams + steps.graphed.sharded.streams
+    streams = eager.streams + steps.graphed.sharded.streams
     trace_dir = os.path.join(TRAIN_DIR, "mesh_overlap")
     torch.cuda.synchronize()
     with device_trace(trace_dir):
         mark_streams(streams)
         for _ in range(OVERLAP_STEPS):
-            step(reps, states, batch, g)
+            eager.eager_step(reps, states, batch, g)
         steps(reps2, states2, parts, g2)
     ids, pairs, n_kernels = stream_overlap(os.path.join(trace_dir, "trace.json"), len(streams))
 
@@ -4043,19 +4321,23 @@ def phase_mesh(rope, prep, dev):
     t0 = time.time()
     order = fork_order(meshes)
     solve, k1_solve = mesh_solve(rope, dev, meshes)
-    steps, (k2, k3) = mesh_train(dev, meshes)
-    cli_lines, k1_plan = mesh_cli(prep, rope, dev, meshes)
-    # last: in the full run, with the earlier phases before it, a CUDA graph
-    # captured on card 0 named twice after a step on the prefetcher's parts
-    # failed (cudaErrorStreamCaptureInvalidated); alone (--mesh) it did not
+    # a step on the prefetcher's parts, then the captures of mesh_train:
+    # the sequence of train --n_devices at one step a call, and the one in
+    # which a capture once failed in the full run (a graph that the cyclic
+    # collector freed meanwhile; capture_with_collector)
     fed = mesh_prefetched(dev, meshes)
+    collector = capture_with_collector(dev)
+    steps, (k2, k3) = mesh_train(dev, meshes)
+    fed_train = mesh_train_prefetched(dev, meshes["cuda0_twice"])
+    cli_lines, k1_plan = mesh_cli(prep, rope, dev, meshes)
     ok = (all(v["ok"] for v in order.values()) and all(v["ok"] for v in solve.values())
           and all(v["ok"] for v in steps.values()) and all(v["ok"] for v in cli_lines.values())
-          and all(v["ok"] for v in fed.values()))
+          and all(v["ok"] for v in fed.values()) and fed_train["ok"] and collector["ok"])
     emit(phase="mesh", device_count=torch.cuda.device_count(), card=card_line(),
          meshes={k: [str(d) for d in m] for k, m in meshes.items()}, fork_order=order,
-         solve=solve, train=steps, cli=cli_lines, prefetched_step=fed,
-         seconds=time.time() - t0, ok=bool(ok))
+         solve=solve, prefetched_step=fed, capture_with_collector=collector, train=steps,
+         prefetched_train=fed_train,
+         cli=cli_lines, seconds=time.time() - t0, ok=bool(ok))
     if not ok:
         fail("the multi-device paths failed their checks (see the mesh line)")
     return dict(k1_launches=k1_solve, k2_launches=k2, k3_launches=k3,

@@ -600,6 +600,135 @@ def test_sharded_graphs_equal_the_eager_sharded_steps(monkeypatch, n):
     assert int(s1[0]["count"]) == int(s2[0]["count"]) == 2 * K
 
 
+@pytest.mark.parametrize("n", [2, 3])
+def test_one_step_sharded_graphs_equal_the_eager_sharded_step(monkeypatch, n):
+    """``make_train_step(mesh=...)`` and ``make_eval_step(mesh=...)`` on a
+    mesh of cards (forced here on CPU entries through ``_on_cards``, each
+    replay stood in for by ``_RerunGraph``): three train calls and three
+    eval calls, each on a new batch, augmentation on, equal bit for bit the
+    eager sharded step (``ShardedStep.eager_step``) call for call, the
+    replicas and Adam states too; the first call of each captures and runs
+    eagerly, the later ones only replay, 2 graphs a shard and call (train)
+    or 1 (eval)."""
+    monkeypatch.setattr(train, "_Replay", _RerunGraph)
+    monkeypatch.setattr(train, "_on_cards", lambda mesh: True)
+    hyper = train.TrainHyper(n_future=2, state_noise_train=0.05, phys_noise_train=0.05,
+                             state_noise_valid=0.02)
+    mesh = cpus(n)
+    batches = [shard_batch(_batch(np.random.RandomState(20 + i), 6, masks=True), mesh)
+               for i in range(6)]
+    jp = _jparams()
+    runs = []
+    for graphed in (True, False):
+        replicas, states = _replicas(jp, mesh)
+        gen = torch.Generator().manual_seed(11)
+        step = train.make_train_step(GNN, EDGE, hyper, mesh=mesh)
+        evaluate = train.make_eval_step(GNN, EDGE, hyper, mesh=mesh)
+        assert step.graphed is not None and evaluate.graphed is not None
+        if not graphed:
+            step, evaluate = step.sharded.eager_step, evaluate.sharded.eager_step
+        losses, valid = [], []
+        for i in range(3):
+            losses.append(step(replicas, states, batches[2 * i], gen))
+            valid.append(evaluate(replicas, batches[2 * i + 1], gen))
+            if graphed:
+                assert step.graphed.replays == 2 * n * i
+                assert evaluate.graphed.replays == n * i
+        runs.append((torch.stack(losses), torch.stack(valid), replicas, states))
+    (l1, v1, r1, s1), (l2, v2, r2, s2) = runs
+    assert torch.equal(l1, l2) and torch.equal(v1, v2)
+    for a, b in zip(r1 + [s["mu"] for s in s1] + [s["nu"] for s in s1],
+                    r2 + [s["mu"] for s in s2] + [s["nu"] for s in s2]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _assert_replicas_equal(r1, s1)
+    assert int(s1[0]["count"]) == int(s2[0]["count"]) == 3
+
+
+def test_one_step_sharded_call_is_eager_on_cpu_meshes():
+    """On a mesh of CPU entries the sharded steps have no graphs: every call
+    is the eager sharded step."""
+    hyper = train.TrainHyper(n_future=2)
+    for make in (train.make_train_step, train.make_eval_step):
+        assert make(GNN, EDGE, hyper, mesh=cpus(2)).graphed is None
+    assert train.make_train_steps(GNN, EDGE, hyper, mesh=cpus(2)).graphed is None
+    assert train._on_cards(["cuda:0", "cuda:1"]) and not train._on_cards(["cuda:0", "cpu"])
+
+
+@pytest.mark.parametrize("n", [None, 1, 2], ids=["unsharded", "one_entry", "two_entries"])
+def test_step_functions_free_their_graphs_without_the_collector(n):
+    """Every train and eval function, one step or K a call, unsharded or on
+    a mesh, is freed with its graphs (``.graphed``) as soon as the last
+    reference to it goes, with Python's cyclic collector off: none lies in a
+    reference cycle. (A one-entry mesh's K-step function referred to itself;
+    its CUDA graph was then destroyed whenever the collector ran, once
+    during another capture, which that invalidates.)"""
+    import gc
+    import weakref
+
+    hyper = train.TrainHyper(n_future=2)
+    mesh = None if n is None else cpus(n)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        for make in (train.make_train_steps, train.make_eval_steps, train.make_train_step,
+                     train.make_eval_step):
+            fn = make(GNN, EDGE, hyper, mesh=mesh)
+            refs = [weakref.ref(fn)]
+            if getattr(fn, "graphed", None) is not None:
+                refs.append(weakref.ref(fn.graphed))
+            del fn
+            assert all(r() is None for r in refs), make.__name__
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def test_capture_runs_without_the_cyclic_collector(monkeypatch):
+    """``_Replay`` captures with Python's cyclic collector off (a graph that
+    the collector freed during the capture would invalidate it) and restores
+    it afterwards, after a failed capture too; a collector that was off
+    stays off. The CUDA graph calls are stood in for on the CPU."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    class FakeGraph:
+        def register_generator_state(self, generator):
+            pass
+
+    @contextlib.contextmanager
+    def fake_capture(graph, stream=None, capture_error_mode=None):
+        seen.append(("enter", gc.isenabled(), capture_error_mode))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+
+    def fn(x):
+        seen.append(("fn", gc.isenabled()))
+        return x + 1
+
+    def broken(x):
+        raise RuntimeError("capture failed")
+
+    collecting = gc.isenabled()
+    try:
+        gc.enable()
+        replay = train._Replay(fn, (torch.zeros(3),), "cpu")
+        assert seen == [("enter", False, "thread_local"), ("fn", False)] and gc.isenabled()
+        assert torch.equal(replay.out, torch.ones(3))
+        with pytest.raises(RuntimeError, match="capture failed"):
+            train._Replay(broken, (torch.zeros(3),), "cpu")
+        assert gc.isenabled()
+        gc.disable()
+        train._Replay(fn, (torch.zeros(3),), "cpu")
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if collecting else gc.disable)()
+
+
 def test_smoke_replica_check_finds_any_difference():
     """``chip_smoke.py::replicas_equal``, the card check that a mesh's
     replicas stay equal, on three CPU replicas: equal after ``replicate``,
