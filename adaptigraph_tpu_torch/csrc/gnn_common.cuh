@@ -14,11 +14,17 @@
 //   fed as wgmma's register operand, the weights' parts come packed (or dY's
 //   chunk is split and transposed in shared memory, as tf32 B must be
 //   K-major). A layer's weight (or, in float32, a 128- or 64-row slice of
-//   its hi and lo parts) is staged in shared memory once per call;
-//   128-row activation tiles (dW: 64- or 32-row chunks of both operands) come
-//   in by cp.async, double-buffered, so one tile's loads overlap the previous
-//   tile's products. The epilogue runs from the accumulator registers, two
-//   adjacent columns at a time, and redoes as float32 FMA chains the few
+//   its hi and lo parts) is staged in shared memory once per call. Each
+//   warpgroup stages its own 64-row activation tiles by cp.async, the next
+//   one in flight during a tile's products, and runs its own tiles, so one
+//   warpgroup's epilogue overlaps the other's products; dW's 64- or 32-row
+//   chunks of both operands are shared, in three (bf16) or two stages. No
+//   k-step waits for its own products before the next is issued: each is a
+//   wgmma commit group, waited for behind the next (Y = X W adds each step's
+//   fresh sums to its accumulators in k order meanwhile), so ptxas keeps the
+//   products asynchronous. The epilogue reads its inputs for eight output
+//   pairs before it writes any, then runs from the accumulator registers,
+//   two adjacent columns at a time, and redoes as float32 FMA chains the few
 //   outputs whose bf16 rounding or relu the tensor cores' truncated sums
 //   could decide otherwise than a float32 matmul (Redo); weight gradients
 //   come with their bias gradients (column sums of the staged cotangent
@@ -170,7 +176,7 @@ __device__ __forceinline__ void st2(bf16* p, float a, float b) {
 #ifdef GNN_PHASE_CLOCKS
 #define GNN_PHASE(k) ::gnn::phase_mark(k)
 static __device__ unsigned long long* g_phase_clocks;  // per source file
-__device__ inline void phase_mark(int k) {
+__device__ __forceinline__ void phase_mark(int k) {
   __shared__ long long last;
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -185,7 +191,7 @@ __device__ inline void phase_mark(int k) {
 // epilogue), summed over every call.
 #define GNN_SUB_START(t) long long t = clock64()
 #define GNN_SUB(k, t) ::gnn::sub_mark(k, t)
-__device__ inline void sub_mark(int k, long long& t) {
+__device__ __forceinline__ void sub_mark(int k, long long& t) {
   if (threadIdx.x == 0) {
     const long long now = clock64();
     atomicAdd(g_phase_clocks + k, (unsigned long long)(now - t));
@@ -263,43 +269,91 @@ __device__ void gemm(int M, int N, int Kd, const TA* A, size_t sam, size_t sak, 
   }
   __syncthreads();
 }
-
 // ---------------------------------------------------------------------------
 // The tensor-core layer routine
 // ---------------------------------------------------------------------------
 //
+// The k-steps of a product run without a wait behind each one: every k-step
+// is a wgmma commit group, and the routine waits for the groups but the
+// newest (wgmma.wait_group 1) while the newest runs, so the tensor cores are
+// fed while the CUDA cores add (layer_tc) or stage and split (wgrad_tc); a
+// wait with nothing behind it is left only where a staged tile's last sums
+// are read. ptxas keeps such a pipeline asynchronous only where it can
+// follow it: every wgmma is in straight-line code (a step count of 2 or 4,
+// each its own instance, chosen by a branch outside the products), every
+// count that steers it passes through uniform() (a branch it cannot prove
+// warp-uniform serialises the wgmma of the whole function, C7520), no
+// function is called while products are in flight and nothing that issues
+// wgmma is a function of its own (C7510: the routine and what calls it are
+// inlined into the kernels), and no register spills (chip_smoke.py's build
+// gate holds all three).
+//
+// layer_tc: each warpgroup takes its own 64-row tiles of X (tiles wg, wg + 2,
+// ...), staged by its own 128 threads into its own two buffers, the next
+// step's tile in flight during a step's products, and waited for at its own
+// named barrier, so one warpgroup's epilogue runs while the other's products
+// do. A step is one 64-deep (float32: 32-deep) tile for both 64-column
+// halves of the weight slice (64 accumulators a thread, Wide) or for one
+// (32, the halves one after the other, the second restaging the row tile's
+// activations): the backward's float32 instance takes one half, as 64
+// accumulators and their fresh sets leave too few registers beside its own.
+// The float32 forward, with both halves, takes its fresh sums in 32-column
+// quarters, three sets of 16.
+// wgrad_tc: the two warpgroups share the staged chunks (each takes 64 rows of
+// G), the products of a chunk are waited for behind the next chunk's.
+//
 // Shared memory (tc, 1,024-aligned), bfloat16:
 //   layer_tc: the weight, up to 128 rows x 256 deep as four 64-column
-//   swizzled blocks (64 KB), then two 128 x 64 activation tiles (32 KB);
-//   wgrad_tc: two stages of X and dY, each 64 rows x 128 columns (64 KB).
+//   swizzled blocks (64 KB), then per warpgroup two 64 x 64 activation tiles
+//   (2 x 16 KB);
+//   wgrad_tc: three stages of X and dY, each 64 rows x 128 columns (96 KB):
+//   a stage is restaged while the products of the one before it may run.
 // float32:
 //   layer_tc (wgmma tf32, A from registers): a slice of nc = 128 (depth <=
 //   128) or 64 (depth <= 256) weight rows, hi and lo, K-major in 32-float
-//   swizzled column blocks (2 x 64 KB), then two 128 x 32 activation tiles of
-//   row stride 36 (36 KB);
+//   swizzled column blocks (2 x 64 KB), then per warpgroup two 64 x 32
+//   activation tiles of row stride 36 (2 x 18 KB);
 //   wgrad_tc (wgmma tf32, A = X^T from registers): two stages of X and dY,
-//   each 32 rows x 128 columns of row stride 136 (68 KB), then dY's chunk
-//   transposed into TF32 hi and lo parts (2 x 16 KB).
+//   each 32 rows x 128 columns of row stride 136 (68 KB), then two buffers
+//   of dY's chunk transposed into TF32 hi and lo parts (2 x 32 KB).
 // The strides keep each warp's fragment loads on 32 different banks.
-constexpr int kTcRows = 128;                 // rows of a block tile: 2 warpgroups x 64, 8 warps x 16
+// wgrad_tc's bias sums (256 floats) reuse the start of the space once a
+// slice's products are done.
 constexpr int kW16Bytes = 128 * 256 * 2;
 constexpr int kA32Ld = 36, kG32Ld = 136;
 constexpr int kW32Floats = 128 * 128;        // nc x round16(K) for either slice width
-// wgrad_tc's 256 floats of bias sums, past its tiles; in float32 its
-// transposed TF32 parts of dY (2 x 16 KB) lie past the chunks
-constexpr int kRedOff16 = 72 * 1024, kB32Off = 68 * 1024, kRedOff32 = 100 * 1024;
+constexpr int kB32Off = 68 * 1024;           // float32 wgrad_tc's transposed parts of dY
+// layer_tc's activation tiles, a ring per warpgroup: bf16 64 rows x 64
+// (swizzled), float32 64 rows x 32 (row stride kA32Ld). Rings of four and
+// three ran no faster in float32 and slower in bf16 on an H100.
+constexpr int kStages16 = 2, kA16Elems = 64 * 64;
+constexpr int kStages32 = 2, kA32Elems = 64 * kA32Ld;
 
 template <typename T> __host__ __device__ constexpr size_t tc_bytes();
 template <> __host__ __device__ constexpr size_t tc_bytes<bf16>() {
-  return kW16Bytes + 2 * kTcRows * 64 * 2;
+  return kW16Bytes + 2 * kStages16 * kA16Elems * 2;
 }
 template <> __host__ __device__ constexpr size_t tc_bytes<float>() {
-  return 2 * kW32Floats * 4 + 2 * kTcRows * kA32Ld * 4;
+  return 2 * kW32Floats * 4 + 2 * kStages32 * kA32Elems * 4;
 }
 // gemm's two staged tiles and colsum's scratch reuse the tensor-core tiles
 static_assert(2 * kBK * kLd * 4 <= tc_bytes<bf16>() && 2 * kBK * kLd * 4 <= tc_bytes<float>() &&
                   8 * kThreads * 4 <= tc_bytes<bf16>(),
               "the CUDA-core tiles must fit in the tensor-core tiles' space");
+static_assert(3 * 4 * 64 * 64 * 2 <= tc_bytes<bf16>() &&
+                  kB32Off + 2 * 2 * 128 * 32 * 4 <= tc_bytes<float>() &&
+                  4 * 32 * kG32Ld * 4 <= kB32Off,
+              "wgrad_tc's stages must fit in the tensor-core tiles' space");
+
+// The warpgroup of the calling thread, and a value that every thread of the
+// block holds, as values the compiler knows to be the same across a warp.
+__device__ __forceinline__ int warpgroup() { return __shfl_sync(~0u, (int)threadIdx.x >> 7, 0); }
+__device__ __forceinline__ int uniform(int v) { return __shfl_sync(~0u, v, 0); }
+
+// a barrier of the 128 threads of warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
 
 // Outputs redone as float32 FMA chains. The tensor cores truncate their
 // float32 sums (alignment and normalisation round toward zero), so a
@@ -339,10 +393,11 @@ struct Redo {
   int sn, sk;
 };
 
-// sum_k x[k] w[k * sk], k < K, one FMA after another in k order (not
-// inlined: the elementwise passes call it rarely)
+// sum_k x[k] w[k * sk], k < K, one FMA after another in k order (inlined:
+// a call from the message pass, which the float32 forward makes where a
+// relu input lies near 0, spills the registers live around it)
 template <typename T>
-__device__ __noinline__ float fma_chain(const T* x, const T* w, size_t sk, int K) {
+__device__ __forceinline__ float fma_chain(const T* x, const T* w, size_t sk, int K) {
   float s = 0.f;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) s = fmaf(ld(x + k), ld(w + k * sk), s);
@@ -352,7 +407,9 @@ __device__ __noinline__ float fma_chain(const T* x, const T* w, size_t sk, int K
 // The chains of outputs n and n + 1 of row x (global memory, 16-byte
 // aligned, zero from K to the next multiple of 8): bfloat16 from rows r and
 // r + 1 of the weight slice that layer_tc staged (Ws, swizzled as stage_sw
-// leaves it), 8 at a time in k order; float32 from r's weight.
+// leaves it), 8 at a time in k order; float32 from r's weight (inlined, as
+// fma_chain is: a call spills the float32 forward's registers live around
+// it).
 static __device__ __noinline__ void chain2(const bf16* x, const bf16* Ws, int r, int K, float& s0,
                                            float& s1) {
   float a = 0.f, b = 0.f;
@@ -369,8 +426,8 @@ static __device__ __noinline__ void chain2(const bf16* x, const bf16* Ws, int r,
   }
   s0 = a, s1 = b;
 }
-static __device__ __noinline__ void chain2(const float* x, const float* w, int sn, int sk, int K,
-                                    float& s0, float& s1) {
+static __device__ __forceinline__ void chain2(const float* x, const float* w, int sn, int sk,
+                                              int K, float& s0, float& s1) {
   float a = 0.f, b = 0.f;
   for (int k = 0; k < K; ++k) {
     const float xv = x[k];
@@ -380,11 +437,34 @@ static __device__ __noinline__ void chain2(const float* x, const float* w, int s
   s0 = a, s1 = b;
 }
 
+// An epilogue of the layer routine, in two parts: in(m, n) reads what
+// outputs (m, n) and (m, n + 1) need besides their products (at most four
+// values: biases, kept activations, cotangents), out(m, n, c0, c1, v) writes
+// them from the products and v and returns whether a value decides something
+// (decides()). The routine reads eight pairs' inputs (float32: four) before
+// it writes any of them, so their loads are in flight together; the two parts may read
+// and write only positions (m, n) and (m, n + 1) of other buffers than X.
+template <typename In, typename Out>
+struct Epilogue {
+  In in;
+  Out out;
+};
+template <typename In, typename Out>
+__device__ __forceinline__ Epilogue<In, Out> epilogue(In in, Out out) {
+  return {in, out};
+}
+// ... for an epilogue that reads nothing besides the products
+struct NoInputs {
+  __device__ __forceinline__ float4 operator()(int, int) const {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+};
+
 // After a tile's epilogue: each pair of outputs whose bit j is set in
 // `flags` (row r + 8 (j & 1), columns n = nb + 64 (j >> 4) + 8 ((j & 15) >> 1)
 // and n + 1, as the accumulator fragments hold them) is redone by
-// chain(m, n, s0, s1) and given to epi again: an epilogue writes only its
-// own positions, so the second call replaces the first.
+// chain(m, n, s0, s1) and given to the epilogue again: it writes only its
+// own positions, so the second write replaces the first.
 template <typename Chain, typename Epi>
 __device__ inline void redo_pairs(unsigned flags, int r, int nb, Chain chain, Epi& epi) {
   for (; flags != 0; flags &= flags - 1) {
@@ -392,18 +472,49 @@ __device__ inline void redo_pairs(unsigned flags, int r, int nb, Chain chain, Ep
     const int m = r + 8 * (j & 1), n = nb + 64 * (j >> 4) + 8 * ((j & 15) >> 1);
     float s0, s1;
     chain(m, n, s0, s1);
-    epi(m, n, s0, s1);
+    epi.out(m, n, s0, s1, epi.in(m, n));
   }
+}
+
+// The epilogue of a tile of 64 rows and HA 64-column halves (acc[h]: columns
+// n0 + 64 h ..) from the accumulators, G pairs at a time, inputs first; then,
+// with redo, the pairs it flagged redone by chain. Rows r and r + 8 of the
+// tile are this thread's (r: the tile's first row + its warp's 16 + lane /
+// 4).
+template <int G, int HA, typename Epi, typename Chain>
+__device__ __forceinline__ void tile_epilogue(float (&acc)[HA][32], int r, int n0, int M, int N,
+                                              bool redo, Chain chain, Epi& epi) {
+  const int n1 = n0 + 2 * (threadIdx.x & 3);
+  unsigned flags = 0;
+#pragma unroll
+  for (int h = 0; h < HA; ++h)
+#pragma unroll
+    for (int i0 = 0; i0 < 32; i0 += 2 * G) {
+      float4 v[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const int i = i0 + 2 * q, m = r + 8 * ((i & 3) >> 1), n = n1 + 64 * h + 8 * (i >> 2);
+        v[q] = m < M && n < N ? epi.in(m, n) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const int i = i0 + 2 * q, m = r + 8 * ((i & 3) >> 1), n = n1 + 64 * h + 8 * (i >> 2);
+        if (m < M && n < N && epi.out(m, n, acc[h][i], acc[h][i + 1], v[q]))
+          flags |= 1u << (h * 16 + (i >> 1));
+      }
+    }
+  if (redo) redo_pairs(flags, r, n1, chain, epi);
 }
 
 // Rows [r0, r0 + R) and columns [c0, c0 + 64 CB) of src (row stride ld
 // elements; rows >= rlim and columns >= clim read as zero; clim, ld and c0
 // multiples of 8) into CB column blocks of R rows x 64, swizzled (mma.cuh),
-// by cp.async. Every thread calls it; nothing waits.
-__device__ inline void stage_sw(bf16* dst, const bf16* src, int ld, int r0, int R, int rlim, int c0,
-                                int CB, int clim) {
+// by cp.async from threads tid = 0 .. nt - 1 (the block's, or a
+// warpgroup's). Nothing waits.
+__device__ __forceinline__ void stage_sw(bf16* dst, const bf16* src, int ld, int r0, int R,
+                                         int rlim, int c0, int CB, int clim, int tid, int nt) {
   const int n = R * CB * 8;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+  for (int idx = tid; idx < n; idx += nt) {
     const int c = idx & 7, r = (idx >> 3) % R, cb = (idx >> 3) / R;
     const int gr = r0 + r, gc = c0 + cb * 64 + c * 8;
     const bool ok = gr < rlim && gc < clim;
@@ -413,11 +524,13 @@ __device__ inline void stage_sw(bf16* dst, const bf16* src, int ld, int r0, int 
 }
 
 // Rows [r0, r0 + R) and columns [c0, c0 + C) of src into dst, row stride dld
-// floats (zero beyond rlim / clim; C, clim, ld and c0 multiples of 4).
-__device__ inline void stage_pad(float* dst, int dld, const float* src, int ld, int r0, int R,
-                                 int rlim, int c0, int C, int clim) {
+// floats (zero beyond rlim / clim; C, clim, ld and c0 multiples of 4), from
+// threads tid = 0 .. nt - 1.
+__device__ __forceinline__ void stage_pad(float* dst, int dld, const float* src, int ld, int r0,
+                                          int R, int rlim, int c0, int C, int clim, int tid,
+                                          int nt) {
   const int cpr = C / 4, n = R * cpr;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+  for (int idx = tid; idx < n; idx += nt) {
     const int r = idx / cpr, c = (idx % cpr) * 4;
     const int gr = r0 + r, gc = c0 + c;
     const bool ok = gr < rlim && gc < clim;
@@ -425,202 +538,488 @@ __device__ inline void stage_pad(float* dst, int dld, const float* src, int ld, 
   }
 }
 
-// Y(m, n) = sum_k X(m, k) P(n, k) for m < M, n < N, k < K: X (M, K) of row
-// stride ldx, P the packed weight (N, round16(K)) (lo: float32's second TF32
-// part). epi(m, n, c0, c1) receives every output from the registers, the
-// two adjacent columns n (even) and n + 1 at once; it may read and write
-// those positions of other buffers but not X, and returns whether a value
-// decides something (decides()): then, with rd.w, it receives the pair again
-// redone as FMA chains. Every thread calls it; it ends with a barrier (or
-// returns at once when M is 0). K <= 256; ldx and N multiples of 8, and K
-// too unless X is zero from column K to the next multiple of 8 (the relation
-// inputs, rel_in_ld).
-template <typename Epi>
-__device__ void layer_tc(int M, int N, int K, const bf16* X, int ldx, const bf16* P, const bf16*,
-                         unsigned char* tcs, Redo<bf16> rd, Epi epi) {
-  const int Kp = round16(K), kbn = (Kp + 63) / 64;  // 64-deep blocks
-  bf16* Ws = reinterpret_cast<bf16*>(tcs);
-  bf16* As = reinterpret_cast<bf16*>(tcs + kW16Bytes);
-  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
-  const int steps = (M + kTcRows - 1) / kTcRows * kbn;
-  if (steps == 0) return;
-  GNN_SUB_START(tt);
-  for (int n0 = 0; n0 < N; n0 += 128) {
-    const bool two = N - n0 > 64;  // the slice's second 64 columns hold outputs
-    stage_sw(Ws, P, Kp, n0, 128, N, 0, kbn, Kp);
-    stage_sw(As, X, ldx, 0, kTcRows, M, 0, 1, K);
-    tc::cp_async_commit();
-    float acc[2][32];
+// The products of one staged 64-deep tile of the bf16 layer_tc: KS k16 steps
+// (2 or 4) for H 64-column halves of the weight slice (Bk: the first; acc[h]:
+// half h's sums). Each step and half is a commit group into fresh
+// accumulators, added to acc[h] by float32 adds in k order: carried through
+// the tensor cores, the sum truncates toward zero at every step, which flips
+// the bf16 rounding of the outputs far more often than a float32 FMA chain
+// does. Two sets of fresh accumulators take the groups in turn: group g is
+// issued, then g - 1 is waited for and added while g runs.
+template <int KS, int H, int HA>
+__device__ __forceinline__ void tile_products(float (&acc)[HA][32], const bf16* A, const bf16* Bk) {
+  constexpr int NG = KS * H;
+  float t[2][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
-    for (int s = 0; s < steps; ++s) {
-      const int m0 = s / kbn * kTcRows, kb = s % kbn;
-      if (s + 1 < steps) {
-        const int s1 = s + 1;
-        stage_sw(As + (s1 & 1) * kTcRows * 64, X, ldx, s1 / kbn * kTcRows, kTcRows, M,
-                 s1 % kbn * 64, 1, K);
-        tc::cp_async_commit();
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      tc::fence_proxy_async();
-      __syncthreads();
-      GNN_SUB(13, tt);
-      const bf16* A = As + (s & 1) * kTcRows * 64 + wg * 64 * 64;
-      const bf16* Bk = Ws + kb * 128 * 64;
-      // a warpgroup whose 64 rows all lie past M has no products to do
-      const int ksteps = m0 + wg * 64 < M ? imin(4, (K - kb * 64 + 15) / 16) : 0;
-      // Each k16 step into fresh accumulators, added to acc by rounded float32
-      // adds: carried through the tensor cores, the sum truncates toward zero
-      // at every step, which flips the bf16 rounding of the outputs far more
-      // often than a float32 FMA chain does.
-      for (int ks = 0; ks < ksteps; ++ks) {
-        float t[2][32];
-        const uint64_t da = tc::desc_sw128(A + ks * 16, 16, 1024);
-        tc::wgmma_fence();
-        tc::wgmma_m64n64k16<0, 0>(t[0], da, tc::desc_sw128(Bk + ks * 16, 16, 1024), 0);
-        if (two)
-          tc::wgmma_m64n64k16<0, 0>(t[1], da, tc::desc_sw128(Bk + 64 * 64 + ks * 16, 16, 1024), 0);
-        tc::wgmma_commit();
-        tc::wgmma_wait0();
+  for (int g = 0; g <= NG; ++g) {
+    if (g < NG) {
+      const int ks = g / H, h = g % H;
+      tc::wgmma_fence();
+      tc::wgmma_m64n64k16<0, 0>(t[g & 1], tc::desc_sw128(A + ks * 16, 16, 1024),
+                                tc::desc_sw128(Bk + h * 64 * 64 + ks * 16, 16, 1024), 0);
+      tc::wgmma_commit();
+    }
+    if (g > 0) {
+      if (g < NG) tc::wgmma_wait<1>(); else tc::wgmma_wait<0>();
+      const int p = g - 1;
+      tc::fence_regs(t[p & 1]);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          acc[0][i] += t[0][i];
-          if (two) acc[1][i] += t[1][i];
-        }
-      }
-      GNN_SUB(14, tt);
-      if (kb == kbn - 1) {
-        const int r = m0 + wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
-        unsigned flags = 0;
-#pragma unroll
-        for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-          for (int i = 0; i < 32; i += 2) {
-            const int m = r + 8 * ((i & 3) >> 1);
-            const int n = n0 + nb * 64 + 8 * (i >> 2) + 2 * (wt & 3);
-            if (m < M && n < N && epi(m, n, acc[nb][i], acc[nb][i + 1]))
-              flags |= 1u << (nb * 16 + (i >> 1));
-            acc[nb][i] = acc[nb][i + 1] = 0.f;
-          }
-        if (rd.w != nullptr)
-          redo_pairs(flags, r, n0 + 2 * (wt & 3), [&](int m, int n, float& s0, float& s1) {
-            chain2(X + (size_t)m * ldx, Ws, n - n0, K, s0, s1);
-          }, epi);
-      }
-      __syncthreads();
-      GNN_SUB(15, tt);
+      for (int i = 0; i < 32; ++i) acc[p % H][i] += t[p & 1][i];
     }
   }
 }
 
-template <typename Epi>
-__device__ void layer_tc(int M, int N, int K, const float* X, int ldx, const float* Ph,
-                         const float* Pl, unsigned char* tcs, Redo<float> rd, Epi epi) {
+// ... and of one staged 32-deep tile of the float32 layer_tc (bh, bl: the
+// first half's hi and lo parts): KS k8 steps (2 or 4) for H halves, each step
+// and half a commit group of three products into fresh accumulators, the two
+// small cross terms, then the large one, chained in the tensor cores (lo·hi,
+// hi·lo, hi·hi), added to acc[h] by float32 adds in k order: carried through
+// the 48 products of a 128-deep layer, the truncated sums gave ~9e-7 of the
+// result and more of the forward's relu flips against float64. A: this
+// thread's element of the tile (row g, column t of its warp's 16 rows),
+// split in registers per step into two sets taken in turn.
+template <int KS, int H, int HA>
+__device__ __forceinline__ void tile_products(float (&acc)[HA][32], const float* A, const bf16* bh,
+                                              const bf16* bl) {
+  constexpr int NG = KS * H;
+  float d[2][32];
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int g = 0; g <= NG; ++g) {
+    if (g < NG) {
+      const int kk = g / H, h = g % H, f = kk & 1;
+      if (h == 0) {
+        tc::split_tf32(A[kk * 8], ah[f][0], al[f][0]);
+        tc::split_tf32(A[8 * kA32Ld + kk * 8], ah[f][1], al[f][1]);
+        tc::split_tf32(A[kk * 8 + 4], ah[f][2], al[f][2]);
+        tc::split_tf32(A[8 * kA32Ld + kk * 8 + 4], ah[f][3], al[f][3]);
+      }
+      const uint64_t dh = tc::desc_sw128(bh + h * 64 * 64 + kk * 16, 16, 1024);
+      const uint64_t dl = tc::desc_sw128(bl + h * 64 * 64 + kk * 16, 16, 1024);
+      tc::wgmma_fence();
+      tc::wgmma_m64n64k8_tf32(d[g & 1], al[f], dh, 0);
+      tc::wgmma_m64n64k8_tf32(d[g & 1], ah[f], dl, 1);
+      tc::wgmma_m64n64k8_tf32(d[g & 1], ah[f], dh, 1);
+      tc::wgmma_commit();
+    }
+    if (g > 0) {
+      if (g < NG) tc::wgmma_wait<1>(); else tc::wgmma_wait<0>();
+      const int p = g - 1;
+      tc::fence_regs(d[p & 1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p % H][i] += d[p & 1][i];
+    }
+  }
+}
+
+// ... the same products for a warpgroup that holds both halves' sums (acc,
+// 64 accumulators), in 32-column quarters of the slice: each step and
+// quarter a commit group of three products into 16 fresh accumulators,
+// added to its quarter of acc in k order, three sets of them taken in turn
+// with two groups in flight while one is added. The same sums as for
+// 64-column groups (the tensor cores sum each output over k alone), in a
+// third fewer registers than two 64-column sets.
+template <int KS, int H>
+__device__ __forceinline__ void tile_products_q(float (&acc)[2][32], const float* A,
+                                                const bf16* bh, const bf16* bl) {
+  constexpr int Q = 2 * H, NG = KS * Q;
+  float d[3][16];
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int g = 0; g < NG + 2; ++g) {
+    if (g < NG) {
+      const int kk = g / Q, q = g % Q, f = kk & 1;
+      if (q == 0) {
+        tc::split_tf32(A[kk * 8], ah[f][0], al[f][0]);
+        tc::split_tf32(A[8 * kA32Ld + kk * 8], ah[f][1], al[f][1]);
+        tc::split_tf32(A[kk * 8 + 4], ah[f][2], al[f][2]);
+        tc::split_tf32(A[8 * kA32Ld + kk * 8 + 4], ah[f][3], al[f][3]);
+      }
+      const uint64_t dh = tc::desc_sw128(bh + q * 32 * 64 + kk * 16, 16, 1024);
+      const uint64_t dl = tc::desc_sw128(bl + q * 32 * 64 + kk * 16, 16, 1024);
+      tc::wgmma_fence();
+      tc::wgmma_m64n32k8_tf32(d[g % 3], al[f], dh, 0);
+      tc::wgmma_m64n32k8_tf32(d[g % 3], ah[f], dl, 1);
+      tc::wgmma_m64n32k8_tf32(d[g % 3], ah[f], dh, 1);
+      tc::wgmma_commit();
+    }
+    const int p = g - 2;  // the group added now: the groups after it stay in flight
+    if (p >= 0) {
+      if (g < NG) tc::wgmma_wait<2>();
+      else if (g == NG) tc::wgmma_wait<1>();
+      else tc::wgmma_wait<0>();
+      tc::fence_regs(d[p % 3]);
+      const int q = p % Q;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[q >> 1][16 * (q & 1) + i] += d[p % 3][i];
+    }
+  }
+}
+
+// One instance of tile_products per step count and halves (ksteps, halves:
+// uniform values; halves 2 only where the accumulators hold two). A tile of
+// one or two k-steps runs two, one of three or four runs four: the staged
+// tiles are zero past K (the activations from column K, the packed weights
+// from their depth), so a step past K adds exact zeros and leaves the sums as
+// they were.
+template <int HA>
+__device__ __forceinline__ void run_tile(int ksteps, int halves, float (&acc)[HA][32],
+                                         const bf16* A, const bf16* Bk) {
+  if constexpr (HA == 2) {
+    if (halves == 2) {
+      if (ksteps <= 2) tile_products<2, 2>(acc, A, Bk); else tile_products<4, 2>(acc, A, Bk);
+      return;
+    }
+  }
+  if (ksteps <= 2) tile_products<2, 1>(acc, A, Bk); else tile_products<4, 1>(acc, A, Bk);
+}
+template <int HA>
+__device__ __forceinline__ void run_tile(int ksteps, int halves, float (&acc)[HA][32],
+                                         const float* A, const bf16* bh, const bf16* bl) {
+  if constexpr (HA == 2) {  // in quarters
+    if (halves == 2) {
+      if (ksteps <= 2) tile_products_q<2, 2>(acc, A, bh, bl);
+      else tile_products_q<4, 2>(acc, A, bh, bl);
+    } else {
+      if (ksteps <= 2) tile_products_q<2, 1>(acc, A, bh, bl);
+      else tile_products_q<4, 1>(acc, A, bh, bl);
+    }
+  } else {
+    if (ksteps <= 2) tile_products<2, 1>(acc, A, bh, bl); else tile_products<4, 1>(acc, A, bh, bl);
+  }
+}
+
+// layer_tc's step j of warpgroup wg into its ring As: the activation tile of
+// the step's row tile (rows 64 (2 (j / per_tile) + wg) ..) and k-block (j
+// modulo K's k-blocks), by cp.async from the warpgroup's threads; nothing
+// commits.
+__device__ __forceinline__ void stage_step(bf16* As, const bf16* X, int ldx, int M, int K, int j,
+                                           int per_tile, int wg) {
+  const int kbn = (round16(K) + 63) / 64;
+  stage_sw(As + j % kStages16 * kA16Elems, X, ldx, (2 * (j / per_tile) + wg) * 64, 64, M,
+           j % kbn * 64, 1, K, threadIdx.x & 127, 128);
+}
+__device__ __forceinline__ void stage_step(float* As, const float* X, int ldx, int M, int K, int j,
+                                           int per_tile, int wg) {
+  const int kcn = (K + 31) / 32;
+  stage_pad(As + j % kStages32 * kA32Elems, kA32Ld, X, ldx, (2 * (j / per_tile) + wg) * 64, 64, M,
+            j % kcn * 32, 32, K, threadIdx.x & 127, 128);
+}
+
+// Y(m, n) = sum_k X(m, k) P(n, k) for m < M, n < N, k < K: X (M, K) of row
+// stride ldx, P the packed weight (N, round16(K)) (lo: float32's second TF32
+// part). epi (an Epilogue) receives every output from the registers, the
+// two adjacent columns n (even) and n + 1 at once; where it returns that a
+// value decides something, with rd.w, it receives the pair again redone as
+// FMA chains. Every thread calls it; it ends with a barrier (or returns at
+// once when M is 0). K <= 256; ldx and N multiples of 8, and K too unless X
+// is zero from column K to the next multiple of 8 (the relation inputs,
+// rel_in_ld). Per slice of the weight (128 columns, or float32's 64 when K >
+// 128): the slice staged by the block, then each warpgroup's steps, the next
+// step's activation tile in flight during a step's products. Wide: a step is
+// a row tile's k-block for both 64-column halves of the slice (64
+// accumulators a thread); else for one half, the halves one after the other
+// (32 accumulators, for a kernel whose own registers leave no room for 64;
+// the second half restages the row tile's activations).
+template <bool Wide, typename Epi>
+__device__ __forceinline__ void layer_tc(int M, int N, int K, const bf16* X, int ldx,
+                                         const bf16* P, const bf16*, unsigned char* tcs,
+                                         Redo<bf16> rd, Epi epi) {
+  constexpr int HA = Wide ? 2 : 1;  // 64-column halves of accumulators a thread holds
+  M = uniform(M), N = uniform(N), K = uniform(K);
+  if (M == 0) return;
+  const int Kp = round16(K), kbn = (Kp + 63) / 64;  // 64-deep blocks
+  const int wg = warpgroup(), wt = threadIdx.x & 127;
+  bf16* Ws = reinterpret_cast<bf16*>(tcs);
+  bf16* As = reinterpret_cast<bf16*>(tcs + kW16Bytes) + wg * kStages16 * kA16Elems;  // its ring
+  const int tiles = ((M + 63) / 64 + 1 - wg) / 2;  // row tiles wg, wg + 2, ...
+  GNN_SUB_START(tt);
+  for (int n0 = 0; n0 < N; n0 += 128) {
+    const int halves = N - n0 > 64 ? 2 : 1;  // whether the slice's second 64 columns hold outputs
+    const int per_tile = (Wide ? 1 : halves) * kbn, steps = tiles * per_tile;
+    stage_sw(Ws, P, Kp, n0, 128, N, 0, kbn, Kp, threadIdx.x, kThreads);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    __syncthreads();
+    for (int j = 0; j < kStages16 - 1; ++j) {  // the first steps' tiles in flight
+      if (j < steps) stage_step(As, X, ldx, M, K, j, per_tile, wg);
+      tc::cp_async_commit();
+    }
+    float acc[HA][32];
+    for (int s = 0; s < steps; ++s) {
+      const int m0 = (2 * (s / per_tile) + wg) * 64, h = s % per_tile / kbn, kb = s % kbn;
+      // this step's tile is in, and the warpgroup is done with the buffer the
+      // tile kStages16 - 1 steps on goes to
+      tc::cp_async_wait<kStages16 - 2>();
+      tc::fence_proxy_async();
+      wg_sync(wg);
+      if (s + kStages16 - 1 < steps) stage_step(As, X, ldx, M, K, s + kStages16 - 1, per_tile, wg);
+      tc::cp_async_commit();
+      GNN_SUB(13, tt);
+      if (kb == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+#pragma unroll
+          for (int c = 0; c < HA; ++c) acc[c][i] = 0.f;
+      }
+      run_tile(uniform(imin(4, (K - kb * 64 + 15) / 16)), Wide ? halves : 1, acc,
+               As + s % kStages16 * kA16Elems, Ws + kb * 128 * 64 + h * 64 * 64);
+      GNN_SUB(14, tt);
+      if (kb == kbn - 1)
+        tile_epilogue<8>(acc, m0 + (wt >> 5) * 16 + ((wt & 31) >> 2), n0 + 64 * h, M, N,
+                      rd.w != nullptr, [&](int m, int n, float& s0, float& s1) {
+                        chain2(X + (size_t)m * ldx, Ws, n - n0, K, s0, s1);
+                      }, epi);
+      GNN_SUB(15, tt);
+    }
+    __syncthreads();  // both warpgroups are done with the slice's weight
+  }
+}
+
+template <bool Wide, typename Epi>
+__device__ __forceinline__ void layer_tc(int M, int N, int K, const float* X, int ldx,
+                                         const float* Ph, const float* Pl, unsigned char* tcs,
+                                         Redo<float> rd, Epi epi) {
+  constexpr int HA = Wide ? 2 : 1;  // 64-column halves of accumulators a thread holds
+  M = uniform(M), N = uniform(N), K = uniform(K);
+  if (M == 0) return;
   // the weight slice's hi and lo parts, K-major and swizzled (32-float column
   // blocks of nc rows; staged as bf16 pairs, the same bytes), then the A tiles
   const int Kp = round16(K), nc = Kp <= 128 ? 128 : 64;
   bf16* Sh = reinterpret_cast<bf16*>(tcs);
   bf16* Sl = reinterpret_cast<bf16*>(tcs + kW32Floats * 4);
-  float* As = reinterpret_cast<float*>(tcs + 2 * kW32Floats * 4);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
-  const int kcn = (K + 31) / 32, steps = (M + kTcRows - 1) / kTcRows * kcn;
-  if (steps == 0) return;
+  const int wg = warpgroup(), wt = threadIdx.x & 127, g = (wt & 31) >> 2, t = wt & 3;
+  float* As = reinterpret_cast<float*>(tcs + 2 * kW32Floats * 4) + wg * kStages32 * kA32Elems;
+  const int kcn = (K + 31) / 32, tiles = ((M + 63) / 64 + 1 - wg) / 2;
   GNN_SUB_START(tt);
   for (int n0 = 0; n0 < N; n0 += nc) {
     const int halves = imin(nc, N - n0) > 64 ? 2 : 1;
-    stage_sw(Sh, reinterpret_cast<const bf16*>(Ph), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp);
-    stage_sw(Sl, reinterpret_cast<const bf16*>(Pl), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp);
-    stage_pad(As, kA32Ld, X, ldx, 0, kTcRows, M, 0, 32, K);
+    const int per_tile = (Wide ? 1 : halves) * kcn, steps = tiles * per_tile;
+    stage_sw(Sh, reinterpret_cast<const bf16*>(Ph), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp,
+             threadIdx.x, kThreads);
+    stage_sw(Sl, reinterpret_cast<const bf16*>(Pl), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp,
+             threadIdx.x, kThreads);
     tc::cp_async_commit();
-    float acc[2][32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    __syncthreads();
+    for (int j = 0; j < kStages32 - 1; ++j) {  // the first steps' tiles in flight
+      if (j < steps) stage_step(As, X, ldx, M, K, j, per_tile, wg);
+      tc::cp_async_commit();
+    }
+    float acc[HA][32];
     for (int s = 0; s < steps; ++s) {
-      const int m0 = s / kcn * kTcRows, kc = s % kcn;
-      if (s + 1 < steps) {
-        const int s1 = s + 1;
-        stage_pad(As + (s1 & 1) * kTcRows * kA32Ld, kA32Ld, X, ldx, s1 / kcn * kTcRows, kTcRows, M,
-                  s1 % kcn * 32, 32, K);
-        tc::cp_async_commit();
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      tc::fence_proxy_async();
-      __syncthreads();
+      const int m0 = (2 * (s / per_tile) + wg) * 64, h = s % per_tile / kcn, kc = s % kcn;
+      // this step's tile is in, and the warpgroup is done with the buffer the
+      // tile kStages32 - 1 steps on goes to
+      tc::cp_async_wait<kStages32 - 2>();
+      wg_sync(wg);
+      if (s + kStages32 - 1 < steps) stage_step(As, X, ldx, M, K, s + kStages32 - 1, per_tile, wg);
+      tc::cp_async_commit();
       GNN_SUB(13, tt);
-      const float* A = As + (s & 1) * kTcRows * kA32Ld + (warp * 16 + g) * kA32Ld + t;
-      // a warpgroup whose 64 rows all lie past M has no products to do
-      const int ksteps = m0 + wg * 64 < M ? imin(4, (K - kc * 32 + 7) / 8) : 0;
-      const bf16* bh = Sh + kc * nc * 64;  // this 32-float column block
-      const bf16* bl = Sl + kc * nc * 64;
-      for (int kk = 0; kk < ksteps; ++kk) {
-        // A split in registers; the two small cross terms, then the large
-        // one, into fresh accumulators added to acc by float32 adds: the
-        // tensor cores' float32 sums truncate, and carried through the 48
-        // products of a 128-deep layer they gave ~9e-7 of the result and
-        // more of the forward's relu flips against float64
-        uint32_t ah[4], al[4];
-        tc::split_tf32(A[kk * 8], ah[0], al[0]);
-        tc::split_tf32(A[8 * kA32Ld + kk * 8], ah[1], al[1]);
-        tc::split_tf32(A[kk * 8 + 4], ah[2], al[2]);
-        tc::split_tf32(A[8 * kA32Ld + kk * 8 + 4], ah[3], al[3]);
-        float d[2][32];
-        tc::wgmma_fence();
+      if (kc == 0) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (h < halves) {
-            const uint64_t dh = tc::desc_sw128(bh + h * 64 * 64 + kk * 16, 16, 1024);
-            const uint64_t dl = tc::desc_sw128(bl + h * 64 * 64 + kk * 16, 16, 1024);
-            tc::wgmma_m64n64k8_tf32(d[h], al, dh, 0);
-            tc::wgmma_m64n64k8_tf32(d[h], ah, dl, 1);
-            tc::wgmma_m64n64k8_tf32(d[h], ah, dh, 1);
-          }
-        }
-        tc::wgmma_commit();
-        tc::wgmma_wait0();
+        for (int i = 0; i < 32; ++i)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          acc[0][i] += d[0][i];
-          if (halves > 1) acc[1][i] += d[1][i];
-        }
+          for (int c = 0; c < HA; ++c) acc[c][i] = 0.f;
       }
+      run_tile(uniform(imin(4, (K - kc * 32 + 7) / 8)), Wide ? halves : 1, acc,
+               As + s % kStages32 * kA32Elems + ((wt >> 5) * 16 + g) * kA32Ld + t,
+               Sh + kc * nc * 64 + h * 64 * 64, Sl + kc * nc * 64 + h * 64 * 64);
       GNN_SUB(14, tt);
-      if (kc == kcn - 1) {
-        const int r = m0 + wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
-        unsigned flags = 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int i = 0; i < 32; i += 2) {
-            const int m = r + 8 * ((i & 3) >> 1);
-            const int n = n0 + h * 64 + 8 * (i >> 2) + 2 * (wt & 3);
-            if (m < M && n < N && epi(m, n, acc[h][i], acc[h][i + 1]))
-              flags |= 1u << (h * 16 + (i >> 1));
-            acc[h][i] = acc[h][i + 1] = 0.f;
-          }
-        if (rd.w != nullptr)
-          redo_pairs(flags, r, n0 + 2 * (wt & 3), [&](int m, int n, float& s0, float& s1) {
-            chain2(X + (size_t)m * ldx, rd.w + (size_t)n * rd.sn, rd.sn, rd.sk, K, s0, s1);
-          }, epi);
-      }
-      __syncthreads();
+      if (kc == kcn - 1)
+        tile_epilogue<4>(acc, m0 + (wt >> 5) * 16 + g, n0 + 64 * h, M, imin(N, n0 + nc),
+                      rd.w != nullptr, [&](int m, int n, float& s0, float& s1) {
+                        chain2(X + (size_t)m * ldx, rd.w + (size_t)n * rd.sn, rd.sn, rd.sk, K, s0,
+                               s1);
+                      }, epi);
       GNN_SUB(15, tt);
     }
+    __syncthreads();  // both warpgroups are done with the slice's weight
   }
 }
 
 // wgrad_tc's bias sums: thread t holds column n0 + (t % 128) of row half
-// t / 128; bsum gets the first half plus the second.
+// t / 128; bsum gets the first half plus the second. red: 256 floats.
 __device__ inline void bias_halves(float bs, int n0, int Nout, float* red, float* bsum) {
   red[threadIdx.x] = bs;
   __syncthreads();
   const int n = n0 + threadIdx.x;
   if (threadIdx.x < 128 && n < Nout) bsum[n] = red[threadIdx.x] + red[128 + threadIdx.x];
   __syncthreads();
+}
+
+// The epilogue of wgrad_tc's slice from this warpgroup's accumulators (rows
+// wg * 64 .. of G; acc[h]: columns n0 + 64 h ..)
+template <int H, typename Epi>
+__device__ __forceinline__ void wgrad_epilogue(float (&acc)[H][32], int wg, int n0, int Kin,
+                                               int Nout, Epi& epi) {
+  const int wt = threadIdx.x & 127, r = wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    tc::fence_regs(acc[h]);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int m = r + 8 * ((i & 3) >> 1);
+      const int n = n0 + h * 64 + 8 * (i >> 2) + 2 * (wt & 3);
+      if (m < Kin && n < Nout) epi(m, n, acc[h][i], acc[h][i + 1]);
+    }
+  }
+}
+
+// wgrad_tc's chunk s (rows 64 s .. of X and of dY's columns n0 ..) into
+// stage s % 3 of S (bf16), or (float32: rows 32 s ..) into stage s % 2 of Xs
+// and Ys, by cp.async from every thread, one commit group.
+__device__ __forceinline__ void stage_chunk(bf16* S, const bf16* X, int ldx, const bf16* Y, int ldy,
+                                            int s, int R, int Kin, int n0, int Nout) {
+  bf16* st = S + (s % 3) * 4 * 64 * 64;
+  stage_sw(st, X, ldx, s * 64, 64, R, 0, 2, Kin, threadIdx.x, kThreads);
+  stage_sw(st + 2 * 64 * 64, Y, ldy, s * 64, 64, R, n0, 2, Nout, threadIdx.x, kThreads);
+  tc::cp_async_commit();
+}
+__device__ __forceinline__ void stage_chunk(float* Xs, const float* X, int ldx, float* Ys,
+                                            const float* Y, int ldy, int s, int R, int Kin, int n0,
+                                            int Nout) {
+  stage_pad(Xs + (s & 1) * 32 * kG32Ld, kG32Ld, X, ldx, s * 32, 32, R, 0, 128, Kin, threadIdx.x,
+            kThreads);
+  stage_pad(Ys + (s & 1) * 32 * kG32Ld, kG32Ld, Y, ldy, s * 32, 32, R, n0, 128, Nout, threadIdx.x,
+            kThreads);
+  tc::cp_async_commit();
+}
+
+// One 128-column slice of wgrad_tc in bf16 (H halves hold outputs): per
+// 64-row chunk, staged into one of three stages while the products of the
+// chunk before run, four k16 steps accumulated in the tensor cores (the
+// slice's first step ignores the old sums) as one commit group, waited for
+// behind the next chunk's; the bias sums from the staged dY meanwhile.
+template <int H, typename Epi>
+__device__ __forceinline__ void wgrad_slice(int Kin, int Nout, int R, const bf16* X, int ldx,
+                                            const bf16* Y, int ldy, int n0, unsigned char* tcs,
+                                            float* bsum, Epi& epi) {
+  bf16* S = reinterpret_cast<bf16*>(tcs);  // stage j: X's two 64 x 64 column blocks, then dY's
+  const int wg = warpgroup(), wt = threadIdx.x & 127, steps = (R + 63) / 64;
+  float bs = 0.f;  // column n0 + wt over rows wg * 32 .. + 32 of each chunk
+  float acc[H][32];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  GNN_SUB_START(tt);
+  if (steps > 0) stage_chunk(S, X, ldx, Y, ldy, 0, R, Kin, n0, Nout);
+  for (int s = 0; s < steps; ++s) {
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    __syncthreads();  // chunk s is in; every thread is done with chunk s - 2's stage
+    if (s + 1 < steps) stage_chunk(S, X, ldx, Y, ldy, s + 1, R, Kin, n0, Nout);
+    GNN_SUB(13, tt);
+    const bf16* Xc = S + (s % 3) * 4 * 64 * 64;
+    const bf16* Yc = Xc + 2 * 64 * 64;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = tc::desc_sw128(Xc + wg * 64 * 64 + ks * 16 * 64, 1024, 1024);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        tc::wgmma_m64n64k16<1, 1>(acc[h], da,
+                                  tc::desc_sw128(Yc + h * 64 * 64 + ks * 16 * 64, 1024, 1024),
+                                  s > 0 || ks > 0);
+    }
+    tc::wgmma_commit();
+    if (bsum != nullptr) {
+      const bf16* col = Yc + (wt >> 6) * 64 * 64 + (wt & 7);
+      const int c = (wt & 63) >> 3;
+#pragma unroll 8
+      for (int r = wg * 32; r < wg * 32 + 32; ++r) bs += ld(col + r * 64 + ((c ^ (r & 7)) << 3));
+    }
+    tc::wgmma_wait<1>();  // chunk s - 1's products
+    GNN_SUB(14, tt);
+  }
+  tc::wgmma_wait<0>();
+  wgrad_epilogue<H>(acc, wg, n0, Kin, Nout, epi);
+  __syncthreads();
+  if (bsum != nullptr) bias_halves(bs, n0, Nout, reinterpret_cast<float*>(tcs), bsum);
+  GNN_SUB(15, tt);
+}
+
+// ... in float32: per 32-row chunk (two stages), dY's chunk split into TF32
+// hi and lo parts and transposed into one of two buffers while the products
+// of the chunk before run; then four k8 steps of X^T's split fragments (two
+// register sets taken in turn), three products each per half accumulated in
+// the tensor cores, each step a commit group waited for behind the next.
+template <int H, typename Epi>
+__device__ __forceinline__ void wgrad_slice(int Kin, int Nout, int R, const float* X, int ldx,
+                                            const float* Y, int ldy, int n0, unsigned char* tcs,
+                                            float* bsum, Epi& epi) {
+  // per stage a 32-row chunk of X and of dY (row stride kG32Ld); per buffer
+  // dY's chunk transposed, split into TF32 hi and lo, K-major and swizzled
+  // (128 rows n x 32 floats r each): wgmma takes tf32 B only K-major
+  float* Xs = reinterpret_cast<float*>(tcs);
+  float* Ys = Xs + 2 * 32 * kG32Ld;
+  float* Bs = reinterpret_cast<float*>(tcs + kB32Off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wg = warpgroup(), wt = threadIdx.x & 127, steps = (R + 31) / 32;
+  float bs = 0.f;  // column n0 + wt over rows wg * 16 .. + 16 of each chunk
+  float acc[H][32];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  uint32_t ah[2][4], al[2][4];
+  GNN_SUB_START(tt);
+  if (steps > 0) stage_chunk(Xs, X, ldx, Ys, Y, ldy, 0, R, Kin, n0, Nout);
+  for (int s = 0; s < steps; ++s) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // chunk s is in; every thread is done with chunk s - 1's stage
+    if (s + 1 < steps) stage_chunk(Xs, X, ldx, Ys, Y, ldy, s + 1, R, Kin, n0, Nout);
+    GNN_SUB(13, tt);
+    const float* Yc = Ys + (s & 1) * 32 * kG32Ld;
+    if (bsum != nullptr) {
+#pragma unroll
+      for (int r = wg * 16; r < wg * 16 + 16; ++r) bs += Yc[r * kG32Ld + wt];
+    }
+    float* Bh = Bs + (s & 1) * 2 * 128 * 32;  // chunk s - 2's, whose products are done
+    float* Bl = Bh + 128 * 32;
+    for (int idx = threadIdx.x; idx < 32 * 128; idx += kThreads) {
+      const int n = idx & 127, r = idx >> 7;
+      uint32_t hi, lo;
+      tc::split_tf32(Yc[r * kG32Ld + n], hi, lo);
+      const int at = n * 32 + ((((r >> 2) ^ (n & 7))) << 2) + (r & 3);
+      Bh[at] = __uint_as_float(hi);
+      Bl[at] = __uint_as_float(lo);
+    }
+    tc::fence_proxy_async();
+    __syncthreads();
+    // A = X^T from registers: (m, k) = X(r = k, m), split in registers
+    const float* A = Xs + (s & 1) * 32 * kG32Ld + t * kG32Ld + warp * 16 + g;
+    const bf16* bh = reinterpret_cast<const bf16*>(Bh);
+    const bf16* bl = reinterpret_cast<const bf16*>(Bl);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int f = kk & 1, o = kk * 8 * kG32Ld, o4 = o + 4 * kG32Ld;
+      tc::split_tf32(A[o], ah[f][0], al[f][0]);
+      tc::split_tf32(A[o + 8], ah[f][1], al[f][1]);
+      tc::split_tf32(A[o4], ah[f][2], al[f][2]);
+      tc::split_tf32(A[o4 + 8], ah[f][3], al[f][3]);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const uint64_t dh = tc::desc_sw128(bh + h * 64 * 64 + kk * 16, 16, 1024);
+        const uint64_t dl = tc::desc_sw128(bl + h * 64 * 64 + kk * 16, 16, 1024);
+        tc::wgmma_m64n64k8_tf32(acc[h], al[f], dh, 1);
+        tc::wgmma_m64n64k8_tf32(acc[h], ah[f], dl, 1);
+        tc::wgmma_m64n64k8_tf32(acc[h], ah[f], dh, 1);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();  // the step before, whose register set the next step refills
+    }
+    GNN_SUB(14, tt);
+  }
+  tc::wgmma_wait<0>();
+  wgrad_epilogue<H>(acc, wg, n0, Kin, Nout, epi);
+  __syncthreads();
+  if (bsum != nullptr) bias_halves(bs, n0, Nout, reinterpret_cast<float*>(tcs), bsum);
+  GNN_SUB(15, tt);
 }
 
 // G(m, n) = sum_r X(r, m) Y(r, n) for m < Kin <= 128, n < Nout, r < R (the
@@ -631,186 +1030,20 @@ __device__ inline void bias_halves(float bs, int n0, int Nout, float* red, float
 // also the column sums of Y (the bias gradient), bsum[n] = sum_r Y(r, n),
 // from the staged tiles: each thread sums one column over half of each
 // chunk's rows, chunk after chunk, then the two halves are added (a fixed
-// order: a rerun is bit-identical). Every thread calls it; it ends with a
-// barrier.
-template <typename Epi>
-__device__ void wgrad_tc(int Kin, int Nout, int R, const bf16* X, int ldx, const bf16* Y, int ldy,
-                         unsigned char* tcs, float* bsum, Epi epi) {
-  bf16* Xs = reinterpret_cast<bf16*>(tcs);  // per stage two 64 x 64 column blocks
-  bf16* Ys = Xs + 2 * 128 * 64;
-  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
-  const int steps = (R + 63) / 64;
-  const bool mine = wg * 64 < Kin;  // this warpgroup's 64 rows of G hold outputs
-  float* red = reinterpret_cast<float*>(tcs + kRedOff16);
-  GNN_SUB_START(tt);
+// order: a rerun is bit-identical). Warpgroup wg takes rows wg * 64 .. of G,
+// and runs its products whether or not they hold outputs (Kin <= 64: zeros),
+// so none is under a branch. Every thread calls it; it ends with a barrier.
+template <typename T, typename Epi>
+__device__ __forceinline__ void wgrad_tc(int Kin, int Nout, int R, const T* X, int ldx,
+                                         const T* Y, int ldy, unsigned char* tcs, float* bsum,
+                                         Epi epi) {
+  Kin = uniform(Kin), Nout = uniform(Nout), R = uniform(R);
   for (int n0 = 0; n0 < Nout; n0 += 128) {
-    float bs = 0.f;  // column n0 + wt over rows wg * 32 .. + 32 of each chunk
-    const bool two = Nout - n0 > 64;
-    if (steps > 0) {
-      stage_sw(Xs, X, ldx, 0, 64, R, 0, 2, Kin);
-      stage_sw(Ys, Y, ldy, 0, 64, R, n0, 2, Nout);
-      tc::cp_async_commit();
-    }
-    float acc[2][32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
-    for (int s = 0; s < steps; ++s) {
-      if (s + 1 < steps) {
-        const int st = (s + 1) & 1;
-        stage_sw(Xs + st * 128 * 64, X, ldx, (s + 1) * 64, 64, R, 0, 2, Kin);
-        stage_sw(Ys + st * 128 * 64, Y, ldy, (s + 1) * 64, 64, R, n0, 2, Nout);
-        tc::cp_async_commit();
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      tc::fence_proxy_async();
-      __syncthreads();
-      GNN_SUB(13, tt);
-      if (bsum != nullptr) {
-        const bf16* col = Ys + (s & 1) * 128 * 64 + (wt >> 6) * 64 * 64 + (wt & 7);
-        const int c = (wt & 63) >> 3;
-#pragma unroll 8
-        for (int r = wg * 32; r < wg * 32 + 32; ++r) bs += ld(col + r * 64 + ((c ^ (r & 7)) << 3));
-      }
-      if (mine) {
-        const bf16* A = Xs + (s & 1) * 128 * 64 + wg * 64 * 64;
-        const bf16* Bk = Ys + (s & 1) * 128 * 64;
-        tc::wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const uint64_t da = tc::desc_sw128(A + ks * 16 * 64, 1024, 1024);
-          const int accumulate = s > 0 || ks > 0;
-          tc::wgmma_m64n64k16<1, 1>(acc[0], da, tc::desc_sw128(Bk + ks * 16 * 64, 1024, 1024),
-                                    accumulate);
-          if (two)
-            tc::wgmma_m64n64k16<1, 1>(acc[1], da,
-                                      tc::desc_sw128(Bk + 64 * 64 + ks * 16 * 64, 1024, 1024),
-                                      accumulate);
-        }
-        tc::wgmma_commit();
-        tc::wgmma_wait0();
-      }
-      __syncthreads();
-      GNN_SUB(14, tt);
-    }
-    if (mine) {
-      const int r = wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int i = 0; i < 32; i += 2) {
-          const int m = r + 8 * ((i & 3) >> 1);
-          const int n = n0 + nb * 64 + 8 * (i >> 2) + 2 * (wt & 3);
-          if (m < Kin && n < Nout) epi(m, n, acc[nb][i], acc[nb][i + 1]);
-        }
-    }
-    if (bsum != nullptr) bias_halves(bs, n0, Nout, red, bsum);
-    GNN_SUB(15, tt);
+    if (Nout - n0 > 64)
+      wgrad_slice<2>(Kin, Nout, R, X, ldx, Y, ldy, n0, tcs, bsum, epi);
+    else
+      wgrad_slice<1>(Kin, Nout, R, X, ldx, Y, ldy, n0, tcs, bsum, epi);
   }
-  __syncthreads();
-}
-
-template <typename Epi>
-__device__ void wgrad_tc(int Kin, int Nout, int R, const float* X, int ldx, const float* Y, int ldy,
-                         unsigned char* tcs, float* bsum, Epi epi) {
-  // per stage a 32-row chunk of X and of dY (row stride kG32Ld); then dY's
-  // chunk transposed, split into TF32 hi and lo, K-major and swizzled (128
-  // rows n x 32 floats r each): wgmma takes tf32 B only K-major
-  float* Xs = reinterpret_cast<float*>(tcs);
-  float* Ys = Xs + 2 * 32 * kG32Ld;
-  float* Bh = reinterpret_cast<float*>(tcs + kB32Off);
-  float* Bl = Bh + 128 * 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
-  const int steps = (R + 31) / 32;
-  const bool mine = wg * 64 < Kin;  // this warpgroup's 64 rows of G hold outputs
-  float* red = reinterpret_cast<float*>(tcs + kRedOff32);
-  GNN_SUB_START(tt);
-  for (int n0 = 0; n0 < Nout; n0 += 128) {
-    const int halves = Nout - n0 > 64 ? 2 : 1;
-    float bs = 0.f;  // column n0 + wt over rows wg * 16 .. + 16 of each chunk
-    if (steps > 0) {
-      stage_pad(Xs, kG32Ld, X, ldx, 0, 32, R, 0, 128, Kin);
-      stage_pad(Ys, kG32Ld, Y, ldy, 0, 32, R, n0, 128, Nout);
-      tc::cp_async_commit();
-    }
-    float acc[2][32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
-    for (int s = 0; s < steps; ++s) {
-      if (s + 1 < steps) {
-        const int st = (s + 1) & 1;
-        stage_pad(Xs + st * 32 * kG32Ld, kG32Ld, X, ldx, (s + 1) * 32, 32, R, 0, 128, Kin);
-        stage_pad(Ys + st * 32 * kG32Ld, kG32Ld, Y, ldy, (s + 1) * 32, 32, R, n0, 128, Nout);
-        tc::cp_async_commit();
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      __syncthreads();
-      GNN_SUB(13, tt);
-      const float* Yc = Ys + (s & 1) * 32 * kG32Ld;
-      if (bsum != nullptr) {
-#pragma unroll
-        for (int r = wg * 16; r < wg * 16 + 16; ++r) bs += Yc[r * kG32Ld + wt];
-      }
-      for (int idx = threadIdx.x; idx < 32 * 128; idx += kThreads) {
-        const int n = idx & 127, r = idx >> 7;
-        uint32_t hi, lo;
-        tc::split_tf32(Yc[r * kG32Ld + n], hi, lo);
-        const int at = n * 32 + ((((r >> 2) ^ (n & 7))) << 2) + (r & 3);
-        Bh[at] = __uint_as_float(hi);
-        Bl[at] = __uint_as_float(lo);
-      }
-      tc::fence_proxy_async();
-      __syncthreads();
-      if (mine) {
-        // A = X^T from registers: (m, k) = X(r = k, m), split in registers
-        const float* A = Xs + (s & 1) * 32 * kG32Ld + t * kG32Ld + warp * 16 + g;
-        const bf16* bh = reinterpret_cast<const bf16*>(Bh);
-        const bf16* bl = reinterpret_cast<const bf16*>(Bl);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int o = kk * 8 * kG32Ld, o4 = o + 4 * kG32Ld;
-          uint32_t ah[4], al[4];
-          tc::split_tf32(A[o], ah[0], al[0]);
-          tc::split_tf32(A[o + 8], ah[1], al[1]);
-          tc::split_tf32(A[o4], ah[2], al[2]);
-          tc::split_tf32(A[o4 + 8], ah[3], al[3]);
-          tc::wgmma_fence();
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (h < halves) {
-              const uint64_t dh = tc::desc_sw128(bh + h * 64 * 64 + kk * 16, 16, 1024);
-              const uint64_t dl = tc::desc_sw128(bl + h * 64 * 64 + kk * 16, 16, 1024);
-              tc::wgmma_m64n64k8_tf32(acc[h], al, dh, 1);
-              tc::wgmma_m64n64k8_tf32(acc[h], ah, dl, 1);
-              tc::wgmma_m64n64k8_tf32(acc[h], ah, dh, 1);
-            }
-          }
-        }
-        tc::wgmma_commit();
-        tc::wgmma_wait0();
-      }
-      __syncthreads();
-      GNN_SUB(14, tt);
-    }
-    if (mine) {
-      const int r = wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 32; i += 2) {
-          const int m = r + 8 * ((i & 3) >> 1);
-          const int n = n0 + h * 64 + 8 * (i >> 2) + 2 * (wt & 3);
-          if (m < Kin && n < Nout) epi(m, n, acc[h][i], acc[h][i + 1]);
-        }
-    }
-    if (bsum != nullptr) bias_halves(bs, n0, Nout, red, bsum);
-    GNN_SUB(15, tt);
-  }
-  __syncthreads();
 }
 
 // out[n] = sum over m < M of Y[m * ldy + n], n < N: P = min(8, kThreads / N)
@@ -853,18 +1086,21 @@ __device__ void dense(int M, int Kin, int Nout, const TX* X, int ldx, const T* W
 // with `redo`, the outputs that decide something are redone, from
 // weight_list's W (Kin, Nout) in float32):
 template <typename T>
-__device__ void dense_tc(int M, int Kin, int Nout, const T* X, int ldx, const Weights<T>& w, int l,
-                         const T* bias, T* Y, bool relu, bool redo, unsigned char* tcs) {
+__device__ __forceinline__ void dense_tc(int M, int Kin, int Nout, const T* X, int ldx,
+                                         const Weights<T>& w, int l, const T* bias, T* Y,
+                                         bool relu, bool redo, unsigned char* tcs) {
   const Redo<T> rd{redo ? w.w[tc_weight(l)] : nullptr, 1, Nout};
-  layer_tc(M, Nout, Kin, X, ldx, w.hi[l], w.lo[l], tcs, rd, [&](int m, int n, float c0, float c1) {
+  layer_tc<true>(M, Nout, Kin, X, ldx, w.hi[l], w.lo[l], tcs, rd, epilogue([&](int, int n) {
     const float2 b = ld2(bias + n);
+    return make_float4(b.x, b.y, 0.f, 0.f);
+  }, [&](int m, int n, float c0, float c1, float4 b) {
     const float v0 = c0 + b.x, v1 = c1 + b.y;
     const bool again = decides<T>(v0, true, relu, fabsf(c0) + fabsf(b.x)) ||
                        decides<T>(v1, true, relu, fabsf(c1) + fabsf(b.y));
     st2(Y + (size_t)m * Nout + n, rnd<T>(relu ? fmaxf(v0, 0.f) : v0),
         rnd<T>(relu ? fmaxf(v1, 0.f) : v1));
     return again;
-  });
+  }));
 }
 
 // The real edges of one sample (mask > 0 and a sender inside [0, Np)),
@@ -1056,9 +1292,10 @@ __host__ __device__ inline FwdBufs<T> scratch_bufs(const Dims& d, void* node_s, 
 // head's second hidden layer: nodes (Np, D) = [p_inputs (Dp) | state_norm
 // (nh3) | attrs (2) | g (1)] in T. smem: the block's aligned shared memory.
 template <typename T>
-__device__ void forward_body(const Dims& d, const T* nodes, const Weights<T>& W, int E,
-                             const int* off, const short* er, const short* es, const FwdBufs<T>& f,
-                             unsigned char* smem) {
+__device__ __forceinline__ void forward_body(const Dims& d, const T* nodes, const Weights<T>& W,
+                                             int E, const int* off, const short* er,
+                                             const short* es, const FwdBufs<T>& f,
+                                             unsigned char* smem) {
   const int nh3 = d.n_his * 3, nf = d.nf, rin = d.rel_in, rld = rel_in_ld(d), Np = d.Np;
   const int D = d.D, Dp = d.Dp;
   const T* const* w = W.w;
@@ -1112,11 +1349,12 @@ __device__ void forward_body(const Dims& d, const T* nodes, const Weights<T>& W,
     T* ms = f.ms ? f.ms + t * f.ms_step : nullptr;
     T* rs = f.rs;
     // [recv | send] projections
-    layer_tc(Np, 2 * nf, nf, eff, nf, W.hi[kTcRpW23], W.lo[kTcRpW23], smem,
-             Redo<T>{redo ? w[kRpW23] : nullptr, 1, 2 * nf}, [&](int m, int n, float c0, float c1) {
+    layer_tc<true>(Np, 2 * nf, nf, eff, nf, W.hi[kTcRpW23], W.lo[kTcRpW23], smem,
+             Redo<T>{redo ? w[kRpW23] : nullptr, 1, 2 * nf},
+             epilogue(NoInputs(), [&](int m, int n, float c0, float c1, float4) {
                st2(rs + (size_t)m * 2 * nf + n, rnd<T>(c0), rnd<T>(c1));
                return decides<T>(c0, true, false, 0.f) || decides<T>(c1, true, false, 0.f);
-             });
+             }));
     GNN_PHASE(5);
     // messages relu(rel_base + recv_i + send_j), summed over each receiver's
     // edges in slot order; eight channels per thread. float32: a message
@@ -1175,15 +1413,17 @@ __device__ void forward_body(const Dims& d, const T* nodes, const Weights<T>& W,
                 decides<T>(z, false, true, fabsf(b) + fabsf(c) + fabsf(e)));
       return fmaxf(z, 0.f);
     };
-    layer_tc(Np, nf, nf, agg, nf, W.hi[kTcPpWb], W.lo[kTcPpWb], smem,
-             Redo<T>{redo ? w[kPpWb] : nullptr, 1, nf}, [&](int m, int n, float c0, float c1) {
+    layer_tc<true>(Np, nf, nf, agg, nf, W.hi[kTcPpWb], W.lo[kTcPpWb], smem,
+             Redo<T>{redo ? w[kPpWb] : nullptr, 1, nf}, epilogue([&](int m, int n) {
                const size_t at = (size_t)m * nf + n;
                const float2 b = ld2(pb + at), e = ld2(eff + at);
+               return make_float4(b.x, b.y, e.x, e.y);
+             }, [&](int m, int n, float c0, float c1, float4 be) {
                bool again = false;
-               const float y0 = effect(b.x, c0, e.x, again), y1 = effect(b.y, c1, e.y, again);
-               st2(eff_next + at, y0, y1);
+               const float y0 = effect(be.x, c0, be.z, again), y1 = effect(be.y, c1, be.w, again);
+               st2(eff_next + (size_t)m * nf + n, y0, y1);
                return again;
-             });
+             }));
     GNN_PHASE(7);
   }
   const T* eff = f.effs + (d.pstep % f.eff_slots) * f.eff_step;

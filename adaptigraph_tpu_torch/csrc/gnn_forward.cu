@@ -17,13 +17,22 @@
 //
 // What bounds it on an H100: arithmetic. At rope width (N 101, nf 128,
 // pstep 3) the node-level products are ~50 MFLOP per sample against a few KB
-// of inputs; the relation MLP adds ~0.1 MFLOP per real edge.
+// of inputs; the relation MLP adds ~0.1 MFLOP per real edge. One sample a
+// block and one block an SM (up to 255 registers a thread), so the latency of
+// each product and each epilogue is what the card sees unless the block
+// hides it itself.
 //
 // What the design does about it: every product of depth and width >= 16
 // runs on the tensor cores through gnn_common.cuh's layer routine, bf16 on
 // wgmma and float32 as split TF32 (3xTF32) on wgmma tf32, from weights packed
 // once per launch (ops/fused_gnn.py::pack_tc_weights); pe0 and the motion
-// head's last layer stay on the CUDA cores. Only real edges are
+// head's last layer stay on the CUDA cores. The routine hides latency
+// within the block: its k-steps are asynchronous commit groups, each waited
+// for behind the next while the CUDA cores add the previous step's sums
+// (no wait after each step, so ptxas does not serialise the wgmma), and the
+// two warpgroups run their own row tiles, each staging its next tile during
+// its products, so one's epilogue (bias, relu, rounding, the redos) runs
+// while the other's products do. Only real edges are
 // computed (masked slots add exact zeros in the JAX kernel). A block's node
 // and edge activations do not fit in shared memory beside the tiles, so they
 // live in global buffers from the wrapper, in the compute dtype:
@@ -97,19 +106,30 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) gnn_forward_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
-  const Dims d = p.d;
+  __shared__ Dims sD;  // read where used, as the pointers below are
+  if (threadIdx.x == 0) sD = p.d;
+  __syncthreads();
+  const Dims& d = sD;
   const int Np = d.Np, nf = d.nf;
   const Smem L = smem_layout(Np, d.K, false, p.nbr == nullptr, !std::is_same<T, float>::value);
   float* sm = reinterpret_cast<float*>(smem);
   int* off = reinterpret_cast<int*>(smem + L.off);
   short* er = reinterpret_cast<short*>(smem + L.er);
   short* es = reinterpret_cast<short*>(smem + L.es);
-  Weights<T> W;
-  for (int i = 0; i < kNumWeights; ++i) W.w[i] = static_cast<const T*>(p.w[i]);
-  for (int i = 0; i < kNumTc; ++i) {
-    W.hi[i] = static_cast<const T*>(p.hi[i]);
-    W.lo[i] = static_cast<const T*>(p.lo[i]);
+  // the weights' and the activations' pointers live in shared memory and
+  // are read where used: held in registers for the whole kernel they would
+  // crowd out the layer routine's accumulators
+  __shared__ Weights<T> sW;
+  __shared__ FwdBufs<T> sF;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kNumWeights; ++i) sW.w[i] = static_cast<const T*>(p.w[i]);
+    for (int i = 0; i < kNumTc; ++i) {
+      sW.hi[i] = static_cast<const T*>(p.hi[i]);
+      sW.lo[i] = static_cast<const T*>(p.lo[i]);
+    }
   }
+  const Weights<T>& W = sW;
+  const FwdBufs<T>& f = sF;
 
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
     GNN_PHASE(-1);
@@ -118,8 +138,10 @@ __global__ void __launch_bounds__(kThreads) gnn_forward_kernel(Params p) {
                                       Np, d.K, off, er, es, nullptr, nullptr)
                         : build_radius_edges(p, L, smem, b, off, er, es);
     GNN_PHASE(9);
-    const FwdBufs<T> f = p.keep ? act_bufs<T>(d, p.node_acts, p.edge_acts, b)
-                                : scratch_bufs<T>(d, p.node_acts, p.edge_acts, blockIdx.x);
+    if (threadIdx.x == 0)
+      sF = p.keep ? act_bufs<T>(d, p.node_acts, p.edge_acts, b)
+                  : scratch_bufs<T>(d, p.node_acts, p.edge_acts, blockIdx.x);
+    __syncthreads();
     forward_body<T>(d, nodes, W, E, off, er, es, f, smem);
 
     // motion head's last layer (no relu; 3 outputs, on the CUDA cores), the

@@ -31,12 +31,21 @@
 // TF32 rate (495/3 TFLOP/s); in bfloat16 at the tensor cores' rate the
 // products take less time than reading K2's activations, so there the bytes
 // bound this design (a design that recomputes the forward, as the TPU kernel
-// does, would read none).
+// does, would read none). One sample a block and one block an SM (up to
+// 255 registers a thread): the products' latency, the epilogues (relu masks,
+// rounding, bf16's redos) and the staging are what the card waits on unless
+// the block overlaps them.
 //
 // What the design does about it: every dX and dW of depth and width >= 16
 // runs through gnn_common.cuh's tensor-core layer routine (bf16 wgmma, float32
 // 3xTF32 on wgmma tf32), from the weights packed once per launch
-// (ops/fused_gnn.py::pack_tc_weights, W itself for dX = dY W^T); the narrow
+// (ops/fused_gnn.py::pack_tc_weights, W itself for dX = dY W^T). The routine
+// overlaps them: its k-steps are asynchronous commit groups, each waited for
+// behind the next (dX's fresh per-step sums added in k order meanwhile, dW's
+// chunks accumulated in the tensor cores while the next chunk is staged and,
+// in float32, split and transposed), so ptxas does not serialise the wgmma;
+// in dX = dY W^T each warpgroup runs its own row tiles, so one's epilogue
+// runs while the other's products do. The narrow
 // layers (the motion head's 3 outputs, pe0) stay on the CUDA cores. Bias
 // gradients are column sums in a fixed order, taken from the cotangent tiles
 // that the weight-gradient products stage (the CUDA-core layers': parts of
@@ -122,6 +131,56 @@ __device__ Scratch<T> scratch(const Dims& d, unsigned char* node_s, unsigned cha
   return s;
 }
 
+// The two tensor-core products of the backward, as functors whose calls are
+// always inlined (ptxas serialises the wgmma that a called function issues):
+// dW = X^T dY over `rows` rows into weight wi's slot of the sample's
+// gradients g (goff: each weight's offset); with bi >= 0 the column sums of
+// dY (the bias gradient) into bias bi's slot.
+template <typename T>
+struct WeightGrad {
+  float* g;
+  const int* goff;
+  unsigned char* smem;
+  __device__ __forceinline__ void operator()(int wi, int bi, const T* X, int ldx, int kin,
+                                             const T* dY, int ldy, int nout, int rows) const {
+    float* G = g + goff[wi];
+    wgrad_tc(kin, nout, rows, X, ldx, dY, ldy, smem, bi >= 0 ? g + goff[bi] : nullptr,
+             [&](int m, int n, float c0, float c1) {
+               const size_t i = (size_t)m * nout + n;
+               G[i] = c0;
+               G[i + 1] = c1;
+             });
+  }
+};
+
+// out = rnd(dY @ W^T) [then + add, rounded] [* (H > 0)], (rows, kin), on
+// the tensor cores: W (kin, nout) is tensor-core layer l (in bf16, a
+// product near a rounding midpoint is redone from weight_list's W). bf16
+// holds both 64-column halves of a tile's sums, float32 one at a time: its
+// 64 sums and their fresh sets leave this kernel too few registers.
+template <typename T>
+struct Bprop {
+  const Weights<T>& W;
+  unsigned char* smem;
+  __device__ __forceinline__ void operator()(int rows, int kin, int nout, const T* dY, int ldy,
+                                             int l, const T* add, const T* H, T* out) const {
+    layer_tc<std::is_same<T, bf16>::value>(rows, kin, nout, dY, ldy, W.hi[l], W.lo[l], smem,
+             Redo<T>{W.w[tc_weight(l)], nout, 1},
+             epilogue([&](int m, int n) {  // the addend and the relu mask's activations
+               const size_t i = (size_t)m * kin + n;
+               const float2 a = add ? ld2(add + i) : make_float2(0.f, 0.f);
+               const float2 h = H ? ldg2(H + i) : make_float2(0.f, 0.f);
+               return make_float4(a.x, a.y, h.x, h.y);
+             }, [&](int m, int n, float c0, float c1, float4 ah) {
+               float v0 = rnd<T>(c0), v1 = rnd<T>(c1);
+               if (add) v0 = rnd<T>(v0 + ah.x), v1 = rnd<T>(v1 + ah.y);
+               if (H) v0 = ah.z > 0.f ? v0 : 0.f, v1 = ah.w > 0.f ? v1 : 0.f;
+               st2(out + (size_t)m * kin + n, v0, v1);
+               return decides<T>(c0, true, false, 0.f) || decides<T>(c1, true, false, 0.f);
+             }));
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gnn_train_bwd_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -143,61 +202,42 @@ __global__ void __launch_bounds__(kThreads) gnn_train_bwd_kernel(Params p) {
                             off, er, es, soff, sl);
 
   // ---- the forward's activations (read only: the relu masks load them by
-  // tc::ldg), then this kernel's scratch ----
-  const FwdBufs<T> f = act_bufs<T>(d, p.node_acts, p.edge_acts, b);
-  const Scratch<T> s = scratch<T>(d, p.node_scratch, p.edge_scratch, b);
-  Weights<T> W;
-  for (int i = 0; i < kNumWeights; ++i) W.w[i] = static_cast<const T*>(p.w[i]);
-  for (int i = 0; i < kNumTc; ++i) {
-    W.hi[i] = static_cast<const T*>(p.hi[i]);
-    W.lo[i] = static_cast<const T*>(p.lo[i]);
+  // tc::ldg), this kernel's scratch and the weights: their pointers live in
+  // shared memory and are read where used (held in registers for the whole
+  // kernel they would crowd out the layer routine's accumulators) ----
+  __shared__ FwdBufs<T> sF;
+  __shared__ Scratch<T> sS;
+  __shared__ Weights<T> sW;
+  __shared__ int goff[kNumWeights + 1];  // each weight's offset in a sample's gradients
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i <= kNumWeights; ++i) goff[i] = p.goff[i];
+    sF = act_bufs<T>(d, p.node_acts, p.edge_acts, b);
+    sS = scratch<T>(d, p.node_scratch, p.edge_scratch, b);
+    for (int i = 0; i < kNumWeights; ++i) sW.w[i] = static_cast<const T*>(p.w[i]);
+    for (int i = 0; i < kNumTc; ++i) {
+      sW.hi[i] = static_cast<const T*>(p.hi[i]);
+      sW.lo[i] = static_cast<const T*>(p.lo[i]);
+    }
   }
+  __syncthreads();
+  const FwdBufs<T>& f = sF;
+  const Scratch<T>& s = sS;
+  const Weights<T>& W = sW;
 
   float* g = p.partial + (size_t)b * p.goff[kNumWeights];
   float* dnodes = p.dnodes + (size_t)b * Np * D;
 
-  // dW = X^T dY over `rows` rows into weight `wi`'s slot; with bi >= 0 the
-  // column sums of dY (the bias gradient) into bias bi's slot
-  auto wgrad = [&](int wi, int bi, const T* X, int ldx, int kin, const T* dY, int ldy, int nout,
-                   int rows) {
-    float* G = g + p.goff[wi];
-    wgrad_tc(kin, nout, rows, X, ldx, dY, ldy, smem, bi >= 0 ? g + p.goff[bi] : nullptr,
-             [&](int m, int n, float c0, float c1) {
-               const size_t i = (size_t)m * nout + n;
-               G[i] = c0;
-               G[i + 1] = c1;
-             });
-  };
+  const WeightGrad<T> wgrad{g, goff, smem};
   // ... on the CUDA cores (the narrow layers), the bias by colsum
   auto wgrad_cc = [&](int wi, int bi, const T* X, int ldx, int kin, const T* dY, int ldy, int nout,
                       int rows) {
-    float* G = g + p.goff[wi];
+    float* G = g + goff[wi];
     gemm(kin, nout, rows, X, (size_t)1, (size_t)ldx, dY, (size_t)ldy, (size_t)1, sm,
          [&](int m, int n, float c) { G[(size_t)m * nout + n] = c; });
-    colsum(rows, nout, dY, ldy, g + p.goff[bi], sm);
+    colsum(rows, nout, dY, ldy, g + goff[bi], sm);
   };
-  // out = rnd(dY @ W^T) [then + add, rounded] [* (H > 0)], (rows, kin), on
-  // the tensor cores: W (kin, nout) is tensor-core layer l (in bf16, a
-  // product near a rounding midpoint is redone from weight_list's W)
-  auto bprop = [&](int rows, int kin, int nout, const T* dY, int ldy, int l, const T* add,
-                   const T* H, T* out) {
-    layer_tc(rows, kin, nout, dY, ldy, W.hi[l], W.lo[l], smem,
-             Redo<T>{W.w[tc_weight(l)], nout, 1},
-             [&](int m, int n, float c0, float c1) {
-               const size_t i = (size_t)m * kin + n;
-               float v0 = rnd<T>(c0), v1 = rnd<T>(c1);
-               if (add) {
-                 const float2 a = ld2(add + i);
-                 v0 = rnd<T>(v0 + a.x), v1 = rnd<T>(v1 + a.y);
-               }
-               if (H) {
-                 const float2 h = ldg2(H + i);
-                 v0 = h.x > 0.f ? v0 : 0.f, v1 = h.y > 0.f ? v1 : 0.f;
-               }
-               st2(out + i, v0, v1);
-               return decides<T>(c0, true, false, 0.f) || decides<T>(c1, true, false, 0.f);
-             });
-  };
+  const Bprop<T> bprop{W, smem};
   // ... on the CUDA cores, W (kin, nout) of weight_list; with `round` the
   // product rounded to T; out row stride ldo
   auto bprop_cc = [&](int rows, int kin, int nout, const T* dY, int ldy, const T* Wt, const T* H,

@@ -2,9 +2,9 @@
 // - the hi/lo split of a float32 value into two TF32 values (gnn_common.cuh's
 //   float32 products, "3xTF32": hi·hi + hi·lo + lo·hi);
 // - wgmma m64n64k16 bf16 with both operands in shared memory and m64n64k8
-//   tf32 with A from registers, through descriptors of the 128-byte swizzled
-//   layout (the layer routine of gnn_common.cuh); wgmma m64n128k16 bf16, both
-//   operands in shared memory (rollout_chunk.cu);
+//   and m64n32k8 tf32 with A from registers, through descriptors of the
+//   128-byte swizzled layout (the layer routine of gnn_common.cuh); wgmma
+//   m64n128k16 bf16, both operands in shared memory (rollout_chunk.cu);
 // - cp.async 16-byte copies with zero fill.
 #pragma once
 
@@ -77,6 +77,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
 // shared-memory writes of the generic proxy (cp.async, st.shared) made
 // visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
@@ -123,6 +128,21 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// ... and for a 64 x 32 tile: accumulators as in wgmma_m64n64k16, for i < 16
+// (columns 8 (i / 4) + 2 (t % 4) + i % 2).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

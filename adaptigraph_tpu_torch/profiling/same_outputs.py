@@ -4,11 +4,16 @@ bit, on the same inputs:
 - K1: one look-ahead step of B 2000 pushes through
   ``dynamics_rollout_batched`` (its whole-push branch), rope and granular
   width, fixture weights and state, float32 and bfloat16;
-- K2: one step with prebuilt edges at B 128, rope width, float32 and
-  bfloat16, the activations it keeps for training included (the edge
-  buffers on the rows K2 writes, a sample's real edges: the rest of each
-  buffer is never written and holds whatever the allocator left there);
-- K3: float32, on K2's float32 activations and a seeded motion gradient.
+- K2: one step with prebuilt edges at B 128, float32 and bfloat16, at rope
+  width (fixture weights and state) and softbody width (N 305, weights
+  from ``init_params``, a seeded particle cloud), the activations it keeps
+  for training included (the edge buffers on the rows K2 writes, a sample's
+  real edges: the rest of each buffer is never written and holds whatever
+  the allocator left there), and the same step as a forward alone (no
+  activations kept: bf16 then skips the redos);
+- K2e: the same rope step with the graph built in the kernel;
+- K3: on K2's activations and a seeded motion gradient, both dtypes and
+  widths.
 
 Each checkout runs in a subprocess with its own root first on ``sys.path``
 and builds its kernels into its own ``build/torch_kernels/``. The inputs are
@@ -18,8 +23,9 @@ Needs a CUDA card::
 
     python3 adaptigraph_tpu_torch/profiling/same_outputs.py OLD_ROOT NEW_ROOT
 
-prints one JSON line per tensor (``equal`` and the largest difference) and
-exits 1 if any differs.
+prints one JSON line per tensor (``equal`` and the largest difference), then
+one with the verdict per kernel (``kernels``: K1, K2, K2e, K3), and exits 1
+if any differs.
 """
 
 import json
@@ -34,15 +40,17 @@ def worker(root, out):
     import numpy as np
     import torch
 
-    from adaptigraph_tpu_torch.cli import _task_objects, load_params
+    from adaptigraph_tpu_torch.cli import _dyn_objects, _task_objects, load_params
+    from adaptigraph_tpu_torch.models.gnn import init_params
     from adaptigraph_tpu_torch.ops import kernels
-    from adaptigraph_tpu_torch.ops.fused_gnn import (act_layout, gnn_forward_cuda, pack_inputs,
-                                                     weight_list)
+    from adaptigraph_tpu_torch.ops.fused_gnn import (act_layout, gnn_forward_cuda,
+                                                     gnn_forward_edges_cuda, pack_inputs,
+                                                     round_up, weight_list)
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda
     from adaptigraph_tpu_torch.ops.graph import build_neighbor_graph_batch
     from adaptigraph_tpu_torch.planning.actions import decode_action
     from adaptigraph_tpu_torch.planning.forward import dynamics_rollout_batched, pusher_keypoints
-    from adaptigraph_tpu_torch.utils.config import load_planning_config
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config, load_planning_config
 
     dev = torch.device("cuda", 0)
     res = {}
@@ -71,6 +79,44 @@ def worker(root, out):
                                             compute_dtype=cd)["state_seqs"]
             res[f"k1:{name}:{str(cd)[6:]}"] = seqs.cpu()
 
+    def k2_k3(name, gnn, params, hist, action, nbrs, mask, K, adj_radius=None):
+        """K2 (activations kept, and alone), K3 on K2's activations and, with
+        adj_radius, K2e: float32 and bfloat16."""
+        B, N, n_p = hist.shape[0], gnn.n_nodes, gnn.max_nobj
+        is_tool = torch.arange(N, device=dev) >= n_p
+        attrs = torch.stack([~is_tool, is_tool], -1).float().expand(B, N, 2)
+        p_inst = torch.ones(B, n_p, gnn.n_instance, device=dev)
+        phys = torch.full((B, gnn.phys_dim), 0.5, device=dev)
+        layout = act_layout(kernels.library(), gnn, K)[1]
+        dmot = torch.tensor(np.random.RandomState(3).randn(B, round_up(N, 8), 3)
+                            .astype(np.float32), device=dev)
+        dmot[:, n_p:] = 0
+        for cd in (torch.float32, torch.bfloat16):
+            nodes, nbr, msk, last, _ = pack_inputs(gnn, hist, action, phys, attrs, p_inst, nbrs,
+                                                   mask, K, cd)
+            w = weight_list(params, gnn, cd)
+            pred, mot, acts = gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, cd)
+            tag = f"{name}:{str(cd)[6:]}"
+            real = (msk.view(B, -1) > 0).sum(1).tolist()  # real edges per sample
+            edge_acts = acts[1].view(B, -1)
+            written = [edge_acts[b, off + s * rows * width:off + (s + 1) * rows * width]
+                       .view(rows, width)[:real[b]].reshape(-1)
+                       for _, off, slots, rows, width in layout for s in range(slots)
+                       for b in range(B)]
+            res.update({f"k2:{tag}:pred": pred.cpu(), f"k2:{tag}:motion": mot.cpu(),
+                        f"k2:{tag}:acts_node": acts[0].cpu(),
+                        f"k2:{tag}:acts_edge": torch.cat(written).cpu()})
+            alone = gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, cd, keep_acts=False)
+            res.update({f"k2:{tag}:alone_pred": alone[0].cpu(),
+                        f"k2:{tag}:alone_motion": alone[1].cpu()})
+            if adj_radius is not None:
+                pred_e, mot_e = gnn_forward_edges_cuda(nodes, last, w, gnn, cd, K, adj_radius)
+                res.update({f"k2e:{tag}:pred": pred_e.cpu(), f"k2e:{tag}:motion": mot_e.cpu()})
+            dnodes, grads = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, gnn, acts, cd)
+            res[f"k3:{tag}:dnodes"] = dnodes.cpu()
+            res.update({f"k3:{tag}:grad{i}": g.cpu() for i, g in enumerate(grads)})
+
+    # rope width, fixture weights and state (B 128)
     tcfg, params, state = material("rope")
     dcfg = tcfg.dcfg
     gnn, edge = dcfg.gnn, dcfg.edge
@@ -87,31 +133,32 @@ def worker(root, out):
                                                                      device=dev),
                                             is_tool.expand(B, N), dcfg.adj_thresh, edge)
     action = torch.cat([torch.zeros(B, n_p, 3, device=dev), delta], dim=1)
-    attrs = torch.stack([~is_tool, is_tool], -1).float().expand(B, N, 2)
-    p_inst = torch.ones(B, n_p, 1, device=dev)
-    phys = torch.full((B, gnn.phys_dim), 0.5, device=dev)
     res["in:k2_state"] = hist.cpu()
-    for cd in (torch.float32, torch.bfloat16):
-        nodes, nbr, msk, last, _ = pack_inputs(gnn, hist, action, phys, attrs, p_inst, nbrs, mask,
-                                               edge.topk, cd)
-        w = weight_list(params, gnn, cd)
-        pred, mot, acts = gnn_forward_cuda(nodes, nbr, msk, last, w, gnn, cd)
-        tag = str(cd)[6:]
-        real = (msk.view(B, -1) > 0).sum(1).tolist()  # real edges per sample
-        edge_acts = acts[1].view(B, -1)
-        layout = act_layout(kernels.library(), gnn, edge.topk)[1]
-        written = [edge_acts[b, off + s * rows * width:off + (s + 1) * rows * width]
-                   .view(rows, width)[:real[b]].reshape(-1)
-                   for _, off, slots, rows, width in layout for s in range(slots) for b in range(B)]
-        res.update({f"k2:{tag}:pred": pred.cpu(), f"k2:{tag}:motion": mot.cpu(),
-                    f"k2:{tag}:acts_node": acts[0].cpu(),
-                    f"k2:{tag}:acts_edge": torch.cat(written).cpu()})
-        if cd == torch.float32:
-            dmot = torch.tensor(np.random.RandomState(3).randn(*last.shape).astype(np.float32),
-                                device=dev)
-            dnodes, grads = gnn_train_bwd_cuda(nodes, nbr, msk, dmot, w, gnn, acts)
-            res["k3:float32:dnodes"] = dnodes.cpu()
-            res.update({f"k3:float32:grad{i}": g.cpu() for i, g in enumerate(grads)})
+    k2_k3("rope", gnn, params, hist, action, nbrs, mask, edge.topk + edge.max_neef,
+          dcfg.adj_thresh)
+
+    # softbody width (N 305: 300 particles and a 5-point pusher, 15 slots),
+    # weights from init_params, particles spread at ~10 neighbours each (B 128)
+    gnn, edge = _dyn_objects(load_dynamics_config("softbody"))
+    params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
+    n_p, N, n_his = gnn.max_nobj, gnn.n_nodes, gnn.n_his
+    rng = np.random.RandomState(4)
+    cloud = rng.uniform(0.0, 2.4, (n_p, 3)).astype(np.float32)
+    pusher = np.stack([np.linspace(-0.5, 0.5, N - n_p), np.full(N - n_p, -0.3),
+                       np.full(N - n_p, 1.2)], -1).astype(np.float32) + [1.2, 0.0, 0.0]
+    frames = np.concatenate([np.broadcast_to(cloud, (B, n_his, n_p, 3)),
+                             np.broadcast_to(pusher, (B, n_his, N - n_p, 3))], 2)
+    frames = frames + rng.randn(B, n_his, N, 3).astype(np.float32) * 0.01
+    hist = torch.tensor(frames.astype(np.float32), device=dev)
+    is_tool = torch.arange(N, device=dev) >= n_p
+    nbrs, mask = build_neighbor_graph_batch(hist[:, -1], torch.ones(B, N, dtype=torch.bool,
+                                                                     device=dev),
+                                            is_tool.expand(B, N),
+                                            torch.full((B,), 0.5, device=dev), edge)
+    action = torch.zeros(B, N, 3, device=dev)
+    action[:, n_p:, 0] = 0.02
+    res["in:softbody_state"] = hist.cpu()
+    k2_k3("softbody", gnn, params, hist, action, nbrs, mask, edge.topk + edge.max_neef)
     torch.cuda.synchronize()
     torch.save(res, out)
 
@@ -140,7 +187,10 @@ def main():
                           "max_abs_diff": diff}), flush=True)
         if not same:
             differ.append(key)
-    print(json.dumps({"same_outputs": not differ, "roots": roots, "differ": differ}), flush=True)
+    kernels = {k: not any(d.startswith(k + ":") for d in differ)
+               and any(key.startswith(k + ":") for key in old) for k in ("k1", "k2", "k2e", "k3")}
+    print(json.dumps({"same_outputs": not differ, "kernels": kernels, "roots": roots,
+                      "differ": differ}), flush=True)
     if differ:
         raise SystemExit(1)
 

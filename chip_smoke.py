@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py          # needs one CUDA card
     python3 chip_smoke.py --k1     # phases 0-3 alone: the rollout kernel, the solve
+    python3 chip_smoke.py --k23    # phases 0-1, then what K2/K3 move (``phase_k23``)
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
     python3 chip_smoke.py --mesh   # phases 0-1 and 18: the multi-device paths
     python3 chip_smoke.py --overlap  # phase 18's profiled window alone (it runs it so)
@@ -14,8 +15,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. build the CUDA kernels from the sources in this checkout (timed), with
      ptxas' register and spill report and each K1/K2/K3 instance's HGMMA and
      HMMA count (every K2/K3 instance and bf16 K1 must run wgmma: HGMMA;
-     bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised bf16
-     K1's wgmma).
+     bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised the
+     wgmma of any K1, K2 or K3 instance, and no K2 or K3 instance may
+     spill: ``build_gate``).
   2. the rollout kernel against its plain PyTorch version on the card, on the
      same inputs, in f32 and bf16 each (see ``phase_kernels``): rope width
      (fixture weights, B 2000) and granular width (5-point board, K 20), each
@@ -109,7 +111,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
      of the config's 100 episodes, 5 pushes each, 5 workers), ``filter``
      and ``preprocess`` through the CLI; K2 and K3 in f32 and bf16 against
      their plain versions on its batches, at phase 5's and 10's gates; their
-     times, bounds and shared memory; K 10 steps per call through the CUDA
+     times, bounds, shared memory and SM cycles per phase (the profiling
+     build, as at rope width); K 10 steps per call through the CUDA
      graph against the loop; 200 CLI train steps with their launches and a
      falling loss; ``rollout --all_episodes`` with its K2 launches and step
      1 against the plain version (``softbody``). ``python3 chip_smoke.py
@@ -430,45 +433,104 @@ def sass_counts(path):
     return counts
 
 
+# the kernel of each source file whose template instances the build line names
+SOURCE_KERNELS = {"gnn_forward.cu": "gnn_forward_kernel", "gnn_train_bwd.cu": "gnn_train_bwd_kernel",
+                  "rollout_chunk.cu": "rollout_chunk_kernel"}
+
+
+def instance_of(fn, source=None):
+    """The K1/K2/K3 template instance that a function of ptxas' report
+    belongs to: a kernel instance by its name (``kernel_label``); another
+    function of a kernel's source file (a device function that ptxas
+    compiled apart, which the instance calls) by its compute dtype in its
+    mangled name; else None."""
+    label = kernel_label(fn)
+    if label is None and source in SOURCE_KERNELS:
+        label = SOURCE_KERNELS[source] + ("<bf16>" if "bfloat16" in fn else "<float>")
+    return label
+
+
+def ptxas_functions(report):
+    """ptxas' report (``-Xptxas -v`` of every source, each after a ``==
+    <source>`` line) as (source, function, line) for the lines that follow
+    a function's entry or properties line."""
+    import re
+
+    source = fn = None
+    for line in report:
+        if line.startswith("== "):
+            source, fn = line[3:].strip(), None
+            continue
+        hit = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if hit:
+            fn = hit.group(1)
+            continue
+        if fn is not None:
+            yield source, fn, line
+
+
 def ptxas_kernels(report):
     """Registers and spill bytes of each K1/K2/K3 instance from ptxas' report
     (``-Xptxas -v``): {kernel: {"registers": n, "spill_stores": bytes,
-    "spill_loads": bytes}}."""
+    "spill_loads": bytes, "callee_spill_stores": bytes,
+    "callee_spill_loads": bytes}}, the callees' being those of the device
+    functions of its source that ptxas compiled apart (``instance_of``)."""
     import re
 
-    out, name = {}, None
-    for line in report:
-        hit = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
-        if hit:
-            name = kernel_label(hit.group(1))
-            continue
+    out = {}
+    for source, fn, line in ptxas_functions(report):
+        name = instance_of(fn, source)
         if name is None:
             continue
+        own = kernel_label(fn) == name
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
-            out.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
-                                            spill_loads=int(spill.group(2)))
+            d = out.setdefault(name, {})
+            for key, v in (("spill_stores", spill.group(1)), ("spill_loads", spill.group(2))):
+                key = key if own else "callee_" + key
+                d[key] = d.get(key, 0) + int(v)
         regs = re.search(r"Used (\d+) registers", line)
-        if regs:
+        if regs and own:
             out.setdefault(name, {})["registers"] = int(regs.group(1))
     return out
 
 
 def wgmma_serialized(report):
     """ptxas' notes (C75xx) that it serialised the wgmma instructions of a
-    K1/K2/K3 instance: [(kernel, note)]. ptxas builds such an instance
-    without failing, and it runs the products one at a time."""
+    K1/K2/K3 instance, or of a device function of its source that ptxas
+    compiled apart (``instance_of``): [(kernel, note)]. ptxas builds such an
+    instance without failing, and it runs the products one at a time."""
     import re
 
-    out = []
+    out, source = [], None
     for line in report:
+        if line.startswith("== "):
+            source = line[3:].strip()
+            continue
         hit = re.search(r"\((C75\d\d)\).*wgmma.*serialized.*function '([\w$]+)'", line)
-        if hit and kernel_label(hit.group(2)) is not None:
-            out.append((kernel_label(hit.group(2)), line.split(":", 1)[-1].strip()[:200]))
+        if hit and instance_of(hit.group(2), source) is not None:
+            out.append((instance_of(hit.group(2), source), line.split(":", 1)[-1].strip()[:200]))
     return out
 
 
-def phase_build():
+def build_gate(report):
+    """What in ptxas' report (``-Xptxas -v``, a list of lines) fails the
+    build: a K1, K2 or K3 instance whose wgmma ptxas serialised (its C75xx
+    notes, ``wgmma_serialized``), and a K2 or K3 instance that spills
+    (``ptxas_kernels``, its own and those of the device functions it
+    calls). K1's spills are reported, not gated: its source is not this
+    layer routine's. Returns [(kernel, reason)], empty when the
+    build passes."""
+    out = [(k, "wgmma serialized: " + note) for k, note in wgmma_serialized(report)]
+    for k, v in sorted(ptxas_kernels(report).items()):
+        stores = v.get("spill_stores", 0) + v.get("callee_spill_stores", 0)
+        loads = v.get("spill_loads", 0) + v.get("callee_spill_loads", 0)
+        if stores + loads and not k.startswith("rollout_chunk_kernel"):
+            out.append((k, f"spills: {stores} bytes stored, {loads} bytes loaded"))
+    return out
+
+
+def phase_build(gate=True):
     """Build the kernels and, at the same time, their profiling builds (the
     per-phase SM-cycle counters of ``kernel_phases`` and the ablations of
     ``kernel_parts``), one nvcc process per source, all started together.
@@ -476,9 +538,10 @@ def phase_build():
     too, and the HGMMA and HMMA counts of each instance: every K2/K3 instance
     must have HGMMA (wgmma: bf16, and float32's split TF32), and bf16 K1
     HGMMA and no HMMA (mma.sync); float32 K1 (the CUDA cores) is reported.
-    It fails if ptxas serialised bf16 K1's wgmma (``wgmma_serialized``); the
-    K2/K3 instances' notes are reported (their layer routine waits after
-    every k-step, and ptxas serialises it: C7520)."""
+    It fails on what ``build_gate`` finds: a serialised wgmma in any
+    instance, a spill in a K2 or K3 one. With ``gate`` false (a measurement
+    of an older checkout) the line reports the findings and nothing fails
+    on them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from adaptigraph_tpu_torch.ops import kernels
@@ -495,17 +558,18 @@ def phase_build():
     ok = (len(counts) == 6 and "rollout_chunk_kernel<float>" in counts
           and all(c["HGMMA"] > 0 for k, c in counts.items() if not k.startswith("rollout"))
           and k1["HGMMA"] > 0 and k1["HMMA"] == 0)
-    serialized = wgmma_serialized(report)
-    k1_serialized = any(k == "rollout_chunk_kernel<bf16>" for k, _ in serialized)
+    failed = build_gate(report)
     emit(phase="build", seconds=round(time.time() - t0, 2), library=os.path.relpath(path, ROOT),
          variants=[v for v in kernels.VARIANTS if v], ptxas=ptxas,
          ptxas_kernels=ptxas_kernels(report), tensor_core_instructions=counts,
-         wgmma_serialized=serialized, ok=ok and not k1_serialized)
+         wgmma_serialized=wgmma_serialized(report), build_gate=failed, gated=gate,
+         ok=ok and not (gate and failed))
     if not ok:
         fail("a kernel instance lacks its tensor-core instructions, or bf16 K1 keeps mma.sync "
              "(see the build line)")
-    if k1_serialized:
-        fail("ptxas serialised the wgmma of rollout_chunk_kernel<bf16> (see the build line)")
+    if gate and failed:
+        fail("ptxas serialised a kernel's wgmma or a K2/K3 instance spills: "
+             + "; ".join(f"{k}: {why}" for k, why in failed)[:400])
 
 
 def run_both(mat, dev, cd, B, n_steps, masked, seed=0, stats=None):
@@ -2167,12 +2231,13 @@ SUB_PHASES = ["layer_routine_staging", "layer_routine_products", "layer_routine_
 _CLOCKS = []  # the profiling build keeps pointers to these counters
 
 
-def phase_train_kernel_phases(config, dev):
-    """Where K2 and K3 spend their SM cycles at the rope fixture's density
-    (B 128, weights from ``init_params``), float32 and bf16: one launch each
-    of the profiling build (``kernels.library("phase_clocks")``), cycles per
-    block by phase, and thread 0's cycles inside the layer routine (staging,
-    products, epilogues; those overlap the phases)."""
+def phase_train_kernel_phases(config, dev, batch=None, data="rope fixture density"):
+    """Where K2 and K3 spend their SM cycles on a training batch (B 128,
+    weights from ``init_params``; by default rope at the fixture's density,
+    softbody's phase passes one of its batches), float32 and bf16: one
+    launch each of the profiling build (``kernels.library("phase_clocks")``),
+    cycles per block by phase, and thread 0's cycles inside the layer
+    routine (staging, products, epilogues; those overlap the phases)."""
     from adaptigraph_tpu_torch.models.gnn import init_params
     from adaptigraph_tpu_torch.ops import kernels
     from adaptigraph_tpu_torch.ops.fused_gnn import launch_forward
@@ -2181,7 +2246,8 @@ def phase_train_kernel_phases(config, dev):
     lib = kernels.library("phase_clocks")
     gnn, edge, _, _ = train_objects(config)
     params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
-    batch = fixture_batch("rope", dev, seed=20)[0]
+    if batch is None:
+        batch = fixture_batch("rope", dev, seed=20)[0]
     for cd in (torch.float32, torch.bfloat16):
         nodes, nbr, msk, last, w = step_inputs(batch, gnn, edge, params, cd)
         dmot = torch.randn(nodes.shape[0], nodes.shape[1], 3, device=dev) * 1e-2
@@ -2204,7 +2270,8 @@ def phase_train_kernel_phases(config, dev):
                          "layer_routine_share": {k: c[13 + i] / total
                                                  for i, k in enumerate(SUB_PHASES)}}
             del acts
-        emit(phase="train_kernel_phases", dtype=str(cd).split(".")[-1], **out)
+        emit(phase="train_kernel_phases", data=data, dtype=str(cd).split(".")[-1],
+             real_edges_per_sample=real_edges(msk), **out)
 
 
 def profile_step(step, leaves, state, batches, gen, n=5):
@@ -3312,6 +3379,7 @@ def phase_softbody(dev):
     k3_bf16_err = phase_backward_kernel_bf16(cases, dev, cascade_gates=False)["softbody"]
     times = train_kernel_times(config, batches, dev, R=5)
     emit(phase="train_kernel_time", data="softbody", **times)
+    phase_train_kernel_phases(config, dev, batches[0], data="softbody")
     steps_launches = phase_train_steps(config, dev, parts=batches, data="softbody")
 
     # the CLI's train run: 3 + 3 kernels per step, 3 K2 per validation step
@@ -3372,6 +3440,38 @@ def phase_softbody(dev):
                 k2_bf16_err=k2_err[("softbody", "bfloat16")], k3_err=k3_err,
                 k3_bf16_err=k3_bf16_err, k2_launches=k2_train + k2_roll + steps_launches[0],
                 k3_launches=k3_train + steps_launches[1])
+
+
+def phase_k23(dev):
+    """What K2 and K3 move, for comparing two checkouts in one call (each
+    checkout's ``chip_smoke.py --k23``, alternately: parent, change, change,
+    parent): K1's time and the rope solve (which K2/K3 do not run); K2e's
+    time; the cloth solve with its K2; K4; the rope dataset, then K2 and K3
+    times at the rope fixture's density and on the dataset, cycles per phase,
+    the graphed train steps and the GD Planner; then softbody's data, its
+    K2/K3 times and cycles per phase and its graphed steps. The phases keep
+    their own checks (the graphs against the loop, launch counts); the
+    kernels against their plain versions are the full run's."""
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    rope = material("rope", dev)
+    emit(phase="kernel_time", **time_kernel(rope, dev))
+    phase_solve(rope, dev)
+    emit(phase="edges_kernel_time", **time_edges_kernel(rope, dev))
+    phase_cloth_solve(dev)
+    phase_kernel_parts(dev)
+    config, prep = phase_dataset()
+    time_train_kernels(config, device_batches(config, prep, dev, 9, seed=11), dev)
+    phase_train_kernel_phases(config, dev)
+    phase_train_steps(config, dev)
+    phase_planner_gd(rope, dev)
+    sb_prep, _ = softbody_data()
+    sb_config = load_dynamics_config("softbody")
+    sb_batches = device_batches(sb_config, sb_prep, dev, 10, seed=13)
+    emit(phase="train_kernel_time", data="softbody",
+         **train_kernel_times(sb_config, sb_batches, dev, R=5))
+    phase_train_kernel_phases(sb_config, dev, sb_batches[0], data="softbody")
+    phase_train_steps(sb_config, dev, parts=sb_batches, data="softbody")
 
 
 # ---------------------------------------------------------------------------
@@ -4570,7 +4670,11 @@ def main():
     emit(phase="device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    phase_build()
+    phase_build(gate=sys.argv[1:] != ["--k23"])
+    if sys.argv[1:] == ["--k23"]:
+        phase_k23(dev)
+        print(card, flush=True)
+        return
     if sys.argv[1:] == ["--softbody"]:
         phase_softbody(dev)
         print(card, flush=True)
