@@ -406,7 +406,7 @@ __device__ __forceinline__ float fma_chain(const T* x, const T* w, size_t sk, in
 
 // The chains of outputs n and n + 1 of row x (global memory, 16-byte
 // aligned, zero from K to the next multiple of 8): bfloat16 from rows r and
-// r + 1 of the weight slice that layer_tc staged (Ws, swizzled as stage_sw
+// r + 1 of the weight slice that layer_tc staged (Ws, swizzled as tc::stage_sw
 // leaves it), 8 at a time in k order; float32 from r's weight (inlined, as
 // fma_chain is: a call spills the float32 forward's registers live around
 // it).
@@ -504,23 +504,6 @@ __device__ __forceinline__ void tile_epilogue(float (&acc)[HA][32], int r, int n
       }
     }
   if (redo) redo_pairs(flags, r, n1, chain, epi);
-}
-
-// Rows [r0, r0 + R) and columns [c0, c0 + 64 CB) of src (row stride ld
-// elements; rows >= rlim and columns >= clim read as zero; clim, ld and c0
-// multiples of 8) into CB column blocks of R rows x 64, swizzled (mma.cuh),
-// by cp.async from threads tid = 0 .. nt - 1 (the block's, or a
-// warpgroup's). Nothing waits.
-__device__ __forceinline__ void stage_sw(bf16* dst, const bf16* src, int ld, int r0, int R,
-                                         int rlim, int c0, int CB, int clim, int tid, int nt) {
-  const int n = R * CB * 8;
-  for (int idx = tid; idx < n; idx += nt) {
-    const int c = idx & 7, r = (idx >> 3) % R, cb = (idx >> 3) / R;
-    const int gr = r0 + r, gc = c0 + cb * 64 + c * 8;
-    const bool ok = gr < rlim && gc < clim;
-    tc::cp_async16(dst + (size_t)cb * R * 64 + r * 64 + ((c ^ (r & 7)) << 3),
-                   ok ? src + (size_t)gr * ld + gc : src, ok);
-  }
 }
 
 // Rows [r0, r0 + R) and columns [c0, c0 + C) of src into dst, row stride dld
@@ -696,8 +679,8 @@ __device__ __forceinline__ void run_tile(int ksteps, int halves, float (&acc)[HA
 __device__ __forceinline__ void stage_step(bf16* As, const bf16* X, int ldx, int M, int K, int j,
                                            int per_tile, int wg) {
   const int kbn = (round16(K) + 63) / 64;
-  stage_sw(As + j % kStages16 * kA16Elems, X, ldx, (2 * (j / per_tile) + wg) * 64, 64, M,
-           j % kbn * 64, 1, K, threadIdx.x & 127, 128);
+  tc::stage_sw(As + j % kStages16 * kA16Elems, X, ldx, (2 * (j / per_tile) + wg) * 64, 64, M,
+               j % kbn * 64, 1, K, threadIdx.x & 127, 128);
 }
 __device__ __forceinline__ void stage_step(float* As, const float* X, int ldx, int M, int K, int j,
                                            int per_tile, int wg) {
@@ -737,7 +720,7 @@ __device__ __forceinline__ void layer_tc(int M, int N, int K, const bf16* X, int
   for (int n0 = 0; n0 < N; n0 += 128) {
     const int halves = N - n0 > 64 ? 2 : 1;  // whether the slice's second 64 columns hold outputs
     const int per_tile = (Wide ? 1 : halves) * kbn, steps = tiles * per_tile;
-    stage_sw(Ws, P, Kp, n0, 128, N, 0, kbn, Kp, threadIdx.x, kThreads);
+    tc::stage_sw(Ws, P, Kp, n0, 128, N, 0, kbn, Kp, threadIdx.x, kThreads);
     tc::cp_async_commit();
     tc::cp_async_wait<0>();
     tc::fence_proxy_async();
@@ -796,10 +779,10 @@ __device__ __forceinline__ void layer_tc(int M, int N, int K, const float* X, in
   for (int n0 = 0; n0 < N; n0 += nc) {
     const int halves = imin(nc, N - n0) > 64 ? 2 : 1;
     const int per_tile = (Wide ? 1 : halves) * kcn, steps = tiles * per_tile;
-    stage_sw(Sh, reinterpret_cast<const bf16*>(Ph), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp,
-             threadIdx.x, kThreads);
-    stage_sw(Sl, reinterpret_cast<const bf16*>(Pl), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32, 2 * Kp,
-             threadIdx.x, kThreads);
+    tc::stage_sw(Sh, reinterpret_cast<const bf16*>(Ph), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32,
+                 2 * Kp, threadIdx.x, kThreads);
+    tc::stage_sw(Sl, reinterpret_cast<const bf16*>(Pl), 2 * Kp, n0, nc, N, 0, (Kp + 31) / 32,
+                 2 * Kp, threadIdx.x, kThreads);
     tc::cp_async_commit();
     tc::cp_async_wait<0>();
     tc::fence_proxy_async();
@@ -874,8 +857,8 @@ __device__ __forceinline__ void wgrad_epilogue(float (&acc)[H][32], int wg, int 
 __device__ __forceinline__ void stage_chunk(bf16* S, const bf16* X, int ldx, const bf16* Y, int ldy,
                                             int s, int R, int Kin, int n0, int Nout) {
   bf16* st = S + (s % 3) * 4 * 64 * 64;
-  stage_sw(st, X, ldx, s * 64, 64, R, 0, 2, Kin, threadIdx.x, kThreads);
-  stage_sw(st + 2 * 64 * 64, Y, ldy, s * 64, 64, R, n0, 2, Nout, threadIdx.x, kThreads);
+  tc::stage_sw(st, X, ldx, s * 64, 64, R, 0, 2, Kin, threadIdx.x, kThreads);
+  tc::stage_sw(st + 2 * 64 * 64, Y, ldy, s * 64, 64, R, n0, 2, Nout, threadIdx.x, kThreads);
   tc::cp_async_commit();
 }
 __device__ __forceinline__ void stage_chunk(float* Xs, const float* X, int ldx, float* Ys,

@@ -4,8 +4,13 @@
 // - wgmma m64n64k16 bf16 with both operands in shared memory and m64n64k8
 //   and m64n32k8 tf32 with A from registers, through descriptors of the
 //   128-byte swizzled layout (the layer routine of gnn_common.cuh); wgmma
-//   m64n128k16 bf16, both operands in shared memory (rollout_chunk.cu);
-// - cp.async 16-byte copies with zero fill.
+//   m64n128k16 bf16, both operands in shared memory or A from registers
+//   (rollout_chunk.cu);
+// - cp.async 16-byte copies with zero fill;
+// - the 128-byte swizzled layout that every wgmma operand tile of the kernels
+//   is kept in: an element's place (sw128), a K-major k16 slice's descriptor
+//   (sw128_desc) and the staging of a matrix into it by cp.async (stage_sw),
+//   for tiles of any number of rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -175,12 +180,86 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Keep the compiler from moving reads or writes of wgmma's accumulators
-// across the asynchronous products (place after wgmma_wait0).
+// ---- the 128-byte swizzled layout ------------------------------------------
+// A matrix of R rows (R a multiple of 8) and up to 64 CB columns is kept as CB
+// blocks of R rows x 64 bf16, block b at b R 64 elements; in each, the 16-byte
+// chunk q of row r lies at chunk q ^ (r % 8) (desc_sw128's layout).
+
+// The place of element (r, c) of such a matrix of R rows.
+__device__ __forceinline__ int sw128(int r, int c, int R) {
+  return (c >> 6) * (R * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// The descriptor of the K-major k16 slice ks (columns 16 ks ..) of rows r0 ..
+// r0 + 63 (r0 a multiple of 8) of such a matrix of R rows.
+__device__ __forceinline__ uint64_t sw128_desc(const bf16* m, int R, int r0, int ks) {
+  return desc_sw128(m + (ks >> 2) * R * 64 + r0 * 64 + (ks & 3) * 16, 16, 1024);
+}
+
+// Rows [r0, r0 + R) and columns [c0, c0 + 64 CB) of src (row stride ld
+// elements; rows >= rlim and columns >= clim read as zero; clim, ld and c0
+// multiples of 8) into CB column blocks of R rows x 64, swizzled, by cp.async
+// from threads tid = 0 .. nt - 1 (the block's, or a warpgroup's; nt a
+// multiple of 8): thread tid copies the 16-byte chunk tid % 8 of every
+// (nt / 8)-th row. Nothing waits or commits.
+__device__ __forceinline__ void stage_sw(bf16* dst, const bf16* src, int ld, int r0, int R,
+                                         int rlim, int c0, int CB, int clim, int tid, int nt) {
+  const int c = tid & 7;
+  for (int cb = 0; cb < CB; ++cb) {
+    const int gc = c0 + cb * 64 + c * 8;
+    for (int r = tid >> 3; r < R; r += nt >> 3) {
+      const int gr = r0 + r;
+      const bool ok = gr < rlim && gc < clim;
+      cp_async16(dst + (size_t)cb * R * 64 + r * 64 + ((c ^ (r & 7)) << 3),
+                 ok ? src + (size_t)gr * ld + gc : src, ok);
+    }
+  }
+}
+
+// ... with A from registers: each warp's 16 rows as mma.sync m16n8k16's A
+// fragment, bf16 pairs (row g, columns 2t, 2t + 1), (g + 8, 2t ..), (g, 2t
+// + 8 ..), (g + 8, 2t + 8 ..) for g = (t % 32) / 4, t = t % 4; B K-major in
+// 128-byte swizzled shared memory. A layer's accumulators, bias, relu and
+// rounding applied, are the next layer's A: the pairs of accumulators 8 ks
+// .. 8 ks + 7 make k16 step ks's four registers. The registers must not
+// change until the products are waited for.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Keep the compiler from moving reads or writes of wgmma's accumulators (or
+// A registers) across the asynchronous products (place after wgmma_wait0).
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 }  // namespace tc

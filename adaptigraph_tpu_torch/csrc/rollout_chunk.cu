@@ -18,31 +18,52 @@
 // weight staging, barriers, and loads of the edge-sized relation base.
 //
 // What the design does about it (bf16, the main path; 512 threads = four
-// warpgroups, ~213 KB of shared memory, one block per SM):
+// warpgroups, ~218-228 KB of shared memory, one block per SM):
 // - Every product with 128 columns runs on wgmma (m64n128k16 and m64n64k16
-//   bf16, float32 accumulators; mma.cuh) with both operands in 128-byte
-//   swizzled shared memory: B the layer's weight, packed as W^T in PyTorch
-//   (ops/fused_gnn.py::pack_tc_weights) and staged by cp.async, read once
-//   per product by each warpgroup. A product's k-steps are issued back to
-//   back and waited for once.
+//   bf16, float32 accumulators; mma.cuh) with B, the layer's weight, in
+//   128-byte swizzled shared memory (mma.cuh's sw128 layout), packed as W^T
+//   in PyTorch (ops/fused_gnn.py::pack_tc_weights) and staged by cp.async
+//   (tc::stage_sw). A product's k-steps are issued back to back and waited
+//   for once.
 // - The relation MLP: each warpgroup owns 64 edge rows of a 256-edge tile
 //   and carries them through the relation encoder's three layers and the
-//   rel_base layer in its own 64 x 128 activation tile (after bias, relu and
-//   rounding to bf16, a layer's accumulators become the next layer's A),
-//   with only warpgroup barriers. The four layers' weights (112 KB swizzled)
+//   rel_base layer. re0 reads the tile's relation inputs from the
+//   warpgroup's own swizzled tile in shared memory; the inputs are built from
+//   per-node rows staged once a substep (node_rows: an edge's history
+//   features are its receiver's row minus its sender's). After bias, relu and
+//   rounding to bf16 (one cvt.rn.relu per pair) a layer's accumulators are
+//   the next layer's A in registers (wgmma with A from registers), so the
+//   hidden layers touch no shared memory; rel_base goes to the tile and
+//   leaves it in 16-byte stores. The four layers' weights (112 KB swizzled)
 //   stay resident for all of a substep's tiles; they are staged while the
-//   previous substep's head, re-stick and graph build run.
+//   previous substep's head, re-stick and graph build run. A layer's
+//   products take the tensor cores a small part of the time of its
+//   epilogue, which sets the pace; the four warpgroups' chains overlap
+//   without any ordering between them.
 // - Node-sized products (particle encoder, propagator base, recv|send as one
 //   256-column product, update, motion head): 112 padded rows split into
 //   64 x 64 (or 64 x 128) tiles over the four warpgroups. Each product's
 //   weight is prefetched while the phase before it runs: recv|send's and
-//   the head's during the previous update, Wb during the first aggregation.
+//   the head's during the previous update, Wb during the first aggregation,
+//   the propagator base (into STG, free then) during each aggregation.
 // - Round 1's recv|send is a constant of the push (the effect starts every
 //   substep from the particle encoding): it is computed once per push into a
 //   per-sample scratch and copied back by cp.async each substep.
-// - The aggregation: 32 threads per receiver, each summing four channels
-//   over the receiver's edges in slot order; rel_base's rows are read from
-//   global memory (L2), 256 contiguous bytes per edge.
+// - The aggregation: 16 threads per receiver, each summing eight channels
+//   (16 bytes) over the receiver's edges in slot order. A receiver's edges
+//   are contiguous rows of rel_base (global memory, L2): each thread loads
+//   its 16 bytes of up to kRowsAhead of them at once (one predicated
+//   16-byte load each), then sums with packed bf16 adds (add.rn and
+//   fma.rn.relu on bf16x2, the same single roundings as before), so a pass
+//   over 32 receivers waits for L2 once, not once per edge; slots past a
+//   receiver's edges take a -inf sender row and add 0, so that no branch
+//   splits a warp's two receivers.
+// - What the substep loop needs (dimensions, the layout of the small state,
+//   this substep's edge count) sits in shared memory (TcBlock) and is read
+//   where used, and each phase starts from opaque_zero(): held in registers
+//   through the loop, or hoisted out of it by the compiler, the kernel's
+//   pointers, swizzle offsets and descriptors spilled beside the relation
+//   MLP's accumulators. The kernel builds with no spill.
 // - The motion head's 3-wide last layer and the particle encoder's first
 //   layer (a few inputs) run on the CUDA cores.
 // - Only real edges are computed. A receiver's edges are a prefix of its
@@ -91,6 +112,11 @@ constexpr int kNumTc = 11;                             // packed tensor-core lay
 // Phases timed in the profiling build (see PhaseClock).
 enum Phase { kEncoder, kGraph, kRelation, kProjection, kAggregate, kUpdate, kHead, kRestick,
              kPhases };
+// ... and thread 0's cycles inside the relation MLP and the aggregation (see
+// SubClock): building a tile's relation inputs, its products (the turn at the
+// tensor cores, the issue and the wait) and its epilogues (rel_base's stores
+// included); waiting for a receiver's rel_base rows, and summing them
+enum SubPhase { kRelInputs, kRelProducts, kRelEpilogues, kAggRows, kAggSums, kSubPhases };
 constexpr float kBig = 1e10f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -159,9 +185,10 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
 // 128). From a 1,024-aligned base: X (64 KB) and WB (32 KB), the swizzled
 // weights; EFF and AGG (32 KB each), the node-sized A operands, 128 rows
 // (two 64-row tiles; rows past N are never written and feed only dropped
-// outputs) swizzled as the weights are (sw()); then STG (re0's weight, or
-// the propagator base), and the small state. What each big region holds in
-// each phase:
+// outputs) swizzled as the weights are (tc::sw128); then STG (re0's weight,
+// or the propagator base), and the small state, with NR, the node rows of
+// the relation inputs (node_rows). What each big region holds in each
+// phase:
 //   phase            X                     WB      STG           EFF      AGG
 //   encoder          pe1 | pe2, then w23   Wa      -             h1, penc h2
 //   relation MLP     re1 | re2             rp_w1   re0           the warpgroups'
@@ -173,13 +200,11 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
 //                    next substep's relation weights (WB and STG too)
 constexpr int kNF = 128;
 constexpr int kWBytes = kNF * kNF * 2;            // one swizzled 128 x 128 matrix
-constexpr int kCPT = 4;                           // aggregation: channels per thread
+constexpr int kCPT = 8;                           // aggregation: channels per thread
 constexpr int kTPR = kNF / kCPT;                  // threads per receiver
 constexpr int kRecvPerPass = kTcThreads / kTPR;
-// kCPT adjacent bf16 channels, loaded and stored at once
-struct alignas(kCPT * 2) Channels {
-  __nv_bfloat162 v[kCPT / 2];
-};
+constexpr int kRowsAhead = 10;                    // a receiver's rel_base rows loaded at once
+constexpr int kNodeRow = 32;                      // bf16 per node row (the relation inputs)
 // float slots of the BIAS region: the biases (kNF each), then the head's last
 // layer's bias (3, padded to 4) and weight (kNF x 3)
 enum BiasSlot { kBpe0 = 0, kBpe1 = kNF, kBpe2 = 2 * kNF, kBre0 = 3 * kNF, kBrp = 6 * kNF,
@@ -188,8 +213,12 @@ enum BiasSlot { kBpe0 = 0, kBpe1 = kNF, kBpe2 = 2 * kNF, kBre0 = 3 * kNF, kBrp =
 // packed tensor-core layers, in the order of ops/fused_gnn.py::TC_LAYERS
 enum TcLayer { kPe1, kPe2, kRe1, kRe2, kRpW1, kRpW23, kPpWa, kPpWb, kNr0, kNr1, kRe0 };
 
+// the big regions' offsets from the 1,024-aligned base
+constexpr int kOffX = 0, kOffWB = 2 * kWBytes, kOffEff = 3 * kWBytes, kOffAgg = 4 * kWBytes,
+              kOffSTG = 5 * kWBytes;
+
 struct TcLayout {
-  int X, WB, eff, agg, STG, bias, hist, sn, act, rec, valid, red, cnt, off, nbr, er;
+  int X, WB, eff, agg, STG, bias, hist, nr, act, rec, valid, red, cnt, off, nbr, er, ninf;
   int total;  // bytes to request, the 1,024 of the base's alignment included
 };
 
@@ -197,7 +226,7 @@ __host__ __device__ inline TcLayout make_tc_layout(const Dims& d) {
   const int sizes[] = {
       kBiasFloats * 4,                  // bias
       (d.n_his + 1) * d.Np * 3 * 4,     // hist: ring of n_his+1
-      d.Np * d.n_his * 3 * 4,           // sn
+      d.Np * kNodeRow * 2,              // nr: bf16 node rows
       d.Np * 3 * 4,                     // act
       d.n_p * 3 * 4,                    // rec
       d.Np * 4,                         // valid
@@ -206,17 +235,18 @@ __host__ __device__ inline TcLayout make_tc_layout(const Dims& d) {
       (d.Np + 1) * 4,                   // off
       d.Np * d.K * 2,                   // nbr: int16 senders
       d.Np * d.K * 2,                   // er: int16 receivers
+      kNF * 2,                          // ninf: a row of bf16 -inf (aggregate)
   };
   TcLayout L;
-  L.X = 0;
-  L.WB = 2 * kWBytes;
-  L.eff = 3 * kWBytes;
-  L.agg = 4 * kWBytes;
-  L.STG = 5 * kWBytes;  // re0's weight (16 KB) or the propagator base
+  L.X = kOffX;
+  L.WB = kOffWB;
+  L.eff = kOffEff;
+  L.agg = kOffAgg;
+  L.STG = kOffSTG;  // re0's weight (16 KB) or the propagator base
   int at = L.STG + round_to(imax(kWBytes / 2, d.Np * kNF * 2), 1024);
-  int* dst[] = {&L.bias, &L.hist, &L.sn, &L.act, &L.rec, &L.valid, &L.red, &L.cnt, &L.off,
-                &L.nbr, &L.er};
-  for (int i = 0; i < 11; ++i) { *dst[i] = at; at += round_to(sizes[i], 128); }
+  int* dst[] = {&L.bias, &L.hist, &L.nr, &L.act, &L.rec, &L.valid, &L.red, &L.cnt, &L.off,
+                &L.nbr, &L.er, &L.ninf};
+  for (int i = 0; i < 12; ++i) { *dst[i] = at; at += round_to(sizes[i], 128); }
   L.total = at + 1024;
   return L;
 }
@@ -235,6 +265,7 @@ struct Params {
   float* out;            // (B, n_p, 3)
 #ifdef ROLLOUT_PHASE_CLOCKS
   long long* clocks;     // (B, kPhases) SM cycles per phase, or null
+  long long* sub_clocks; // (B, kSubPhases) thread 0's cycles per sub-phase (bf16), or null
 #endif
   Dims d;
   float thresh, gripper_lift, motion_clamp;
@@ -341,11 +372,55 @@ struct PhaseClock {
   }
 };
 long long* g_phase_clocks = nullptr;  // the next launches' clock buffer
+long long* g_sub_clocks = nullptr;    // ... and sub-phase buffer
+// Thread 0's cycles in the sub-phases of the bf16 relation MLP and
+// aggregation (SubPhase): start() begins a span, mark(k) adds the cycles
+// since the last start() or mark() to sub-phase k. They add up in shared
+// memory (a read-modify-write of global memory at every mark would stall
+// warp 0 and, through the warpgroups' turns, the others), and flush() adds
+// them to the buffer set with rollout_chunk_set_sub_clocks.
+__shared__ long long s_sub[kSubPhases + 1];  // the counters, then the span's start
+struct SubClock {
+  const Params& p;
+  __device__ SubClock(const Params& p_, int) : p(p_) {
+    if (threadIdx.x == 0)
+      for (int k = 0; k < kSubPhases; ++k) s_sub[k] = 0;
+  }
+  __device__ __forceinline__ void start() {
+    if (threadIdx.x == 0) s_sub[kSubPhases] = clock64();
+  }
+  __device__ __forceinline__ void mark(int k) {
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      s_sub[k] += now - s_sub[kSubPhases];
+      s_sub[kSubPhases] = now;
+    }
+  }
+  __device__ void flush() {
+    if (threadIdx.x == 0 && p.sub_clocks)
+      for (int k = 0; k < kSubPhases; ++k)
+        p.sub_clocks[(size_t)blockIdx.x * kSubPhases + k] += s_sub[k];
+  }
+};
+// v, passed through an instruction that waits for it: a clock read after
+// this one comes after v arrived
+__device__ __forceinline__ float arrived(float v) {
+  float r;
+  asm volatile("mov.b32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
 #else
 struct PhaseClock {
   __device__ PhaseClock(const Params&, int) {}
   __device__ void mark(int) {}
 };
+struct SubClock {
+  __device__ SubClock(const Params&, int) {}
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ void flush() {}
+};
+__device__ __forceinline__ float arrived(float v) { return v; }
 #endif
 
 // Block-wide min, sum and count of one value each per thread; every thread
@@ -663,29 +738,54 @@ __device__ __forceinline__ void rollout_f32(const Params& p, unsigned char* smem
 
 // ---- bfloat16: the tensor cores ----
 
+// The bf16 body's dimensions and shared-memory layout, kept in shared memory
+// and read where used, as are the pointers derived from them: held in
+// registers through the substep loop beside the relation MLP's 64
+// accumulators and the aggregation's rows, they were spilled.
+struct TcBlock {
+  Dims d;
+  TcLayout L;
+  int rep, rmax;  // this sample's repeat, and the substeps it runs
+  int E;          // this substep's real edges
+};
+
+// A 0 the compilers cannot see through: read (volatile) from shared memory
+// where it is used, it keeps what is computed from it inside the loop around
+// the use. The bf16 body adds it to the thread index or a region's address
+// where a phase begins: the addresses, swizzle offsets and descriptors that
+// each phase computes from them were otherwise hoisted out of the substep
+// and tile loops, held in registers beside the relation MLP's accumulators,
+// and spilled.
+__shared__ int s_zero;
+__device__ __forceinline__ int opaque_zero() { return *reinterpret_cast<volatile int*>(&s_zero); }
+
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
 __device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
+// pack_bf16(relu(lo), relu(hi)) in one instruction (cvt.rn.relu: rounded,
+// then negatives clamped to 0)
+__device__ __forceinline__ unsigned pack_relu_bf16(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
 
 // The four warpgroups' asynchronous copies of the block (cp.async, mma.cuh).
 // nbytes (a multiple of 16) contiguous bytes; not committed.
 __device__ inline void copy_async(void* dst, const void* src, int nbytes) {
-  for (int o = threadIdx.x * 16; o < nbytes; o += kTcThreads * 16)
+  for (int o = (threadIdx.x + opaque_zero()) * 16; o < nbytes; o += kTcThreads * 16)
     tc::cp_async16(static_cast<char*>(dst) + o, static_cast<const char*>(src) + o, true);
 }
 
 // Rows [0, R) of a packed W^T (row stride kp bf16, a multiple of 16) into
-// ceil(kp / 64) blocks of R rows x 64 columns, 128-byte swizzled (mma.cuh):
-// the K-major B operand of Y = X W. Not committed.
+// ceil(kp / 64) column blocks of R rows, swizzled (tc::stage_sw; the depth
+// from kp to the next multiple of 64 zero): the K-major B operand of Y = X
+// W. Not committed.
 __device__ inline void stage_wt(bf16* dst, const bf16* P, int R, int kp) {
-  const int cpr = kp / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < R * cpr; idx += kTcThreads) {
-    const int r = idx / cpr, k8 = idx % cpr;
-    tc::cp_async16(dst + (k8 >> 3) * R * 64 + r * 64 + (((k8 & 7) ^ (r & 7)) << 3),
-                   P + (size_t)r * kp + k8 * 8, true);
-  }
+  tc::stage_sw(dst, P, kp, 0, R, R, 0, (kp + 63) / 64, kp, threadIdx.x + opaque_zero(),
+               kTcThreads);
 }
 
 // Wait for every copy in flight, make it visible to wgmma's reads, and
@@ -696,17 +796,10 @@ __device__ inline void wait_staged() {
   __syncthreads();
 }
 
-// Element (r, c) of an R x kNF matrix in the 128-byte swizzled layout of
-// mma.cuh (64-column blocks of R rows; 16-byte chunk q of row r at q ^ r % 8).
-__device__ __forceinline__ int sw(int r, int c, int R = 128) {
-  return (c >> 6) * (R * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
-}
+// The node-sized A operands (EFF, AGG) are swizzled matrices of 128 rows.
+constexpr int kNodeRows = 128;
 
-// The descriptor of a K-major k16 slice (ks) at row r0 of a swizzled matrix
-// of R rows (a staged W^T, or EFF / AGG with R = 128).
-__device__ __forceinline__ uint64_t sw_desc(const bf16* m, int R, int r0, int ks) {
-  return tc::desc_sw128(m + (ks >> 2) * R * 64 + r0 * 64 + (ks & 3) * 16, 16, 1024);
-}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   tc::wgmma_m64n64k16<0, 0>(d, da, db, acc);
 }
@@ -729,7 +822,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
 template <int TN, typename Pre, typename Epi>
 __device__ void node_product(const bf16* X, int M, const bf16* Wsw, int R, int ncols, bool sync,
                              Pre pre, Epi epi) {
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x + opaque_zero();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int ntn = ncols / TN, tiles = (M + 63) / 64 * ntn;
   const bool mine = wg < tiles;  // warpgroup-uniform
   const int t = wg % tiles, m0 = (t / ntn) * 64, n0 = (t % ntn) * TN;
@@ -737,7 +831,7 @@ __device__ void node_product(const bf16* X, int M, const bf16* Wsw, int R, int n
   tc::wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < kNF / 16; ++ks)
-    wgmma_ss(acc, sw_desc(X, 128, m0, ks), sw_desc(Wsw, R, n0, ks), ks > 0);
+    wgmma_ss(acc, tc::sw128_desc(X, kNodeRows, m0, ks), tc::sw128_desc(Wsw, R, n0, ks), ks > 0);
   tc::wgmma_commit();
   tc::wgmma_wait0();
   tc::fence_regs(acc);
@@ -755,30 +849,75 @@ __device__ void node_product(const bf16* X, int M, const bf16* Wsw, int R, int n
   __syncthreads();
 }
 
-struct LayerWeights {
-  const bf16* w[4];
-};
-
 struct EdgeGraph {
-  int E, K, n_p, N, rel_in, nh3;
+  int E, K, n_p, N;
   const short* ER;
   const short* NBR;
   const int* OFF;
   const float* VALID;
-  const float* SN;
+  const bf16* NR;
 };
 
-// Relation input `col` of edge e (receiver i, sender j): [obj_i, eef_i, obj_j,
-// eef_j, |obj_i - obj_j|, sn_i - sn_j]; 0 past the last edge or column.
-__device__ __forceinline__ float edge_feature(const EdgeGraph& g, int e, int i, int j, int col) {
-  if (e >= g.E || col >= g.rel_in) return 0.f;
-  const float oi = (i < g.n_p) ? g.VALID[i] : 0.f, oj = (j < g.n_p) ? g.VALID[j] : 0.f;
-  if (col == 0) return oi;
-  if (col == 1) return (i >= g.n_p && i < g.N) ? 1.f : 0.f;
-  if (col == 2) return oj;
-  if (col == 3) return (j >= g.n_p && j < g.N) ? 1.f : 0.f;
-  if (col == 4) return fabsf(oi - oj);
-  return rnd<bf16>(g.SN[i * g.nh3 + col - 5] - g.SN[j * g.nh3 + col - 5]);
+// The node rows of the relation inputs, NR (Np x kNodeRow bf16): row i
+// holds zeros in columns [0, 5), i's history features of the newest n_his
+// frames (ring slot `start` the oldest), rounded to bf16, in columns [5, 5 +
+// 3 n_his), and zeros after. An edge's inputs from column 5 on are its
+// receiver's row minus its sender's (edge_inputs). No barrier.
+__device__ inline void node_rows(const Dims& d, const float* HIST, int start, bf16* NR) {
+  const int tid = threadIdx.x + opaque_zero();
+  const int n_his = d.n_his, n_slots = n_his + 1, frame = d.Np * 3;
+  // this thread's column of every row it writes: history frame h's coordinate c
+  const int q = tid % kNodeRow - 5, h = q / 3, c = q - 3 * h;
+  const bool diff = q >= 0 && h < n_his - 1, newest = q >= 0 && h == n_his - 1;
+  const float* f0 = HIST + ((start + (diff ? h : n_his - 1)) % n_slots) * frame + c;
+  const float* f1 = HIST + ((start + h + 1) % n_slots) * frame + c;
+  for (int i = tid / kNodeRow; i < d.Np; i += kTcThreads / kNodeRow) {
+    float v = 0.f;
+    if (diff) v = __fsub_rn(f1[i * 3], f0[i * 3]);
+    else if (newest) v = f0[i * 3];
+    NR[i * kNodeRow + tid % kNodeRow] = __float2bfloat16_rn(v);
+  }
+}
+
+// rnd(a - b) for two bf16 pairs in one instruction (sub.rn.bf16x2: the
+// exact difference rounded once, which is what rounding the float32
+// difference gives: that is exact, or lies far from a bf16 rounding
+// boundary)
+__device__ __forceinline__ unsigned sub_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// The relation inputs of edge rows [e0, e0 + 64) (zero past E) into the
+// first 32 columns of A, the warpgroup's swizzled 64-row tile: for receiver
+// i and sender j, [obj_i, eef_i, obj_j, eef_j, |obj_i - obj_j|, sn_i - sn_j]
+// rounded to bf16, sn_i - sn_j (and the zeros after it) as the difference of
+// the node rows NR[i] - NR[j]. Thread t of the warpgroup writes the 16-byte
+// chunks 2 (t % 2) and 2 (t % 2) + 1 of row t / 2. No barrier.
+__device__ __forceinline__ void edge_inputs(const EdgeGraph& g, int e0, bf16* A) {
+  const int t = threadIdx.x & 127, r = t >> 1, h = t & 1, e = e0 + r;
+  uint4 v[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+  if (e < g.E) {
+    const int i = g.ER[e], j = g.NBR[i * g.K + (e - g.OFF[i])];
+    const uint4* ri = reinterpret_cast<const uint4*>(g.NR + i * kNodeRow) + 2 * h;
+    const uint4* rj = reinterpret_cast<const uint4*>(g.NR + j * kNodeRow) + 2 * h;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint4 a = ri[q], b = rj[q];
+      v[q] = make_uint4(sub_bf16x2(a.x, b.x), sub_bf16x2(a.y, b.y), sub_bf16x2(a.z, b.z),
+                        sub_bf16x2(a.w, b.w));
+    }
+    if (h == 0) {  // columns 0 .. 4
+      const float oi = (i < g.n_p) ? g.VALID[i] : 0.f, oj = (j < g.n_p) ? g.VALID[j] : 0.f;
+      v[0].x = pack_bf16(oi, (i >= g.n_p && i < g.N) ? 1.f : 0.f);
+      v[0].y = pack_bf16(oj, (j >= g.n_p && j < g.N) ? 1.f : 0.f);
+      v[0].z = (v[0].z & 0xffff0000u) | (pack_bf16(fabsf(oi - oj), 0.f) & 0xffffu);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    *reinterpret_cast<uint4*>(A + tc::sw128(r, 8 * (2 * h + q), 64)) = v[q];
 }
 
 // a barrier of the 128 threads of warpgroup wg (named barrier 1 + wg)
@@ -786,111 +925,226 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 }
 
-// rel_base[e] = (relu-MLP3(relation inputs of e)) @ W1 + b for the E real
-// edges. w: the four layers' staged W^T (re0 32 deep, zero past the relation
-// inputs, then re1, re2, rp_w1); bias: their four biases as float, kNF
-// apart. Each warpgroup takes 64 rows of every 256-edge tile (warp w rows
-// 16w.. of them; rows past E compute and are dropped) through the four
-// layers: a layer is one 64 x 128 product, its eight k-steps issued back to
-// back and waited for once; after bias, relu and rounding to bf16 its
-// output goes to the warpgroup's own 64 x 128 activation tile in shared
-// memory (abuf + 16 KB per warpgroup, swizzled), the next layer's A. (With A
-// in registers, the 128 registers a thread has in a 512-thread block cannot
-// hold a layer's A fragments and its 64 accumulators beside the kernel's
-// own state: ptxas serialised the products and spilled.) Only warpgroup
-// barriers.
-__device__ void relation_mlp(const EdgeGraph& g, const LayerWeights& lw, const float* bias,
-                             bf16* relbase, bf16* abuf) {
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, t4 = lane & 3;
-  bf16* A = abuf + wg * 64 * kNF;
-  const int ra = warp * 16 + gid, rb = ra + 8;  // this thread's rows of the tile
-  const auto put = [&](int r, int c, unsigned v) {
-    *reinterpret_cast<unsigned*>(A + sw(r, c, 64)) = v;
-  };
-  const int ntiles = __shfl_sync(kFull, (g.E + 4 * 64 - 1) / (4 * 64), 0);
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int ea = tile * 4 * 64 + wg * 64 + ra, eb = ea + 8;
-    {
-      int ia = 0, ja = 0, ib = 0, jb = 0;
-      if (ea < g.E) { ia = g.ER[ea]; ja = g.NBR[ia * g.K + (ea - g.OFF[ia])]; }
-      if (eb < g.E) { ib = g.ER[eb]; jb = g.NBR[ib * g.K + (eb - g.OFF[ib])]; }
+// Rows [e0, e0 + 64) of rel_base that lie below E, from the warpgroup's
+// swizzled 64-row tile A, 16 bytes a store: sixteen threads write a row's
+// 256 contiguous bytes. No barrier.
+__device__ __forceinline__ void store_rows(const bf16* A, bf16* relbase, int e0, int E) {
+  const int t = (threadIdx.x + opaque_zero()) & 127;
 #pragma unroll
-      for (int c = 2 * t4; c < 32; c += 8) {
-        put(ra, c, pack_bf16(edge_feature(g, ea, ia, ja, c), edge_feature(g, ea, ia, ja, c + 1)));
-        put(rb, c, pack_bf16(edge_feature(g, eb, ib, jb, c), edge_feature(g, eb, ib, jb, c + 1)));
-      }
-    }
+  for (int k = 0; k < 8; ++k) {
+    const int r = 8 * k + (t >> 4), c = (t & 15) * 8;
+    if (e0 + r < E)
+      *reinterpret_cast<uint4*>(relbase + (size_t)(e0 + r) * kNF + c) =
+          *reinterpret_cast<const uint4*>(A + tc::sw128(r, c, 64));
+  }
+}
+
+// This substep's edge lists and node rows (see TcBlock), from the layout
+// in shared memory, with `sm` the 1,024-aligned base.
+__device__ __forceinline__ EdgeGraph edge_graph(const TcBlock& tb, unsigned char* sm) {
+  const TcLayout& L = tb.L;
+  return EdgeGraph{tb.E,
+                   tb.d.K,
+                   tb.d.n_p,
+                   tb.d.N,
+                   reinterpret_cast<const short*>(sm + L.er),
+                   reinterpret_cast<const short*>(sm + L.nbr),
+                   reinterpret_cast<const int*>(sm + L.off),
+                   reinterpret_cast<const float*>(sm + L.valid),
+                   reinterpret_cast<const bf16*>(sm + L.nr)};
+}
+
+// the relation MLP's staged W^T, layer by layer: re0 in STG (32 deep, zero
+// past the relation inputs), re1 | re2 in X, rp_w1 in WB
+__host__ __device__ constexpr int rel_w(int L) {
+  return L == 0 ? kOffSTG : L == 1 ? kOffX : L == 2 ? kOffX + kWBytes : kOffWB;
+}
+
+// rel_base[e] = (relu-MLP3(relation inputs of e)) @ W1 + b for the tb.E real
+// edges of this substep, with the four layers' weights staged (rel_w) and
+// their biases in the BIAS region (kBre0 on, kNF apart). Each warpgroup
+// takes 64 rows of every 256-edge tile (warp w rows 16w.. of them; rows
+// past E compute and are dropped) through the four layers: a layer is one
+// 64 x 128 product, its k-steps issued back to back and waited for once.
+// re0 reads the tile's relation inputs from the warpgroup's own swizzled
+// 64-row tile in shared memory (EFF or AGG, 16 KB per warpgroup); after
+// bias, relu and rounding to bf16 a layer's accumulators become the next
+// layer's A in registers (32 a thread: wgmma with A from registers), and
+// the last layer's, rel_base, go to the tile and leave it by store_rows.
+// The products are short beside the epilogues, which set the pace, and the
+// four warpgroups overlap one another's. What a tile needs comes from
+// shared memory (tb) where it is used.
+__device__ __forceinline__ void relation_mlp(const Params& p, const TcBlock& tb,
+                                             unsigned char* smem, SubClock& sc) {
+  const int ntiles = __shfl_sync(kFull, (tb.E + 4 * 64 - 1) / (4 * 64), 0);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    unsigned char* const sm = smem + opaque_zero();  // see opaque_zero
+    const int tid = threadIdx.x + opaque_zero();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, gid = lane >> 2, t4 = lane & 3;
+    bf16* const A = reinterpret_cast<bf16*>(sm + kOffEff) + wg * 64 * kNF;
+    const int e0 = tile * 4 * 64 + wg * 64;
+    sc.start();
+    edge_inputs(edge_graph(tb, sm), e0, A);
+    tc::fence_proxy_async();
+    wg_sync(wg);  // the tile's relation inputs are written
+    sc.mark(kRelInputs);
+    uint32_t a[8][4];  // layers 1 .. 3: A, rows of the thread (wgmma_m64n128k16_rs)
 #pragma unroll  // a run-time L under the re0 test would serialise the products
     for (int L = 0; L < 4; ++L) {
-      tc::fence_proxy_async();
-      wg_sync(wg);  // the tile's A is written
+      // the weights at fixed offsets from the base: their descriptors are uniform
+      const bf16* const W = reinterpret_cast<const bf16*>(smem + rel_w(L));
       float acc[64];
       tc::wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks)
-        if (L > 0 || ks < 2)
-          tc::wgmma_m64n128k16_ss(acc, sw_desc(A, 64, 0, ks), sw_desc(lw.w[L], kNF, 0, ks),
-                                  ks > 0);
+      for (int ks = 0; ks < 8; ++ks) {
+        if (L == 0 && ks < 2)
+          tc::wgmma_m64n128k16_ss(acc, tc::sw128_desc(A, 64, 0, ks),
+                                  tc::sw128_desc(W, kNF, 0, ks), ks > 0);
+        else if (L > 0)
+          tc::wgmma_m64n128k16_rs(acc, a[ks], tc::sw128_desc(W, kNF, 0, ks), ks > 0);
+      }
       tc::wgmma_commit();
       tc::wgmma_wait0();
       tc::fence_regs(acc);
-      const float* bl = bias + L * kNF;
+      tc::fence_regs(a);
+      sc.mark(kRelProducts);
+      const float* bl = reinterpret_cast<const float*>(sm + tb.L.bias) + kBre0 + L * kNF;
+      if (L < 3) {  // ReLU, round: the next layer's A
 #pragma unroll
-      for (int nt = 0; nt < kNF / 8; ++nt) {
-        const int c = nt * 8 + 2 * t4;
-        const float2 bb = *reinterpret_cast<const float2*>(bl + c);
-        const float* y = acc + 4 * nt;  // rows ra, rb; columns c, c + 1
-        if (L < 3) {  // ReLU, round: the next layer's A
-          put(ra, c, pack_bf16(relu(y[0] + bb.x), relu(y[1] + bb.y)));
-          put(rb, c, pack_bf16(relu(y[2] + bb.x), relu(y[3] + bb.y)));
-        } else {  // rel_base, rounded to bf16
-          if (ea < g.E)
-            *reinterpret_cast<unsigned*>(relbase + (size_t)ea * kNF + c) =
-                pack_bf16(y[0] + bb.x, y[1] + bb.y);
-          if (eb < g.E)
-            *reinterpret_cast<unsigned*>(relbase + (size_t)eb * kNF + c) =
-                pack_bf16(y[2] + bb.x, y[3] + bb.y);
+        for (int nt = 0; nt < kNF / 8; ++nt) {
+          const float2 bb = *reinterpret_cast<const float2*>(bl + nt * 8 + 2 * t4);
+          const float* y = acc + 4 * nt;  // rows gid, gid + 8; columns 8 nt + 2 t4 ..
+          a[nt >> 1][2 * (nt & 1)] = pack_relu_bf16(y[0] + bb.x, y[1] + bb.y);
+          a[nt >> 1][2 * (nt & 1) + 1] = pack_relu_bf16(y[2] + bb.x, y[3] + bb.y);
+        }
+      } else {  // rel_base, rounded to bf16, into the tile
+        unsigned w[2][kNF / 8];  // rows warp * 16 + gid (+ 8), columns 8 nt + 2 t4 ..
+#pragma unroll
+        for (int nt = 0; nt < kNF / 8; ++nt) {
+          const float2 bb = *reinterpret_cast<const float2*>(bl + nt * 8 + 2 * t4);
+          const float* y = acc + 4 * nt;
+          w[0][nt] = pack_bf16(y[0] + bb.x, y[1] + bb.y);
+          w[1][nt] = pack_bf16(y[2] + bb.x, y[3] + bb.y);
+        }
+        // row warp * 16 + gid's 16-byte chunk q of a 64-column block lies at q ^
+        // gid (tc::sw128); the row 8 below, 512 elements on
+        bf16* const row = A + (warp * 16 + gid) * 64 + 2 * t4;
+#pragma unroll
+        for (int nt = 0; nt < kNF / 8; ++nt) {
+          bf16* const at = row + (nt >> 3) * 64 * 64 + (((nt & 7) ^ gid) << 3);
+          *reinterpret_cast<unsigned*>(at) = w[0][nt];
+          *reinterpret_cast<unsigned*>(at + 8 * 64) = w[1][nt];
         }
       }
+      sc.mark(kRelEpilogues);
     }
+    wg_sync(wg);  // the tile holds rel_base's rows
+    store_rows(A, static_cast<bf16*>(p.relbase) + (size_t)blockIdx.x * tb.d.Np * tb.d.K * kNF,
+               e0, tb.E);
+    wg_sync(wg);  // ... read: the next tile's inputs may overwrite them
+    sc.mark(kRelEpilogues);
   }
+}
+
+// Two bf16 pairs in 32-bit words: rnd(a + b), one rounding (add.rn.bf16x2,
+// as rnd(float(a) + float(b))), and relu(rnd(a + b)) (fma.rn.relu: a * 1 +
+// b, negatives clamped to 0).
+__device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned add_relu_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("fma.rn.relu.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(0x3f803f80u), "r"(b));
+  return d;
+}
+
+// acc[c] += relu(rnd(rnd(r + recv) + sd)) for the kCPT channels of three
+// 16-byte rows (bf16 pairs; the low half of a word is the lower channel).
+// An sd of -inf adds relu(-inf) = 0, which leaves the sums (a zero's sign
+// never shows in them) as they are.
+__device__ __forceinline__ void add_messages(float (&acc)[kCPT], const uint4& r, const uint4& recv,
+                                             const uint4& sd) {
+  const unsigned rw[4] = {r.x, r.y, r.z, r.w}, vw[4] = {recv.x, recv.y, recv.z, recv.w};
+  const unsigned sw[4] = {sd.x, sd.y, sd.z, sd.w};
+#pragma unroll
+  for (int q = 0; q < kCPT / 2; ++q) {
+    const unsigned m = add_relu_bf16x2(add_bf16x2(rw[q], vw[q]), sw[q]);
+    acc[2 * q] += __uint_as_float(m << 16);
+    acc[2 * q + 1] += __uint_as_float(m & 0xffff0000u);
+  }
+}
+
+// A thread's 16 bytes of rel_base rows e .. e + kRowsAhead - 1 (rows of
+// kNF, from `rows`, in global memory), one predicated 16-byte global load
+// each (the same load written in C++ compiled to four 4-byte generic loads);
+// rows from `end` on are not read, and r keeps what it held there.
+__device__ __forceinline__ void load_rows(uint4 (&r)[kRowsAhead], const bf16* rows, int e,
+                                          int end) {
+  const bf16* p = rows + (size_t)e * kNF;
+#pragma unroll
+  for (int k = 0; k < kRowsAhead; ++k)
+    asm volatile(
+        "{\n.reg .pred q;\nsetp.lt.s32 q, %4, %5;\n"
+        "@q ld.global.v4.u32 {%0, %1, %2, %3}, [%6];\n}\n"
+        : "+r"(r[k].x), "+r"(r[k].y), "+r"(r[k].z), "+r"(r[k].w)
+        : "r"(e + k), "r"(end), "l"(p + k * kNF));
 }
 
 // agg[i] = sum over i's edges, in slot order, of relu(rel_base[e] + recv[i]
 // + send[j]) for every receiver i < N, rounded to bf16 into AGG. RS: (Np,
 // 2 kNF) [recv | send]; rel_base is read from global memory, kTPR threads
-// per receiver and kCPT channels per thread. It first waits for all but the
-// newest group of cp.async copies in flight. Every thread calls it; it ends
-// with a barrier.
-__device__ void aggregate(const bf16* RS, const bf16* relbase, int N, const int* OFF,
-                          const short* NBR, int K, bf16* AGG) {
-  tc::cp_async_wait<1>();  // all but the newest group of cp.async copies
+// per receiver and kCPT channels (16 bytes) per thread. A receiver's edges
+// are contiguous rows of rel_base: a thread loads its 16 bytes of
+// kRowsAhead of them at once (load_rows), then sums them in slot order; a
+// slot past the receiver's edges sums with the -inf row NINF for send and
+// adds 0, so that no branch splits a warp's two receivers. It first waits
+// for the cp.async copies in flight but the newest group (`first`: the
+// newest two). Every thread calls it; it ends with a barrier.
+__device__ __forceinline__ void aggregate(const bf16* RS, const bf16* relbase, int N,
+                                          const int* OFF, const short* NBR, int K,
+                                          const bf16* NINF, bf16* AGG, bool first, SubClock& sc) {
+  sc.start();
+  if (first)
+    tc::cp_async_wait<2>();  // all but the newest two groups of cp.async copies
+  else
+    tc::cp_async_wait<1>();  // ... the newest one
   __syncthreads();
-  const int c0 = (threadIdx.x % kTPR) * kCPT;
-  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
-  for (int i = threadIdx.x / kTPR; i < N; i += kRecvPerPass) {
-    const Channels recv = *reinterpret_cast<const Channels*>(RS + i * 2 * kNF + c0);
-    float acc[kCPT] = {};
-    const int ebeg = OFF[i], eend = OFF[i + 1];
-#pragma unroll 4
-    for (int e = ebeg; e < eend; ++e) {
-      const int j = NBR[i * K + (e - ebeg)];
-      const Channels r = *reinterpret_cast<const Channels*>(relbase + (size_t)e * kNF + c0);
-      const Channels sd = *reinterpret_cast<const Channels*>(RS + j * 2 * kNF + kNF + c0);
-      // bf16x2 adds round once, as rnd(float(a) + float(b)) does for bf16 inputs
+  sc.mark(kAggRows);
+  const int tid = threadIdx.x + opaque_zero();
+  const int c0 = (tid % kTPR) * kCPT;
+  const bf16* rows = relbase + c0;
+  const bf16* send = RS + kNF + c0;
+  const bf16* ninf = NINF + c0;
+  uint4 r[kRowsAhead];
 #pragma unroll
-      for (int q = 0; q < kCPT / 2; ++q) {
-        const float2 f =
-            __bfloat1622float2(__hmax2(__hadd2(__hadd2(r.v[q], recv.v[q]), sd.v[q]), zero));
-        acc[2 * q] += f.x;
-        acc[2 * q + 1] += f.y;
+  for (int k = 0; k < kRowsAhead; ++k) r[k] = make_uint4(0, 0, 0, 0);  // finite where unread
+  for (int i = tid / kTPR; i < N; i += kRecvPerPass) {
+    const int ebeg = OFF[i], eend = OFF[i + 1];
+    const short* nbr = NBR + i * K - ebeg;  // nbr[e]: edge e's sender
+    const uint4 recv = *reinterpret_cast<const uint4*>(RS + i * 2 * kNF + c0);
+    float acc[kCPT] = {};
+    for (int e = ebeg; e < eend; e += kRowsAhead) {
+      load_rows(r, rows, e, eend);
+#pragma unroll
+      for (int k = 0; k < kRowsAhead; ++k) {
+        const bool on = e + k < eend;
+        const bf16* sd = on ? send + nbr[e + k] * 2 * kNF : ninf;
+        add_messages(acc, r[k], recv, *reinterpret_cast<const uint4*>(sd));
+        if (k == 0) {  // the rows are in
+          acc[0] = arrived(acc[0]);
+          sc.mark(kAggRows);
+        }
       }
     }
-    Channels out;
-#pragma unroll
-    for (int q = 0; q < kCPT / 2; ++q) out.v[q] = __floats2bfloat162_rn(acc[2 * q], acc[2 * q + 1]);
-    *reinterpret_cast<Channels*>(AGG + sw(i, c0)) = out;
+    uint4 out;
+    out.x = pack_bf16(acc[0], acc[1]);
+    out.y = pack_bf16(acc[2], acc[3]);
+    out.z = pack_bf16(acc[4], acc[5]);
+    out.w = pack_bf16(acc[6], acc[7]);
+    *reinterpret_cast<uint4*>(AGG + tc::sw128(i, c0, kNodeRows)) = out;
+    sc.mark(kAggSums);
   }
   tc::fence_proxy_async();  // AGG is the update's A operand
   __syncthreads();
@@ -899,129 +1153,146 @@ __device__ void aggregate(const bf16* RS, const bf16* relbase, int N, const int*
 __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_raw) {
   const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
   unsigned char* smem = smem_raw + ((1024u - (base & 1023u)) & 1023u);  // for the swizzle
-  const Dims d = p.d;
-  const TcLayout L = make_tc_layout(d);
-  bf16* X = reinterpret_cast<bf16*>(smem + L.X);
-  bf16* WB = reinterpret_cast<bf16*>(smem + L.WB);
-  bf16* STG = reinterpret_cast<bf16*>(smem + L.STG);
-  bf16* EFF = reinterpret_cast<bf16*>(smem + L.eff);
-  bf16* AGG = reinterpret_cast<bf16*>(smem + L.agg);
-  float* BIAS = reinterpret_cast<float*>(smem + L.bias);
-  float* HIST = reinterpret_cast<float*>(smem + L.hist);
-  float* SN = reinterpret_cast<float*>(smem + L.sn);
-  float* ACT = reinterpret_cast<float*>(smem + L.act);
-  float* REC = reinterpret_cast<float*>(smem + L.rec);
-  float* VALID = reinterpret_cast<float*>(smem + L.valid);
-  float* RED = reinterpret_cast<float*>(smem + L.red);
-  int* CNT = reinterpret_cast<int*>(smem + L.cnt);
-  int* OFF = reinterpret_cast<int*>(smem + L.off);
-  short* NBR = reinterpret_cast<short*>(smem + L.nbr);
-  short* ER = reinterpret_cast<short*>(smem + L.er);
+  __shared__ TcBlock tb;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  if (tid == 0) {
+    s_zero = 0;
+    tb.d = p.d;
+    tb.L = make_tc_layout(p.d);
+    tb.rep = p.repeat[b];
+    tb.rmax = min(tb.rep, p.max_repeat);
+  }
+  __syncthreads();
+  const Dims& d = tb.d;
+  const TcLayout& L = tb.L;
+  // the big regions lie at fixed offsets; the small state's, read from L
+  bf16* const X = reinterpret_cast<bf16*>(smem + kOffX);
+  bf16* const W2 = X + kNF * kNF;  // X's second 128 x 128 weight
+  bf16* const WB = reinterpret_cast<bf16*>(smem + kOffWB);
+  bf16* const EFF = reinterpret_cast<bf16*>(smem + kOffEff);
+  bf16* const AGG = reinterpret_cast<bf16*>(smem + kOffAgg);
+  bf16* const STG = reinterpret_cast<bf16*>(smem + kOffSTG);
+  const auto BIAS = [&] { return reinterpret_cast<float*>(smem + L.bias); };
+  const auto HIST = [&] { return reinterpret_cast<float*>(smem + L.hist); };
+  const auto VALID = [&] { return reinterpret_cast<float*>(smem + L.valid); };
+  const auto ACT = [&] { return reinterpret_cast<float*>(smem + L.act); };
+  const auto REC = [&] { return reinterpret_cast<float*>(smem + L.rec); };
+  const auto CNT = [&] { return reinterpret_cast<int*>(smem + L.cnt); };
+  const auto OFF = [&] { return reinterpret_cast<int*>(smem + L.off); };
+  const auto NBR = [&] { return reinterpret_cast<short*>(smem + L.nbr); };
+  const auto ER = [&] { return reinterpret_cast<short*>(smem + L.er); };
+  // this sample's scratch in global memory
+  const auto relbase = [&] { return static_cast<bf16*>(p.relbase) + (size_t)b * d.Np * d.K * kNF; };
+  const auto penc = [&] { return static_cast<bf16*>(p.penc) + (size_t)b * d.Np * kNF; };
+  const auto pbase = [&] { return static_cast<bf16*>(p.pbase) + (size_t)b * d.Np * kNF; };
+  const auto rs1 = [&] { return static_cast<bf16*>(p.rs1) + (size_t)b * d.Np * 2 * kNF; };
+  // ring slot h of the history (frames of Np rows)
+  const auto frame = [&](int h) { return HIST() + (h % (d.n_his + 1)) * d.Np * 3; };
 
   constexpr int kThr = kTcThreads;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int Np = d.Np, N = d.N, n_p = d.n_p, K = d.K, n_his = d.n_his;
-  const int nh3 = n_his * 3, frame = Np * 3, n_slots = n_his + 1;
-  const int rin16 = round_to(d.rel_in, 16);
   const bf16* const* W = reinterpret_cast<const bf16* const*>(p.w);
   const bf16* const* P = reinterpret_cast<const bf16* const*>(p.tcw);
-  const bf16* pin = static_cast<const bf16*>(p.pin) + (size_t)b * Np * d.Dp;
-  bf16* relbase = static_cast<bf16*>(p.relbase) + (size_t)b * Np * K * kNF;
-  bf16* penc = static_cast<bf16*>(p.penc) + (size_t)b * Np * kNF;
-  bf16* pbase = static_cast<bf16*>(p.pbase) + (size_t)b * Np * kNF;
-  bf16* rs1 = static_cast<bf16*>(p.rs1) + (size_t)b * Np * 2 * kNF;
-  bf16* const W2 = X + kNF * kNF;  // X's second 128 x 128 weight
   const auto none = [] {};
-  // the relation encoder and rel_base layer: re1 | re2 in X, rp_w1 in WB, re0 in STG
-  const LayerWeights rel_w{{STG, X, W2, WB}};
-  const auto stage_relation = [&] {
+  const auto stage_relation = [&] {  // re1 | re2 in X, rp_w1 in WB, re0 in STG
     stage_wt(X, P[kRe1], kNF, kNF);
     stage_wt(W2, P[kRe2], kNF, kNF);
     stage_wt(WB, P[kRpW1], kNF, kNF);
-    stage_wt(STG, P[kRe0], kNF, rin16);
+    stage_wt(STG, P[kRe0], kNF, round_to(d.rel_in, 16));  // re0's depth past the inputs: 0
     tc::cp_async_commit();
-    for (int r = tid; r < kNF * (32 - rin16) / 8; r += kThr) {  // re0's depth past rin16: 0
-      const int row = r / ((32 - rin16) / 8), k8 = rin16 / 8 + r % ((32 - rin16) / 8);
-      *reinterpret_cast<uint4*>(STG + row * 64 + ((k8 ^ (row & 7)) << 3)) = make_uint4(0, 0, 0, 0);
-    }
   };
   PhaseClock clk(p, b);
+  SubClock sc(p, b);
 
   // ---- inputs; the biases and the head's last layer as float ----
   stage_wt(X, P[kPe1], kNF, kNF);
   stage_wt(W2, P[kPe2], kNF, kNF);
   stage_wt(WB, P[kPpWa], kNF, kNF);
   tc::cp_async_commit();
-  load_inputs<kThr>(p, b, VALID, HIST, ACT, REC);
+  load_inputs<kThr>(p, b, VALID(), HIST(), ACT(), REC());
+  if (tid < kNF / 2)
+    reinterpret_cast<unsigned*>(smem + L.ninf)[tid] = 0xff80ff80u;  // bf16 -inf pairs
   {
     const bf16* src[10] = {W[1], W[3], W[5], W[7], W[9], W[11], W[14], W[17], W[19], W[21]};
+    float* bias = BIAS();
     for (int idx = tid; idx < 10 * kNF; idx += kThr)
-      BIAS[idx] = __bfloat162float(src[idx / kNF][idx % kNF]);
+      bias[idx] = __bfloat162float(src[idx / kNF][idx % kNF]);
     for (int idx = tid; idx < 3 * kNF; idx += kThr)
-      BIAS[kWnr2 + idx] = __bfloat162float(W[22][idx]);
-    if (tid < 3) BIAS[kBnr2 + tid] = __bfloat162float(W[23][tid]);
+      bias[kWnr2 + idx] = __bfloat162float(W[22][idx]);
+    if (tid < 3) bias[kBnr2 + tid] = __bfloat162float(W[23][tid]);
   }
   __syncthreads();
 
   // ---- once per push: particle encoder, the propagator's constant term and
   // round 1's recv|send ----
   // pe0 on the CUDA cores: its Dp inputs are a few
-  for (int idx = tid; idx < N * kNF; idx += kThr) {
-    const int r = idx / kNF, c = idx % kNF;
-    float s = 0.f;
-    for (int k = 0; k < d.Dp; ++k)
-      s = fmaf(__bfloat162float(pin[r * d.Dp + k]), __bfloat162float(W[0][k * kNF + c]), s);
-    EFF[sw(r, c)] = __float2bfloat16_rn(relu(s + BIAS[kBpe0 + c]));
+  {
+    const bf16* pin = static_cast<const bf16*>(p.pin) + (size_t)b * d.Np * d.Dp;
+    const float* bias = BIAS();
+    for (int idx = tid; idx < d.N * kNF; idx += kThr) {
+      const int r = idx / kNF, c = idx % kNF;
+      float s = 0.f;
+      for (int k = 0; k < d.Dp; ++k)
+        s = fmaf(__bfloat162float(pin[r * d.Dp + k]), __bfloat162float(W[0][k * kNF + c]), s);
+      EFF[tc::sw128(r, c, kNodeRows)] = __float2bfloat16_rn(relu(s + bias[kBpe0 + c]));
+    }
   }
   wait_staged();
-  node_product<64>(EFF, N, X, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-    *reinterpret_cast<unsigned*>(AGG + sw(r, c)) =
-        pack_bf16(relu(v0 + BIAS[kBpe1 + c]), relu(v1 + BIAS[kBpe1 + c + 1]));
-  });
-  node_product<64>(AGG, N, W2, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-    const unsigned v = pack_bf16(relu(v0 + BIAS[kBpe2 + c]), relu(v1 + BIAS[kBpe2 + c + 1]));
-    *reinterpret_cast<unsigned*>(EFF + sw(r, c)) = v;
-    *reinterpret_cast<unsigned*>(penc + r * kNF + c) = v;
-  });
-  stage_wt(X, P[kRpW23], 2 * kNF, kNF);
-  tc::cp_async_commit();
-  node_product<64>(EFF, N, WB, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-    *reinterpret_cast<unsigned*>(pbase + r * kNF + c) =
-        pack_bf16(v0 + BIAS[kBpp + c], v1 + BIAS[kBpp + c + 1]);
-  });
-  wait_staged();
-  node_product<128>(EFF, N, X, 2 * kNF, 2 * kNF, false, none,
-                    [=](int r, int c, float v0, float v1) {
-                      *reinterpret_cast<unsigned*>(rs1 + r * 2 * kNF + c) = pack_bf16(v0, v1);
-                    });
+  {  // the epilogues' pointers, taken once (see TcBlock)
+    const float* bpe1 = BIAS() + kBpe1;
+    const float* bpe2 = BIAS() + kBpe2;
+    const float* bpp = BIAS() + kBpp;
+    bf16* const pe = penc();
+    bf16* const pb = pbase();
+    bf16* const rs = rs1();
+    node_product<64>(EFF, d.N, X, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
+      *reinterpret_cast<unsigned*>(AGG + tc::sw128(r, c, kNodeRows)) =
+          pack_bf16(relu(v0 + bpe1[c]), relu(v1 + bpe1[c + 1]));
+    });
+    node_product<64>(AGG, d.N, W2, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
+      const unsigned v = pack_bf16(relu(v0 + bpe2[c]), relu(v1 + bpe2[c + 1]));
+      *reinterpret_cast<unsigned*>(EFF + tc::sw128(r, c, kNodeRows)) = v;
+      *reinterpret_cast<unsigned*>(pe + r * kNF + c) = v;
+    });
+    stage_wt(X, P[kRpW23], 2 * kNF, kNF);
+    tc::cp_async_commit();
+    node_product<64>(EFF, d.N, WB, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
+      *reinterpret_cast<unsigned*>(pb + r * kNF + c) = pack_bf16(v0 + bpp[c], v1 + bpp[c + 1]);
+    });
+    wait_staged();
+    node_product<128>(EFF, d.N, X, 2 * kNF, 2 * kNF, false, none,
+                      [=](int r, int c, float v0, float v1) {
+                        *reinterpret_cast<unsigned*>(rs + r * 2 * kNF + c) = pack_bf16(v0, v1);
+                      });
+  }
   stage_relation();
   clk.mark(kEncoder);
 
-  const int rep = p.repeat[b];
-  const int rmax = min(rep, p.max_repeat);
   int start = 0;  // ring slot of the oldest history frame
-  for (int ai = 1; ai <= rmax; ++ai) {
-    const float* last = HIST + ((start + n_his - 1) % n_slots) * frame;
-    float* nxt = HIST + ((start + n_his) % n_slots) * frame;
-
-    history_features<bf16, kThr>(d, HIST, start, SN);
-    // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
-    edges::radius_topk(last, VALID, Np, N, n_p, K, p.thresh, NBR, CNT);
-    const int E = edges::compact_edges(CNT, NBR, Np, K, OFF, ER, nullptr);
-    clk.mark(kGraph);
-
+  for (int ai = 1; ai <= tb.rmax; ++ai) {
+    {
+      bf16* NR = reinterpret_cast<bf16*>(smem + L.nr);
+      node_rows(d, HIST(), start, NR);
+      // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
+      edges::radius_topk(frame(start + d.n_his - 1), VALID(), d.Np, d.N, d.n_p, d.K, p.thresh,
+                         NBR(), CNT());
+      const int E = edges::compact_edges(CNT(), NBR(), d.Np, d.K, OFF(), ER(), nullptr);
+      if (tid == 0) tb.E = E;
+      clk.mark(kGraph);
+    }
     // ---- relation encoder + rel_base over real edges (weights staged
     // during the previous substep's head, or the encoder) ----
     wait_staged();
-    const EdgeGraph g{E, K, n_p, N, d.rel_in, nh3, ER, NBR, OFF, VALID, SN};
-    relation_mlp(g, rel_w, BIAS + kBre0, relbase, EFF);  // EFF and AGG: the A tiles
+    relation_mlp(p, tb, smem, sc);  // EFF and AGG: the A tiles
     __syncthreads();  // rel_base is written; the relation weights are free
     // round 1's recv|send and the effect's start (the particle encoding),
     // waited for by the first aggregation; Wb, by the first update
-    copy_async(X, rs1, N * 2 * kNF * 2);
-    for (int idx = tid; idx < N * (kNF / 8); idx += kThr) {
-      const int r = idx / (kNF / 8), c = (idx % (kNF / 8)) * 8;
-      tc::cp_async16(EFF + sw(r, c), penc + r * kNF + c, true);
+    copy_async(X, rs1(), d.N * 2 * kNF * 2);
+    {
+      const bf16* pe = penc();
+      for (int idx = threadIdx.x + opaque_zero(); idx < d.N * (kNF / 8); idx += kThr) {
+        const int r = idx / (kNF / 8), c = (idx % (kNF / 8)) * 8;
+        tc::cp_async16(EFF + tc::sw128(r, c, kNodeRows), pe + r * kNF + c, true);
+      }
     }
     tc::cp_async_commit();
     stage_wt(WB, P[kPpWb], kNF, kNF);
@@ -1031,17 +1302,20 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
     // ---- pstep rounds of message passing ----
     for (int s = 0; s < d.pstep; ++s) {
       if (s > 0) {  // recv|send, one 256-column product into X, over its weight
-        node_product<128>(EFF, N, X, 2 * kNF, 2 * kNF, true, none,
+        node_product<128>(EFF, d.N, X, 2 * kNF, 2 * kNF, true, none,
                           [=](int r, int c, float v0, float v1) {
-                            *reinterpret_cast<unsigned*>(X + r * 2 * kNF + c) = pack_bf16(v0, v1);
+                            *reinterpret_cast<unsigned*>(X + r * 2 * kNF + c) =
+                                pack_bf16(v0, v1);
                           });
       }
       clk.mark(kProjection);
-      aggregate(X, relbase, N, OFF, NBR, K, AGG);
-      clk.mark(kAggregate);
-      // the propagator base into STG; the next product's weights into X
-      copy_async(STG, pbase, N * kNF * 2);
+      // the propagator base into STG (free through the aggregation)
+      copy_async(STG, pbase(), d.N * kNF * 2);
       tc::cp_async_commit();
+      aggregate(X, relbase(), d.N, OFF(), NBR(), d.K, reinterpret_cast<const bf16*>(smem + L.ninf),
+                AGG, s == 0, sc);  // not Wb, pbase
+      clk.mark(kAggregate);
+      // the next product's weights into X
       if (s + 1 < d.pstep) {
         stage_wt(X, P[kRpW23], 2 * kNF, kNF);
       } else {
@@ -1049,15 +1323,16 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
         stage_wt(W2, P[kNr1], kNF, kNF);
       }
       tc::cp_async_commit();
-      tc::cp_async_wait<2>();  // Wb (the first round), but not these two groups
+      tc::cp_async_wait<1>();  // Wb (the first round) and pbase, not the weights
       tc::fence_proxy_async();
       __syncthreads();
       // effect = relu(rnd(rnd(base + rnd(agg @ Wb)) + effect))
-      node_product<64>(AGG, N, WB, kNF, kNF, true, [] { tc::cp_async_wait<1>(); },
+      node_product<64>(AGG, d.N, WB, kNF, kNF, true, none,
                        [=](int r, int c, float v0, float v1) {
                          const float2 pb = __bfloat1622float2(
                              *reinterpret_cast<const __nv_bfloat162*>(STG + r * kNF + c));
-                         __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(EFF + sw(r, c));
+                         __nv_bfloat162* e =
+                             reinterpret_cast<__nv_bfloat162*>(EFF + tc::sw128(r, c, kNodeRows));
                          const float2 ef = __bfloat1622float2(*e);
                          float t0 = rnd<bf16>(pb.x + rnd<bf16>(v0));
                          float t1 = rnd<bf16>(pb.y + rnd<bf16>(v1));
@@ -1070,26 +1345,36 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
     }
 
     // ---- motion head on the object rows, clamp, predicted positions ----
-    node_product<64>(EFF, n_p, X, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-      *reinterpret_cast<unsigned*>(AGG + sw(r, c)) =
-          pack_bf16(relu(v0 + BIAS[kBnr0 + c]), relu(v1 + BIAS[kBnr0 + c + 1]));
-    });
-    node_product<64>(AGG, n_p, W2, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-      *reinterpret_cast<unsigned*>(EFF + sw(r, c)) =
-          pack_bf16(relu(v0 + BIAS[kBnr1 + c]), relu(v1 + BIAS[kBnr1 + c + 1]));
-    });
+    {
+      const float* bnr0 = BIAS() + kBnr0;
+      node_product<64>(EFF, d.n_p, X, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
+        *reinterpret_cast<unsigned*>(AGG + tc::sw128(r, c, kNodeRows)) =
+            pack_bf16(relu(v0 + bnr0[c]), relu(v1 + bnr0[c + 1]));
+      });
+    }
+    {
+      const float* bnr1 = BIAS() + kBnr1;
+      node_product<64>(AGG, d.n_p, W2, kNF, kNF, false, none,
+                       [=](int r, int c, float v0, float v1) {
+                         *reinterpret_cast<unsigned*>(EFF + tc::sw128(r, c, kNodeRows)) =
+                             pack_bf16(relu(v0 + bnr1[c]), relu(v1 + bnr1[c + 1]));
+                       });
+    }
     // the next substep's relation weights, in flight through the rest of this
     // substep and the next graph build
-    if (ai < rmax) stage_relation();
+    if (ai < tb.rmax) stage_relation();
     // the 3-wide last layer on the CUDA cores
     {
       const float mc = p.motion_clamp;
-      for (int idx = tid; idx < n_p * 3; idx += kThr) {
+      const float* bias = BIAS();
+      const float* last = frame(start + d.n_his - 1);
+      float* nxt = frame(start + d.n_his);
+      for (int idx = threadIdx.x + opaque_zero(); idx < d.n_p * 3; idx += kThr) {
         const int r = idx / 3, c = idx % 3;
         float s = 0.f;
         for (int k = 0; k < kNF; ++k)
-          s = fmaf(__bfloat162float(EFF[sw(r, k)]), BIAS[kWnr2 + k * 3 + c], s);
-        const float m = rnd<bf16>(s + BIAS[kBnr2 + c]);
+          s = fmaf(__bfloat162float(EFF[tc::sw128(r, k, kNodeRows)]), bias[kWnr2 + k * 3 + c], s);
+        const float m = rnd<bf16>(s + bias[kBnr2 + c]);
         nxt[r * 3 + c] = __fadd_rn(last[r * 3 + c], fminf(fmaxf(m, -mc), mc));
       }
     }
@@ -1097,13 +1382,16 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
     clk.mark(kHead);
 
     // ---- record at this sample's repeat; re-stick the eef rows ----
-    record_restick<kThr>(p, ai, rep, last, nxt, VALID, ACT, REC, RED);
-    start = (start + 1) % n_slots;
+    record_restick<kThr>(p, ai, tb.rep, frame(start + d.n_his - 1), frame(start + d.n_his),
+                         VALID(), ACT(), REC(), reinterpret_cast<float*>(smem + L.red));
+    start = (start + 1) % (d.n_his + 1);
     clk.mark(kRestick);
   }
   tc::cp_async_wait<0>();  // the relation weights staged for a sample with no substep
+  sc.flush();
 
-  for (int idx = tid; idx < n_p * 3; idx += kThr) p.out[(size_t)b * n_p * 3 + idx] = REC[idx];
+  const float* rec = REC();
+  for (int idx = tid; idx < d.n_p * 3; idx += kThr) p.out[(size_t)b * d.n_p * 3 + idx] = rec[idx];
 }
 
 template <typename T>
@@ -1154,6 +1442,13 @@ const char* rollout_chunk_error_string(int code) {
 void rollout_chunk_set_phase_clocks(void* clocks) {
   g_phase_clocks = static_cast<long long*>(clocks);
 }
+// ... and `clocks`, when not null, a zeroed (B, 5) int64 buffer into which
+// the following bf16 launches add thread 0's cycles in the relation MLP's
+// input build, products and epilogues and in the aggregation's wait for
+// rel_base's rows and its sums (the sub-phases overlap the phases above)
+void rollout_chunk_set_sub_clocks(void* clocks) {
+  g_sub_clocks = static_cast<long long*>(clocks);
+}
 #endif
 
 // Launch on `stream` without synchronising; returns cudaGetLastError().
@@ -1181,6 +1476,7 @@ int rollout_chunk_launch(const void* pin, const void* sa, const void* repeat, co
   p.out = static_cast<float*>(out);
 #ifdef ROLLOUT_PHASE_CLOCKS
   p.clocks = g_phase_clocks;
+  p.sub_clocks = bf16_mode ? g_sub_clocks : nullptr;
 #endif
   p.d = Dims{Np, N, n_p, K, n_his, pstep, Dp, nf_p, nf_r, nf_e, rel_in};
   p.thresh = thresh;

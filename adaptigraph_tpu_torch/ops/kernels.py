@@ -12,7 +12,9 @@ the same sources, which the port's own calls never use:
 
 - ``"phase_clocks"`` (``-DROLLOUT_PHASE_CLOCKS -DGNN_PHASE_CLOCKS``): the
   rollout kernel adds its blocks' SM cycles per phase into a buffer set with
-  ``rollout_chunk_set_phase_clocks``, the single-step forward and its
+  ``rollout_chunk_set_phase_clocks`` and, in bfloat16, thread 0's cycles in
+  the relation MLP's and the aggregation's parts into one set with
+  ``rollout_chunk_set_sub_clocks``; the single-step forward and its
   backward into 16 counters each, set with ``gnn_forward_set_phase_clocks``
   and ``gnn_train_bwd_set_phase_clocks``;
 - ``"no_edge"``, ``"no_gather"`` and ``"mlp_only"`` (both): the single-step
@@ -142,8 +144,9 @@ def library(variant=None):
     if VARIANTS[variant][1] is not None:  # a build of the forward alone
         return lib
     if variant == "phase_clocks":
-        lib.rollout_chunk_set_phase_clocks.argtypes = [P]
-        lib.rollout_chunk_set_phase_clocks.restype = None
+        for fn in (lib.rollout_chunk_set_phase_clocks, lib.rollout_chunk_set_sub_clocks):
+            fn.argtypes = [P]
+            fn.restype = None
         for fn in (lib.gnn_forward_set_phase_clocks, lib.gnn_train_bwd_set_phase_clocks):
             fn.argtypes = [P]
             fn.restype = I

@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one CUDA card and check it.
 
     python3 chip_smoke.py          # needs one CUDA card
-    python3 chip_smoke.py --k1     # phases 0-3 alone: the rollout kernel, the solve
+    python3 chip_smoke.py --k1     # phases 0-1, then what K1 moves (``phase_k1``)
     python3 chip_smoke.py --k23    # phases 0-1, then what K2/K3 move (``phase_k23``)
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
     python3 chip_smoke.py --mesh   # phases 0-1 and 18: the multi-device paths
@@ -16,14 +16,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
      ptxas' register and spill report and each K1/K2/K3 instance's HGMMA and
      HMMA count (every K2/K3 instance and bf16 K1 must run wgmma: HGMMA;
      bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised the
-     wgmma of any K1, K2 or K3 instance, and no K2 or K3 instance may
-     spill: ``build_gate``).
+     wgmma of any K1, K2 or K3 instance, and no instance but float32 K1
+     may spill: ``build_gate``).
   2. the rollout kernel against its plain PyTorch version on the card, on the
      same inputs, in f32 and bf16 each (see ``phase_kernels``): rope width
      (fixture weights, B 2000) and granular width (5-point board, K 20), each
      in min-y and masked mean-y mode with per-sample masks and physics (B
      512); then the kernel's time (CUDA events and device time) and, from
-     its profiling build, its cycles per phase.
+     its profiling build, its cycles per phase and, in bf16, thread 0's in
+     the relation MLP's and the aggregation's parts (``K1_SUB_PHASES``).
   3. the main path: the rope MPPI solve of 20,000 samples in chunks of 2,000,
      one warm-up and three timed solves, with the kernel's launch count read
      around the timed solves.
@@ -180,6 +181,17 @@ B_CHUNK = 2000
 # the rollout kernel's phases, in the order of its profiling build's counters
 PHASES = ("encoder", "graph", "relation", "projection", "aggregate", "update", "head",
           "restick")
+# ... and the parts of two of them (bf16: thread 0's cycles, SubPhase in
+# csrc/rollout_chunk.cu): the relation MLP's input build, products (the
+# warpgroup's turn at the tensor cores, the issue, the wait) and epilogues
+# (rel_base's stores included); the aggregation's wait for rel_base's rows
+# and its sums
+K1_SUB_PHASES = ("relation_inputs", "relation_products", "relation_epilogues",
+                 "aggregate_rows", "aggregate_sums")
+# the modes that measure what a kernel moves, also in an older checkout
+# (given a copy of this script): the build line reports the build gate's
+# findings and fails on none
+UNGATED_MODES = (["--k1"], ["--k23"])
 # H100 SXM dense peaks. float32-accurate products run on the tensor cores as
 # split TF32 (3xTF32: three TF32 products per float32 one, ~2^-21 relative
 # error), so the card's float32 rate for them is a third of TF32's 495
@@ -513,19 +525,23 @@ def wgmma_serialized(report):
     return out
 
 
+# the one instance whose spills the build line reports without failing: float32
+# K1, the CUDA-core parity body, off every card path
+SPILLS_REPORTED_ONLY = ("rollout_chunk_kernel<float>",)
+
+
 def build_gate(report):
     """What in ptxas' report (``-Xptxas -v``, a list of lines) fails the
     build: a K1, K2 or K3 instance whose wgmma ptxas serialised (its C75xx
-    notes, ``wgmma_serialized``), and a K2 or K3 instance that spills
-    (``ptxas_kernels``, its own and those of the device functions it
-    calls). K1's spills are reported, not gated: its source is not this
-    layer routine's. Returns [(kernel, reason)], empty when the
-    build passes."""
+    notes, ``wgmma_serialized``), and an instance that spills (``ptxas_kernels``,
+    its own and those of the device functions it calls), but for float32 K1
+    (``SPILLS_REPORTED_ONLY``), whose spills are reported only. Returns
+    [(kernel, reason)], empty when the build passes."""
     out = [(k, "wgmma serialized: " + note) for k, note in wgmma_serialized(report)]
     for k, v in sorted(ptxas_kernels(report).items()):
         stores = v.get("spill_stores", 0) + v.get("callee_spill_stores", 0)
         loads = v.get("spill_loads", 0) + v.get("callee_spill_loads", 0)
-        if stores + loads and not k.startswith("rollout_chunk_kernel"):
+        if stores + loads and k not in SPILLS_REPORTED_ONLY:
             out.append((k, f"spills: {stores} bytes stored, {loads} bytes loaded"))
     return out
 
@@ -539,9 +555,9 @@ def phase_build(gate=True):
     must have HGMMA (wgmma: bf16, and float32's split TF32), and bf16 K1
     HGMMA and no HMMA (mma.sync); float32 K1 (the CUDA cores) is reported.
     It fails on what ``build_gate`` finds: a serialised wgmma in any
-    instance, a spill in a K2 or K3 one. With ``gate`` false (a measurement
-    of an older checkout) the line reports the findings and nothing fails
-    on them."""
+    instance, a spill in any but float32 K1. With ``gate`` false (a
+    measurement of an older checkout) the line reports the findings and
+    nothing fails on them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from adaptigraph_tpu_torch.ops import kernels
@@ -568,7 +584,7 @@ def phase_build(gate=True):
         fail("a kernel instance lacks its tensor-core instructions, or bf16 K1 keeps mma.sync "
              "(see the build line)")
     if gate and failed:
-        fail("ptxas serialised a kernel's wgmma or a K2/K3 instance spills: "
+        fail("ptxas serialised a kernel's wgmma or a kernel instance spills: "
              + "; ".join(f"{k}: {why}" for k, why in failed)[:400])
 
 
@@ -715,15 +731,24 @@ def time_kernel(rope, dev):
     out = rollout_chunk_plain(*inputs(100), stats=stats)
     ops, nbytes = k1_work(gnn, pin, sa, weights, out, stats, B_CHUNK)
     t_ops, t_bytes = ops / PEAK_FLOPS[cd] * 1e3, nbytes / PEAK_BYTES * 1e3
-    # where a block's time goes: SM cycles per phase, summed over the blocks,
-    # from one launch of the profiling build
+    # where a block's time goes: SM cycles per phase (and thread 0's per
+    # sub-phase), summed over the blocks, from one launch of the profiling
+    # build
     clocks = torch.zeros(B_CHUNK, len(PHASES), dtype=torch.int64, device=dev)
+    sub = torch.zeros(B_CHUNK, len(K1_SUB_PHASES), dtype=torch.int64, device=dev)
     prof = kernels.library("phase_clocks")
+    set_sub = getattr(prof, "rollout_chunk_set_sub_clocks", None)  # None: an older build
     prof.rollout_chunk_set_phase_clocks(clocks.data_ptr())
+    if set_sub is not None:
+        set_sub(sub.data_ptr())
     with mock.patch.object(kernels, "library", lambda: prof):
         rollout_chunk_cuda(*inputs(100))
     prof.rollout_chunk_set_phase_clocks(None)
-    cycles = clocks.sum(0).double()
+    if set_sub is not None:
+        set_sub(None)
+    split = k1_cycle_split(clocks.sum(0).tolist(),
+                           sub.sum(0).tolist() if set_sub is not None else None,
+                           stats["sample_steps"])
     # what the counters' code costs with no buffer set (each mark a run-time
     # test): the two builds alternate on the same inputs
     pairs = []
@@ -732,14 +757,31 @@ def time_kernel(rope, dev):
         with mock.patch.object(kernels, "library", lambda: prof):
             pairs.append((normal, median_ms(rollout_chunk_cuda, lambda _: inputs(r), 1)))
     normal_ms, prof_ms = np.median(np.array(pairs), axis=0)
-    emit(phase="kernel_phases", cycles_per_sample_step=float(cycles.sum()) / stats["sample_steps"],
-         share={k: round(float(v), 4) for k, v in zip(PHASES, cycles / cycles.sum())},
-         normal_build_ms=float(normal_ms), profiling_build_counters_off_ms=float(prof_ms))
+    emit(phase="kernel_phases", **split, normal_build_ms=float(normal_ms),
+         profiling_build_counters_off_ms=float(prof_ms))
     return dict(ms=ms, device_ms=dev_t["device_ms"], host_ms=dev_t["host_ms"], plain_ms=plain_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gflop_per_launch=ops / 1e9, smem_bytes_per_block=smem,
                 edges_per_sample_step=stats["edges"] / stats["sample_steps"])
+
+
+def k1_cycle_split(cycles, sub, sample_steps):
+    """The ``kernel_phases`` line's numbers from the profiling build's
+    counters summed over the blocks (``cycles`` per phase of ``PHASES``,
+    ``sub`` per sub-phase of ``K1_SUB_PHASES`` or None): cycles per
+    sample-substep, each phase's share of them, and each sub-phase's cycles
+    per sample-substep and share of all the cycles (None without sub-phase
+    counters)."""
+    total = float(sum(cycles))
+    out = dict(cycles_per_sample_step=total / sample_steps,
+               share={k: round(float(v) / total, 4) for k, v in zip(PHASES, cycles)},
+               sub_cycles_per_sample_step=None, sub_share=None)
+    if sub is not None:
+        out["sub_cycles_per_sample_step"] = {k: float(v) / sample_steps
+                                             for k, v in zip(K1_SUB_PHASES, sub)}
+        out["sub_share"] = {k: round(float(v) / total, 4) for k, v in zip(K1_SUB_PHASES, sub)}
+    return out
 
 
 def plain_push(dcfg, params, state, act_seq, phys, dev):
@@ -3442,6 +3484,25 @@ def phase_softbody(dev):
                 k3_launches=k3_train + steps_launches[1])
 
 
+def phase_k1(dev):
+    """What K1 moves, for comparing two checkouts in one call (each
+    checkout's ``chip_smoke.py --k1``, alternately: parent, change, change,
+    parent): K1's time at the main path's shapes (rope, B 2000, bf16) with
+    its cycles per phase and sub-phase (``kernel_time``, ``kernel_phases``),
+    then what runs on it: the rope solve, the granular solve, demo-ppo on
+    rope and granular, the MPPI Planner's iterations and the rope plan (3
+    pushes, its ``ms_split``). The phases keep their own checks (launch
+    counts, the solves' best pushes, demo-ppo's curves, the plan's step 0);
+    the kernel against its plain version is the full run's."""
+    rope = material("rope", dev)
+    emit(phase="kernel_time", **time_kernel(rope, dev))
+    phase_solve(rope, dev)
+    phase_granular_solve(dev)
+    phase_demo_ppo(dev)
+    phase_planner_mppi(rope, dev)
+    phase_plan(dev)
+
+
 def phase_k23(dev):
     """What K2 and K3 move, for comparing two checkouts in one call (each
     checkout's ``chip_smoke.py --k23``, alternately: parent, change, change,
@@ -4670,7 +4731,11 @@ def main():
     emit(phase="device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    phase_build(gate=sys.argv[1:] != ["--k23"])
+    phase_build(gate=sys.argv[1:] not in UNGATED_MODES)
+    if sys.argv[1:] == ["--k1"]:
+        phase_k1(dev)
+        print(card, flush=True)
+        return
     if sys.argv[1:] == ["--k23"]:
         phase_k23(dev)
         print(card, flush=True)
@@ -4702,9 +4767,6 @@ def main():
     timing = time_kernel(rope, dev)
     emit(phase="kernel_time", **timing)
     launches = phase_solve(rope, dev)
-    if sys.argv[1:] == ["--k1"]:
-        print(card, flush=True)
-        return
     phase_demo_ppo(dev)
 
     k2e_err = phase_edges_kernel(rope, material("granular", dev), dev)

@@ -1,12 +1,13 @@
 """``chip_smoke.py::build_gate``: what in ptxas' report fails the kernels'
 build on the card. A serialised wgmma (ptxas' C75xx note) fails it for any
-K1, K2 or K3 template instance, a spill for a K2 or K3 instance; K1's spills
-are reported only. Fed canned ``-Xptxas -v`` lines of the kind an H100
-build prints; nothing here needs a card or nvcc."""
+K1, K2 or K3 template instance, a spill for any instance but float32 K1
+(the CUDA-core parity body), whose spills are reported only. Fed canned
+``-Xptxas -v`` lines of the kind an H100 build prints; nothing here needs a
+card or nvcc."""
 
 import pytest
 
-from chip_smoke import build_gate
+from chip_smoke import SPILLS_REPORTED_ONLY, build_gate
 
 MANGLED = {
     "gnn_forward_kernel<float>":
@@ -72,8 +73,8 @@ def test_build_gate(instance, case):
     elif case == "serialised":
         assert len(got) == 1 and got[0][0] == instance
         assert got[0][1].startswith("wgmma serialized: (C7520)")
-    elif instance.startswith("rollout_chunk_kernel"):
-        assert got == []  # K1's spills are reported, not gated
+    elif instance in SPILLS_REPORTED_ONLY:
+        assert got == []  # float32 K1's spills are reported, not gated
     else:
         assert got == [(instance, "spills: 8 bytes stored, 16 bytes loaded")]
 
@@ -110,3 +111,38 @@ def test_build_gate_reads_the_functions_ptxas_compiled_apart():
     from chip_smoke import ptxas_kernels
 
     assert ptxas_kernels(lines)["gnn_train_bwd_kernel<float>"]["registers"] == 255
+
+
+def test_build_gate_fails_on_a_bf16_k1_spill():
+    fn = MANGLED["rollout_chunk_kernel<bf16>"]
+    got = build_gate(report(**{"rollout_chunk_kernel<bf16>": properties(fn, stores=44, loads=44,
+                                                                        registers=128)}))
+    assert got == [("rollout_chunk_kernel<bf16>", "spills: 44 bytes stored, 44 bytes loaded")]
+
+
+def test_build_gate_reports_an_f32_k1_spill_only():
+    assert SPILLS_REPORTED_ONLY == ("rollout_chunk_kernel<float>",)
+    fn = MANGLED["rollout_chunk_kernel<float>"]
+    lines = report(**{"rollout_chunk_kernel<float>": properties(fn, stores=32, loads=32)})
+    assert build_gate(lines) == []
+    from chip_smoke import ptxas_kernels
+
+    assert ptxas_kernels(lines)["rollout_chunk_kernel<float>"]["spill_stores"] == 32
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "float"])
+@pytest.mark.parametrize("code", ["C7510", "C7520"])
+def test_build_gate_fails_on_a_k1_c75xx_note(code, dtype):
+    """A C75xx note on either K1 instance fails the build, in its kernel or in a
+    device function of ``rollout_chunk.cu`` that ptxas compiled apart."""
+    instance = f"rollout_chunk_kernel<{dtype}>"
+    fn = MANGLED[instance]
+    note = [f"ptxas info    : ({code}) Potential Performance Loss: wgmma.mma_async instructions "
+            f"are serialized due to the presence of Extern calls in the function '{fn}'"]
+    got = build_gate(report(**{instance: note + properties(fn)}))
+    assert got == [(instance, got[0][1])] and got[0][1].startswith(f"wgmma serialized: ({code})")
+    helper = ("_ZN49_GLOBAL__N__5c1e0f2a_16_rollout_chunk_cu_7d2e1b3c12relation_mlpERK9EdgeGraph"
+              + ("P13__nv_bfloat16" if dtype == "bf16" else "Pf"))
+    lines = (["== rollout_chunk.cu"] + [note[0].replace(fn, helper)] + properties(fn)
+             + properties(helper, registers=64))
+    assert [k for k, _ in build_gate(lines)] == [instance]
