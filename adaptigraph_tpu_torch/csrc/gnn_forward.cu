@@ -57,6 +57,10 @@ namespace {
 
 using namespace gnn;
 
+static_assert(edges::scratch_bytes(kThreads / 32) <= tc_bytes<bf16>() &&
+                  edges::scratch_bytes(kThreads / 32) <= tc_bytes<float>(),
+              "the graph build's keys fit in the tensor-core tiles");
+
 struct Params {
   const void* nodes;   // (B, Np, D) compute dtype
   const int* nbr;      // (B, K*Np) senders, (k, i) order; null: build in the kernel
@@ -92,8 +96,10 @@ __device__ int build_radius_edges(const Params& p, const Smem& L, unsigned char*
 #else
   short* nbr = reinterpret_cast<short*>(smem + L.nbr);
   int* cnt = reinterpret_cast<int*>(smem + L.cnt);
-  edges::radius_topk(p.last + (size_t)b * Np * 3, nullptr, Np, d.N, d.n_p, K, p.thresh, nbr, cnt);
-  const int E = edges::compact_edges(cnt, nbr, Np, K, off, er, es);
+  // the keys of the graph build in the tensor-core tiles, free until the forward
+  edges::radius_topk(p.last + (size_t)b * Np * 3, nullptr, Np, d.N, d.n_p, K, p.thresh, nbr, cnt,
+                     smem, threadIdx.x);
+  const int E = edges::compact_edges(cnt, nbr, Np, K, off, er, es, threadIdx.x);
 #endif
 #ifdef GNN_ABLATE_NO_GATHER
   for (int e = threadIdx.x; e < E; e += blockDim.x) es[e] = er[e];

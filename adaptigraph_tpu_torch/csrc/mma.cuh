@@ -7,6 +7,9 @@
 //   m64n128k16 bf16, both operands in shared memory or A from registers
 //   (rollout_chunk.cu);
 // - cp.async 16-byte copies with zero fill;
+// - ldmatrix / stmatrix: four 8 x 8 bf16 matrices between shared memory and
+//   the pairs of a wgmma accumulator layout (rollout_chunk.cu's node-sized
+//   epilogues);
 // - the 128-byte swizzled layout that every wgmma operand tile of the kernels
 //   is kept in: an element's place (sw128), a K-major k16 slice's descriptor
 //   (sw128_desc) and the staging of a matrix into it by cp.async (stage_sw),
@@ -55,6 +58,26 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- ldmatrix / stmatrix ----------------------------------------------------
+// Four 8 x 8 matrices of 16-bit values: lane l names row l % 8 of matrix l / 8
+// (16 contiguous bytes, 16-byte aligned, any place in shared memory), and
+// register m of lane l holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of
+// matrix m, the lower column in the low half: the place of a pair of a wgmma
+// accumulator layout (wgmma_m64n64k16 below) in each 8 x 8 block.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void stmatrix_x4(void* row, const uint32_t (&r)[4]) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 // ---- wgmma, bf16 ----------------------------------------------------------

@@ -18,7 +18,7 @@
 // weight staging, barriers, and loads of the edge-sized relation base.
 //
 // What the design does about it (bf16, the main path; 512 threads = four
-// warpgroups, ~218-228 KB of shared memory, one block per SM):
+// warpgroups, ~220-230 KB of shared memory, one block per SM):
 // - Every product with 128 columns runs on wgmma (m64n128k16 and m64n64k16
 //   bf16, float32 accumulators; mma.cuh) with B, the layer's weight, in
 //   128-byte swizzled shared memory (mma.cuh's sw128 layout), packed as W^T
@@ -41,14 +41,31 @@
 //   epilogue, which sets the pace; the four warpgroups' chains overlap
 //   without any ordering between them.
 // - Node-sized products (particle encoder, propagator base, recv|send as one
-//   256-column product, update, motion head): 112 padded rows split into
-//   64 x 64 (or 64 x 128) tiles over the four warpgroups. Each product's
-//   weight is prefetched while the phase before it runs: recv|send's and
-//   the head's during the previous update, Wb during the first aggregation,
-//   the propagator base (into STG, free then) during each aggregation.
+//   256-column product, update, motion head): the 128 padded rows are two
+//   64-row tiles, and the two warpgroups of a tile (a pair) each take one
+//   column half (64 x 64, or 64 x 128 for recv|send). A layer that feeds the
+//   next hands it over in the pair's rows of EFF or AGG and a named barrier
+//   of the pair, not of the block: an update's effect feeds the next
+//   round's recv|send, the head's nr0 feeds nr1 and nr1 the 3-wide layer.
+//   Epilogues go through ldmatrix / stmatrix (16 bytes a row) and packed
+//   bf16x2 arithmetic with the same single roundings; the update reads the
+//   propagator base from global memory (L2), its loads in flight through the
+//   products. The block waits at a barrier only where all of its rows are
+//   needed: after the graph build, the relation MLP and recv|send (the
+//   aggregation's senders), after the aggregation (its rows and the staged
+//   weights) and after the head (the re-stick). recv|send never overwrites
+//   a weight: recv goes to AGG, where the aggregation then writes each
+//   receiver's sums over its own recv, send to STG (Np rows of kSendLd), so
+//   W23 is staged once a substep and the head's weights during the last
+//   aggregation. 13 block barriers a substep at pstep 3 (33 before).
 // - Round 1's recv|send is a constant of the push (the effect starts every
 //   substep from the particle encoding): it is computed once per push into a
 //   per-sample scratch and copied back by cp.async each substep.
+// - The graph build (edge_build.cuh) takes a row a warp: one warp reduction
+//   counts its candidates below a few levels of the radius, and only those
+//   below the smallest level that holds K of them are ranked (in a scratch
+//   in EFF, free then), so a row costs a handful of warp-wide operations
+//   rather than two a pick.
 // - The aggregation: 16 threads per receiver, each summing eight channels
 //   (16 bytes) over the receiver's edges in slot order. A receiver's edges
 //   are contiguous rows of rel_base (global memory, L2): each thread loads
@@ -64,8 +81,10 @@
 //   through the loop, or hoisted out of it by the compiler, the kernel's
 //   pointers, swizzle offsets and descriptors spilled beside the relation
 //   MLP's accumulators. The kernel builds with no spill.
-// - The motion head's 3-wide last layer and the particle encoder's first
-//   layer (a few inputs) run on the CUDA cores.
+// - The motion head's 3-wide last layer (each output's products in k order,
+//   16 bytes of the input row a load) and the particle encoder's first layer
+//   (a few inputs, read with its weight from shared memory) run on the CUDA
+//   cores.
 // - Only real edges are computed. A receiver's edges are a prefix of its
 //   top-k slots (the selected distances ascend), so the edge list is compacted
 //   with a prefix sum and the relation MLP runs on real edges only; masked
@@ -112,11 +131,17 @@ constexpr int kNumTc = 11;                             // packed tensor-core lay
 // Phases timed in the profiling build (see PhaseClock).
 enum Phase { kEncoder, kGraph, kRelation, kProjection, kAggregate, kUpdate, kHead, kRestick,
              kPhases };
-// ... and thread 0's cycles inside the relation MLP and the aggregation (see
-// SubClock): building a tile's relation inputs, its products (the turn at the
-// tensor cores, the issue and the wait) and its epilogues (rel_base's stores
-// included); waiting for a receiver's rel_base rows, and summing them
-enum SubPhase { kRelInputs, kRelProducts, kRelEpilogues, kAggRows, kAggSums, kSubPhases };
+// ... and thread 0's cycles inside some of them (see SubClock): in the
+// relation MLP, building a tile's relation inputs, its products (the issue and
+// the wait) and its epilogues (rel_base's stores included); in the
+// aggregation, waiting for a receiver's rel_base rows, and summing them; in
+// the graph build, the node rows, the top-k selection and the compaction (its
+// barriers included); in the node-sized products (encoder, update,
+// projection, head), the products, the epilogues and the waits at the
+// barriers that follow them
+enum SubPhase { kRelInputs, kRelProducts, kRelEpilogues, kAggRows, kAggSums, kGraphRows,
+                kGraphSelection, kGraphCompaction, kNodeProducts, kNodeEpilogues, kNodeBarriers,
+                kSubPhases };
 constexpr float kBig = 1e10f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -151,6 +176,7 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   int r_bytes = 2 * kEdgeTile * rw * es;                 // ping-pong edge tiles
   r_bytes = imax(r_bytes, npr * 2 * d.nf_e * es);        // recv|send projections
   r_bytes = imax(r_bytes, 2 * npr * nfa * es);           // hidden layers
+  r_bytes = imax(r_bytes, edges::scratch_bytes(kWarps));  // the graph build's scratch
   const int sizes[] = {
       r_bytes,                                                        // R
       npr * d.nf_e * es,                                              // eff
@@ -184,18 +210,18 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
 // Widths are kNF (the wrapper checks nf_particle = nf_relation = nf_effect =
 // 128). From a 1,024-aligned base: X (64 KB) and WB (32 KB), the swizzled
 // weights; EFF and AGG (32 KB each), the node-sized A operands, 128 rows
-// (two 64-row tiles; rows past N are never written and feed only dropped
-// outputs) swizzled as the weights are (tc::sw128); then STG (re0's weight,
-// or the propagator base), and the small state, with NR, the node rows of
-// the relation inputs (node_rows). What each big region holds in each
-// phase:
+// (two 64-row tiles; rows past N hold what was left there and feed only
+// dropped outputs) swizzled as the weights are (tc::sw128); then STG (re0's
+// weight, or the send projections: Np rows of kSendLd), and the small state,
+// with NR, the node rows of the relation inputs (node_rows). What each big
+// region holds in each phase:
 //   phase            X                     WB      STG           EFF      AGG
-//   encoder          pe1 | pe2, then w23   Wa      -             h1, penc h2
+//   encoder          pe1 | pe2, then w23   Wa      -             h1, penc pe0's inputs,
+//                                                                         then h2
 //   relation MLP     re1 | re2             rp_w1   re0           the warpgroups'
 //                                                                64-row A tiles
-//   round s          recv|send (RS), then  Wb      PB            effect   agg
-//                    the next round's w23
-//                    (last round: nr0|nr1)
+//   round s          w23 (last round:      Wb      send          effect   recv, then
+//                    nr0 | nr1)                                           agg in place
 //   head             nr0 | nr1, then the   -       -             h2       h1
 //                    next substep's relation weights (WB and STG too)
 constexpr int kNF = 128;
@@ -205,11 +231,16 @@ constexpr int kTPR = kNF / kCPT;                  // threads per receiver
 constexpr int kRecvPerPass = kTcThreads / kTPR;
 constexpr int kRowsAhead = 10;                    // a receiver's rel_base rows loaded at once
 constexpr int kNodeRow = 32;                      // bf16 per node row (the relation inputs)
+constexpr int kSendLd = kNF + 8;                  // row stride of the send projections (bf16)
+static_assert(edges::scratch_bytes(kTcThreads / 32) <= kWBytes,
+              "the graph build's scratch fits in EFF");
 // float slots of the BIAS region: the biases (kNF each), then the head's last
-// layer's bias (3, padded to 4) and weight (kNF x 3)
+// layer's bias (3, padded to 4) and weight (3 rows of kW2Ld: column c's kNF
+// weights together, the rows four banks apart)
+constexpr int kW2Ld = kNF + 4;
 enum BiasSlot { kBpe0 = 0, kBpe1 = kNF, kBpe2 = 2 * kNF, kBre0 = 3 * kNF, kBrp = 6 * kNF,
                 kBpp = 7 * kNF, kBnr0 = 8 * kNF, kBnr1 = 9 * kNF, kBnr2 = 10 * kNF,
-                kWnr2 = 10 * kNF + 4, kBiasFloats = kWnr2 + 3 * kNF };
+                kWnr2 = 10 * kNF + 4, kBiasFloats = kWnr2 + 3 * kW2Ld };
 // packed tensor-core layers, in the order of ops/fused_gnn.py::TC_LAYERS
 enum TcLayer { kPe1, kPe2, kRe1, kRe2, kRpW1, kRpW23, kPpWa, kPpWb, kNr0, kNr1, kRe0 };
 
@@ -218,7 +249,7 @@ constexpr int kOffX = 0, kOffWB = 2 * kWBytes, kOffEff = 3 * kWBytes, kOffAgg = 
               kOffSTG = 5 * kWBytes;
 
 struct TcLayout {
-  int X, WB, eff, agg, STG, bias, hist, nr, act, rec, valid, red, cnt, off, nbr, er, ninf;
+  int X, WB, eff, agg, STG, bias, hist, nr, act, rec, valid, red, cnt, off, nbr, er, ninf, trash;
   int total;  // bytes to request, the 1,024 of the base's alignment included
 };
 
@@ -236,17 +267,18 @@ __host__ __device__ inline TcLayout make_tc_layout(const Dims& d) {
       d.Np * d.K * 2,                   // nbr: int16 senders
       d.Np * d.K * 2,                   // er: int16 receivers
       kNF * 2,                          // ninf: a row of bf16 -inf (aggregate)
+      16,                               // trash: where rows past Np of a send tile go
   };
   TcLayout L;
   L.X = kOffX;
   L.WB = kOffWB;
   L.eff = kOffEff;
   L.agg = kOffAgg;
-  L.STG = kOffSTG;  // re0's weight (16 KB) or the propagator base
-  int at = L.STG + round_to(imax(kWBytes / 2, d.Np * kNF * 2), 1024);
+  L.STG = kOffSTG;  // re0's weight (16 KB) or the send projections
+  int at = L.STG + round_to(imax(kWBytes / 2, d.Np * kSendLd * 2), 1024);
   int* dst[] = {&L.bias, &L.hist, &L.nr, &L.act, &L.rec, &L.valid, &L.red, &L.cnt, &L.off,
-                &L.nbr, &L.er, &L.ninf};
-  for (int i = 0; i < 12; ++i) { *dst[i] = at; at += round_to(sizes[i], 128); }
+                &L.nbr, &L.er, &L.ninf, &L.trash};
+  for (int i = 0; i < 13; ++i) { *dst[i] = at; at += round_to(sizes[i], 128); }
   L.total = at + 1024;
   return L;
 }
@@ -373,12 +405,12 @@ struct PhaseClock {
 };
 long long* g_phase_clocks = nullptr;  // the next launches' clock buffer
 long long* g_sub_clocks = nullptr;    // ... and sub-phase buffer
-// Thread 0's cycles in the sub-phases of the bf16 relation MLP and
-// aggregation (SubPhase): start() begins a span, mark(k) adds the cycles
-// since the last start() or mark() to sub-phase k. They add up in shared
-// memory (a read-modify-write of global memory at every mark would stall
-// warp 0 and, through the warpgroups' turns, the others), and flush() adds
-// them to the buffer set with rollout_chunk_set_sub_clocks.
+// Thread 0's cycles in the sub-phases of the bf16 body (SubPhase): start()
+// begins a span, mark(k) adds the cycles since the last start() or mark() to
+// sub-phase k. They add up in shared memory (a read-modify-write of global
+// memory at every mark would stall warp 0 and, through the barriers, the
+// others), and flush() adds them to the buffer set with
+// rollout_chunk_set_sub_clocks.
 __shared__ long long s_sub[kSubPhases + 1];  // the counters, then the span's start
 struct SubClock {
   const Params& p;
@@ -604,8 +636,8 @@ __device__ __forceinline__ void rollout_f32(const Params& p, unsigned char* smem
     history_features<T, kThr>(d, HIST, start, SN);
 
     // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
-    edges::radius_topk(last, VALID, Np, N, n_p, K, p.thresh, NBR, CNT);
-    const int E = edges::compact_edges(CNT, NBR, Np, K, OFF, ER, nullptr);
+    edges::radius_topk(last, VALID, Np, N, n_p, K, p.thresh, NBR, CNT, R, tid);
+    const int E = edges::compact_edges(CNT, NBR, Np, K, OFF, ER, nullptr, tid);
     clk.mark(kGraph);
 
     // ---- relation encoder + rel_base over real edges, one tile of edges at
@@ -746,7 +778,7 @@ struct TcBlock {
   Dims d;
   TcLayout L;
   int rep, rmax;  // this sample's repeat, and the substeps it runs
-  int E;          // this substep's real edges
+  float thresh;   // the graph's radius squared
 };
 
 // A 0 the compilers cannot see through: read (volatile) from shared memory
@@ -772,13 +804,6 @@ __device__ __forceinline__ unsigned pack_relu_bf16(float lo, float hi) {
   return r;
 }
 
-// The four warpgroups' asynchronous copies of the block (cp.async, mma.cuh).
-// nbytes (a multiple of 16) contiguous bytes; not committed.
-__device__ inline void copy_async(void* dst, const void* src, int nbytes) {
-  for (int o = (threadIdx.x + opaque_zero()) * 16; o < nbytes; o += kTcThreads * 16)
-    tc::cp_async16(static_cast<char*>(dst) + o, static_cast<const char*>(src) + o, true);
-}
-
 // Rows [0, R) of a packed W^T (row stride kp bf16, a multiple of 16) into
 // ceil(kp / 64) column blocks of R rows, swizzled (tc::stage_sw; the depth
 // from kp to the next multiple of 64 zero): the K-major B operand of Y = X
@@ -788,17 +813,8 @@ __device__ inline void stage_wt(bf16* dst, const bf16* P, int R, int kp) {
                kTcThreads);
 }
 
-// Wait for every copy in flight, make it visible to wgmma's reads, and
-// synchronise the block.
-__device__ inline void wait_staged() {
-  tc::cp_async_wait<0>();
-  tc::fence_proxy_async();
-  __syncthreads();
-}
-
 // The node-sized A operands (EFF, AGG) are swizzled matrices of 128 rows.
 constexpr int kNodeRows = 128;
-
 
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   tc::wgmma_m64n64k16<0, 0>(d, da, db, acc);
@@ -807,46 +823,78 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
   tc::wgmma_m64n128k16_ss(d, da, db, acc);
 }
 
-// Y = X W for rows [0, M) (M <= 128) and columns [0, ncols): X one of the
-// swizzled 128-row matrices (kNF columns), W^T staged by stage_wt (R rows =
-// Y's columns). Tile (mt, nt) of 64 x TN outputs goes to warpgroup
-// mt * (ncols / TN) + nt (at most four tiles), which issues its eight
-// k-steps back to back (a warpgroup without a tile repeats one and drops
-// it, so no wgmma is under a branch). Then every thread calls pre(); with
-// `sync` a barrier follows (the epilogue may overwrite W or read what pre()
-// waited for), and epi(r, c, y[r][c], y[r][c + 1]) receives each pair of adjacent
-// outputs of the rows < M from the registers. Every thread calls it; what a
-// thread wrote before it must be fenced for the async proxy (wait_staged, or
-// the fence that ends node_product and aggregate); it ends with such a fence
-// and a barrier.
-template <int TN, typename Pre, typename Epi>
-__device__ void node_product(const bf16* X, int M, const bf16* Wsw, int R, int ncols, bool sync,
-                             Pre pre, Epi epi) {
-  const int tid = threadIdx.x + opaque_zero();
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int ntn = ncols / TN, tiles = (M + 63) / 64 * ntn;
-  const bool mine = wg < tiles;  // warpgroup-uniform
-  const int t = wg % tiles, m0 = (t / ntn) * 64, n0 = (t % ntn) * TN;
-  float acc[TN / 2];
+// The node-sized products (Y = X W over the rows of a node matrix, X one of
+// the swizzled 128-row matrices, W^T staged by stage_wt): warpgroup wg takes
+// row tile mt = wg / 2 (rows 64 mt ..; both tiles are computed whatever N,
+// rows past it feed only dropped outputs) and column half h = wg % 2. The
+// warpgroups of a row tile (a pair) exchange what a layer feeds the next
+// through shared memory and wait for each other at the pair's named barrier;
+// no other warpgroup takes part.
+struct NodeTile {
+  int mt, h, warp, lane;
+  // row (in the node matrix) of this lane's stmatrix / ldmatrix address:
+  // row lane % 8 of 8 x 8 matrix lane / 8 (matrices in the order of quad())
+  __device__ __forceinline__ int row() const {
+    return 64 * mt + 16 * warp + 8 * ((lane >> 3) & 1) + (lane & 7);
+  }
+  // ... and its column in group j of the tile (columns 16 j ..)
+  __device__ __forceinline__ int col(int j) const { return 16 * j + 8 * (lane >> 4); }
+};
+__device__ __forceinline__ NodeTile node_tile() {
+  const int tid = threadIdx.x + opaque_zero();  // see opaque_zero
+  return NodeTile{tid >> 8, (tid >> 7) & 1, (tid >> 5) & 3, tid & 31};
+}
+
+// the named barrier of row tile mt's two warpgroups (barriers 1 .. 4 are the
+// relation MLP's, one a warpgroup)
+__device__ __forceinline__ void pair_sync(int mt) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(5 + mt) : "memory");
+}
+
+// The warpgroup's 64 x TN product: rows m0 .. m0 + 63 of X, columns n0 .. n0
+// + TN - 1 (rows of W^T, which has R), its eight k-steps issued back to back
+// and waited for once. Accumulators as wgmma lays them out (tc::wgmma_m64n64k16).
+template <int TN>
+__device__ __forceinline__ void tile_products(float (&acc)[TN / 2], const bf16* X, int m0,
+                                              const bf16* W, int R, int n0) {
   tc::wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < kNF / 16; ++ks)
-    wgmma_ss(acc, tc::sw128_desc(X, kNodeRows, m0, ks), tc::sw128_desc(Wsw, R, n0, ks), ks > 0);
+    wgmma_ss(acc, tc::sw128_desc(X, kNodeRows, m0, ks), tc::sw128_desc(W, R, n0, ks), ks > 0);
   tc::wgmma_commit();
   tc::wgmma_wait0();
   tc::fence_regs(acc);
-  pre();
-  if (sync) __syncthreads();
-  if (mine) {
-    const int r = m0 + warp * 16 + (lane >> 2);
+}
+
+// Group j (columns 16 j .. 16 j + 15) of the warpgroup's accumulators as four
+// bf16 pairs in stmatrix's order: pair m holds row 16 w + g + 8 hi of the
+// tile (warp w, g = lane / 4, hi = m % 2), columns 8 nt + 2 t4 and the next
+// (nt = 2 j + m / 2, t4 = lane % 4); make(v0, v1, nt, hi) packs the two
+// accumulators. j, and so nt and hi, are compile-time constants.
+template <int N, typename Make>
+__device__ __forceinline__ void quad(const float (&acc)[N], int j, Make make, uint32_t (&q)[4]) {
 #pragma unroll
-    for (int i = 0; i < TN / 2; i += 2) {
-      const int m = r + 8 * ((i & 3) >> 1), n = n0 + 8 * (i >> 2) + 2 * (lane & 3);
-      if (m < M) epi(m, n, acc[i], acc[i + 1]);
-    }
+  for (int m = 0; m < 4; ++m) {
+    const int nt = 2 * j + (m >> 1), i = 4 * nt + 2 * (m & 1);
+    q[m] = make(acc[i], acc[i + 1], nt, m & 1);
   }
-  tc::fence_proxy_async();
-  __syncthreads();
+}
+
+// relu(v + b) rounded, columns c, c + 1 of the bias b (float)
+__device__ __forceinline__ unsigned bias_relu(const float* b, float v0, float v1, int c) {
+  const float2 bb = *reinterpret_cast<const float2*>(b + c);
+  return pack_relu_bf16(v0 + bb.x, v1 + bb.y);
+}
+// the column of pair nt of quad() in a tile starting at column n0
+__device__ __forceinline__ int pair_col(int n0, int nt) {
+  return n0 + 8 * nt + 2 * (threadIdx.x & 3);
+}
+
+// Every thread of a row tile's warpgroups stores its pairs (quad(), group j)
+// into a swizzled 128-row node matrix at column n0 + 16 j .., 16 bytes a row.
+__device__ __forceinline__ void store_quad(bf16* M, const NodeTile& t, int n0, int j,
+                                           const uint32_t (&q)[4]) {
+  tc::stmatrix_x4(M + tc::sw128(t.row(), n0 + t.col(j), kNodeRows), q);
 }
 
 struct EdgeGraph {
@@ -940,10 +988,11 @@ __device__ __forceinline__ void store_rows(const bf16* A, bf16* relbase, int e0,
 }
 
 // This substep's edge lists and node rows (see TcBlock), from the layout
-// in shared memory, with `sm` the 1,024-aligned base.
+// in shared memory, with `sm` the 1,024-aligned base; its edge count is the
+// offsets' last entry.
 __device__ __forceinline__ EdgeGraph edge_graph(const TcBlock& tb, unsigned char* sm) {
   const TcLayout& L = tb.L;
-  return EdgeGraph{tb.E,
+  return EdgeGraph{reinterpret_cast<const int*>(sm + L.off)[tb.d.Np],
                    tb.d.K,
                    tb.d.n_p,
                    tb.d.N,
@@ -960,7 +1009,7 @@ __host__ __device__ constexpr int rel_w(int L) {
   return L == 0 ? kOffSTG : L == 1 ? kOffX : L == 2 ? kOffX + kWBytes : kOffWB;
 }
 
-// rel_base[e] = (relu-MLP3(relation inputs of e)) @ W1 + b for the tb.E real
+// rel_base[e] = (relu-MLP3(relation inputs of e)) @ W1 + b for the real
 // edges of this substep, with the four layers' weights staged (rel_w) and
 // their biases in the BIAS region (kBre0 on, kNF apart). Each warpgroup
 // takes 64 rows of every 256-edge tile (warp w rows 16w.. of them; rows
@@ -976,7 +1025,8 @@ __host__ __device__ constexpr int rel_w(int L) {
 // shared memory (tb) where it is used.
 __device__ __forceinline__ void relation_mlp(const Params& p, const TcBlock& tb,
                                              unsigned char* smem, SubClock& sc) {
-  const int ntiles = __shfl_sync(kFull, (tb.E + 4 * 64 - 1) / (4 * 64), 0);
+  const int E = reinterpret_cast<const int*>(smem + tb.L.off)[tb.d.Np];
+  const int ntiles = __shfl_sync(kFull, (E + 4 * 64 - 1) / (4 * 64), 0);
   for (int tile = 0; tile < ntiles; ++tile) {
     unsigned char* const sm = smem + opaque_zero();  // see opaque_zero
     const int tid = threadIdx.x + opaque_zero();
@@ -1040,7 +1090,7 @@ __device__ __forceinline__ void relation_mlp(const Params& p, const TcBlock& tb,
     }
     wg_sync(wg);  // the tile holds rel_base's rows
     store_rows(A, static_cast<bf16*>(p.relbase) + (size_t)blockIdx.x * tb.d.Np * tb.d.K * kNF,
-               e0, tb.E);
+               e0, reinterpret_cast<const int*>(sm + tb.L.off)[tb.d.Np]);
     wg_sync(wg);  // ... read: the next tile's inputs may overwrite them
     sc.mark(kRelEpilogues);
   }
@@ -1093,29 +1143,31 @@ __device__ __forceinline__ void load_rows(uint4 (&r)[kRowsAhead], const bf16* ro
 }
 
 // agg[i] = sum over i's edges, in slot order, of relu(rel_base[e] + recv[i]
-// + send[j]) for every receiver i < N, rounded to bf16 into AGG. RS: (Np,
-// 2 kNF) [recv | send]; rel_base is read from global memory, kTPR threads
-// per receiver and kCPT channels (16 bytes) per thread. A receiver's edges
-// are contiguous rows of rel_base: a thread loads its 16 bytes of
-// kRowsAhead of them at once (load_rows), then sums them in slot order; a
-// slot past the receiver's edges sums with the -inf row NINF for send and
-// adds 0, so that no branch splits a warp's two receivers. It first waits
-// for the cp.async copies in flight but the newest group (`first`: the
-// newest two). Every thread calls it; it ends with a barrier.
-__device__ __forceinline__ void aggregate(const bf16* RS, const bf16* relbase, int N,
+// + send[j]) for every receiver i < N, rounded to bf16 into AGG over recv[i]
+// (each thread reads its 16 bytes of recv[i] before it writes them). AGG
+// holds recv (the swizzled 128-row node matrix), SEND send (Np rows of
+// kSendLd); rel_base is read from global memory, kTPR threads per receiver
+// and kCPT channels (16 bytes) per thread. A receiver's edges are contiguous
+// rows of rel_base: a thread loads its 16 bytes of kRowsAhead of them at once
+// (load_rows), then sums them in slot order; a slot past the receiver's
+// edges sums with the -inf row NINF for send and adds 0, so that no branch
+// splits a warp's two receivers. It opens with a barrier (recv|send is
+// written; in round 0, by the cp.async copies in flight but the newest two
+// groups), then calls open(); it ends with every cp.async copy waited for
+// and a barrier. Every thread calls it.
+template <typename Open>
+__device__ __forceinline__ void aggregate(bf16* AGG, const bf16* SEND, const bf16* relbase, int N,
                                           const int* OFF, const short* NBR, int K,
-                                          const bf16* NINF, bf16* AGG, bool first, SubClock& sc) {
+                                          const bf16* NINF, Open open, SubClock& sc) {
   sc.start();
-  if (first)
-    tc::cp_async_wait<2>();  // all but the newest two groups of cp.async copies
-  else
-    tc::cp_async_wait<1>();  // ... the newest one
+  tc::cp_async_wait<2>();
   __syncthreads();
+  open();
   sc.mark(kAggRows);
   const int tid = threadIdx.x + opaque_zero();
   const int c0 = (tid % kTPR) * kCPT;
   const bf16* rows = relbase + c0;
-  const bf16* send = RS + kNF + c0;
+  const bf16* send = SEND + c0;
   const bf16* ninf = NINF + c0;
   uint4 r[kRowsAhead];
 #pragma unroll
@@ -1123,14 +1175,15 @@ __device__ __forceinline__ void aggregate(const bf16* RS, const bf16* relbase, i
   for (int i = tid / kTPR; i < N; i += kRecvPerPass) {
     const int ebeg = OFF[i], eend = OFF[i + 1];
     const short* nbr = NBR + i * K - ebeg;  // nbr[e]: edge e's sender
-    const uint4 recv = *reinterpret_cast<const uint4*>(RS + i * 2 * kNF + c0);
+    uint4* const at = reinterpret_cast<uint4*>(AGG + tc::sw128(i, c0, kNodeRows));
+    const uint4 recv = *at;
     float acc[kCPT] = {};
     for (int e = ebeg; e < eend; e += kRowsAhead) {
       load_rows(r, rows, e, eend);
 #pragma unroll
       for (int k = 0; k < kRowsAhead; ++k) {
         const bool on = e + k < eend;
-        const bf16* sd = on ? send + nbr[e + k] * 2 * kNF : ninf;
+        const bf16* sd = on ? send + nbr[e + k] * kSendLd : ninf;
         add_messages(acc, r[k], recv, *reinterpret_cast<const uint4*>(sd));
         if (k == 0) {  // the rows are in
           acc[0] = arrived(acc[0]);
@@ -1143,11 +1196,258 @@ __device__ __forceinline__ void aggregate(const bf16* RS, const bf16* relbase, i
     out.y = pack_bf16(acc[2], acc[3]);
     out.z = pack_bf16(acc[4], acc[5]);
     out.w = pack_bf16(acc[6], acc[7]);
-    *reinterpret_cast<uint4*>(AGG + tc::sw128(i, c0, kNodeRows)) = out;
+    *at = out;
     sc.mark(kAggSums);
   }
-  tc::fence_proxy_async();  // AGG is the update's A operand
+  tc::cp_async_wait<0>();
+  tc::fence_proxy_async();  // AGG is the update's A operand, and so are the staged weights
   __syncthreads();
+}
+
+// The pairs of the propagator base that warpgroup (mt, h)'s thread adds in
+// the update: rows 16 w + g and + 8 of tile mt, columns 64 h + 8 nt + 2 t4
+// and the next (nt < 8), pair nt of row half `hi` at pw[hi][nt]. The encoder
+// writes pbase in this order (pbase_at), so a thread's pairs of a row are
+// 32 contiguous bytes; rows from N on are not read (zeros).
+__device__ __forceinline__ int pbase_at(int r, int h, int t4) { return r * kNF + 64 * h + 16 * t4; }
+__device__ __forceinline__ void load_pbase(unsigned (&pw)[2][8], const bf16* pbase, int N,
+                                           const NodeTile& t) {
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = 64 * t.mt + 16 * t.warp + (t.lane >> 2) + 8 * hi;
+    uint4 a = make_uint4(0, 0, 0, 0), b = a;
+    if (r < N) {
+      const uint4* src = reinterpret_cast<const uint4*>(pbase + pbase_at(r, t.h, t.lane & 3));
+      a = src[0];
+      b = src[1];
+    }
+    const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) pw[hi][nt] = w[nt];
+  }
+}
+
+// effect = relu(rnd(rnd(base + rnd(agg @ Wb)) + effect)) for the warpgroup's
+// 64 x 64 tile (AGG in, Wb in WB, base from global memory, the effect in
+// EFF, read and written in place with ldmatrix / stmatrix: no other
+// warpgroup reads or writes the tile's columns); then the pair's barrier,
+// after which the pair's rows of EFF hold the new effect.
+__device__ __forceinline__ void update(const TcBlock& tb, unsigned char* smem, const bf16* pbase,
+                                       SubClock& sc) {
+  unsigned char* const sm = smem + opaque_zero();
+  const NodeTile t = node_tile();
+  bf16* const EFF = reinterpret_cast<bf16*>(sm + kOffEff);
+  unsigned pw[2][8];
+  load_pbase(pw, pbase, tb.d.N, t);  // in flight through the products
+  sc.start();
+  float acc[32];
+  tile_products<64>(acc, reinterpret_cast<const bf16*>(sm + kOffAgg), 64 * t.mt,
+                    reinterpret_cast<const bf16*>(sm + kOffWB), kNF, 64 * t.h);
+  sc.mark(kNodeProducts);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bf16* const at = EFF + tc::sw128(t.row(), 64 * t.h + t.col(j), kNodeRows);
+    uint32_t ef[4], q[4];
+    tc::ldmatrix_x4(ef, at);
+    quad(acc, j, [&](float v0, float v1, int nt, int hi) {
+      return add_relu_bf16x2(add_bf16x2(pw[hi][nt], pack_bf16(v0, v1)), ef[2 * (nt & 1) + hi]);
+    }, q);
+    tc::stmatrix_x4(at, q);
+  }
+  tc::fence_proxy_async();  // EFF is the next product's A operand
+  sc.mark(kNodeEpilogues);
+  pair_sync(t.mt);
+  sc.mark(kNodeBarriers);
+}
+
+// recv|send = rnd(effect @ W23) for the warpgroup's 64 x 128 tile (EFF in,
+// W23^T, 256 rows, in X): column half 0 (recv) into AGG, the swizzled
+// 128-row matrix, half 1 (send) into SEND, rows from Np on into TRASH. What
+// it overwrites was read before the barrier that ended the aggregation
+// (send) or the pair's barrier that ended the update (recv, over agg);
+// the next aggregation's opening barrier makes it visible.
+__device__ __forceinline__ void projection(const TcBlock& tb, unsigned char* smem, SubClock& sc) {
+  unsigned char* const sm = smem + opaque_zero();
+  const NodeTile t = node_tile();
+  sc.start();
+  float acc[64];
+  tile_products<128>(acc, reinterpret_cast<const bf16*>(sm + kOffEff), 64 * t.mt,
+                     reinterpret_cast<const bf16*>(sm + kOffX), 2 * kNF, 128 * t.h);
+  sc.mark(kNodeProducts);
+  bf16* const recv = reinterpret_cast<bf16*>(sm + kOffAgg);
+  bf16* const send = reinterpret_cast<bf16*>(sm + kOffSTG) + t.row() * kSendLd;
+  const bool send_row = t.row() < tb.d.Np;
+  bf16* const trash = reinterpret_cast<bf16*>(sm + tb.L.trash);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t q[4];
+    quad(acc, j, [](float v0, float v1, int, int) { return pack_bf16(v0, v1); }, q);
+    if (t.h == 0)
+      store_quad(recv, t, 0, j, q);
+    else
+      tc::stmatrix_x4(send_row ? send + t.col(j) : trash, q);
+  }
+  sc.mark(kNodeEpilogues);
+}
+
+// The motion head on the object rows: relu layers nr0 (EFF -> AGG) and nr1
+// (AGG -> EFF) as 64 x 64 tiles, each pair over its row tile with its
+// barrier between, then the 3-wide last layer on the CUDA cores by the
+// pair's threads, one output (row, coordinate) each, its kNF products in k
+// order read 16 bytes at a time; the clamped motion added to the last frame
+// gives the predicted rows of nxt. Every thread calls it; it ends with a
+// barrier.
+__device__ __forceinline__ void motion_head(const TcBlock& tb, unsigned char* smem, float mc,
+                                            const float* last, float* nxt, SubClock& sc) {
+  unsigned char* const sm = smem + opaque_zero();
+  const NodeTile t = node_tile();
+  bf16* const EFF = reinterpret_cast<bf16*>(sm + kOffEff);
+  bf16* const AGG = reinterpret_cast<bf16*>(sm + kOffAgg);
+  const float* const bias = reinterpret_cast<const float*>(sm + tb.L.bias);
+#pragma unroll
+  for (int layer = 0; layer < 2; ++layer) {
+    const bf16* in = layer == 0 ? EFF : AGG;
+    bf16* out = layer == 0 ? AGG : EFF;
+    const float* b = bias + (layer == 0 ? kBnr0 : kBnr1);
+    sc.start();
+    float acc[32];
+    const bf16* const W = reinterpret_cast<const bf16*>(sm + kOffX) + layer * kNF * kNF;
+    tile_products<64>(acc, in, 64 * t.mt, W, kNF, 64 * t.h);
+    sc.mark(kNodeProducts);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t q[4];
+      quad(acc, j, [&](float v0, float v1, int nt, int) {
+        return bias_relu(b, v0, v1, pair_col(64 * t.h, nt));
+      }, q);
+      store_quad(out, t, 64 * t.h, j, q);
+    }
+    if (layer == 0) tc::fence_proxy_async();  // AGG is nr1's A operand
+    sc.mark(kNodeEpilogues);
+    pair_sync(t.mt);
+    sc.mark(kNodeBarriers);
+  }
+  sc.start();
+  const int k = (t.h * 128 + t.warp * 32 + t.lane), r = 64 * t.mt + k / 3, c = k % 3;
+  if (k < 64 * 3 && r < tb.d.n_p) {
+    const float* w = bias + kWnr2 + c * kW2Ld;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kNF / 8; ++q) {
+      const uint4 x = *reinterpret_cast<const uint4*>(EFF + tc::sw128(r, 8 * q, kNodeRows));
+      const float4 w0 = *reinterpret_cast<const float4*>(w + 8 * q);
+      const float4 w1 = *reinterpret_cast<const float4*>(w + 8 * q + 4);
+      s = fmaf(__uint_as_float(x.x << 16), w0.x, s);
+      s = fmaf(__uint_as_float(x.x & 0xffff0000u), w0.y, s);
+      s = fmaf(__uint_as_float(x.y << 16), w0.z, s);
+      s = fmaf(__uint_as_float(x.y & 0xffff0000u), w0.w, s);
+      s = fmaf(__uint_as_float(x.z << 16), w1.x, s);
+      s = fmaf(__uint_as_float(x.z & 0xffff0000u), w1.y, s);
+      s = fmaf(__uint_as_float(x.w << 16), w1.z, s);
+      s = fmaf(__uint_as_float(x.w & 0xffff0000u), w1.w, s);
+    }
+    const float m = rnd<bf16>(s + bias[kBnr2 + c]);
+    nxt[r * 3 + c] = __fadd_rn(last[r * 3 + c], fminf(fmaxf(m, -mc), mc));
+  }
+  sc.mark(kNodeEpilogues);
+  __syncthreads();
+  sc.mark(kNodeBarriers);
+}
+
+// Once per push, from the particle encoder's first layer (h1, in EFF) on:
+// pe1 (EFF -> AGG) and pe2 (AGG -> EFF and the scratch penc) with the pair's
+// barrier after each, then a block barrier (X free, EFF whole); Wa's product
+// (EFF -> the scratch pbase, in load_pbase's order) while W23 is staged into
+// X, and round 1's recv|send (EFF -> the scratch rs1, row-major). The weights
+// pe1 | pe2 in X and Wa in WB are staged and visible. Every thread calls it;
+// it ends with a barrier.
+__device__ __forceinline__ void encoder_products(const TcBlock& tb, unsigned char* smem,
+                                                 const bf16* W23, bf16* penc, bf16* pbase,
+                                                 bf16* rs1, SubClock& sc) {
+  unsigned char* const sm = smem + opaque_zero();
+  const NodeTile t = node_tile();
+  bf16* const EFF = reinterpret_cast<bf16*>(sm + kOffEff);
+  bf16* const AGG = reinterpret_cast<bf16*>(sm + kOffAgg);
+  const float* const bias = reinterpret_cast<const float*>(sm + tb.L.bias);
+  const int N = tb.d.N, g = t.lane >> 2;
+  const int r0 = 64 * t.mt + 16 * t.warp + g;  // this thread's rows: r0, r0 + 8
+#pragma unroll
+  for (int layer = 0; layer < 2; ++layer) {
+    const bf16* in = layer == 0 ? EFF : AGG;
+    bf16* out = layer == 0 ? AGG : EFF;
+    const float* b = bias + (layer == 0 ? kBpe1 : kBpe2);
+    sc.start();
+    float acc[32];
+    const bf16* const W = reinterpret_cast<const bf16*>(sm + kOffX) + layer * kNF * kNF;
+    tile_products<64>(acc, in, 64 * t.mt, W, kNF, 64 * t.h);
+    sc.mark(kNodeProducts);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t q[4];
+      quad(acc, j, [&](float v0, float v1, int nt, int hi) {
+        const int c = pair_col(64 * t.h, nt), r = r0 + 8 * hi;
+        const unsigned v = bias_relu(b, v0, v1, c);
+        if (layer == 1 && r < N) *reinterpret_cast<unsigned*>(penc + r * kNF + c) = v;
+        return v;
+      }, q);
+      store_quad(out, t, 64 * t.h, j, q);
+    }
+    tc::fence_proxy_async();
+    sc.mark(kNodeEpilogues);
+    if (layer == 0)
+      pair_sync(t.mt);
+    else
+      __syncthreads();
+    sc.mark(kNodeBarriers);
+  }
+  stage_wt(reinterpret_cast<bf16*>(sm + kOffX), W23, 2 * kNF, kNF);
+  tc::cp_async_commit();
+  {  // the propagator's constant term: rnd(penc @ Wa + b)
+    sc.start();
+    float acc[32];
+    tile_products<64>(acc, EFF, 64 * t.mt, reinterpret_cast<const bf16*>(sm + kOffWB), kNF,
+                      64 * t.h);
+    sc.mark(kNodeProducts);
+    const float* b = bias + kBpp;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      unsigned w[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(b + pair_col(64 * t.h, nt));
+        w[nt] = pack_bf16(acc[4 * nt + 2 * hi] + bb.x, acc[4 * nt + 2 * hi + 1] + bb.y);
+      }
+      const int r = r0 + 8 * hi;
+      if (r < N) {
+        uint4* dst = reinterpret_cast<uint4*>(pbase + pbase_at(r, t.h, t.lane & 3));
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+    }
+    sc.mark(kNodeEpilogues);
+  }
+  tc::cp_async_wait<0>();
+  tc::fence_proxy_async();
+  __syncthreads();  // W23 is in
+  sc.mark(kNodeBarriers);
+  {  // round 1's recv|send: rnd(penc @ W23)
+    float acc[64];
+    tile_products<128>(acc, EFF, 64 * t.mt, reinterpret_cast<const bf16*>(sm + kOffX), 2 * kNF,
+                       128 * t.h);
+    sc.mark(kNodeProducts);
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = r0 + 8 * hi;
+        if (r < N)
+          *reinterpret_cast<unsigned*>(rs1 + r * 2 * kNF + pair_col(128 * t.h, nt)) =
+              pack_bf16(acc[4 * nt + 2 * hi], acc[4 * nt + 2 * hi + 1]);
+      }
+    sc.mark(kNodeEpilogues);
+  }
+  __syncthreads();  // X and WB are free
+  sc.mark(kNodeBarriers);
 }
 
 __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_raw) {
@@ -1161,6 +1461,7 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
     tb.L = make_tc_layout(p.d);
     tb.rep = p.repeat[b];
     tb.rmax = min(tb.rep, p.max_repeat);
+    tb.thresh = p.thresh;
   }
   __syncthreads();
   const Dims& d = tb.d;
@@ -1192,7 +1493,6 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
   constexpr int kThr = kTcThreads;
   const bf16* const* W = reinterpret_cast<const bf16* const*>(p.w);
   const bf16* const* P = reinterpret_cast<const bf16* const*>(p.tcw);
-  const auto none = [] {};
   const auto stage_relation = [&] {  // re1 | re2 in X, rp_w1 in WB, re0 in STG
     stage_wt(X, P[kRe1], kNF, kNF);
     stage_wt(W2, P[kRe2], kNF, kNF);
@@ -1203,7 +1503,8 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
   PhaseClock clk(p, b);
   SubClock sc(p, b);
 
-  // ---- inputs; the biases and the head's last layer as float ----
+  // ---- inputs; the biases and the head's last layer as float; pe0's
+  // inputs and weight as float in AGG (free until pe1's epilogue) ----
   stage_wt(X, P[kPe1], kNF, kNF);
   stage_wt(W2, P[kPe2], kNF, kNF);
   stage_wt(WB, P[kPpWa], kNF, kNF);
@@ -1216,9 +1517,14 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
     float* bias = BIAS();
     for (int idx = tid; idx < 10 * kNF; idx += kThr)
       bias[idx] = __bfloat162float(src[idx / kNF][idx % kNF]);
-    for (int idx = tid; idx < 3 * kNF; idx += kThr)
-      bias[kWnr2 + idx] = __bfloat162float(W[22][idx]);
+    for (int idx = tid; idx < 3 * kNF; idx += kThr)  // (kNF, 3) -> rows of kW2Ld
+      bias[kWnr2 + (idx % 3) * kW2Ld + idx / 3] = __bfloat162float(W[22][idx]);
     if (tid < 3) bias[kBnr2 + tid] = __bfloat162float(W[23][tid]);
+    const bf16* pin = static_cast<const bf16*>(p.pin) + (size_t)b * d.Np * d.Dp;
+    float* w0 = reinterpret_cast<float*>(AGG);  // (Dp, kNF), then the (N, Dp) inputs
+    for (int idx = tid; idx < d.Dp * kNF; idx += kThr) w0[idx] = __bfloat162float(W[0][idx]);
+    for (int idx = tid; idx < d.N * d.Dp; idx += kThr)
+      w0[d.Dp * kNF + idx] = __bfloat162float(pin[idx]);
   }
   __syncthreads();
 
@@ -1226,160 +1532,93 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
   // round 1's recv|send ----
   // pe0 on the CUDA cores: its Dp inputs are a few
   {
-    const bf16* pin = static_cast<const bf16*>(p.pin) + (size_t)b * d.Np * d.Dp;
     const float* bias = BIAS();
+    const float* w0 = reinterpret_cast<const float*>(AGG);
+    const float* in = w0 + d.Dp * kNF;
     for (int idx = tid; idx < d.N * kNF; idx += kThr) {
       const int r = idx / kNF, c = idx % kNF;
       float s = 0.f;
-      for (int k = 0; k < d.Dp; ++k)
-        s = fmaf(__bfloat162float(pin[r * d.Dp + k]), __bfloat162float(W[0][k * kNF + c]), s);
+      for (int k = 0; k < d.Dp; ++k) s = fmaf(in[r * d.Dp + k], w0[k * kNF + c], s);
       EFF[tc::sw128(r, c, kNodeRows)] = __float2bfloat16_rn(relu(s + bias[kBpe0 + c]));
     }
   }
-  wait_staged();
-  {  // the epilogues' pointers, taken once (see TcBlock)
-    const float* bpe1 = BIAS() + kBpe1;
-    const float* bpe2 = BIAS() + kBpe2;
-    const float* bpp = BIAS() + kBpp;
-    bf16* const pe = penc();
-    bf16* const pb = pbase();
-    bf16* const rs = rs1();
-    node_product<64>(EFF, d.N, X, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-      *reinterpret_cast<unsigned*>(AGG + tc::sw128(r, c, kNodeRows)) =
-          pack_bf16(relu(v0 + bpe1[c]), relu(v1 + bpe1[c + 1]));
-    });
-    node_product<64>(AGG, d.N, W2, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-      const unsigned v = pack_bf16(relu(v0 + bpe2[c]), relu(v1 + bpe2[c + 1]));
-      *reinterpret_cast<unsigned*>(EFF + tc::sw128(r, c, kNodeRows)) = v;
-      *reinterpret_cast<unsigned*>(pe + r * kNF + c) = v;
-    });
-    stage_wt(X, P[kRpW23], 2 * kNF, kNF);
-    tc::cp_async_commit();
-    node_product<64>(EFF, d.N, WB, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-      *reinterpret_cast<unsigned*>(pb + r * kNF + c) = pack_bf16(v0 + bpp[c], v1 + bpp[c + 1]);
-    });
-    wait_staged();
-    node_product<128>(EFF, d.N, X, 2 * kNF, 2 * kNF, false, none,
-                      [=](int r, int c, float v0, float v1) {
-                        *reinterpret_cast<unsigned*>(rs + r * 2 * kNF + c) = pack_bf16(v0, v1);
-                      });
-  }
+  tc::cp_async_wait<0>();
+  tc::fence_proxy_async();
+  __syncthreads();
+  encoder_products(tb, smem, P[kRpW23], penc(), pbase(), rs1(), sc);
   stage_relation();
   clk.mark(kEncoder);
 
   int start = 0;  // ring slot of the oldest history frame
   for (int ai = 1; ai <= tb.rmax; ++ai) {
-    {
-      bf16* NR = reinterpret_cast<bf16*>(smem + L.nr);
-      node_rows(d, HIST(), start, NR);
-      // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
-      edges::radius_topk(frame(start + d.n_his - 1), VALID(), d.Np, d.N, d.n_p, d.K, p.thresh,
-                         NBR(), CNT());
-      const int E = edges::compact_edges(CNT(), NBR(), d.Np, d.K, OFF(), ER(), nullptr);
-      if (tid == 0) tb.E = E;
-      clk.mark(kGraph);
-    }
-    // ---- relation encoder + rel_base over real edges (weights staged
-    // during the previous substep's head, or the encoder) ----
-    wait_staged();
+    // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
+    sc.start();
+    node_rows(d, HIST(), start, reinterpret_cast<bf16*>(smem + L.nr));
+    sc.mark(kGraphRows);
+    // (the threshold and the thread index read where used: see TcBlock and
+    // opaque_zero)
+    edges::radius_topk(frame(start + d.n_his - 1), VALID(), d.Np, d.N, d.n_p, d.K, tb.thresh,
+                       NBR(), CNT(), EFF, threadIdx.x + opaque_zero());  // EFF: free till then
+    sc.mark(kGraphSelection);
+    // the relation weights (staged during the previous head, or the
+    // encoder), visible after the compaction's barriers
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    edges::compact_edges(CNT(), NBR(), d.Np, d.K, OFF(), ER(), nullptr,
+                         threadIdx.x + opaque_zero());
+    sc.mark(kGraphCompaction);
+    clk.mark(kGraph);
+    // ---- relation encoder + rel_base over real edges ----
     relation_mlp(p, tb, smem, sc);  // EFF and AGG: the A tiles
     __syncthreads();  // rel_base is written; the relation weights are free
-    // round 1's recv|send and the effect's start (the particle encoding),
-    // waited for by the first aggregation; Wb, by the first update
-    copy_async(X, rs1(), d.N * 2 * kNF * 2);
+    // round 1's recv (into AGG) and send (into STG) and the effect's start
+    // (the particle encoding, into EFF), waited for by the first
+    // aggregation; Wb, and W23 when a round follows, by its end
     {
+      const bf16* rs = rs1();
       const bf16* pe = penc();
-      for (int idx = threadIdx.x + opaque_zero(); idx < d.N * (kNF / 8); idx += kThr) {
-        const int r = idx / (kNF / 8), c = (idx % (kNF / 8)) * 8;
+      const int n = d.N * (kNF / 8);  // 16-byte chunks of a node matrix
+      for (int idx = threadIdx.x + opaque_zero(); idx < n; idx += kThr) {
+        const int r = idx >> 4, c = (idx & 15) * 8;
+        tc::cp_async16(AGG + tc::sw128(r, c, kNodeRows), rs + r * 2 * kNF + c, true);
+        tc::cp_async16(STG + r * kSendLd + c, rs + r * 2 * kNF + kNF + c, true);
         tc::cp_async16(EFF + tc::sw128(r, c, kNodeRows), pe + r * kNF + c, true);
       }
     }
     tc::cp_async_commit();
     stage_wt(WB, P[kPpWb], kNF, kNF);
     tc::cp_async_commit();
+    const int pstep = __shfl_sync(kFull, d.pstep, 0);
+    if (pstep > 1) stage_wt(X, P[kRpW23], 2 * kNF, kNF);
+    tc::cp_async_commit();
     clk.mark(kRelation);
 
     // ---- pstep rounds of message passing ----
-    for (int s = 0; s < d.pstep; ++s) {
-      if (s > 0) {  // recv|send, one 256-column product into X, over its weight
-        node_product<128>(EFF, d.N, X, 2 * kNF, 2 * kNF, true, none,
-                          [=](int r, int c, float v0, float v1) {
-                            *reinterpret_cast<unsigned*>(X + r * 2 * kNF + c) =
-                                pack_bf16(v0, v1);
-                          });
-      }
-      clk.mark(kProjection);
-      // the propagator base into STG (free through the aggregation)
-      copy_async(STG, pbase(), d.N * kNF * 2);
-      tc::cp_async_commit();
-      aggregate(X, relbase(), d.N, OFF(), NBR(), d.K, reinterpret_cast<const bf16*>(smem + L.ninf),
-                AGG, s == 0, sc);  // not Wb, pbase
+    for (int s = 0; s < pstep; ++s) {
+      const bool last = s + 1 == pstep;
+      aggregate(AGG, STG, relbase(), d.N, OFF(), NBR(), d.K,
+                reinterpret_cast<const bf16*>(smem + L.ninf), [&] {
+                  if (last) {  // the head's weights (every projection is done)
+                    stage_wt(X, P[kNr0], kNF, kNF);
+                    stage_wt(W2, P[kNr1], kNF, kNF);
+                  }
+                  tc::cp_async_commit();
+                }, sc);
       clk.mark(kAggregate);
-      // the next product's weights into X
-      if (s + 1 < d.pstep) {
-        stage_wt(X, P[kRpW23], 2 * kNF, kNF);
-      } else {
-        stage_wt(X, P[kNr0], kNF, kNF);
-        stage_wt(W2, P[kNr1], kNF, kNF);
-      }
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();  // Wb (the first round) and pbase, not the weights
-      tc::fence_proxy_async();
-      __syncthreads();
-      // effect = relu(rnd(rnd(base + rnd(agg @ Wb)) + effect))
-      node_product<64>(AGG, d.N, WB, kNF, kNF, true, none,
-                       [=](int r, int c, float v0, float v1) {
-                         const float2 pb = __bfloat1622float2(
-                             *reinterpret_cast<const __nv_bfloat162*>(STG + r * kNF + c));
-                         __nv_bfloat162* e =
-                             reinterpret_cast<__nv_bfloat162*>(EFF + tc::sw128(r, c, kNodeRows));
-                         const float2 ef = __bfloat1622float2(*e);
-                         float t0 = rnd<bf16>(pb.x + rnd<bf16>(v0));
-                         float t1 = rnd<bf16>(pb.y + rnd<bf16>(v1));
-                         t0 = rnd<bf16>(t0 + ef.x);
-                         t1 = rnd<bf16>(t1 + ef.y);
-                         *e = __floats2bfloat162_rn(relu(t0), relu(t1));
-                       });
-      wait_staged();
+      update(tb, smem, pbase(), sc);
       clk.mark(kUpdate);
+      if (!last) {
+        projection(tb, smem, sc);
+        clk.mark(kProjection);
+      }
     }
 
     // ---- motion head on the object rows, clamp, predicted positions ----
-    {
-      const float* bnr0 = BIAS() + kBnr0;
-      node_product<64>(EFF, d.n_p, X, kNF, kNF, false, none, [=](int r, int c, float v0, float v1) {
-        *reinterpret_cast<unsigned*>(AGG + tc::sw128(r, c, kNodeRows)) =
-            pack_bf16(relu(v0 + bnr0[c]), relu(v1 + bnr0[c + 1]));
-      });
-    }
-    {
-      const float* bnr1 = BIAS() + kBnr1;
-      node_product<64>(AGG, d.n_p, W2, kNF, kNF, false, none,
-                       [=](int r, int c, float v0, float v1) {
-                         *reinterpret_cast<unsigned*>(EFF + tc::sw128(r, c, kNodeRows)) =
-                             pack_bf16(relu(v0 + bnr1[c]), relu(v1 + bnr1[c + 1]));
-                       });
-    }
-    // the next substep's relation weights, in flight through the rest of this
-    // substep and the next graph build
-    if (ai < tb.rmax) stage_relation();
-    // the 3-wide last layer on the CUDA cores
-    {
-      const float mc = p.motion_clamp;
-      const float* bias = BIAS();
-      const float* last = frame(start + d.n_his - 1);
-      float* nxt = frame(start + d.n_his);
-      for (int idx = threadIdx.x + opaque_zero(); idx < d.n_p * 3; idx += kThr) {
-        const int r = idx / 3, c = idx % 3;
-        float s = 0.f;
-        for (int k = 0; k < kNF; ++k)
-          s = fmaf(__bfloat162float(EFF[tc::sw128(r, k, kNodeRows)]), bias[kWnr2 + k * 3 + c], s);
-        const float m = rnd<bf16>(s + bias[kBnr2 + c]);
-        nxt[r * 3 + c] = __fadd_rn(last[r * 3 + c], fminf(fmaxf(m, -mc), mc));
-      }
-    }
-    __syncthreads();
+    motion_head(tb, smem, p.motion_clamp, frame(start + d.n_his - 1), frame(start + d.n_his), sc);
     clk.mark(kHead);
+    // the next substep's relation weights, in flight through the re-stick
+    // and the next graph build
+    if (ai < tb.rmax) stage_relation();
 
     // ---- record at this sample's repeat; re-stick the eef rows ----
     record_restick<kThr>(p, ai, tb.rep, frame(start + d.n_his - 1), frame(start + d.n_his),
@@ -1442,13 +1681,16 @@ const char* rollout_chunk_error_string(int code) {
 void rollout_chunk_set_phase_clocks(void* clocks) {
   g_phase_clocks = static_cast<long long*>(clocks);
 }
-// ... and `clocks`, when not null, a zeroed (B, 5) int64 buffer into which
-// the following bf16 launches add thread 0's cycles in the relation MLP's
-// input build, products and epilogues and in the aggregation's wait for
-// rel_base's rows and its sums (the sub-phases overlap the phases above)
+// ... and `clocks`, when not null, a zeroed (B, rollout_chunk_sub_phases())
+// int64 buffer into which the following bf16 launches add thread 0's cycles
+// in the sub-phases of SubPhase (the relation MLP's input build, products
+// and epilogues; the aggregation's wait for rel_base's rows and its sums;
+// the graph build's node rows, selection and compaction; the node-sized
+// products' products, epilogues and barriers), which overlap the phases above
 void rollout_chunk_set_sub_clocks(void* clocks) {
   g_sub_clocks = static_cast<long long*>(clocks);
 }
+int rollout_chunk_sub_phases() { return kSubPhases; }
 #endif
 
 // Launch on `stream` without synchronising; returns cudaGetLastError().

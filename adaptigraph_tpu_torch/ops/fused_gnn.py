@@ -41,6 +41,7 @@ from adaptigraph_tpu_torch.ops.graph import BIG, pairwise_sq_dists, smallest_k
 
 N_WEIGHTS = 24
 _MAX_SMEM = 232448  # dynamic shared memory one block may use on Hopper
+_MAX_BF16_NODE_INPUTS = 32  # Dp the bf16 rollout kernel takes (csrc/rollout_chunk.cu: pe0)
 
 
 def round_up(x, m):
@@ -345,6 +346,11 @@ def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_r
         raise ValueError("the bfloat16 kernel needs nf_particle = nf_relation = nf_effect = 128 "
                          f"and at most 32 relation inputs, got {cfg.nf_particle}, "
                          f"{cfg.nf_relation}, {nf}, {cfg.relation_input_dim}")
+    if bf16 and Dp > _MAX_BF16_NODE_INPUTS:
+        # the particle encoder's first layer reads its inputs and weight as
+        # float from one 32 KB node matrix: (Np + 128) x Dp floats
+        raise ValueError(f"the bfloat16 kernel takes at most {_MAX_BF16_NODE_INPUTS} node "
+                         f"inputs, got {Dp}")
     for t in [pin] + list(weights):
         if t.data_ptr() % 16:
             raise ValueError("kernel inputs must be 16-byte aligned")

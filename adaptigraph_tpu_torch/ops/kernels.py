@@ -13,8 +13,9 @@ the same sources, which the port's own calls never use:
 - ``"phase_clocks"`` (``-DROLLOUT_PHASE_CLOCKS -DGNN_PHASE_CLOCKS``): the
   rollout kernel adds its blocks' SM cycles per phase into a buffer set with
   ``rollout_chunk_set_phase_clocks`` and, in bfloat16, thread 0's cycles in
-  the relation MLP's and the aggregation's parts into one set with
-  ``rollout_chunk_set_sub_clocks``; the single-step forward and its
+  the parts of the relation MLP, the aggregation, the graph build and the
+  node-sized products into one set with ``rollout_chunk_set_sub_clocks``
+  (``rollout_chunk_sub_phases`` of them); the single-step forward and its
   backward into 16 counters each, set with ``gnn_forward_set_phase_clocks``
   and ``gnn_train_bwd_set_phase_clocks``;
 - ``"no_edge"``, ``"no_gather"`` and ``"mlp_only"`` (both): the single-step
@@ -147,6 +148,8 @@ def library(variant=None):
         for fn in (lib.rollout_chunk_set_phase_clocks, lib.rollout_chunk_set_sub_clocks):
             fn.argtypes = [P]
             fn.restype = None
+        lib.rollout_chunk_sub_phases.argtypes = []
+        lib.rollout_chunk_sub_phases.restype = I
         for fn in (lib.gnn_forward_set_phase_clocks, lib.gnn_train_bwd_set_phase_clocks):
             fn.argtypes = [P]
             fn.restype = I

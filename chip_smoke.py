@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one CUDA card and check it.
 
     python3 chip_smoke.py          # needs one CUDA card
-    python3 chip_smoke.py --k1     # phases 0-1, then what K1 moves (``phase_k1``)
+    python3 chip_smoke.py --k1     # phases 0-1, then what K1 (and K2e) move (``phase_k1``)
     python3 chip_smoke.py --k23    # phases 0-1, then what K2/K3 move (``phase_k23``)
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
     python3 chip_smoke.py --mesh   # phases 0-1 and 18: the multi-device paths
@@ -16,15 +16,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
      ptxas' register and spill report and each K1/K2/K3 instance's HGMMA and
      HMMA count (every K2/K3 instance and bf16 K1 must run wgmma: HGMMA;
      bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised the
-     wgmma of any K1, K2 or K3 instance, and no instance but float32 K1
-     may spill: ``build_gate``).
+     wgmma of any K1, K2 or K3 instance, and no instance may spill:
+     ``build_gate``).
   2. the rollout kernel against its plain PyTorch version on the card, on the
      same inputs, in f32 and bf16 each (see ``phase_kernels``): rope width
      (fixture weights, B 2000) and granular width (5-point board, K 20), each
      in min-y and masked mean-y mode with per-sample masks and physics (B
      512); then the kernel's time (CUDA events and device time) and, from
      its profiling build, its cycles per phase and, in bf16, thread 0's in
-     the relation MLP's and the aggregation's parts (``K1_SUB_PHASES``).
+     the parts of the relation MLP, the aggregation, the graph build and the
+     node-sized products (``K1_SUB_PHASES``).
   3. the main path: the rope MPPI solve of 20,000 samples in chunks of 2,000,
      one warm-up and three timed solves, with the kernel's launch count read
      around the timed solves.
@@ -181,13 +182,16 @@ B_CHUNK = 2000
 # the rollout kernel's phases, in the order of its profiling build's counters
 PHASES = ("encoder", "graph", "relation", "projection", "aggregate", "update", "head",
           "restick")
-# ... and the parts of two of them (bf16: thread 0's cycles, SubPhase in
+# ... and the parts of some of them (bf16: thread 0's cycles, SubPhase in
 # csrc/rollout_chunk.cu): the relation MLP's input build, products (the
-# warpgroup's turn at the tensor cores, the issue, the wait) and epilogues
-# (rel_base's stores included); the aggregation's wait for rel_base's rows
-# and its sums
+# issue and the wait) and epilogues (rel_base's stores included); the
+# aggregation's wait for rel_base's rows and its sums; the graph build's
+# node rows, top-k selection and compaction (its barriers included); the
+# node-sized products' (encoder, update, projection, head) products,
+# epilogues and waits at the barriers after them
 K1_SUB_PHASES = ("relation_inputs", "relation_products", "relation_epilogues",
-                 "aggregate_rows", "aggregate_sums")
+                 "aggregate_rows", "aggregate_sums", "graph_rows", "graph_selection",
+                 "graph_compaction", "node_products", "node_epilogues", "node_barriers")
 # the modes that measure what a kernel moves, also in an older checkout
 # (given a copy of this script): the build line reports the build gate's
 # findings and fails on none
@@ -525,23 +529,17 @@ def wgmma_serialized(report):
     return out
 
 
-# the one instance whose spills the build line reports without failing: float32
-# K1, the CUDA-core parity body, off every card path
-SPILLS_REPORTED_ONLY = ("rollout_chunk_kernel<float>",)
-
-
 def build_gate(report):
     """What in ptxas' report (``-Xptxas -v``, a list of lines) fails the
     build: a K1, K2 or K3 instance whose wgmma ptxas serialised (its C75xx
     notes, ``wgmma_serialized``), and an instance that spills (``ptxas_kernels``,
-    its own and those of the device functions it calls), but for float32 K1
-    (``SPILLS_REPORTED_ONLY``), whose spills are reported only. Returns
-    [(kernel, reason)], empty when the build passes."""
+    its own and those of the device functions it calls). Returns [(kernel,
+    reason)], empty when the build passes."""
     out = [(k, "wgmma serialized: " + note) for k, note in wgmma_serialized(report)]
     for k, v in sorted(ptxas_kernels(report).items()):
         stores = v.get("spill_stores", 0) + v.get("callee_spill_stores", 0)
         loads = v.get("spill_loads", 0) + v.get("callee_spill_loads", 0)
-        if stores + loads and k not in SPILLS_REPORTED_ONLY:
+        if stores + loads:
             out.append((k, f"spills: {stores} bytes stored, {loads} bytes loaded"))
     return out
 
@@ -554,8 +552,8 @@ def phase_build(gate=True):
     too, and the HGMMA and HMMA counts of each instance: every K2/K3 instance
     must have HGMMA (wgmma: bf16, and float32's split TF32), and bf16 K1
     HGMMA and no HMMA (mma.sync); float32 K1 (the CUDA cores) is reported.
-    It fails on what ``build_gate`` finds: a serialised wgmma in any
-    instance, a spill in any but float32 K1. With ``gate`` false (a
+    It fails on what ``build_gate`` finds: a serialised wgmma or a spill in
+    any instance. With ``gate`` false (a
     measurement of an older checkout) the line reports the findings and
     nothing fails on them."""
     from concurrent.futures import ThreadPoolExecutor
@@ -735,9 +733,9 @@ def time_kernel(rope, dev):
     # sub-phase), summed over the blocks, from one launch of the profiling
     # build
     clocks = torch.zeros(B_CHUNK, len(PHASES), dtype=torch.int64, device=dev)
-    sub = torch.zeros(B_CHUNK, len(K1_SUB_PHASES), dtype=torch.int64, device=dev)
     prof = kernels.library("phase_clocks")
     set_sub = getattr(prof, "rollout_chunk_set_sub_clocks", None)  # None: an older build
+    sub = torch.zeros(B_CHUNK, k1_sub_phase_count(prof), dtype=torch.int64, device=dev)
     prof.rollout_chunk_set_phase_clocks(clocks.data_ptr())
     if set_sub is not None:
         set_sub(sub.data_ptr())
@@ -766,13 +764,24 @@ def time_kernel(rope, dev):
                 edges_per_sample_step=stats["edges"] / stats["sample_steps"])
 
 
+def k1_sub_phase_count(prof):
+    """How many of ``K1_SUB_PHASES`` (in order) a profiling build of the
+    rollout kernel counts: the number it reports, or, for an older build
+    that reports none, the first five (its relation MLP's and aggregation's
+    parts) or none."""
+    count = getattr(prof, "rollout_chunk_sub_phases", None)
+    if count is not None:
+        return int(count())
+    return 5 if getattr(prof, "rollout_chunk_set_sub_clocks", None) is not None else 0
+
+
 def k1_cycle_split(cycles, sub, sample_steps):
     """The ``kernel_phases`` line's numbers from the profiling build's
     counters summed over the blocks (``cycles`` per phase of ``PHASES``,
-    ``sub`` per sub-phase of ``K1_SUB_PHASES`` or None): cycles per
-    sample-substep, each phase's share of them, and each sub-phase's cycles
-    per sample-substep and share of all the cycles (None without sub-phase
-    counters)."""
+    ``sub`` per sub-phase of ``K1_SUB_PHASES``, the first len(sub) of them,
+    or None): cycles per sample-substep, each phase's share of them, and
+    each sub-phase's cycles per sample-substep and share of all the cycles
+    (None without sub-phase counters)."""
     total = float(sum(cycles))
     out = dict(cycles_per_sample_step=total / sample_steps,
                share={k: round(float(v) / total, 4) for k, v in zip(PHASES, cycles)},
@@ -3489,18 +3498,59 @@ def phase_k1(dev):
     checkout's ``chip_smoke.py --k1``, alternately: parent, change, change,
     parent): K1's time at the main path's shapes (rope, B 2000, bf16) with
     its cycles per phase and sub-phase (``kernel_time``, ``kernel_phases``),
-    then what runs on it: the rope solve, the granular solve, demo-ppo on
-    rope and granular, the MPPI Planner's iterations and the rope plan (3
-    pushes, its ``ms_split``). The phases keep their own checks (launch
-    counts, the solves' best pushes, demo-ppo's curves, the plan's step 0);
-    the kernel against its plain version is the full run's."""
+    K2e's at the same shapes (``edges_kernel_time``: it shares K1's graph
+    build, ``csrc/edge_build.cuh``), then what runs on K1: the rope solve,
+    the granular solve, demo-ppo on rope and granular, the MPPI Planner's
+    iterations and the rope plan (3 pushes, its ``ms_split``), and K1's
+    time on the plan's own input (``plan_kernel_time``: a perceived rope
+    padded with copies of its points, which the graph build meets in no
+    other phase). The phases keep their own checks (launch counts, the
+    solves' best pushes, demo-ppo's curves, the plan's step 0); the kernels
+    against their plain versions are the full run's."""
     rope = material("rope", dev)
     emit(phase="kernel_time", **time_kernel(rope, dev))
+    emit(phase="edges_kernel_time", **time_edges_kernel(rope, dev))
     phase_solve(rope, dev)
     phase_granular_solve(dev)
     phase_demo_ppo(dev)
     phase_planner_mppi(rope, dev)
-    phase_plan(dev)
+    plan_input = plan_k1_inputs(lambda: phase_plan(dev))
+    emit(phase="plan_kernel_time", **time_k1_inputs(plan_input))
+
+
+def plan_k1_inputs(run):
+    """Call ``run`` (the rope plan) and return the arguments of its first K1
+    launch at B 2000 (its first solve's first chunk), the tensors copied."""
+    from adaptigraph_tpu_torch.ops import fused_gnn
+
+    real, first = fused_gnn.rollout_chunk_cuda, []
+
+    def capture(*args):
+        if not first and args[0].shape[0] == B_CHUNK:
+            first.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return real(*args)
+
+    with mock.patch.object(fused_gnn, "rollout_chunk_cuda", capture):
+        run()
+    if not first:
+        fail("the plan launched no K1 chunk of B 2000")
+    return first[0]
+
+
+def time_k1_inputs(args):
+    """K1 on one fixed input (``rollout_chunk_cuda``'s arguments): CUDA
+    events around the wrapper call (median of 7) and its device time under
+    ``torch.profiler`` (5 calls), with the input's real edges a
+    sample-substep from the plain version's count."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import rollout_chunk_cuda, rollout_chunk_plain
+
+    stats = {}
+    rollout_chunk_plain(*args, stats=stats)
+    return dict(ms=median_ms(rollout_chunk_cuda, lambda r: args, 7),
+                device_ms=device_ms(rollout_chunk_cuda, lambda r: args, 5,
+                                    ["rollout_chunk_kernel"])["device_ms"],
+                B=int(args[0].shape[0]),
+                edges_per_sample_step=stats["edges"] / stats["sample_steps"])
 
 
 def phase_k23(dev):

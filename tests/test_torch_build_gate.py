@@ -1,13 +1,12 @@
 """``chip_smoke.py::build_gate``: what in ptxas' report fails the kernels'
-build on the card. A serialised wgmma (ptxas' C75xx note) fails it for any
-K1, K2 or K3 template instance, a spill for any instance but float32 K1
-(the CUDA-core parity body), whose spills are reported only. Fed canned
-``-Xptxas -v`` lines of the kind an H100 build prints; nothing here needs a
-card or nvcc."""
+build on the card. A serialised wgmma (ptxas' C75xx note) or a spill fails
+it for any K1, K2 or K3 template instance, float32 K1 (the CUDA-core parity
+body) included. Fed canned ``-Xptxas -v`` lines of the kind an H100 build
+prints; nothing here needs a card or nvcc."""
 
 import pytest
 
-from chip_smoke import SPILLS_REPORTED_ONLY, build_gate
+from chip_smoke import build_gate
 
 MANGLED = {
     "gnn_forward_kernel<float>":
@@ -73,8 +72,6 @@ def test_build_gate(instance, case):
     elif case == "serialised":
         assert len(got) == 1 and got[0][0] == instance
         assert got[0][1].startswith("wgmma serialized: (C7520)")
-    elif instance in SPILLS_REPORTED_ONLY:
-        assert got == []  # float32 K1's spills are reported, not gated
     else:
         assert got == [(instance, "spills: 8 bytes stored, 16 bytes loaded")]
 
@@ -120,14 +117,22 @@ def test_build_gate_fails_on_a_bf16_k1_spill():
     assert got == [("rollout_chunk_kernel<bf16>", "spills: 44 bytes stored, 44 bytes loaded")]
 
 
-def test_build_gate_reports_an_f32_k1_spill_only():
-    assert SPILLS_REPORTED_ONLY == ("rollout_chunk_kernel<float>",)
+def test_build_gate_fails_on_an_f32_k1_spill():
+    """float32 K1 (the CUDA-core parity body) is gated as every instance is:
+    its spills, and those of a device function of its source that ptxas
+    compiled apart, fail the build and are reported."""
     fn = MANGLED["rollout_chunk_kernel<float>"]
     lines = report(**{"rollout_chunk_kernel<float>": properties(fn, stores=32, loads=32)})
-    assert build_gate(lines) == []
+    assert build_gate(lines) == [("rollout_chunk_kernel<float>",
+                                  "spills: 32 bytes stored, 32 bytes loaded")]
     from chip_smoke import ptxas_kernels
 
     assert ptxas_kernels(lines)["rollout_chunk_kernel<float>"]["spill_stores"] == 32
+    helper = "_ZN49_GLOBAL__N__5c1e0f2a_16_rollout_chunk_cu_7d2e1b3c11rollout_f32ERK6ParamsPh"
+    lines = (["== rollout_chunk.cu"] + properties(fn)
+             + properties(helper, stores=16, loads=8, registers=64))
+    assert build_gate(lines) == [("rollout_chunk_kernel<float>",
+                                  "spills: 16 bytes stored, 8 bytes loaded")]
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "float"])

@@ -143,6 +143,37 @@ def test_kernel_wrapper_rejects_unsupported_config():
                             torch.ones(1), torch.zeros(1), cfg, 0.5, 4)
 
 
+@pytest.mark.parametrize("Dp,reaches_library", [(32, True), (33, False)])
+def test_bf16_kernel_wrapper_takes_at_most_32_node_inputs(Dp, reaches_library, monkeypatch):
+    """The bfloat16 kernel's particle encoder reads its Dp inputs and first
+    weight as float from one 32 KB node matrix in shared memory, so its
+    wrapper refuses more than 32 node inputs before it builds or loads the
+    kernels; 32 pass its checks (the library is the next step)."""
+    from adaptigraph_tpu_torch.ops import kernels
+    from adaptigraph_tpu_torch.ops.fused_gnn import _weight_shapes, rollout_chunk_cuda
+
+    class Reached(Exception):
+        pass
+
+    def library(variant=None):
+        raise Reached
+
+    monkeypatch.setattr(kernels, "library", library)
+    cfg = GNNConfig(n_his=4, max_nobj=7, max_neef=1, nf_particle=128, nf_relation=128,
+                    nf_effect=128)
+    bf16, B, Np = torch.bfloat16, 2, 8
+    weights = [torch.zeros(shape, dtype=bf16) for shape in _weight_shapes(cfg, Dp)]
+    args = (torch.zeros(B, Np, Dp, dtype=bf16), torch.zeros(B, Np, 6),
+            torch.ones(B, dtype=torch.int32), torch.ones(B, Np), weights, cfg, 4, 0.5, 4, 0.0,
+            False, bf16)
+    if reaches_library:
+        with pytest.raises(Reached):
+            rollout_chunk_cuda(*args)
+    else:
+        with pytest.raises(ValueError, match="at most 32 node inputs"):
+            rollout_chunk_cuda(*args)
+
+
 def _published(name):
     """The port's task config of a material (``configs/dynamics`` and
     ``configs/planning``) and the JAX GNNConfig of the same widths."""
