@@ -33,6 +33,15 @@ drawn for the whole batch from the caller's generator and split by shard
 augments as the unsharded one does. On a one-entry mesh the sharded step is
 the unsharded step bit for bit, and its K steps are the unsharded ones,
 graph included.
+
+Spans (``utils/profiling.py::span``, recorded only under ``torch.profiler``):
+``train.batch_wait``, the consumer's wait on ``DevicePrefetcher``'s queue;
+``train.copy_in``, a replayed slice's copy into the graph's static buffers
+(stream time too); ``train.replay``, the graph's launch;
+``train.capture``, ``GraphedStep``'s eager first slice and capture.
+Counters, always kept: ``DevicePrefetcher.starved`` (batches asked for
+while the queue was empty), ``GraphedStep.captures`` and
+``GraphedStep.capture_s`` (over every instance).
 """
 
 import dataclasses
@@ -54,6 +63,7 @@ from adaptigraph_tpu_torch.parallel.mesh import (count_launches, launch_tallies,
                                                  run_shards, shard_scope, shard_streams,
                                                  split_batch, tree_map)
 from adaptigraph_tpu_torch.utils import checkpoint as ckpt
+from adaptigraph_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -473,6 +483,7 @@ class _Replay:
     capture (see ``__init__``)."""
 
     def __init__(self, fn, inputs, device, generator=None):
+        self.device = device
         self.static = tree_map(lambda x: x.to(device, copy=True)
                                if isinstance(x, torch.Tensor) else x, inputs)
         self.graph = torch.cuda.CUDAGraph()
@@ -502,8 +513,10 @@ class _Replay:
             c.launches -= n
 
     def __call__(self, *inputs):
-        _copy_into(self.static, inputs)
-        self.graph.replay()
+        with span("train.copy_in", stream=self.device):
+            _copy_into(self.static, inputs)
+        with span("train.replay"):
+            self.graph.replay()
         for c, n in zip(_LAUNCH_COUNTERS, self.counted):
             c.launches += n
         return self.out
@@ -522,7 +535,12 @@ class GraphedStep:
     into the graph, stay valid; the generator is registered with the graph,
     so replay k draws the numbers the eager step k would. A failed capture
     raises. ``counted``: the launches per kernel counter that the capture
-    recorded; ``replays``: the replays so far."""
+    recorded; ``replays``: the replays so far. ``captures`` and
+    ``capture_s`` (class attributes): the captures of every instance and
+    their host seconds, the eager first slice included."""
+
+    captures = 0
+    capture_s = 0.0
 
     def __init__(self, fn):
         self.fn = fn
@@ -535,17 +553,21 @@ class GraphedStep:
         return self.replay.counted
 
     def _capture(self, state, superbatch, generator, out):
+        t0 = time.perf_counter()
         dev = out.device
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):  # slice 0, eagerly: the warm-up; then the capture
+        with span("train.capture"), torch.cuda.stream(side):
+            # slice 0, eagerly: the warm-up; then the capture
             out[0].copy_(self.fn(*state, _slice(superbatch, 0), generator))
             self.replay = self.key = None  # frees an earlier capture's memory first
             self.replay = _Replay(lambda batch: self.fn(*state, batch, generator),
                                   (_slice(superbatch, 0),), dev, generator)
         cur.wait_stream(side)
         self.key = _graph_key(state, [superbatch], generator)
+        GraphedStep.captures += 1
+        GraphedStep.capture_s += time.perf_counter() - t0
 
     def __call__(self, state, superbatch, generator):
         K = _n_slices(superbatch)
@@ -713,7 +735,11 @@ class DevicePrefetcher:
     the arrays as tensors. An exception in the thread is raised in the
     consumer. With ``mesh``, each batch is split along ``batch_axis`` into
     one part per entry (``parallel.mesh.split_batch``), each staged onto its
-    own device, and the consumer gets the list of parts."""
+    own device, and the consumer gets the list of parts. ``starved`` (a
+    class attribute): the batches asked for, over every instance, while the
+    queue was empty."""
+
+    starved = 0
 
     def __init__(self, loader, device, depth=2, mesh=None, batch_axis=0):
         self._loader = loader
@@ -765,7 +791,12 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with span("train.batch_wait"):
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                DevicePrefetcher.starved += 1
+                item = self._q.get()
         if isinstance(item, Exception):
             raise item
         batches = []

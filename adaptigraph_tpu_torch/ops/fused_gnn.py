@@ -29,6 +29,11 @@ tensor ops. Numerics follow the JAX
 kernels: products accumulate in float32 and every layer's output is rounded
 to ``compute_dtype`` (float32 or bfloat16) where the JAX kernel rounds it;
 positions, distances and ``pred = last + clamp(motion)`` stay float32.
+
+Spans (``utils/profiling.py::span``, recorded only under ``torch.profiler``):
+``k1.inputs``, the chunk's kernel inputs (stream time too), and
+``k1.launch``, the kernel wrapper's checks, weight packing, allocations and
+launch (host only).
 """
 
 import ctypes
@@ -38,6 +43,7 @@ import torch
 
 from adaptigraph_tpu_torch.models.gnn import GNNConfig
 from adaptigraph_tpu_torch.ops.graph import BIG, pairwise_sq_dists, smallest_k
+from adaptigraph_tpu_torch.utils.profiling import span
 
 N_WEIGHTS = 24
 _MAX_SMEM = 232448  # dynamic shared memory one block may use on Hopper
@@ -402,8 +408,9 @@ def rollout_chunk(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_radius
                   gripper_lift=0.0, mean_y=False, compute_dtype=torch.bfloat16):
     """The kernel on CUDA tensors, its plain version on CPU tensors."""
     if pin.is_cuda:
-        return rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg, K, adj_radius,
-                                  max_repeat, gripper_lift, mean_y, compute_dtype)
+        with span("k1.launch"):
+            return rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg, K, adj_radius,
+                                      max_repeat, gripper_lift, mean_y, compute_dtype)
     if pin.device.type != "cpu":
         raise ValueError(f"no rollout path for device {pin.device}")
     return rollout_chunk_plain(pin, sa, repeat, valid, weights, cfg, K, adj_radius, max_repeat,
@@ -427,8 +434,9 @@ def fused_rollout_chunk(params, obj0, kp, delta, repeat, physics_param, cfg: GNN
         raise ValueError(f"config not supported by the rollout kernel: {cfg}")
     weights = (params if isinstance(params, (list, tuple))
                else weight_list(params, cfg, compute_dtype))
-    pin, sa, rep, valid = chunk_inputs(obj0, kp, delta, repeat, physics_param, cfg,
-                                       compute_dtype, obj_mask)
+    with span("k1.inputs", stream=kp.device):
+        pin, sa, rep, valid = chunk_inputs(obj0, kp, delta, repeat, physics_param, cfg,
+                                           compute_dtype, obj_mask)
     return rollout_chunk(pin, sa, rep, valid, weights, cfg, int(edge_topk), adj_radius,
                          int(max_repeat), gripper_lift, mean_y, compute_dtype)
 

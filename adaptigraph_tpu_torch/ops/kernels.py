@@ -21,6 +21,11 @@ the same sources, which the port's own calls never use:
 - ``"no_edge"``, ``"no_gather"`` and ``"mlp_only"`` (both): the single-step
   forward with its in-kernel graph ablated (``csrc/gnn_forward.cu``, built
   alone), the parts switched off in ``profiling/kernel_parts.py``.
+
+Set-up counters, always kept: ``build.builds`` and ``build.build_s``, the
+builds that ran nvcc and their seconds (0 where every library was built
+already), and ``library.load_s``, the seconds of every variant's load and
+declarations.
 """
 
 import ctypes
@@ -31,6 +36,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -93,6 +99,7 @@ def build(variant=None):
     out = library_path(variant)
     if os.path.exists(out):
         return out
+    t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -117,14 +124,32 @@ def build(variant=None):
         with open(out + ".ptxas.txt", "w") as f:
             f.write("\n".join(reports))
         os.replace(lib_tmp, out)  # atomic: a concurrent build sees all or nothing
+    build.builds += 1
+    build.build_s += time.perf_counter() - t0
     return out
+
+
+build.builds = 0
+build.build_s = 0.0
 
 
 @functools.lru_cache(maxsize=None)
 def library(variant=None):
     """The loaded kernel library of a build variant (built at first use),
     with every entry's argument and return types declared."""
-    lib = ctypes.CDLL(build(variant))
+    path = build(variant)
+    t0 = time.perf_counter()
+    lib = _declared(ctypes.CDLL(path), variant)
+    library.load_s += time.perf_counter() - t0
+    return lib
+
+
+library.load_s = 0.0
+
+
+def _declared(lib, variant):
+    """``lib`` with the argument and return types of every entry of the
+    variant's build declared."""
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.gnn_error_string.argtypes = [I]
     lib.gnn_error_string.restype = ctypes.c_char_p

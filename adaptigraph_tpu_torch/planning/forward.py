@@ -31,6 +31,7 @@ from adaptigraph_tpu_torch.ops.fused_gnn import (fused_forward_batch, fused_roll
 from adaptigraph_tpu_torch.ops.fused_gnn_train import make_fused_train_forward
 from adaptigraph_tpu_torch.ops.graph import EdgeConfig, build_neighbor_graph_batch
 from adaptigraph_tpu_torch.planning.actions import decode_action
+from adaptigraph_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +195,9 @@ def dynamics_rollout_batched(params, state, action_seqs, physics_param, cfg: Dyn
         obj = state[None].expand(B, gnn.max_nobj, 3)
         outs = []
         for li in range(L):
-            kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2], obj_y(obj))
+            with span("k1.inputs", stream=action_seqs.device):
+                kp, delta = pusher_keypoints(cfg, decoded[:, li], action_seqs[:, li, 2],
+                                             obj_y(obj))
             obj = fused_rollout_chunk(
                 weights, obj, kp, delta, repeat[:, li], physics_param, gnn,
                 adj_radius=float(cfg.adj_thresh), edge_topk=edge.topk,

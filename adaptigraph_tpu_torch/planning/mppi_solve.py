@@ -25,6 +25,15 @@ unsharded one bit for bit. (JAX permutes the samples into the dealt order,
 so its MPPI average sums in another order than its unsharded solve's; the
 port keeps the unsharded order.) Without a mesh the solve is this one on the
 single device ``[device]``, on the caller's stream.
+
+Spans (``utils/profiling.py::span``, recorded only under ``torch.profiler``):
+``mppi.solve`` the whole solve; ``mppi.inputs`` the state, action and
+physics copies to the device; ``mppi.weights`` the parameter dict's copy to
+the kernel's weight list; ``mppi.sample``; ``mppi.sort``; ``mppi.chunk``
+each chunk, with ``mppi.reward`` its reward (and, in the rollout,
+``k1.inputs`` and ``k1.launch``); ``mppi.update`` the softmax update;
+``mppi.best`` the argmax and the best row's gather. All but ``mppi.solve``,
+``mppi.chunk`` and ``k1.launch`` take stream time too.
 """
 
 import dataclasses
@@ -39,6 +48,7 @@ from adaptigraph_tpu_torch.planning.actions import (decode_action, optimize_acti
                                                     sample_action_seq)
 from adaptigraph_tpu_torch.planning.forward import (DynamicsConfig, dynamics_rollout_batched,
                                                     substep_counts)
+from adaptigraph_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,12 +146,16 @@ def make_mppi_solver(dcfg: DynamicsConfig, mcfg: MPPIConfig, reward_fn: Callable
     streams = shard_streams(mesh) if sharded else [None]
 
     def chunk_rewards(weights, state_cur, act_chunk, physics_param, count):
-        out = dynamics_rollout_batched(weights, state_cur, act_chunk, physics_param, dcfg,
-                                       compute_dtype=compute_dtype, n_substeps=count)
-        return reward_fn(out["state_seqs"], act_chunk, state_cur), out["state_seqs"][:, -1]
+        with span("mppi.chunk"):
+            out = dynamics_rollout_batched(weights, state_cur, act_chunk, physics_param, dcfg,
+                                           compute_dtype=compute_dtype, n_substeps=count)
+            with span("mppi.reward", stream=state_cur.device):
+                rewards = reward_fn(out["state_seqs"], act_chunk, state_cur)
+            return rewards, out["state_seqs"][:, -1]
 
     def all_rewards(weights, state_cur, act_seqs, physics_param):
-        act_seqs = sort_by_repeat(act_seqs, mcfg.push_length)
+        with span("mppi.sort", stream=device):
+            act_seqs = sort_by_repeat(act_seqs, mcfg.push_length)
         counts = [None] * n_chunks
         if per_substep:  # every chunk's substeps per look-ahead step: one host read
             _, repeat = decode_action(act_seqs, mcfg.push_length)
@@ -153,32 +167,42 @@ def make_mppi_solver(dcfg: DynamicsConfig, mcfg: MPPIConfig, reward_fn: Callable
         return act_seqs, rewards, finals
 
     def solve_iter(weights, state_cur, act_seq, generator, physics_param, iter_index):
-        act_seqs = sample_action_seq(generator, act_seq, lower, upper, mcfg.n_sample,
-                                     iter_index=iter_index, noise_level=mcfg.noise_level,
-                                     push_length=mcfg.push_length)
+        with span("mppi.sample", stream=device):
+            act_seqs = sample_action_seq(generator, act_seq, lower, upper, mcfg.n_sample,
+                                         iter_index=iter_index, noise_level=mcfg.noise_level,
+                                         push_length=mcfg.push_length)
         act_seqs, rewards, finals = all_rewards(weights, state_cur, act_seqs, physics_param)
-        new_seq = optimize_action_mppi(act_seqs, rewards, mcfg.reward_weight, lower, upper,
-                                       mcfg.push_length)
-        best = torch.argmax(rewards)[None]  # a tensor index: no host read
-        return new_seq, act_seqs[best][0], rewards[best][0], finals[best][0]
+        with span("mppi.update", stream=device):
+            new_seq = optimize_action_mppi(act_seqs, rewards, mcfg.reward_weight, lower, upper,
+                                           mcfg.push_length)
+        with span("mppi.best", stream=device):
+            best = torch.argmax(rewards)[None]  # a tensor index: no host read
+            return new_seq, act_seqs[best][0], rewards[best][0], finals[best][0]
 
     def solve(params, state_cur, act_seq, generator, physics_param):
-        weights = (params if isinstance(params, (list, tuple))
-                   else weight_list(params, dcfg.gnn, compute_dtype))
-        state_cur = torch.as_tensor(state_cur, dtype=torch.float32, device=device)
-        act_seq = torch.as_tensor(act_seq, dtype=torch.float32, device=device)
-        physics_param = torch.as_tensor(physics_param, dtype=torch.float32, device=device)
-        best_seq = best_reward = best_final = None
-        for i in range(mcfg.n_update_iter):
-            act_seq, it_seq, it_reward, it_final = solve_iter(
-                weights, state_cur, act_seq, generator, physics_param, min(i, 1))
-            if best_seq is None:
-                best_seq, best_reward, best_final = it_seq, it_reward, it_final
+        with span("mppi.solve"):
+            if isinstance(params, (list, tuple)):
+                weights = params
             else:
-                better = it_reward > best_reward
-                best_seq = torch.where(better, it_seq, best_seq)
-                best_final = torch.where(better, it_final, best_final)
-                best_reward = torch.maximum(it_reward, best_reward)
+                with span("mppi.weights", stream=device):
+                    weights = weight_list(params, dcfg.gnn, compute_dtype)
+            with span("mppi.inputs", stream=device):
+                state_cur = torch.as_tensor(state_cur, dtype=torch.float32, device=device)
+                act_seq = torch.as_tensor(act_seq, dtype=torch.float32, device=device)
+                physics_param = torch.as_tensor(physics_param, dtype=torch.float32,
+                                                device=device)
+            best_seq = best_reward = best_final = None
+            for i in range(mcfg.n_update_iter):
+                act_seq, it_seq, it_reward, it_final = solve_iter(
+                    weights, state_cur, act_seq, generator, physics_param, min(i, 1))
+                if best_seq is None:
+                    best_seq, best_reward, best_final = it_seq, it_reward, it_final
+                else:
+                    with span("mppi.best", stream=device):
+                        better = it_reward > best_reward
+                        best_seq = torch.where(better, it_seq, best_seq)
+                        best_final = torch.where(better, it_final, best_final)
+                        best_reward = torch.maximum(it_reward, best_reward)
         return {"act_seq": best_seq, "mppi_seq": act_seq, "best_reward": best_reward,
                 "best_final_state": best_final}
 

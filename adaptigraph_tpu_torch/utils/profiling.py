@@ -1,7 +1,8 @@
 """Profiling and tracing utilities (counterpart of
-``adaptigraph_tpu/utils/profiling.py``): hierarchical stage timers, a
-``torch.profiler`` device trace for Perfetto, timed calls that synchronise
-the device, and the GNN forward's analytic FLOP count.
+``adaptigraph_tpu/utils/profiling.py``): hierarchical stage timers, the
+port's spans (``span``, recorded only while a ``torch.profiler`` session is
+active), a ``torch.profiler`` device trace for Perfetto, timed calls that
+synchronise the device, and the GNN forward's analytic FLOP count.
 """
 
 import contextlib
@@ -54,6 +55,88 @@ class StageTimer:
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+
+
+class Spans(StageTimer):
+    """The records of ``span``: each span's host seconds and count by nested
+    name (the ``StageTimer``), and for a span taken with a CUDA ``stream``
+    device its stream time, the elapsed time of a CUDA event pair recorded
+    on that device's current stream at the span's entry and exit: the card's
+    time on the work queued inside the span, with the card's wait for the
+    host while it was queued. The events are read only by ``stream_stats``,
+    which waits for them."""
+
+    def __init__(self):
+        super().__init__()
+        self.stream_totals = defaultdict(float)
+        self.stream_counts = defaultdict(int)
+        self._pending = []  # (nested name, start event, end event), not read yet
+
+    @contextlib.contextmanager
+    def record(self, name, stream=False):
+        """One span: a ``torch.profiler.record_function`` (so it lies in the
+        trace with the kernels, on their clock), its host time and, with a
+        CUDA ``stream`` device, its event pair."""
+        with torch.profiler.record_function(name), self(name):
+            full = "/".join(self._stack)
+            events = _stream_events(stream)
+            try:
+                yield
+            finally:
+                if events is not None:
+                    start, end, on = events
+                    end.record(on)
+                    self._pending.append((full, start, end))
+
+    def stream_stats(self):
+        """Each stream-timed span's total stream seconds and count by nested
+        name. Waits for the events not read yet."""
+        for name, start, end in self._pending:
+            end.synchronize()
+            self.stream_totals[name] += start.elapsed_time(end) / 1e3
+            self.stream_counts[name] += 1
+        self._pending.clear()
+        return {k: {"total_s": self.stream_totals[k], "count": self.stream_counts[k]}
+                for k in sorted(self.stream_totals)}
+
+    def reset(self):
+        super().reset()
+        self.stream_totals.clear()
+        self.stream_counts.clear()
+        self._pending.clear()
+
+
+def _stream_events(device):
+    """(start event, end event, stream) for a span's stream time on
+    ``device``'s current stream, the start recorded; None for no device, a
+    CPU device, or a stream that is capturing a CUDA graph."""
+    if not device:
+        return None
+    device = torch.device(device)
+    if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return None
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    return start, end, stream
+
+
+SPANS = Spans()
+_OFF = contextlib.nullcontext()
+
+
+def span(name, stream=False):
+    """A span of the port's code named ``name``, recorded in ``SPANS`` (under
+    the names of the spans it lies in, joined by ``/``) and in the
+    ``torch.profiler`` trace only while a profiler session is active on
+    this thread. ``stream``: False (host time only) or the device on whose
+    current stream the span's stream time is taken too (none on a CPU
+    device). With no session it returns one shared null context and records
+    nothing."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return SPANS.record(name, stream)
 
 
 @contextlib.contextmanager
