@@ -2,23 +2,21 @@
 // and its training backward (gnn_train_bwd.cu, K3): one thread block of two
 // warpgroups per sample.
 //
-// - layer_tc and wgrad_tc, the tensor-core layer routine: every product but
-//   the three below, Y = X W (the forward and the backward's
-//   dX = dY W^T, from weights packed once per launch in PyTorch) and
-//   dW = X^T dY (the backward's weight gradients, reduced over the rows).
+// - layer_tc, the tensor-core layer routine: every product but the two
+//   below, Y = X W (the forward and the backward's dX = dY W^T, from weights
+//   packed once per launch in PyTorch). (The backward's weight gradients
+//   dW = X^T dY are formed batch-wide by gnn_train_bwd.cu's own kernel.)
 //   bfloat16 runs on wgmma (m64n64k16, float32 accumulators: the JAX
 //   kernel's bf16 dots with preferred_element_type=float32); float32 runs on
 //   wgmma m64n64k8 tf32 with each operand split into two TF32 parts, hi·hi
 //   + hi·lo + lo·hi ("3xTF32", ~2^-21 relative per product, where plain TF32
-//   keeps ~3 digits): the activations (or X^T) are split in registers and
-//   fed as wgmma's register operand, the weights' parts come packed (or dY's
-//   chunk is split and transposed in shared memory, as tf32 B must be
+//   keeps ~3 digits): the activations are split in registers and fed as
+//   wgmma's register operand, the weights' parts come packed (tf32 B must be
 //   K-major). A layer's weight (or, in float32, a 128- or 64-row slice of
 //   its hi and lo parts) is staged in shared memory once per call. Each
 //   warpgroup stages its own 64-row activation tiles by cp.async, the next
 //   one in flight during a tile's products, and runs its own tiles, so one
-//   warpgroup's epilogue overlaps the other's products; dW's 64- or 32-row
-//   chunks of both operands are shared, in three (bf16) or two stages. No
+//   warpgroup's epilogue overlaps the other's products. No
 //   k-step waits for its own products before the next is issued: each is a
 //   wgmma commit group, waited for behind the next (Y = X W adds each step's
 //   fresh sums to its accumulators in k order meanwhile), so ptxas keeps the
@@ -26,18 +24,16 @@
 //   pairs before it writes any, then runs from the accumulator registers,
 //   two adjacent columns at a time, and redoes as float32 FMA chains the few
 //   outputs whose bf16 rounding or relu the tensor cores' truncated sums
-//   could decide otherwise than a float32 matmul (Redo); weight gradients
-//   come with their bias gradients (column sums of the staged cotangent
-//   tiles).
+//   could decide otherwise than a float32 matmul (Redo).
 // - gemm, the CUDA-core product, for the narrow products: the motion head's
-//   last layer (3 outputs: its forward, dW and dX) and the particle encoder's
-//   first layer on the packed p_inputs (its forward, dW and dX), whose rows
+//   last layer (3 outputs: its forward and dX) and the particle encoder's
+//   first layer on the packed p_inputs (its forward and dX), whose rows
 //   are not 16-byte aligned. re0 runs on the tensor cores: the relation
 //   inputs are kept with a row stride of a multiple of 8 (rel_in_ld).
 // - the real edges of a sample, compacted from the (k, i)-ordered prebuilt
 //   tables and grouped by receiver (slot order within a receiver); the
 //   backward also groups them by sender. Sums over a node's edges run in that
-//   order, and every product and column sum in a fixed order, so a launch is
+//   order, and every product in a fixed order, so a launch is
 //   deterministic: no atomics anywhere.
 // - forward_body: the JAX kernel's arithmetic (ops/fused_gnn.py::_kernel) up
 //   to the motion head's hidden layers, rounding to the compute dtype T
@@ -276,7 +272,7 @@ __device__ void gemm(int M, int N, int Kd, const TA* A, size_t sam, size_t sak, 
 // The k-steps of a product run without a wait behind each one: every k-step
 // is a wgmma commit group, and the routine waits for the groups but the
 // newest (wgmma.wait_group 1) while the newest runs, so the tensor cores are
-// fed while the CUDA cores add (layer_tc) or stage and split (wgrad_tc); a
+// fed while the CUDA cores add; a
 // wait with nothing behind it is left only where a staged tile's last sums
 // are read. ptxas keeps such a pipeline asynchronous only where it can
 // follow it: every wgmma is in straight-line code (a step count of 2 or 4,
@@ -299,30 +295,20 @@ __device__ void gemm(int M, int N, int Kd, const TA* A, size_t sam, size_t sak, 
 // accumulators and their fresh sets leave too few registers beside its own.
 // The float32 forward, with both halves, takes its fresh sums in 32-column
 // quarters, three sets of 16.
-// wgrad_tc: the two warpgroups share the staged chunks (each takes 64 rows of
-// G), the products of a chunk are waited for behind the next chunk's.
 //
 // Shared memory (tc, 1,024-aligned), bfloat16:
 //   layer_tc: the weight, up to 128 rows x 256 deep as four 64-column
 //   swizzled blocks (64 KB), then per warpgroup two 64 x 64 activation tiles
 //   (2 x 16 KB);
-//   wgrad_tc: three stages of X and dY, each 64 rows x 128 columns (96 KB):
-//   a stage is restaged while the products of the one before it may run.
 // float32:
 //   layer_tc (wgmma tf32, A from registers): a slice of nc = 128 (depth <=
 //   128) or 64 (depth <= 256) weight rows, hi and lo, K-major in 32-float
 //   swizzled column blocks (2 x 64 KB), then per warpgroup two 64 x 32
-//   activation tiles of row stride 36 (2 x 18 KB);
-//   wgrad_tc (wgmma tf32, A = X^T from registers): two stages of X and dY,
-//   each 32 rows x 128 columns of row stride 136 (68 KB), then two buffers
-//   of dY's chunk transposed into TF32 hi and lo parts (2 x 32 KB).
+//   activation tiles of row stride 36 (2 x 18 KB).
 // The strides keep each warp's fragment loads on 32 different banks.
-// wgrad_tc's bias sums (256 floats) reuse the start of the space once a
-// slice's products are done.
 constexpr int kW16Bytes = 128 * 256 * 2;
-constexpr int kA32Ld = 36, kG32Ld = 136;
+constexpr int kA32Ld = 36;
 constexpr int kW32Floats = 128 * 128;        // nc x round16(K) for either slice width
-constexpr int kB32Off = 68 * 1024;           // float32 wgrad_tc's transposed parts of dY
 // layer_tc's activation tiles, a ring per warpgroup: bf16 64 rows x 64
 // (swizzled), float32 64 rows x 32 (row stride kA32Ld). Rings of four and
 // three ran no faster in float32 and slower in bf16 on an H100.
@@ -336,14 +322,9 @@ template <> __host__ __device__ constexpr size_t tc_bytes<bf16>() {
 template <> __host__ __device__ constexpr size_t tc_bytes<float>() {
   return 2 * kW32Floats * 4 + 2 * kStages32 * kA32Elems * 4;
 }
-// gemm's two staged tiles and colsum's scratch reuse the tensor-core tiles
-static_assert(2 * kBK * kLd * 4 <= tc_bytes<bf16>() && 2 * kBK * kLd * 4 <= tc_bytes<float>() &&
-                  8 * kThreads * 4 <= tc_bytes<bf16>(),
+// gemm's two staged tiles reuse the tensor-core tiles
+static_assert(2 * kBK * kLd * 4 <= tc_bytes<bf16>() && 2 * kBK * kLd * 4 <= tc_bytes<float>(),
               "the CUDA-core tiles must fit in the tensor-core tiles' space");
-static_assert(3 * 4 * 64 * 64 * 2 <= tc_bytes<bf16>() &&
-                  kB32Off + 2 * 2 * 128 * 32 * 4 <= tc_bytes<float>() &&
-                  4 * 32 * kG32Ld * 4 <= kB32Off,
-              "wgrad_tc's stages must fit in the tensor-core tiles' space");
 
 // The warpgroup of the calling thread, and a value that every thread of the
 // block holds, as values the compiler knows to be the same across a warp.
@@ -821,235 +802,6 @@ __device__ __forceinline__ void layer_tc(int M, int N, int K, const float* X, in
     }
     __syncthreads();  // both warpgroups are done with the slice's weight
   }
-}
-
-// wgrad_tc's bias sums: thread t holds column n0 + (t % 128) of row half
-// t / 128; bsum gets the first half plus the second. red: 256 floats.
-__device__ inline void bias_halves(float bs, int n0, int Nout, float* red, float* bsum) {
-  red[threadIdx.x] = bs;
-  __syncthreads();
-  const int n = n0 + threadIdx.x;
-  if (threadIdx.x < 128 && n < Nout) bsum[n] = red[threadIdx.x] + red[128 + threadIdx.x];
-  __syncthreads();
-}
-
-// The epilogue of wgrad_tc's slice from this warpgroup's accumulators (rows
-// wg * 64 .. of G; acc[h]: columns n0 + 64 h ..)
-template <int H, typename Epi>
-__device__ __forceinline__ void wgrad_epilogue(float (&acc)[H][32], int wg, int n0, int Kin,
-                                               int Nout, Epi& epi) {
-  const int wt = threadIdx.x & 127, r = wg * 64 + (wt >> 5) * 16 + ((wt & 31) >> 2);
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    tc::fence_regs(acc[h]);
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int m = r + 8 * ((i & 3) >> 1);
-      const int n = n0 + h * 64 + 8 * (i >> 2) + 2 * (wt & 3);
-      if (m < Kin && n < Nout) epi(m, n, acc[h][i], acc[h][i + 1]);
-    }
-  }
-}
-
-// wgrad_tc's chunk s (rows 64 s .. of X and of dY's columns n0 ..) into
-// stage s % 3 of S (bf16), or (float32: rows 32 s ..) into stage s % 2 of Xs
-// and Ys, by cp.async from every thread, one commit group.
-__device__ __forceinline__ void stage_chunk(bf16* S, const bf16* X, int ldx, const bf16* Y, int ldy,
-                                            int s, int R, int Kin, int n0, int Nout) {
-  bf16* st = S + (s % 3) * 4 * 64 * 64;
-  tc::stage_sw(st, X, ldx, s * 64, 64, R, 0, 2, Kin, threadIdx.x, kThreads);
-  tc::stage_sw(st + 2 * 64 * 64, Y, ldy, s * 64, 64, R, n0, 2, Nout, threadIdx.x, kThreads);
-  tc::cp_async_commit();
-}
-__device__ __forceinline__ void stage_chunk(float* Xs, const float* X, int ldx, float* Ys,
-                                            const float* Y, int ldy, int s, int R, int Kin, int n0,
-                                            int Nout) {
-  stage_pad(Xs + (s & 1) * 32 * kG32Ld, kG32Ld, X, ldx, s * 32, 32, R, 0, 128, Kin, threadIdx.x,
-            kThreads);
-  stage_pad(Ys + (s & 1) * 32 * kG32Ld, kG32Ld, Y, ldy, s * 32, 32, R, n0, 128, Nout, threadIdx.x,
-            kThreads);
-  tc::cp_async_commit();
-}
-
-// One 128-column slice of wgrad_tc in bf16 (H halves hold outputs): per
-// 64-row chunk, staged into one of three stages while the products of the
-// chunk before run, four k16 steps accumulated in the tensor cores (the
-// slice's first step ignores the old sums) as one commit group, waited for
-// behind the next chunk's; the bias sums from the staged dY meanwhile.
-template <int H, typename Epi>
-__device__ __forceinline__ void wgrad_slice(int Kin, int Nout, int R, const bf16* X, int ldx,
-                                            const bf16* Y, int ldy, int n0, unsigned char* tcs,
-                                            float* bsum, Epi& epi) {
-  bf16* S = reinterpret_cast<bf16*>(tcs);  // stage j: X's two 64 x 64 column blocks, then dY's
-  const int wg = warpgroup(), wt = threadIdx.x & 127, steps = (R + 63) / 64;
-  float bs = 0.f;  // column n0 + wt over rows wg * 32 .. + 32 of each chunk
-  float acc[H][32];
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
-  GNN_SUB_START(tt);
-  if (steps > 0) stage_chunk(S, X, ldx, Y, ldy, 0, R, Kin, n0, Nout);
-  for (int s = 0; s < steps; ++s) {
-    tc::cp_async_wait<0>();
-    tc::fence_proxy_async();
-    __syncthreads();  // chunk s is in; every thread is done with chunk s - 2's stage
-    if (s + 1 < steps) stage_chunk(S, X, ldx, Y, ldy, s + 1, R, Kin, n0, Nout);
-    GNN_SUB(13, tt);
-    const bf16* Xc = S + (s % 3) * 4 * 64 * 64;
-    const bf16* Yc = Xc + 2 * 64 * 64;
-    tc::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t da = tc::desc_sw128(Xc + wg * 64 * 64 + ks * 16 * 64, 1024, 1024);
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-        tc::wgmma_m64n64k16<1, 1>(acc[h], da,
-                                  tc::desc_sw128(Yc + h * 64 * 64 + ks * 16 * 64, 1024, 1024),
-                                  s > 0 || ks > 0);
-    }
-    tc::wgmma_commit();
-    if (bsum != nullptr) {
-      const bf16* col = Yc + (wt >> 6) * 64 * 64 + (wt & 7);
-      const int c = (wt & 63) >> 3;
-#pragma unroll 8
-      for (int r = wg * 32; r < wg * 32 + 32; ++r) bs += ld(col + r * 64 + ((c ^ (r & 7)) << 3));
-    }
-    tc::wgmma_wait<1>();  // chunk s - 1's products
-    GNN_SUB(14, tt);
-  }
-  tc::wgmma_wait<0>();
-  wgrad_epilogue<H>(acc, wg, n0, Kin, Nout, epi);
-  __syncthreads();
-  if (bsum != nullptr) bias_halves(bs, n0, Nout, reinterpret_cast<float*>(tcs), bsum);
-  GNN_SUB(15, tt);
-}
-
-// ... in float32: per 32-row chunk (two stages), dY's chunk split into TF32
-// hi and lo parts and transposed into one of two buffers while the products
-// of the chunk before run; then four k8 steps of X^T's split fragments (two
-// register sets taken in turn), three products each per half accumulated in
-// the tensor cores, each step a commit group waited for behind the next.
-template <int H, typename Epi>
-__device__ __forceinline__ void wgrad_slice(int Kin, int Nout, int R, const float* X, int ldx,
-                                            const float* Y, int ldy, int n0, unsigned char* tcs,
-                                            float* bsum, Epi& epi) {
-  // per stage a 32-row chunk of X and of dY (row stride kG32Ld); per buffer
-  // dY's chunk transposed, split into TF32 hi and lo, K-major and swizzled
-  // (128 rows n x 32 floats r each): wgmma takes tf32 B only K-major
-  float* Xs = reinterpret_cast<float*>(tcs);
-  float* Ys = Xs + 2 * 32 * kG32Ld;
-  float* Bs = reinterpret_cast<float*>(tcs + kB32Off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int wg = warpgroup(), wt = threadIdx.x & 127, steps = (R + 31) / 32;
-  float bs = 0.f;  // column n0 + wt over rows wg * 16 .. + 16 of each chunk
-  float acc[H][32];
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
-  uint32_t ah[2][4], al[2][4];
-  GNN_SUB_START(tt);
-  if (steps > 0) stage_chunk(Xs, X, ldx, Ys, Y, ldy, 0, R, Kin, n0, Nout);
-  for (int s = 0; s < steps; ++s) {
-    tc::cp_async_wait<0>();
-    __syncthreads();  // chunk s is in; every thread is done with chunk s - 1's stage
-    if (s + 1 < steps) stage_chunk(Xs, X, ldx, Ys, Y, ldy, s + 1, R, Kin, n0, Nout);
-    GNN_SUB(13, tt);
-    const float* Yc = Ys + (s & 1) * 32 * kG32Ld;
-    if (bsum != nullptr) {
-#pragma unroll
-      for (int r = wg * 16; r < wg * 16 + 16; ++r) bs += Yc[r * kG32Ld + wt];
-    }
-    float* Bh = Bs + (s & 1) * 2 * 128 * 32;  // chunk s - 2's, whose products are done
-    float* Bl = Bh + 128 * 32;
-    for (int idx = threadIdx.x; idx < 32 * 128; idx += kThreads) {
-      const int n = idx & 127, r = idx >> 7;
-      uint32_t hi, lo;
-      tc::split_tf32(Yc[r * kG32Ld + n], hi, lo);
-      const int at = n * 32 + ((((r >> 2) ^ (n & 7))) << 2) + (r & 3);
-      Bh[at] = __uint_as_float(hi);
-      Bl[at] = __uint_as_float(lo);
-    }
-    tc::fence_proxy_async();
-    __syncthreads();
-    // A = X^T from registers: (m, k) = X(r = k, m), split in registers
-    const float* A = Xs + (s & 1) * 32 * kG32Ld + t * kG32Ld + warp * 16 + g;
-    const bf16* bh = reinterpret_cast<const bf16*>(Bh);
-    const bf16* bl = reinterpret_cast<const bf16*>(Bl);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int f = kk & 1, o = kk * 8 * kG32Ld, o4 = o + 4 * kG32Ld;
-      tc::split_tf32(A[o], ah[f][0], al[f][0]);
-      tc::split_tf32(A[o + 8], ah[f][1], al[f][1]);
-      tc::split_tf32(A[o4], ah[f][2], al[f][2]);
-      tc::split_tf32(A[o4 + 8], ah[f][3], al[f][3]);
-      tc::wgmma_fence();
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const uint64_t dh = tc::desc_sw128(bh + h * 64 * 64 + kk * 16, 16, 1024);
-        const uint64_t dl = tc::desc_sw128(bl + h * 64 * 64 + kk * 16, 16, 1024);
-        tc::wgmma_m64n64k8_tf32(acc[h], al[f], dh, 1);
-        tc::wgmma_m64n64k8_tf32(acc[h], ah[f], dl, 1);
-        tc::wgmma_m64n64k8_tf32(acc[h], ah[f], dh, 1);
-      }
-      tc::wgmma_commit();
-      tc::wgmma_wait<1>();  // the step before, whose register set the next step refills
-    }
-    GNN_SUB(14, tt);
-  }
-  tc::wgmma_wait<0>();
-  wgrad_epilogue<H>(acc, wg, n0, Kin, Nout, epi);
-  __syncthreads();
-  if (bsum != nullptr) bias_halves(bs, n0, Nout, reinterpret_cast<float*>(tcs), bsum);
-  GNN_SUB(15, tt);
-}
-
-// G(m, n) = sum_r X(r, m) Y(r, n) for m < Kin <= 128, n < Nout, r < R (the
-// rows in order of their 64- or 32-row chunks; rows past R read as zero, so
-// padded rows never reach a sum): X (R, Kin) and Y (R, Nout) of row strides
-// ldx, ldy, Nout multiples of 8. epi(m, n, c0, c1) receives every output,
-// columns n (even) and n + 1 at once. With bsum,
-// also the column sums of Y (the bias gradient), bsum[n] = sum_r Y(r, n),
-// from the staged tiles: each thread sums one column over half of each
-// chunk's rows, chunk after chunk, then the two halves are added (a fixed
-// order: a rerun is bit-identical). Warpgroup wg takes rows wg * 64 .. of G,
-// and runs its products whether or not they hold outputs (Kin <= 64: zeros),
-// so none is under a branch. Every thread calls it; it ends with a barrier.
-template <typename T, typename Epi>
-__device__ __forceinline__ void wgrad_tc(int Kin, int Nout, int R, const T* X, int ldx,
-                                         const T* Y, int ldy, unsigned char* tcs, float* bsum,
-                                         Epi epi) {
-  Kin = uniform(Kin), Nout = uniform(Nout), R = uniform(R);
-  for (int n0 = 0; n0 < Nout; n0 += 128) {
-    if (Nout - n0 > 64)
-      wgrad_slice<2>(Kin, Nout, R, X, ldx, Y, ldy, n0, tcs, bsum, epi);
-    else
-      wgrad_slice<1>(Kin, Nout, R, X, ldx, Y, ldy, n0, tcs, bsum, epi);
-  }
-}
-
-// out[n] = sum over m < M of Y[m * ldy + n], n < N: P = min(8, kThreads / N)
-// parts of consecutive rows, each summed in row order, then the parts in
-// order (a fixed order: a rerun is bit-identical). red: 8 * N floats of
-// scratch. Every thread calls it; it ends with a barrier.
-template <typename TY>
-__device__ void colsum(int M, int N, const TY* Y, int ldy, float* out, float* red) {
-  const int P = imax(1, imin(8, kThreads / N)), per = (M + P - 1) / P;
-  for (int idx = threadIdx.x; idx < P * N; idx += kThreads) {
-    const int n = idx % N, p = idx / N, m1 = imin(M, (p + 1) * per);
-    float s = 0.f;
-#pragma unroll 8
-    for (int m = p * per; m < m1; ++m) s += ld(Y + (size_t)m * ldy + n);
-    red[p * N + n] = s;
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float s = 0.f;
-    for (int p = 0; p < P; ++p) s += red[p * N + n];
-    out[n] = s;
-  }
-  __syncthreads();
 }
 
 // Y = act(X @ W + b) rounded to T, for M rows: X (M, Kin) row stride ldx,

@@ -246,6 +246,10 @@ def adam_step(leaves, grads, state, lr, clip_norm=0.0):
 # K3), held here so that a caller's patch of the module attribute (a plain
 # version in place of the kernel) leaves the counters in place
 _LAUNCH_COUNTERS = (fused_gnn.gnn_forward, fused_gnn_train.gnn_train_bwd)
+# every launch counter of those wrappers, which a graph replay bumps as the
+# wrappers would: the launches, and K3's batch-wide weight-gradient kernel's
+_REPLAY_COUNTERS = ([(c, "launches") for c in _LAUNCH_COUNTERS]
+                    + [(fused_gnn_train.gnn_train_bwd, "wgrad_launches")])
 
 
 def pmean(values, device):
@@ -489,7 +493,7 @@ class _Replay:
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
-        before = [c.launches for c in _LAUNCH_COUNTERS]
+        before = [getattr(c, a) for c, a in _REPLAY_COUNTERS]
         # No cyclic collection during the capture: a CUDA graph that the
         # collector frees (one left in a reference cycle) is destroyed by
         # torch.cuda.CUDAGraph's destructor, whose cudaGraphExecDestroy CUDA
@@ -508,17 +512,18 @@ class _Replay:
         finally:
             if collecting:
                 gc.enable()
-        self.counted = [c.launches - b for c, b in zip(_LAUNCH_COUNTERS, before)]
-        for c, n in zip(_LAUNCH_COUNTERS, self.counted):  # the capture launched nothing
-            c.launches -= n
+        self._counts = [getattr(c, a) - b for (c, a), b in zip(_REPLAY_COUNTERS, before)]
+        self.counted = self._counts[:len(_LAUNCH_COUNTERS)]
+        for (c, a), n in zip(_REPLAY_COUNTERS, self._counts):  # the capture launched nothing
+            setattr(c, a, getattr(c, a) - n)
 
     def __call__(self, *inputs):
         with span("train.copy_in", stream=self.device):
             _copy_into(self.static, inputs)
         with span("train.replay"):
             self.graph.replay()
-        for c, n in zip(_LAUNCH_COUNTERS, self.counted):
-            c.launches += n
+        for (c, a), n in zip(_REPLAY_COUNTERS, self._counts):
+            setattr(c, a, getattr(c, a) + n)
         return self.out
 
 

@@ -4,10 +4,10 @@
 ``make_fused_train_forward(cfg, k_used, compute_dtype)`` returns ``f(params,
 state, action, physics, attrs, p_instance, neighbors, nbr_mask) -> pred``, a
 ``torch.autograd.Function`` whose forward is the K2 kernel (``want_motion``,
-its activations kept) and whose backward is the K3 kernel
-(``csrc/gnn_train_bwd.cu``: from K2's activations, where the TPU kernel
-recomputes the forward, the packed node cotangents and the 24 weight
-gradients, summed over samples in a fixed order) plus the JAX ``f_bwd``
+its activations kept) and whose backward is K3 (``csrc/gnn_train_bwd.cu``:
+from K2's activations, where the TPU kernel recomputes the forward, the
+packed node cotangents per sample, then the 24 weight gradients formed
+batch-wide over every sample's rows, ``wgrad_plan``) plus the JAX ``f_bwd``
 glue: the clip derivative ``|motion| < motion_clamp``, the packed-column
 splits, the physics sum (one value per sample) or per-particle physics, the
 state-history chain rule, and ``d_state[:, -1, :n_p] += d_pred``.
@@ -23,7 +23,9 @@ parameters' dtype.
 """
 
 import ctypes
+from collections import namedtuple
 
+import numpy as np
 import torch
 
 from adaptigraph_tpu_torch.models.gnn import GNNConfig
@@ -215,10 +217,90 @@ def gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, taps=No
     return dnodes, [g[k] for k in order]
 
 
+# K3's weight-gradient jobs, in csrc/gnn_train_bwd.cu's Job order: (weight
+# and bias in weight_list, or None; whose rows a sample holds: its nodes, the
+# pstep rounds' node rows, or its edge slots). X is the weight's input
+# activation (pe0's: the Dp particle inputs) and dY its output's cotangent
+# (nr2's: the 3-wide motion cotangent); (kin, nout) is the weight's shape.
+WGRAD_JOBS = ((0, 1, "node"), (2, 3, "node"), (4, 5, "node"), (6, 7, "edge"), (8, 9, "edge"),
+              (10, 11, "edge"), (12, 14, "edge"), (13, None, "round"), (15, 17, "node"),
+              (16, None, "round"), (18, 19, "node"), (20, 21, "node"), (22, 23, "node"))
+WGRAD_SLICE = 128  # output columns of a work item (a tile of the two warpgroups' 64 rows each)
+WGRAD_DEPTH = 512  # rows an item's products sum in the tensor cores before a float32 add
+
+WgradPlan = namedtuple("WgradPlan", "items item_group groups job_group wtab slot")
+
+
+def wgrad_plan(shapes, B, Np, K, pstep, chunk):
+    """The batch-wide weight-gradient kernel's work list, fixed by B and the
+    table shapes (so a CUDA graph can hold it): ``shapes`` the 24 weights'
+    shapes (``_weight_shapes``), ``chunk`` the rows a staged chunk holds
+    (float32 32, bf16 64).
+
+    Items, in order: per job (``WGRAD_JOBS``) its 128-column slices, per
+    slice the samples in order, each item (b0, b1, c0, c1) the chunks [c0,
+    c1) of samples [b0, b1), at most ``WGRAD_DEPTH`` rows deep (a sample's
+    chunks split into pieces, or short samples taken together). Edge items
+    cover every slot of a sample; the kernel counts, from the real edge
+    counts, the chunks that hold rows and gives each block an equal share of
+    those (``csrc/gnn_train_bwd.cu::partition``). Returns the int32 tables
+    the kernel reads: items, item_group (each item's group), groups (job,
+    n0, first item, end item: each job's slices, jobs in ``WGRAD_JOBS``
+    order), job_group (each job's first group), wtab (each weight's first
+    gradient element and the end, each weight's job, each weight's columns or
+    0 for a bias); ``slot`` the floats of a block's partial sums of one group
+    (G's 128 rows of 128 floats, then its 128 bias sums)."""
+    rows = {"node": Np, "round": pstep * Np, "edge": K * Np}
+    items, item_group, groups, job_group = [], [], [], []
+    for j, (w, _, kind) in enumerate(WGRAD_JOBS):
+        job_group.append(len(groups))
+        n_c, cap = -(-rows[kind] // chunk), max(1, WGRAD_DEPTH // chunk)
+        for n0 in range(0, shapes[w][1], WGRAD_SLICE):
+            first = len(items)
+            if n_c > cap:  # a sample in pieces
+                per = -(-n_c // -(-n_c // cap))
+                items += [(b, b + 1, c0, min(c0 + per, n_c)) for b in range(B)
+                          for c0 in range(0, n_c, per)]
+            else:  # whole samples together
+                per = max(1, cap // n_c)
+                items += [(b0, min(b0 + per, B), 0, n_c) for b0 in range(0, B, per)]
+            item_group += [len(groups)] * (len(items) - first)
+            groups.append((j, n0, first, len(items)))
+    goff, job_of, cols = [0], [0] * len(shapes), [0] * len(shapes)
+    for shape in shapes:
+        goff.append(goff[-1] + int(np.prod(shape)))
+    for j, (w, b, _) in enumerate(WGRAD_JOBS):
+        job_of[w], cols[w] = j, shapes[w][1]
+        if b is not None:
+            job_of[b] = j
+    return WgradPlan(np.array(items, np.int32).reshape(-1, 4), np.array(item_group, np.int32),
+                     np.array(groups, np.int32).reshape(-1, 4), np.array(job_group, np.int32),
+                     np.array(goff + job_of + cols, np.int32),
+                     WGRAD_SLICE * WGRAD_SLICE + WGRAD_SLICE)
+
+
+_WGRAD_PLANS = {}  # (wgrad_plan's arguments, device) -> (the plan, its tables on the device)
+
+
+def _wgrad_plan_on(shapes, B, Np, K, pstep, chunk, device):
+    """``wgrad_plan`` with its tables in one int32 tensor on ``device`` (in
+    the kernel's order, each item's group padded to a multiple of 4 for the
+    int4 groups after it); made once per shapes and device."""
+    key = (tuple(map(tuple, shapes)), B, Np, K, pstep, chunk, str(device))
+    if key not in _WGRAD_PLANS:
+        plan = wgrad_plan(shapes, B, Np, K, pstep, chunk)
+        pad = np.zeros(-len(plan.item_group) % 4, np.int32)
+        flat = np.concatenate([plan.items.ravel(), plan.item_group, pad, plan.groups.ravel(),
+                               plan.job_group, plan.wtab])
+        _WGRAD_PLANS[key] = (plan, torch.from_numpy(flat).to(device))
+    return _WGRAD_PLANS[key]
+
+
 def launch_backward(lib, nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts, compute_dtype):
     """Check the inputs against what the kernel takes, then launch the
-    backward of library ``lib`` (and the per-sample gradient sum) on the
-    current stream, counting nothing (the callers count). ``nodes`` and
+    backward of library ``lib`` (the per-sample cotangent chain, the
+    batch-wide weight gradients and their fixed-order sum) on the current
+    stream, counting nothing (the callers count). ``nodes`` and
     ``weights`` in ``compute_dtype``, ``dmot`` float32. ``acts``: the
     activations that the forward kernel wrote in the same dtype for the same
     nodes, edges and weights (``gnn_forward_cuda``'s third output, two
@@ -236,29 +318,36 @@ def launch_backward(lib, nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts, 
         if a.dtype != compute_dtype or a.device != dev or a.numel() != n or not a.is_contiguous():
             raise ValueError(f"activations {which}: expected {n} contiguous {compute_dtype} on "
                              f"{dev}, got {a.numel()} {a.dtype} on {a.device}")
+    if Dp > WGRAD_SLICE:
+        raise ValueError(f"the backward kernel takes up to {WGRAD_SLICE} particle inputs, got {Dp}")
     bf16 = int(compute_dtype == torch.bfloat16)
     smem = lib.gnn_train_bwd_smem_bytes(Np, K, bf16)
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory per block, more than {_MAX_SMEM}")
-    shapes = _weight_shapes(cfg, Dp)
+    shapes = [tuple(s) for s in _weight_shapes(cfg, Dp)]
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     offs = [0]
     for s in sizes:
         offs.append(offs[-1] + s)
+    plan, table = _wgrad_plan_on(shapes, B, Np, K, cfg.pstep, 64 if bf16 else 32, dev)
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count  # one block an SM
     node_s, edge_s = (
-        torch.empty(B * lib.gnn_train_bwd_scratch_bytes(Np, K, cfg.pstep, nfp, nfr, nf, rin, which,
-                                                         bf16),
+        torch.empty(B * lib.gnn_train_bwd_scratch_bytes(Np, K, cfg.pstep, Dp, nfp, nfr, nf, rin,
+                                                         which, bf16),
                     dtype=torch.uint8, device=dev) for which in (0, 1))
+    ecount = torch.empty(B, dtype=torch.int32, device=dev)
     dnodes = torch.empty(B, Np, nodes.shape[2], dtype=f32, device=dev)
-    partial = torch.empty(B, offs[-1], dtype=f32, device=dev)
+    gstart = torch.empty(len(plan.groups) + blocks + 2, dtype=torch.int32, device=dev)
+    partial = torch.empty((blocks + len(plan.groups)) * plan.slot, dtype=f32, device=dev)
     grads = torch.empty(offs[-1], dtype=f32, device=dev)
     wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
     tptrs, _packed = tc_pointers(weights, compute_dtype, transpose=False)
-    goff = (ctypes.c_int * (N_WEIGHTS + 1))(*offs)
     rc = lib.gnn_train_bwd_launch(
         nodes.data_ptr(), nbr.data_ptr(), mask.data_ptr(), dmot.data_ptr(), wptrs, tptrs,
         acts[0].data_ptr(), acts[1].data_ptr(), node_s.data_ptr(), edge_s.data_ptr(),
-        dnodes.data_ptr(), partial.data_ptr(), grads.data_ptr(), goff,
+        ecount.data_ptr(), dnodes.data_ptr(), gstart.data_ptr(), partial.data_ptr(),
+        grads.data_ptr(), table.data_ptr(), len(plan.items), len(plan.groups), blocks, plan.slot,
+        offs[-1],
         B, Np, cfg.n_nodes, cfg.max_nobj, K, cfg.n_his, cfg.pstep, Dp, nodes.shape[2], nfp, nfr, nf,
         rin, bf16, dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -276,6 +365,7 @@ def gnn_train_bwd_cuda(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts,
     out = launch_backward(kernels.library(), nodes, nbr, mask, dmot, weights, cfg, acts,
                           compute_dtype)
     gnn_train_bwd.launches += 1
+    gnn_train_bwd.wgrad_launches += 1
     return out
 
 
@@ -301,7 +391,8 @@ def gnn_train_bwd(nodes, nbr, mask, dmot, weights, cfg: GNNConfig, acts,
     return gnn_train_bwd_plain(nodes, nbr, mask, dmot, weights, cfg, compute_dtype=compute_dtype)
 
 
-gnn_train_bwd.launches = 0
+gnn_train_bwd.launches = 0  # K3's cotangent chain (gnn_train_bwd_kernel)
+gnn_train_bwd.wgrad_launches = 0  # its batch-wide weight gradients (wgrad_sum_samples_kernel)
 
 
 def grads_to_tree(grads, cfg: GNNConfig):

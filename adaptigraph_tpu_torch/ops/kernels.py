@@ -17,7 +17,8 @@ the same sources, which the port's own calls never use:
   node-sized products into one set with ``rollout_chunk_set_sub_clocks``
   (``rollout_chunk_sub_phases`` of them); the single-step forward and its
   backward into 16 counters each, set with ``gnn_forward_set_phase_clocks``
-  and ``gnn_train_bwd_set_phase_clocks``;
+  and ``gnn_train_bwd_set_phase_clocks``, and the backward's batch-wide
+  weight gradients into 7, set with ``gnn_train_bwd_set_wgrad_clocks``;
 - ``"no_edge"``, ``"no_gather"`` and ``"mlp_only"`` (both): the single-step
   forward with its in-kernel graph ablated (``csrc/gnn_forward.cu``, built
   alone), the parts switched off in ``profiling/kernel_parts.py``.
@@ -175,7 +176,8 @@ def _declared(lib, variant):
             fn.restype = None
         lib.rollout_chunk_sub_phases.argtypes = []
         lib.rollout_chunk_sub_phases.restype = I
-        for fn in (lib.gnn_forward_set_phase_clocks, lib.gnn_train_bwd_set_phase_clocks):
+        for fn in (lib.gnn_forward_set_phase_clocks, lib.gnn_train_bwd_set_phase_clocks,
+                   lib.gnn_train_bwd_set_wgrad_clocks):
             fn.argtypes = [P]
             fn.restype = I
     lib.rollout_chunk_smem_bytes.argtypes = [I] * 12  # dims, bf16
@@ -190,13 +192,15 @@ def _declared(lib, variant):
         + [I, I, I]                                   # max_repeat, mean_y, bf16
         + [I, P])                                     # device, stream
     lib.rollout_chunk_launch.restype = I
-    lib.gnn_train_bwd_scratch_bytes.argtypes = [I] * 9  # Np, K, pstep, nf_p, nf_r, nf, rel_in, which, bf16
+    # Np, K, pstep, Dp, nf_p, nf_r, nf, rel_in, which, bf16
+    lib.gnn_train_bwd_scratch_bytes.argtypes = [I] * 10
     lib.gnn_train_bwd_scratch_bytes.restype = L
     lib.gnn_train_bwd_smem_bytes.argtypes = [I, I, I]
     lib.gnn_train_bwd_smem_bytes.restype = I
     lib.gnn_train_bwd_launch.argtypes = (
         [P, P, P, P, ctypes.POINTER(P), ctypes.POINTER(P)]  # nodes, nbr, mask, dmot, weights, packed
-        + [P] * 7 + [ctypes.POINTER(I)]               # activations, scratch, outputs, offsets
+        + [P] * 9                                     # activations, scratch, edge counts, outputs
+        + [P] + [I] * 5                               # the weight gradients' plan and its sizes
         + [I] * 13                                    # B and the dims
         + [I, I, P])                                  # bf16, device, stream
     lib.gnn_train_bwd_launch.restype = I

@@ -1,5 +1,5 @@
-"""Whether two checkouts of the port compute the same kernel outputs, bit for
-bit, on the same inputs:
+"""Whether two checkouts of the port compute the same kernel outputs on the
+same inputs, bit for bit but for K3's weight gradients:
 
 - K1: one look-ahead step of B 2000 pushes through
   ``dynamics_rollout_batched`` (its whole-push branch), rope and granular
@@ -13,7 +13,10 @@ bit, on the same inputs:
   activations kept: bf16 then skips the redos);
 - K2e: the same rope step with the graph built in the kernel;
 - K3: on K2's activations and a seeded motion gradient, both dtypes and
-  widths.
+  widths: the node cotangents bit for bit; each weight gradient within
+  ``GRAD_TOL`` of the other checkout's relative to its norm (float32 5e-4,
+  bf16 1e-5: ``chip_smoke.py``'s gates against the plain backward), since
+  K3 sums a gradient's rows batch-wide, in another order than per sample.
 
 Each checkout runs in a subprocess with its own root first on ``sys.path``
 and builds its kernels into its own ``build/torch_kernels/``. The inputs are
@@ -23,9 +26,10 @@ Needs a CUDA card::
 
     python3 adaptigraph_tpu_torch/profiling/same_outputs.py OLD_ROOT NEW_ROOT
 
-prints one JSON line per tensor (``equal`` and the largest difference), then
-one with the verdict per kernel (``kernels``: K1, K2, K2e, K3), and exits 1
-if any differs.
+prints one JSON line per tensor (``equal`` and the largest difference; for a
+weight gradient its relative distance and whether it is within tolerance),
+then one with the verdict per kernel (``kernels``: K1, K2, K2e, K3's node
+cotangents, ``k3_grads`` its weight gradients), and exits 1 if any differs.
 """
 
 import json
@@ -33,6 +37,10 @@ import os
 import subprocess
 import sys
 import tempfile
+
+# K3's weight gradients, relative to their norm: chip_smoke.py's gates against
+# the plain backward (float32, and BF16_ROUNDING_TOL)
+GRAD_TOL = {"float32": 5e-4, "bfloat16": 1e-5}
 
 
 def worker(root, out):
@@ -183,12 +191,22 @@ def main():
         same = a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
         diff = (float((a.float() - b.float()).abs().max()) if a.shape == b.shape and a.numel()
                 else None)
-        print(json.dumps({"tensor": key, "shape": list(a.shape), "equal": same,
-                          "max_abs_diff": diff}), flush=True)
+        line = {"tensor": key, "shape": list(a.shape), "equal": same, "max_abs_diff": diff}
+        if key.startswith("k3:") and ":grad" in key and a.shape == b.shape:
+            rel = float(torch.linalg.norm((a - b).double())
+                        / torch.linalg.norm(a.double()).clamp(min=1e-30))
+            same = rel <= GRAD_TOL[key.split(":")[2]]
+            line.update(rel_norm_diff=rel, tol=GRAD_TOL[key.split(":")[2]], within_tol=same)
+        print(json.dumps(line), flush=True)
         if not same:
             differ.append(key)
-    kernels = {k: not any(d.startswith(k + ":") for d in differ)
-               and any(key.startswith(k + ":") for key in old) for k in ("k1", "k2", "k2e", "k3")}
+
+    def verdict(keys):
+        return not any(keys(d) for d in differ) and any(keys(k) for k in old)
+
+    kernels = {k: verdict(lambda key, k=k: key.startswith(k + ":") and ":grad" not in key)
+               for k in ("k1", "k2", "k2e", "k3")}
+    kernels["k3_grads"] = verdict(lambda key: key.startswith("k3:") and ":grad" in key)
     print(json.dumps({"same_outputs": not differ, "kernels": kernels, "roots": roots,
                       "differ": differ}), flush=True)
     if differ:

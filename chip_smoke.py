@@ -3,6 +3,7 @@
     python3 chip_smoke.py          # needs one CUDA card
     python3 chip_smoke.py --k1     # phases 0-1, then what K1 (and K2e) move (``phase_k1``)
     python3 chip_smoke.py --k23    # phases 0-1, then what K2/K3 move (``phase_k23``)
+    python3 chip_smoke.py --k3     # phases 0-1, then K3's checks at every batch and its times
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
     python3 chip_smoke.py --mesh   # phases 0-1 and 18: the multi-device paths
     python3 chip_smoke.py --overlap  # phase 18's profiled window alone (it runs it so)
@@ -14,7 +15,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
   0. card name and power limit, torch and CUDA versions; TF32 off.
   1. build the CUDA kernels from the sources in this checkout (timed), with
      ptxas' register and spill report and each K1/K2/K3 instance's HGMMA and
-     HMMA count (every K2/K3 instance and bf16 K1 must run wgmma: HGMMA;
+     HMMA count (K3's: its cotangent chain and its batch-wide weight
+     gradients; every K2/K3 instance and bf16 K1 must run wgmma: HGMMA;
      bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised the
      wgmma of any K1, K2 or K3 instance, and no instance may spill:
      ``build_gate``).
@@ -41,7 +43,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
      plain version (float32 and bfloat16); the backward kernel (K3), on the
      plain forward's activations and on K2's, against its plain versions
      (on the card and on the CPU, and against a float64 plain version off
-     its relu flips), plus a rerun that must be bit-identical. One train step through the kernels
+     its relu flips), plus a rerun that must be bit-identical; K3 again at
+     B 64 (a data-parallel shard), at B 512 (the GD Planner's) and on a
+     batch with a sample that has no real edges (``k3_batch_cases``), in
+     float32 and bf16. One train step through the kernels
      against the same step through the plain versions; K2, K3 and train-step
      times; K optimizer steps per call (``train_steps``: ``make_train_steps``,
      one step captured in a CUDA graph and replayed, K 10, f32 and bf16,
@@ -300,10 +305,13 @@ def card_line():
 
 def device_ms(fn, make_inputs, reps, kernels):
     """Under ``torch.profiler``, ``reps`` calls fn(*make_inputs(r)): the
-    device time per call of the kernels whose names hold one of ``kernels``;
-    the host time per call (perf_counter around the call, which returns
-    once its work is queued); and the host's CPU operators by self time per
-    call."""
+    device time per call of the kernels whose names hold one of ``kernels``,
+    and of each of them by its function name (K3: its cotangent chain, its
+    batch-wide weight gradients and their sum); the host time per call
+    (perf_counter around the call, which returns once its work is queued);
+    and the host's CPU operators by self time per call."""
+    import re
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -318,11 +326,17 @@ def device_ms(fn, make_inputs, reps, kernels):
             host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    dev = sum(e.self_device_time_total for e in events
-              if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels))
+    mine = [e for e in events
+            if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
+    by_kernel = {}
+    for e in mine:
+        name = re.search(r"\w+_kernel", e.key)
+        name = name.group(0) if name else e.key[:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
     cpu = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_cpu_time_total)[:8]
-    return dict(device_ms=dev / 1e3 / reps, host_ms=float(np.median(host)),
+    return dict(device_ms=sum(e.self_device_time_total for e in mine) / 1e3 / reps,
+                device_ms_by_kernel=by_kernel, host_ms=float(np.median(host)),
                 host_ops=[{"name": e.key[:60], "self_ms_per_call": e.self_cpu_time_total / 1e3 / reps,
                            "calls_per_call": e.count / reps} for e in cpu])
 
@@ -416,7 +430,8 @@ def k1_work(gnn, pin, sa, weights, out, stats, B):
 # phases
 # ---------------------------------------------------------------------------
 
-KERNEL_FUNCTIONS = ("gnn_forward_kernel", "gnn_train_bwd_kernel", "rollout_chunk_kernel")
+KERNEL_FUNCTIONS = ("gnn_forward_kernel", "gnn_train_bwd_kernel", "wgrad_sum_samples_kernel",
+                    "rollout_chunk_kernel")
 
 
 def kernel_label(fn):
@@ -427,8 +442,8 @@ def kernel_label(fn):
 
 
 def sass_counts(path):
-    """The tensor-core instructions of every K1/K2/K3 template instance in the
-    built library (``cuobjdump -sass``): {kernel: {"HGMMA": n, "HMMA": n}}."""
+    """The tensor-core instructions of every K1/K2/K3 template instance (K3's
+    two kernels) in the built library (``cuobjdump -sass``): {kernel: {"HGMMA": n, "HMMA": n}}."""
     import re
 
     from adaptigraph_tpu_torch.ops import kernels
@@ -569,7 +584,7 @@ def phase_build(gate=True):
     ptxas = [ln.strip() for ln in report if "registers" in ln or "spill" in ln]
     counts = sass_counts(path)
     k1 = counts.get("rollout_chunk_kernel<bf16>", {"HGMMA": 0, "HMMA": 1})
-    ok = (len(counts) == 6 and "rollout_chunk_kernel<float>" in counts
+    ok = (len(counts) == 2 * len(KERNEL_FUNCTIONS) and "rollout_chunk_kernel<float>" in counts
           and all(c["HGMMA"] > 0 for k, c in counts.items() if not k.startswith("rollout"))
           and k1["HGMMA"] > 0 and k1["HMMA"] == 0)
     failed = build_gate(report)
@@ -1472,6 +1487,24 @@ def input_cases(config, synth_batch, dev, cd):
             yield ("rope synthetic", step_inputs(synth_batch, gnn, edge, params, cd), gnn)
 
 
+def k3_batch_cases(dev, cd, shard):
+    """K3 inputs at the batches its weight-gradient plan changes with (rope
+    at the fixture's density, fixture weights): with ``shard``, B 64 (a
+    data-parallel shard); else B 512 (the GD Planner's) and B 128 with
+    sample 3's edges all masked out (a sample with no real edges)."""
+    for B in ((64,) if shard else (512,)):
+        batch, tcfg, params = fixture_batch("rope", dev, B=B, seed=B)
+        gnn, edge = tcfg.dcfg.gnn, tcfg.dcfg.edge
+        yield f"rope B {B}", step_inputs(batch, gnn, edge, params, cd), gnn
+    if shard:
+        return
+    batch, tcfg, params = fixture_batch("rope", dev, seed=7)
+    nodes, nbr, msk, last, w = step_inputs(batch, tcfg.dcfg.gnn, tcfg.dcfg.edge, params, cd)
+    msk = msk.clone()
+    msk[3] = 0
+    yield "rope, a sample with no real edges", (nodes, nbr, msk, last, w), tcfg.dcfg.gnn
+
+
 def real_edges(msk):
     return float((msk > 0).sum()) / msk.shape[0]
 
@@ -1725,7 +1758,7 @@ def k3_vs_plain(got, refs, dev, taps=None, acts=None, msk=None, cfg=None, plain_
                 finite=finite, rows=rows)
 
 
-def phase_backward_kernel(cases, dev, cascade_gates=True):
+def phase_backward_kernel(cases, dev, cascade_gates=True, k2_decisions_gated=True):
     """K3 against its plain version on the same inputs (f32, ``cases``),
     twice: fed the plain forward's activations (``plain_activations``: K3
     alone, with the plain backward's own relu decisions), and on the
@@ -1752,8 +1785,15 @@ def phase_backward_kernel(cases, dev, cascade_gates=True):
     passes back to every earlier layer: at softbody's width (its gate off)
     ~15 flipped message units put the float32 plain versions themselves
     5e-4 to 9e-4 of the norm from float64 off those columns, the figure
-    reported. Returns each case's max abs error of K2 then K3 against the
-    plain version on the card."""
+    reported. With ``k2_decisions_gated`` false (``k3_batch_cases`` but the
+    shard: B 512 and a batch with a sample that has no real edges, where
+    K2's own relu decisions differ from both float32 plain versions' at a
+    few units of rounding size, as they do at the parent commit), K2 then
+    K3 is held to
+    the float64 plain version taking those decisions and to the flip margin,
+    and its distance from the float32 plain versions is reported; K3 alone
+    keeps every gate. Returns each case's max abs error of K2 then K3
+    against the plain version on the card."""
     from adaptigraph_tpu_torch.ops.fused_gnn import gnn_forward_cuda
     from adaptigraph_tpu_torch.ops.fused_gnn_train import gnn_train_bwd_cuda, gnn_train_bwd_plain
 
@@ -1789,15 +1829,19 @@ def phase_backward_kernel(cases, dev, cascade_gates=True):
                "k2_then_k3": k3_vs_plain(got, dict(refs, **f64_same(acts)), dev, taps, acts, msk,
                                          cfg, ptaps)}
         del taps, ptaps, refs
-        oks = {k: bool(r["finite"] and r["worst_rel_vs_nearer_plain"] <= 5e-4
+        plain_gated = {"k3_alone": True, "k2_then_k3": k2_decisions_gated}
+        oks = {k: bool(r["finite"]
+                       and (r["worst_rel_vs_nearer_plain"] <= 5e-4 or not plain_gated[k])
                        and r["worst_rel_vs_f64_same_decisions"] <= 5e-4
-                       and (r["worst_rel_vs_f64_off_flips"] <= 5e-4 or not cascade_gates)
+                       and (r["worst_rel_vs_f64_off_flips"] <= 5e-4 or not cascade_gates
+                            or not plain_gated[k])
                        and r["largest_flip_margin"] <= FLIP_MARGIN) for k, r in res.items()}
         ok = identical and all(oks.values())
         ok_all &= ok
         errs[name] = max(r["max_abs_vs_plain"] for r in res["k2_then_k3"]["rows"])
         emit(phase="backward_kernel_check", case=name, B=nodes.shape[0],
              real_edges_per_sample=real_edges(msk), rerun_bit_identical=identical,
+             k2_decisions_gated=k2_decisions_gated,
              tol="5e-4 of the norm: of the nearer plain version, and of float64 taking the relu "
                  "decisions of the activations K3 read",
              flip_margin_tol=FLIP_MARGIN, ok_by_input=oks, ok=ok,
@@ -2153,7 +2197,8 @@ def bound(ops, nbytes, peak):
 
 
 K2_KERNELS = ("gnn_forward_kernel",)
-K3_KERNELS = ("gnn_train_bwd_kernel", "sum_samples_kernel")  # the backward and its gradient sum
+# K3: the cotangent chain, and the batch-wide weight gradients with their sum
+K3_KERNELS = ("gnn_train_bwd_kernel", "sum_samples_kernel")
 
 
 def train_kernel_times(config, batches, dev, R=9):
@@ -2276,9 +2321,11 @@ def time_train_kernels(config, synth_batches, dev, R=9):
 K2_PHASES = ["relation_inputs", "re0", "re1_re2_rpw1", "pe0", "pe1_pe2_ppwa", "rpw23_rounds",
              "messages_rounds", "ppwb_rounds", "nr0_nr1", "edge_lists", "motion_head"]
 K3_PHASES = ["motion_head", "d_pre_ppwb_rounds", "receiver_sender_sums_rounds", "rpw23_rounds",
-             "round_weight_grads_and_bases", "pp_pe2_pe1", "pe0", "rpw1", "re2", "re1", "re0",
+             "pb_and_rb_sums", "pp_pe2_pe1", "pe0", "rpw1", "re2", "re1", "re0",
              "relation_inputs", "edge_lists"]
 SUB_PHASES = ["layer_routine_staging", "layer_routine_products", "layer_routine_epilogues"]
+# ... and of K3's batch-wide weight-gradient kernel (WG_MARK in gnn_train_bwd.cu)
+WGRAD_PHASES = ["wait_for_chunk", "products", "staging", "cursor_drains_slots"]
 _CLOCKS = []  # the profiling build keeps pointers to these counters
 
 
@@ -2288,7 +2335,10 @@ def phase_train_kernel_phases(config, dev, batch=None, data="rope fixture densit
     softbody's phase passes one of its batches), float32 and bf16: one
     launch each of the profiling build (``kernels.library("phase_clocks")``),
     cycles per block by phase, and thread 0's cycles inside the layer
-    routine (staging, products, epilogues; those overlap the phases)."""
+    routine (staging, products, epilogues; those overlap the phases); for
+    K3's batch-wide weight gradients (``wgrad``) its blocks' mean and
+    largest cycles, their shares by part (``WGRAD_PHASES``) and the cycles a
+    chunk."""
     from adaptigraph_tpu_torch.models.gnn import init_params
     from adaptigraph_tpu_torch.ops import kernels
     from adaptigraph_tpu_torch.ops.fused_gnn import launch_forward
@@ -2306,20 +2356,31 @@ def phase_train_kernel_phases(config, dev, batch=None, data="rope fixture densit
         out = {}
         for name, setter, labels in (("k2", lib.gnn_forward_set_phase_clocks, K2_PHASES),
                                      ("k3", lib.gnn_train_bwd_set_phase_clocks, K3_PHASES)):
-            _CLOCKS.append(torch.zeros(16, dtype=torch.int64, device=dev))
-            setter(_CLOCKS[-1].data_ptr())
+            counters = torch.zeros(16, dtype=torch.int64, device=dev)
+            _CLOCKS.append(counters)
+            setter(counters.data_ptr())
             acts = launch_forward(lib, nodes, nbr, msk, last, w, gnn, cd, True, True)[2]
             if name == "k3":
+                _CLOCKS.append(torch.zeros(7, dtype=torch.int64, device=dev))
+                lib.gnn_train_bwd_set_wgrad_clocks(_CLOCKS[-1].data_ptr())
                 torch.cuda.synchronize()
-                _CLOCKS[-1].zero_()
+                counters.zero_()
                 launch_backward(lib, nodes, nbr, msk, dmot, w, gnn, acts, cd)
+                torch.cuda.synchronize()
+                wg = _CLOCKS[-1].double().tolist()
+                blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+                wgrad = {"mean_block_cycles": wg[4] / blocks, "max_block_cycles": wg[5],
+                         "share": {k: wg[i] / max(wg[4], 1) for i, k in enumerate(WGRAD_PHASES)},
+                         "chunks": wg[6], "cycles_per_chunk": wg[4] / max(wg[6], 1)}
             torch.cuda.synchronize()
-            c = (_CLOCKS[-1].double() / nodes.shape[0]).tolist()
+            c = (counters.double() / nodes.shape[0]).tolist()
             total = sum(c[:13])
             out[name] = {"cycles_per_block": total,
                          "share": {k: c[i] / total for i, k in enumerate(labels) if k},
                          "layer_routine_share": {k: c[13 + i] / total
                                                  for i, k in enumerate(SUB_PHASES)}}
+            if name == "k3":
+                out["k3"]["wgrad"] = wgrad
             del acts
         emit(phase="train_kernel_phases", data=data, dtype=str(cd).split(".")[-1],
              real_edges_per_sample=real_edges(msk), **out)
@@ -3585,6 +3646,49 @@ def phase_k23(dev):
     phase_train_steps(sb_config, dev, parts=sb_batches, data="softbody")
 
 
+def phase_k3(dev):
+    """K3's card checks and times without the rest of the full run: against
+    its plain versions in float32 and bf16 (``phase_backward_kernel``,
+    ``phase_backward_kernel_bf16``) on rope and granular at their fixtures'
+    density, at the batches of ``k3_batch_cases`` (as the full run checks
+    them) and on softbody's data (its cascade gates off, as in
+    ``phase_softbody``); then K2's and K3's
+    times at the rope fixture's density and on softbody, K3's device time
+    split between its cotangent chain and its batch-wide weight gradients
+    (``train_kernel_times``' ``device_ms_by_kernel``)."""
+    from adaptigraph_tpu_torch.models.gnn import init_params
+    from adaptigraph_tpu_torch.utils.config import load_dynamics_config
+
+    def fixtures(cd):
+        for name in ("rope", "granular"):
+            batch, tcfg, params = fixture_batch(name, dev)
+            yield name, step_inputs(batch, tcfg.dcfg.gnn, tcfg.dcfg.edge, params, cd), tcfg.dcfg.gnn
+
+    phase_backward_kernel(fixtures, dev)
+    phase_backward_kernel_bf16(fixtures, dev)
+    phase_backward_kernel(lambda cd: k3_batch_cases(dev, cd, True), dev)
+    phase_backward_kernel_bf16(lambda cd: k3_batch_cases(dev, cd, True), dev)
+    phase_backward_kernel(lambda cd: k3_batch_cases(dev, cd, False), dev, k2_decisions_gated=False)
+    phase_backward_kernel_bf16(lambda cd: k3_batch_cases(dev, cd, False), dev, cascade_gates=False)
+    config = load_dynamics_config("rope")
+    dense = [fixture_batch("rope", dev, seed=20 + r)[0] for r in range(9)]
+    emit(phase="train_kernel_time", data="rope fixture density",
+         **train_kernel_times(config, dense, dev))
+    sb_prep, _ = softbody_data()
+    sb_config = load_dynamics_config("softbody")
+    gnn, edge, _, _ = train_objects(sb_config)
+    sb_batches = device_batches(sb_config, sb_prep, dev, 5, seed=13)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), gnn)
+
+    def softbody(cd):
+        yield "softbody", step_inputs(sb_batches[0], gnn, edge, params, cd), gnn
+
+    phase_backward_kernel(softbody, dev, cascade_gates=False)
+    phase_backward_kernel_bf16(softbody, dev, cascade_gates=False)
+    emit(phase="train_kernel_time", data="softbody",
+         **train_kernel_times(sb_config, sb_batches, dev, R=5))
+
+
 # ---------------------------------------------------------------------------
 # the multi-device paths (the sharded solve on K1, data-parallel training on
 # K2/K3) and the real-robot I/O tier
@@ -4790,6 +4894,10 @@ def main():
         phase_k23(dev)
         print(card, flush=True)
         return
+    if sys.argv[1:] == ["--k3"]:
+        phase_k3(dev)
+        print(card, flush=True)
+        return
     if sys.argv[1:] == ["--softbody"]:
         phase_softbody(dev)
         print(card, flush=True)
@@ -4833,6 +4941,10 @@ def main():
     k3_err = phase_backward_kernel(lambda cd: input_cases(config, batches[1], dev, cd), dev)["rope"]
     k3_bf16_err = phase_backward_kernel_bf16(lambda cd: input_cases(config, batches[1], dev, cd),
                                              dev)["rope"]
+    phase_backward_kernel(lambda cd: k3_batch_cases(dev, cd, True), dev)
+    phase_backward_kernel_bf16(lambda cd: k3_batch_cases(dev, cd, True), dev)
+    phase_backward_kernel(lambda cd: k3_batch_cases(dev, cd, False), dev, k2_decisions_gated=False)
+    phase_backward_kernel_bf16(lambda cd: k3_batch_cases(dev, cd, False), dev, cascade_gates=False)
     phase_train_step(config, batches[2], dev)
     ttime = time_train_kernels(config, batches, dev)
     phase_train_kernel_phases(config, dev)

@@ -1,7 +1,8 @@
 """``chip_smoke.py::build_gate``: what in ptxas' report fails the kernels'
 build on the card. A serialised wgmma (ptxas' C75xx note) or a spill fails
-it for any K1, K2 or K3 template instance, float32 K1 (the CUDA-core parity
-body) included. Fed canned ``-Xptxas -v`` lines of the kind an H100 build
+it for any K1, K2 or K3 template instance (K3's cotangent chain and its
+batch-wide weight gradients), float32 K1 (the CUDA-core parity body)
+included. Fed canned ``-Xptxas -v`` lines of the kind an H100 build
 prints; nothing here needs a card or nvcc."""
 
 import pytest
@@ -20,6 +21,12 @@ MANGLED = {
     "gnn_train_bwd_kernel<bf16>":
         "_ZN49_GLOBAL__N__32d220ed_16_gnn_train_bwd_cu_49e3584420gnn_train_bwd_kernelI13__nv_bfl"
         "oat16EEvNS_6ParamsE",
+    "wgrad_sum_samples_kernel<float>":
+        "_ZN49_GLOBAL__N__32d220ed_16_gnn_train_bwd_cu_49e3584424wgrad_sum_samples_kernelIfEEvNS_"
+        "8WgParamsE",
+    "wgrad_sum_samples_kernel<bf16>":
+        "_ZN49_GLOBAL__N__32d220ed_16_gnn_train_bwd_cu_49e3584424wgrad_sum_samples_kernelI13__nv_"
+        "bfloat16EEvNS_8WgParamsE",
     "rollout_chunk_kernel<float>":
         "_ZN49_GLOBAL__N__5c1e0f2a_16_rollout_chunk_cu_7d2e1b3c20rollout_chunk_kernelIfEEvNS_6Pa"
         "ramsE",
