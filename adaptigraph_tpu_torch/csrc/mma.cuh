@@ -5,7 +5,8 @@
 //   and m64n32k8 tf32 with A from registers, through descriptors of the
 //   128-byte swizzled layout (the layer routine of gnn_common.cuh); wgmma
 //   m64n128k16 bf16, both operands in shared memory or A from registers
-//   (rollout_chunk.cu);
+//   (rollout_chunk.cu), and for its body at width 160 m64n56k16 with both
+//   operands in shared memory and m64n160k16 both ways;
 // - cp.async 16-byte copies with zero fill;
 // - ldmatrix / stmatrix: four 8 x 8 bf16 matrices between shared memory and
 //   the pairs of a wgmma accumulator layout (rollout_chunk.cu's node-sized
@@ -13,7 +14,8 @@
 // - the 128-byte swizzled layout that every wgmma operand tile of the kernels
 //   is kept in: an element's place (sw128), a K-major k16 slice's descriptor
 //   (sw128_desc) and the staging of a matrix into it by cp.async (stage_sw),
-//   for tiles of any number of rows.
+//   for tiles of any number of rows; and the 64-byte one (sw64, sw64_desc,
+//   stage_sw64), whose 32-wide blocks hold a 160-deep operand in five.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -267,6 +269,119 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// ---- the 64-byte swizzled layout -------------------------------------------
+// As the 128-byte one with rows of 32 bf16 (64 bytes): a matrix of R rows (R a
+// multiple of 8) and up to 32 CB columns is kept as CB blocks of R rows x 32
+// bf16, block b at b R 32 elements; in each, the 16-byte chunk q of row r
+// lies at chunk q ^ ((r / 2) % 4), every 8 rows (512 bytes, 512-aligned) an
+// atom. A 160-deep K-major operand takes five blocks (51,200 bytes for 160
+// rows), where the 128-byte layout would take three of 64 columns.
+
+// The place of element (r, c) of such a matrix of R rows.
+__device__ __forceinline__ int sw64(int r, int c, int R) {
+  return (c >> 5) * (R * 32) + r * 32 + ((((c >> 3) & 3) ^ ((r >> 1) & 3)) << 3) + (c & 7);
+}
+
+// The descriptor of the K-major k16 slice ks (columns 16 ks ..) of rows r0 ..
+// r0 + 63 (r0 a multiple of 8) of such a matrix of R rows: 64-byte swizzle
+// (layout type 2), the 8-row atoms 512 bytes apart, the slice 32 bytes per
+// k16 step into the row.
+__device__ __forceinline__ uint64_t sw64_desc(const bf16* m, int R, int r0, int ks) {
+  const uint32_t a = static_cast<uint32_t>(
+      __cvta_generic_to_shared(m + (ks >> 1) * R * 32 + r0 * 32 + (ks & 1) * 16));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
+         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
+// Rows [0, R) and columns [0, 32 CB) of src (row stride ld elements, a
+// multiple of 8; columns >= clim read as zero, clim a multiple of 8) into CB
+// column blocks of R rows x 32, swizzled, by cp.async from threads tid = 0 ..
+// nt - 1 (nt a multiple of 4): thread tid copies the 16-byte chunk tid % 4 of
+// every (nt / 4)-th row. Nothing waits or commits.
+__device__ __forceinline__ void stage_sw64(bf16* dst, const bf16* src, int ld, int R, int CB,
+                                           int clim, int tid, int nt) {
+  const int c = tid & 3;
+  for (int cb = 0; cb < CB; ++cb) {
+    const int gc = cb * 32 + c * 8;
+    const bool ok = gc < clim;
+    for (int r = tid >> 2; r < R; r += nt >> 2)
+      cp_async16(dst + (size_t)cb * R * 32 + r * 32 + ((c ^ ((r >> 1) & 3)) << 3),
+                 ok ? src + (size_t)r * ld + gc : src, ok);
+  }
+}
+
+// ---- wgmma at width 160, bf16 ------------------------------------------------
+// As wgmma_m64n64k16<0, 0> (both operands K-major in shared memory, the
+// descriptors' swizzle whatever they name) for 64 x 56 and 64 x 160 tiles,
+// and as wgmma_m64n128k16_rs (A from registers) for 64 x 160. Accumulators
+// as in wgmma_m64n64k16, for i < N / 2.
+__device__ __forceinline__ void wgmma_m64n56k16_ss(float (&d)[28], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "%28, %29, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n160k16_ss(float (&d)[80], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
+      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
+      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -99,7 +99,13 @@
 //
 // float32 (the parity mode, off the main path) runs the same steps on the
 // CUDA cores with a register-tiled matmul (256 threads; ~200 KB of shared
-// memory at rope width, ~216 KB at granular width).
+// memory at rope width, ~216 KB at granular width, ~227 KB at the published
+// 150, which the wrapper pads to 152).
+//
+// bf16 at width 160 (w160 below) runs AdaptiGraph's published 150-wide
+// models, padded to 160 by the wrapper: three warpgroups, 64-byte swizzled
+// operands and the round's weights through two slots of shared memory (see
+// its note).
 //
 // The graph is edge_build.cuh's, shared with gnn_forward.cu: distances equal
 // the plain version's bit for bit, ties go to the smallest sender index.
@@ -911,6 +917,7 @@ struct EdgeGraph {
 // frames (ring slot `start` the oldest), rounded to bf16, in columns [5, 5 +
 // 3 n_his), and zeros after. An edge's inputs from column 5 on are its
 // receiver's row minus its sender's (edge_inputs). No barrier.
+template <int kThr>
 __device__ inline void node_rows(const Dims& d, const float* HIST, int start, bf16* NR) {
   const int tid = threadIdx.x + opaque_zero();
   const int n_his = d.n_his, n_slots = n_his + 1, frame = d.Np * 3;
@@ -919,7 +926,7 @@ __device__ inline void node_rows(const Dims& d, const float* HIST, int start, bf
   const bool diff = q >= 0 && h < n_his - 1, newest = q >= 0 && h == n_his - 1;
   const float* f0 = HIST + ((start + (diff ? h : n_his - 1)) % n_slots) * frame + c;
   const float* f1 = HIST + ((start + h + 1) % n_slots) * frame + c;
-  for (int i = tid / kNodeRow; i < d.Np; i += kTcThreads / kNodeRow) {
+  for (int i = tid / kNodeRow; i < d.Np; i += kThr / kNodeRow) {
     float v = 0.f;
     if (diff) v = __fsub_rn(f1[i * 3], f0[i * 3]);
     else if (newest) v = f0[i * 3];
@@ -1553,7 +1560,7 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
   for (int ai = 1; ai <= tb.rmax; ++ai) {
     // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
     sc.start();
-    node_rows(d, HIST(), start, reinterpret_cast<bf16*>(smem + L.nr));
+    node_rows<kThr>(d, HIST(), start, reinterpret_cast<bf16*>(smem + L.nr));
     sc.mark(kGraphRows);
     // (the threshold and the thread index read where used: see TcBlock and
     // opaque_zero)
@@ -1633,6 +1640,753 @@ __device__ __forceinline__ void rollout_tc(const Params& p, unsigned char* smem_
   for (int idx = tid; idx < d.n_p * 3; idx += kThr) p.out[(size_t)b * d.n_p * 3 + idx] = rec[idx];
 }
 
+// ---- bfloat16 at width 160: three warpgroups, the round's weights in two slots ----
+//
+// AdaptiGraph's published models are 150 wide. The wrapper runs this body
+// for models 129 to 152 wide (ops/fused_gnn.py::k1_widths; rel_base and the
+// aggregation hold kRbLd = 152 channels), their weights and biases padded
+// to 160 with zeros (pack_tc_weights, pad_weights), so the padded channels
+// hold exact zeros (relu(0 + 0) = 0) and add nothing to any product. The body above keeps
+// its widths at 128, and its plan fits neither the shared memory nor the
+// registers at 160: a 160-deep W^T in the 128-byte swizzled layout takes
+// three 64-wide blocks (61,440 bytes), the relation MLP's four weights, or a
+// round's three (Wb, W2 | W3) beside the node matrices and the send rows,
+// would need ~290 KB, and a 160-wide relation layer holds 80 accumulators
+// and 40 A registers a thread, more than the 128 that 512 threads may have
+// (split into two or three products of 512 threads, the outputs held
+// meanwhile spilled). So:
+// - 384 threads, three warpgroups, so 168 registers a thread;
+// - every operand is kept in the 64-byte swizzled layout (mma.cuh's sw64:
+//   32-wide blocks), five blocks for 160 deep: 51,200 bytes a W^T;
+// - the relation MLP's four weights (re0 32 deep) stay resident for a
+//   substep's tiles (163,840 bytes) beside the warpgroups' 64 x 32 tiles of
+//   relation inputs; the edges' 64-row groups are dealt to the warpgroups in
+//   turn, each carrying its groups through the four layers as the 128 body
+//   does, a layer one 64 x 160 product (m64n160k16) with A from registers,
+//   and rel_base leaves through the warp's rows of the tile, 32 columns at a
+//   time, in 16-byte stores, in rows of 152 (kRbLd);
+// - the node-sized products keep the effect (EFF), the aggregation's matrix
+//   (AGG) and two slots of 51,200 bytes (184,320 bytes in all). In a round
+//   slot 1 holds the send projections for the aggregation (Np rows of
+//   kSendLd, as the 128 body's STG) while Wb is staged into slot 0 for the
+//   update; then W2 (recv) comes into slot 1 and W3 (send) into slot 0, each
+//   staged behind the product before it, and the send product writes the
+//   next round's send rows into slot 1 once the recv product is done;
+// - a node-sized product: warpgroup w takes columns 56 w .. 56 w + 55 of
+//   both 64-row tiles (two m64n56k16 chains; the last warpgroup's columns
+//   from 160 on read past the weight and are dropped); its pairs go to
+//   shared memory in 4-byte stores; a block barrier between layers;
+// - the aggregation deals its (receiver, 16-byte chunk) items over the
+//   block, two a thread at once, so that a pass waits for global memory once
+//   for both;
+// - the encoder stages its five weights (pe1, pe2, Wa, W2, W3) through the
+//   slots once per push, and the head's (nr0, nr1) come in after the last
+//   aggregation.
+namespace w160 {
+
+constexpr int kThreads = 384;                    // three warpgroups
+constexpr int kNF = 160;
+constexpr int kCols = 56;                        // a node product's columns per warpgroup
+constexpr int kWBytes = kNF * kNF * 2;           // a staged 160 x 160 W^T: 51,200
+constexpr int kNodeRows = 128;                   // node matrices: two 64-row tiles
+constexpr int kNodeBytes = kNodeRows * kNF * 2;  // 40,960
+constexpr int kRelIn = 32;                       // re0's depth (zero past the relation inputs)
+constexpr int kTileBytes = 64 * kRelIn * 2;      // a warpgroup's tile of relation inputs
+// rel_base's rows in global memory: the model's 150 channels and 2 of the
+// padding (16-byte aligned rows). They are read in each round from the L2
+// cache, where a resident block's scratch at rope's dims (~450 KB) exceeds
+// its share of the 50 MB: rows of 152 made the aggregation's wait for them
+// 13% shorter than rows of 160
+constexpr int kRbLd = 152;
+constexpr int kTPR = kRbLd / kCPT;               // aggregation: 16-byte chunks of a receiver
+constexpr int kRowsAhead = 10;                   // a receiver's rel_base rows loaded at once
+constexpr int kSendLd = kNF + 8;                 // row stride of the send projections (bf16)
+constexpr int kW2Ld = kNF + 4;
+enum BiasSlot { kBpe0 = 0, kBpe1 = kNF, kBpe2 = 2 * kNF, kBre0 = 3 * kNF, kBrp = 6 * kNF,
+                kBpp = 7 * kNF, kBnr0 = 8 * kNF, kBnr1 = 9 * kNF, kBnr2 = 10 * kNF,
+                kWnr2 = 10 * kNF + 4, kBiasFloats = kWnr2 + 3 * kW2Ld };
+// The big regions from the 1,024-aligned base. Encoder, rounds and head:
+constexpr int kOffSlot0 = 0, kOffSlot1 = kWBytes, kOffEff = 2 * kWBytes,
+              kOffAgg = kOffEff + kNodeBytes, kBigBytes = kOffAgg + kNodeBytes;
+// ... the relation MLP over the same bytes (its weights staged during the
+// re-stick and the graph build, whose scratch lies in the tiles):
+constexpr int kOffRe1 = 0, kOffRe2 = kWBytes, kOffRpW1 = 2 * kWBytes, kOffRe0 = 3 * kWBytes,
+              kOffTiles = kOffRe0 + kNF * kRelIn * 2;
+static_assert(kOffTiles + 3 * kTileBytes <= kBigBytes, "the relation MLP fits");
+static_assert(edges::scratch_bytes(kThreads / 32) <= 3 * kTileBytes,
+              "the graph build's scratch fits in the tiles");
+static_assert(128 * kSendLd * 2 <= kWBytes, "the send rows fit in a slot");
+
+// the small state, after the big regions
+struct Layout {
+  int bias, hist, nr, act, rec, valid, red, cnt, off, nbr, er, ninf;
+  int total;  // bytes to request, the 1,024 of the base's alignment included
+};
+
+__host__ __device__ inline Layout layout_of(const Dims& d) {
+  const int sizes[] = {
+      kBiasFloats * 4,                  // bias
+      (d.n_his + 1) * d.Np * 3 * 4,     // hist: ring of n_his+1
+      d.Np * kNodeRow * 2,              // nr: bf16 node rows
+      d.Np * 3 * 4,                     // act
+      d.n_p * 3 * 4,                    // rec
+      d.Np * 4,                         // valid
+      3 * (kThreads / 32) * 4,          // red
+      d.Np * 4,                         // cnt
+      (d.Np + 1) * 4,                   // off
+      d.Np * d.K * 2,                   // nbr: int16 senders
+      d.Np * d.K * 2,                   // er: int16 receivers
+      kNF * 2,                          // ninf: a row of bf16 -inf (aggregate)
+  };
+  Layout L;
+  int* dst[] = {&L.bias, &L.hist, &L.nr, &L.act, &L.rec, &L.valid, &L.red, &L.cnt, &L.off,
+                &L.nbr, &L.er, &L.ninf};
+  int at = kBigBytes;
+  for (int i = 0; i < 12; ++i) { *dst[i] = at; at += round_to(sizes[i], 128); }
+  L.total = at + 1024;
+  return L;
+}
+
+// the body's dimensions and layout, in shared memory (see TcBlock)
+struct Block {
+  Dims d;
+  Layout L;
+  int rep, rmax;
+  float thresh;
+};
+
+// rows [0, R) of a packed W^T (row stride kp, a multiple of 16) into
+// ceil(kp / 32) blocks (the depth from kp on zero); not committed
+__device__ __forceinline__ void stage(unsigned char* dst, const bf16* P, int R, int kp) {
+  tc::stage_sw64(reinterpret_cast<bf16*>(dst), P, kp, R, (kp + 31) / 32, kp,
+                 threadIdx.x + opaque_zero(), kThreads);
+}
+
+// every cp.async copy in, visible to wgmma and to every thread
+__device__ __forceinline__ void sync_copies() {
+  tc::cp_async_wait<0>();
+  tc::fence_proxy_async();
+  __syncthreads();
+}
+
+// the place of the pair (r, c), (r, c + 1) of a node matrix
+__device__ __forceinline__ unsigned* pair_at(bf16* M, int r, int c) {
+  return reinterpret_cast<unsigned*>(M + tc::sw64(r, c, kNodeRows));
+}
+
+// Y = X W over both 64-row tiles of a node matrix X (at x_off) for
+// warpgroup w's columns 56 w .. 56 w + 55 of the staged W^T (at w_off), the
+// two tiles' ten k-steps each issued back to back and waited for once; then
+// epi(r, c, v0, v1) for every pair of accumulators in a column below kNF
+// (row r of the node matrix, columns c and c + 1). Every thread calls it; no
+// barrier.
+template <typename Epi>
+__device__ __forceinline__ void node_layer(unsigned char* smem, int x_off, int w_off, SubClock& sc,
+                                           Epi epi) {
+  unsigned char* const sm = smem + opaque_zero();
+  const int tid = threadIdx.x + opaque_zero();
+  const int w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const bf16* const X = reinterpret_cast<const bf16*>(sm + x_off);
+  const bf16* const W = reinterpret_cast<const bf16*>(sm + w_off);
+  float acc[2][kCols / 2];
+  sc.start();
+  tc::wgmma_fence();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < kNF / 16; ++ks)
+      tc::wgmma_m64n56k16_ss(acc[mt], tc::sw64_desc(X, kNodeRows, 64 * mt, ks),
+                             tc::sw64_desc(W, kNF, kCols * w, ks), ks > 0);
+  tc::wgmma_commit();
+  tc::wgmma_wait0();
+  tc::fence_regs(acc[0]);
+  tc::fence_regs(acc[1]);
+  sc.mark(kNodeProducts);
+  const int r0 = 16 * warp + (lane >> 2), c0 = kCols * w + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kCols / 8; ++nt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi)
+        if (c0 + 8 * nt < kNF)
+          epi(64 * mt + r0 + 8 * hi, c0 + 8 * nt, acc[mt][4 * nt + 2 * hi],
+              acc[mt][4 * nt + 2 * hi + 1]);
+  sc.mark(kNodeEpilogues);
+}
+
+// the relation MLP's staged W^T, layer by layer
+__host__ __device__ constexpr int rel_w(int L) {
+  return L == 0 ? kOffRe0 : L == 1 ? kOffRe1 : L == 2 ? kOffRe2 : kOffRpW1;
+}
+
+// This substep's edge lists and node rows, from the layout in shared memory.
+__device__ __forceinline__ EdgeGraph edge_graph(const Block& tb, unsigned char* sm) {
+  const Layout& L = tb.L;
+  return EdgeGraph{reinterpret_cast<const int*>(sm + L.off)[tb.d.Np],
+                   tb.d.K,
+                   tb.d.n_p,
+                   tb.d.N,
+                   reinterpret_cast<const short*>(sm + L.er),
+                   reinterpret_cast<const short*>(sm + L.nbr),
+                   reinterpret_cast<const int*>(sm + L.off),
+                   reinterpret_cast<const float*>(sm + L.valid),
+                   reinterpret_cast<const bf16*>(sm + L.nr)};
+}
+
+// The relation inputs of edge rows [e0, e0 + 64) into A, the warpgroup's
+// 64 x 32 tile (one sw64 block), as the 128 body's edge_inputs.
+__device__ __forceinline__ void edge_inputs_sw64(const EdgeGraph& g, int e0, bf16* A) {
+  const int t = threadIdx.x & 127, r = t >> 1, h = t & 1, e = e0 + r;
+  uint4 v[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+  if (e < g.E) {
+    const int i = g.ER[e], j = g.NBR[i * g.K + (e - g.OFF[i])];
+    const uint4* ri = reinterpret_cast<const uint4*>(g.NR + i * kNodeRow) + 2 * h;
+    const uint4* rj = reinterpret_cast<const uint4*>(g.NR + j * kNodeRow) + 2 * h;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint4 a = ri[q], b = rj[q];
+      v[q] = make_uint4(sub_bf16x2(a.x, b.x), sub_bf16x2(a.y, b.y), sub_bf16x2(a.z, b.z),
+                        sub_bf16x2(a.w, b.w));
+    }
+    if (h == 0) {  // columns 0 .. 4
+      const float oi = (i < g.n_p) ? g.VALID[i] : 0.f, oj = (j < g.n_p) ? g.VALID[j] : 0.f;
+      v[0].x = pack_bf16(oi, (i >= g.n_p && i < g.N) ? 1.f : 0.f);
+      v[0].y = pack_bf16(oj, (j >= g.n_p && j < g.N) ? 1.f : 0.f);
+      v[0].z = (v[0].z & 0xffff0000u) | (pack_bf16(fabsf(oi - oj), 0.f) & 0xffffu);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    *reinterpret_cast<uint4*>(A + tc::sw64(r, 8 * (2 * h + q), 64)) = v[q];
+}
+
+// rel_base[e] = (relu-MLP3(relation inputs of e)) @ W1 + b for the real
+// edges of this substep. The 64-row groups of the edges are dealt to the
+// warpgroups in turn (group g to warpgroup g % 3; warp w its rows 16 w ..;
+// rows past E compute and are dropped), each taking its groups through the
+// four layers: a layer is one 64 x 160 product, its k-steps issued back
+// to back and waited for once; re0 reads the warpgroup's tile of relation
+// inputs, layers 1 .. 3 take A from registers (the previous epilogue's bias,
+// relu and rounding to bf16), and rel_base's rows leave through the warp's
+// 16 rows of the tile (free after re0), 32 columns at a time: stmatrix, then
+// each real row's 64 bytes in 16-byte stores. Every thread calls it; no
+// barrier at its end.
+__device__ __forceinline__ void relation_mlp(const Params& p, const Block& tb,
+                                             unsigned char* smem, SubClock& sc) {
+  const int E = reinterpret_cast<const int*>(smem + tb.L.off)[tb.d.Np];
+  // the warpgroup's count of groups (warp-uniform, as ptxas can see through
+  // the shuffle: a wgmma under a branch it cannot is serialised)
+  const int wg0 = threadIdx.x >> 7;
+  const int ngroups = __shfl_sync(kFull, ((E + 63) / 64 - wg0 + 2) / 3, 0);
+  for (int k = 0; k < ngroups; ++k) {
+    unsigned char* const sm = smem + opaque_zero();  // see opaque_zero
+    const int tid = threadIdx.x + opaque_zero();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t4 = lane & 3;
+    bf16* const A = reinterpret_cast<bf16*>(sm + kOffTiles + wg * kTileBytes);
+    const int e0 = (3 * k + wg) * 64;
+    sc.start();
+    edge_inputs_sw64(edge_graph(tb, sm), e0, A);
+    tc::fence_proxy_async();
+    wg_sync(wg);  // the tile's relation inputs are written
+    sc.mark(kRelInputs);
+    uint32_t a[10][4];  // layers 1 .. 3: A, rows of the thread (wgmma_m64n160k16_rs)
+#pragma unroll  // a run-time L under the re0 test would serialise the products
+    for (int L = 0; L < 4; ++L) {
+      // the weights at fixed offsets from the base: their descriptors are uniform
+      const bf16* const W = reinterpret_cast<const bf16*>(smem + rel_w(L));
+      float acc[kNF / 2];
+      tc::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kNF / 16; ++ks) {
+        if (L == 0 && ks < kRelIn / 16)
+          tc::wgmma_m64n160k16_ss(acc, tc::sw64_desc(A, 64, 0, ks), tc::sw64_desc(W, kNF, 0, ks),
+                                  ks > 0);
+        else if (L > 0)
+          tc::wgmma_m64n160k16_rs(acc, a[ks], tc::sw64_desc(W, kNF, 0, ks), ks > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait0();
+      tc::fence_regs(acc);
+      tc::fence_regs(a);
+      sc.mark(kRelProducts);
+      const float* bl = reinterpret_cast<const float*>(sm + tb.L.bias) + kBre0 + L * kNF;
+      if (L < 3) {  // ReLU, round: the next layer's A
+#pragma unroll
+        for (int nt = 0; nt < kNF / 8; ++nt) {
+          const float2 bb = *reinterpret_cast<const float2*>(bl + nt * 8 + 2 * t4);
+          const float* y = acc + 4 * nt;  // rows gid, gid + 8; columns 8 nt + 2 t4 ..
+          a[nt >> 1][2 * (nt & 1)] = pack_relu_bf16(y[0] + bb.x, y[1] + bb.y);
+          a[nt >> 1][2 * (nt & 1) + 1] = pack_relu_bf16(y[2] + bb.x, y[3] + bb.y);
+        }
+      } else {  // rel_base, through the warp's 16 rows of the tile (a row's swizzle
+                // is that of its place in the tile: 16 rows on, the same)
+        bf16* const rows = A + 16 * warp * kRelIn;
+        const int r = lane >> 1;  // this lane's row of the 16, and its two chunks
+        const int e = e0 + 16 * warp + r;
+        const int e_end = reinterpret_cast<const int*>(sm + tb.L.off)[tb.d.Np];
+        bf16* const out = static_cast<bf16*>(p.relbase) +
+                          ((size_t)blockIdx.x * tb.d.Np * tb.d.K + e) * kRbLd;
+#pragma unroll
+        for (int s = 0; s < kNF / 32; ++s) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t q[4];
+            quad(acc, 2 * s + j, [&](float v0, float v1, int nt, int) {
+              const float2 bb = *reinterpret_cast<const float2*>(bl + pair_col(0, nt));
+              return pack_bf16(v0 + bb.x, v1 + bb.y);
+            }, q);
+            tc::stmatrix_x4(rows + tc::sw64(8 * ((lane >> 3) & 1) + (lane & 7),
+                                            16 * j + 8 * (lane >> 4), 64), q);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ch = 2 * (lane & 1) + h;  // 16-byte chunk of the row's 64 bytes
+            const uint4 v = *reinterpret_cast<const uint4*>(rows + tc::sw64(r, 8 * ch, 64));
+            if (e < e_end && 32 * s + 8 * ch < kRbLd)
+              *reinterpret_cast<uint4*>(out + 32 * s + 8 * ch) = v;
+          }
+          __syncwarp();
+        }
+      }
+      sc.mark(kRelEpilogues);
+    }
+  }
+}
+
+// A thread's 16 bytes of rel_base rows e .. e + kRowsAhead - 1 (rows of
+// kRbLd, from `rows`, in global memory), as the 128 body's load_rows.
+__device__ __forceinline__ void load_rows(uint4 (&r)[kRowsAhead], const bf16* rows, int e,
+                                          int end) {
+  const bf16* p = rows + (size_t)e * kRbLd;
+#pragma unroll
+  for (int k = 0; k < kRowsAhead; ++k)
+    asm volatile(
+        "{\n.reg .pred q;\nsetp.lt.s32 q, %4, %5;\n"
+        "@q ld.global.v4.u32 {%0, %1, %2, %3}, [%6];\n}\n"
+        : "+r"(r[k].x), "+r"(r[k].y), "+r"(r[k].z), "+r"(r[k].w)
+        : "r"(e + k), "r"(end), "l"(p + k * kRbLd));
+}
+
+// agg[i] = sum over i's edges, in slot order, of relu(rel_base[e] + recv[i]
+// + send[j]) for every receiver i < N, rounded to bf16 into AGG over recv[i],
+// as the 128 body's aggregate: AGG holds recv, slot 1 the send rows (Np rows
+// of kSendLd), rel_base is read from global memory. The N x kTPR items (a
+// receiver's 16-byte chunk of its first kRbLd channels; the last 8 of AGG
+// keep recv's zeros) are dealt over the block, two a thread at once (their
+// rows loaded together: a pass waits for global memory once for both; the
+// next item's rows loaded while one is summed were ~2% faster). It opens with a barrier
+// (recv and send are written; the cp.async copies in flight but the newest
+// group are in), then calls open(); it ends with every cp.async copy waited
+// for and a barrier.
+template <typename Open>
+__device__ __forceinline__ void aggregate(const Block& tb, unsigned char* smem,
+                                          const bf16* relbase, Open open, SubClock& sc) {
+  sc.start();
+  tc::cp_async_wait<1>();
+  __syncthreads();
+  open();
+  sc.mark(kAggRows);
+  {
+    const int tid = threadIdx.x + opaque_zero();
+    unsigned char* const sm = smem + opaque_zero();
+    bf16* const AGG = reinterpret_cast<bf16*>(sm + kOffAgg);
+    const int* const OFF = reinterpret_cast<const int*>(sm + tb.L.off);
+    const short* const NBR = reinterpret_cast<const short*>(sm + tb.L.nbr);
+    const bf16* const SEND = reinterpret_cast<const bf16*>(sm + kOffSlot1);
+    const bf16* const NINF = reinterpret_cast<const bf16*>(sm + tb.L.ninf);
+    const int N = tb.d.N, K = tb.d.K, n_items = N * kTPR;
+    uint4 r[2][kRowsAhead];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int k = 0; k < kRowsAhead; ++k) r[x][k] = make_uint4(0, 0, 0, 0);  // finite where unread
+    for (int base = tid; base < n_items; base += 2 * kThreads) {
+      int i[2], c0[2], ebeg[2], eend[2];
+      uint4 recv[2];
+      float acc[2][kCPT];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int item = base + x * kThreads;
+        const bool on = item < n_items;
+        i[x] = on ? item / kTPR : 0;
+        c0[x] = (item % kTPR) * kCPT;
+        ebeg[x] = OFF[i[x]];
+        eend[x] = on ? OFF[i[x] + 1] : ebeg[x];
+        recv[x] = *reinterpret_cast<const uint4*>(AGG + tc::sw64(i[x], c0[x], kNodeRows));
+#pragma unroll
+        for (int c = 0; c < kCPT; ++c) acc[x][c] = 0.f;
+      }
+      for (int o = 0; o < K; o += kRowsAhead) {
+        load_rows(r[0], relbase + c0[0], ebeg[0] + o, eend[0]);
+        load_rows(r[1], relbase + c0[1], ebeg[1] + o, eend[1]);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const short* nbr = NBR + i[x] * K - ebeg[x];  // nbr[e]: edge e's sender
+#pragma unroll
+          for (int k = 0; k < kRowsAhead; ++k) {
+            const int e = ebeg[x] + o + k;
+            const bf16* sd = e < eend[x] ? SEND + nbr[e] * kSendLd + c0[x] : NINF + c0[x];
+            add_messages(acc[x], r[x][k], recv[x], *reinterpret_cast<const uint4*>(sd));
+            if (x == 0 && k == 0) {  // the rows are in
+              acc[0][0] = arrived(acc[0][0]);
+              sc.mark(kAggRows);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        if (base + x * kThreads < n_items) {
+          uint4 out;
+          out.x = pack_bf16(acc[x][0], acc[x][1]);
+          out.y = pack_bf16(acc[x][2], acc[x][3]);
+          out.z = pack_bf16(acc[x][4], acc[x][5]);
+          out.w = pack_bf16(acc[x][6], acc[x][7]);
+          *reinterpret_cast<uint4*>(AGG + tc::sw64(i[x], c0[x], kNodeRows)) = out;
+        }
+      sc.mark(kAggSums);
+    }
+  }
+  sync_copies();  // AGG is the update's A operand, and so are the staged weights
+}
+
+// effect = relu(rnd(rnd(base + rnd(agg @ Wb)) + effect)) for warpgroup w's
+// columns of both tiles (AGG in, Wb in slot 0, base from global memory in
+// rows of kNF, the effect in EFF, read and written in place: no other
+// warpgroup touches its pairs). No barrier.
+__device__ __forceinline__ void update(const Block& tb, unsigned char* smem, const bf16* pbase,
+                                       SubClock& sc) {
+  unsigned char* const sm = smem + opaque_zero();
+  const int tid = threadIdx.x + opaque_zero();
+  const int w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  bf16* const EFF = reinterpret_cast<bf16*>(sm + kOffEff);
+  const int r0 = 16 * warp + (lane >> 2), c0 = kCols * w + 2 * (lane & 3);
+  unsigned pw[2][2][kCols / 8];  // in flight through the products; rows from N on are not read
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt) {
+        const int r = 64 * mt + r0 + 8 * hi, c = c0 + 8 * nt;
+        pw[mt][hi][nt] = r < tb.d.N && c < kNF
+                             ? *reinterpret_cast<const unsigned*>(pbase + r * kNF + c)
+                             : 0u;
+      }
+  const bf16* const X = reinterpret_cast<const bf16*>(sm + kOffAgg);
+  const bf16* const W = reinterpret_cast<const bf16*>(sm + kOffSlot0);
+  float acc[2][kCols / 2];
+  sc.start();
+  tc::wgmma_fence();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < kNF / 16; ++ks)
+      tc::wgmma_m64n56k16_ss(acc[mt], tc::sw64_desc(X, kNodeRows, 64 * mt, ks),
+                             tc::sw64_desc(W, kNF, kCols * w, ks), ks > 0);
+  tc::wgmma_commit();
+  tc::wgmma_wait0();
+  tc::fence_regs(acc[0]);
+  tc::fence_regs(acc[1]);
+  sc.mark(kNodeProducts);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kCols / 8; ++nt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi)
+        if (c0 + 8 * nt < kNF) {
+          unsigned* const at = pair_at(EFF, 64 * mt + r0 + 8 * hi, c0 + 8 * nt);
+          *at = add_relu_bf16x2(add_bf16x2(pw[mt][hi][nt], pack_bf16(acc[mt][4 * nt + 2 * hi],
+                                                                    acc[mt][4 * nt + 2 * hi + 1])),
+                                *at);
+        }
+  tc::fence_proxy_async();  // EFF is the next product's A operand
+  sc.mark(kNodeEpilogues);
+}
+
+__device__ __forceinline__ void rollout(const Params& p, unsigned char* smem_raw) {
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* smem = smem_raw + ((1024u - (base & 1023u)) & 1023u);  // for the swizzle
+  __shared__ Block tb;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  if (tid == 0) {
+    s_zero = 0;
+    tb.d = p.d;
+    tb.L = layout_of(p.d);
+    tb.rep = p.repeat[b];
+    tb.rmax = min(tb.rep, p.max_repeat);
+    tb.thresh = p.thresh;
+  }
+  __syncthreads();
+  const Dims& d = tb.d;
+  const Layout& L = tb.L;
+  unsigned char* const SLOT0 = smem + kOffSlot0;
+  unsigned char* const SLOT1 = smem + kOffSlot1;
+  bf16* const EFF = reinterpret_cast<bf16*>(smem + kOffEff);
+  bf16* const AGG = reinterpret_cast<bf16*>(smem + kOffAgg);
+  const auto BIAS = [&] { return reinterpret_cast<float*>(smem + L.bias); };
+  const auto HIST = [&] { return reinterpret_cast<float*>(smem + L.hist); };
+  const auto VALID = [&] { return reinterpret_cast<float*>(smem + L.valid); };
+  const auto ACT = [&] { return reinterpret_cast<float*>(smem + L.act); };
+  const auto REC = [&] { return reinterpret_cast<float*>(smem + L.rec); };
+  const auto CNT = [&] { return reinterpret_cast<int*>(smem + L.cnt); };
+  const auto OFF = [&] { return reinterpret_cast<int*>(smem + L.off); };
+  const auto NBR = [&] { return reinterpret_cast<short*>(smem + L.nbr); };
+  const auto ER = [&] { return reinterpret_cast<short*>(smem + L.er); };
+  // this sample's scratch in global memory
+  const auto relbase = [&] {
+    return static_cast<bf16*>(p.relbase) + (size_t)b * d.Np * d.K * kRbLd;
+  };
+  const auto penc = [&] { return static_cast<bf16*>(p.penc) + (size_t)b * d.Np * kNF; };
+  const auto pbase = [&] { return static_cast<bf16*>(p.pbase) + (size_t)b * d.Np * kNF; };
+  const auto rs1 = [&] { return static_cast<bf16*>(p.rs1) + (size_t)b * d.Np * 2 * kNF; };
+  const auto frame = [&](int h) { return HIST() + (h % (d.n_his + 1)) * d.Np * 3; };
+
+  constexpr int kThr = kThreads;
+  const bf16* const* W = reinterpret_cast<const bf16* const*>(p.w);
+  const bf16* const* P = reinterpret_cast<const bf16* const*>(p.tcw);
+  const bf16* const W2 = P[kRpW23];            // W23^T's first kNF rows: recv
+  const bf16* const W3 = P[kRpW23] + kNF * kNF;  // ... and the next kNF: send
+  const auto stage_relation = [&] {
+    stage(smem + kOffRe1, P[kRe1], kNF, kNF);
+    stage(smem + kOffRe2, P[kRe2], kNF, kNF);
+    stage(smem + kOffRpW1, P[kRpW1], kNF, kNF);
+    stage(smem + kOffRe0, P[kRe0], kNF, round_to(d.rel_in, 16));  // 32 deep, zero past the inputs
+    tc::cp_async_commit();
+  };
+  PhaseClock clk(p, b);
+  SubClock sc(p, b);
+
+  // ---- inputs; the biases and the head's last layer as float; pe0's
+  // inputs and weight as float in AGG ----
+  stage(SLOT0, P[kPe1], kNF, kNF);
+  stage(SLOT1, P[kPe2], kNF, kNF);
+  tc::cp_async_commit();
+  load_inputs<kThr>(p, b, VALID(), HIST(), ACT(), REC());
+  if (tid < kNF / 2)
+    reinterpret_cast<unsigned*>(smem + L.ninf)[tid] = 0xff80ff80u;  // bf16 -inf pairs
+  {
+    const bf16* src[10] = {W[1], W[3], W[5], W[7], W[9], W[11], W[14], W[17], W[19], W[21]};
+    float* bias = BIAS();
+    for (int idx = tid; idx < 10 * kNF; idx += kThr)
+      bias[idx] = __bfloat162float(src[idx / kNF][idx % kNF]);
+    for (int idx = tid; idx < 3 * kNF; idx += kThr)  // (kNF, 3) -> rows of kW2Ld
+      bias[kWnr2 + (idx % 3) * kW2Ld + idx / 3] = __bfloat162float(W[22][idx]);
+    if (tid < 3) bias[kBnr2 + tid] = __bfloat162float(W[23][tid]);
+    const bf16* pin = static_cast<const bf16*>(p.pin) + (size_t)b * d.Np * d.Dp;
+    float* w0 = reinterpret_cast<float*>(AGG);  // (Dp, kNF), then the (N, Dp) inputs
+    for (int idx = tid; idx < d.Dp * kNF; idx += kThr) w0[idx] = __bfloat162float(W[0][idx]);
+    for (int idx = tid; idx < d.N * d.Dp; idx += kThr)
+      w0[d.Dp * kNF + idx] = __bfloat162float(pin[idx]);
+  }
+  __syncthreads();
+
+  // ---- once per push: the particle encoder (pe0 on the CUDA cores), the
+  // propagator's constant term and round 1's recv|send, five weights through
+  // the two slots ----
+  {
+    const float* bias = BIAS();
+    const float* w0 = reinterpret_cast<const float*>(AGG);
+    const float* in = w0 + d.Dp * kNF;
+    for (int idx = tid; idx < d.N * kNF; idx += kThr) {
+      const int r = idx / kNF, c = idx % kNF;
+      float s = 0.f;
+      for (int k = 0; k < d.Dp; ++k) s = fmaf(in[r * d.Dp + k], w0[k * kNF + c], s);
+      EFF[tc::sw64(r, c, kNodeRows)] = __float2bfloat16_rn(relu(s + bias[kBpe0 + c]));
+    }
+  }
+  sync_copies();  // pe1 | pe2 in; EFF holds h1
+  {
+    const float* bias = BIAS();
+    node_layer(smem, kOffEff, kOffSlot0, sc, [&](int r, int c, float v0, float v1) {
+      *pair_at(AGG, r, c) = bias_relu(bias + kBpe1, v0, v1, c);
+    });
+    tc::fence_proxy_async();
+    __syncthreads();  // AGG holds h2; slot 0 is free
+    stage(SLOT0, P[kPpWa], kNF, kNF);
+    tc::cp_async_commit();
+    bf16* const pe = penc();
+    const int N = d.N;
+    node_layer(smem, kOffAgg, kOffSlot1, sc, [&](int r, int c, float v0, float v1) {
+      const unsigned v = bias_relu(bias + kBpe2, v0, v1, c);
+      *pair_at(EFF, r, c) = v;
+      if (r < N) *reinterpret_cast<unsigned*>(pe + r * kNF + c) = v;
+    });
+    sync_copies();  // Wa in; EFF holds penc; slot 1 is free
+    stage(SLOT1, W2, kNF, kNF);
+    tc::cp_async_commit();
+    bf16* const pb = pbase();
+    node_layer(smem, kOffEff, kOffSlot0, sc, [&](int r, int c, float v0, float v1) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + kBpp + c);
+      if (r < N) *reinterpret_cast<unsigned*>(pb + r * kNF + c) = pack_bf16(v0 + bb.x, v1 + bb.y);
+    });
+    sync_copies();  // W2 in; slot 0 is free
+    stage(SLOT0, W3, kNF, kNF);
+    tc::cp_async_commit();
+    bf16* const rs = rs1();
+    node_layer(smem, kOffEff, kOffSlot1, sc, [&](int r, int c, float v0, float v1) {
+      if (r < N) *reinterpret_cast<unsigned*>(rs + r * 2 * kNF + c) = pack_bf16(v0, v1);
+    });
+    sync_copies();  // W3 in
+    node_layer(smem, kOffEff, kOffSlot0, sc, [&](int r, int c, float v0, float v1) {
+      if (r < N) *reinterpret_cast<unsigned*>(rs + r * 2 * kNF + kNF + c) = pack_bf16(v0, v1);
+    });
+    __syncthreads();  // the slots and EFF are free; rs1, penc and pbase are written
+  }
+  stage_relation();
+  clk.mark(kEncoder);
+
+  int start = 0;  // ring slot of the oldest history frame
+  for (int ai = 1; ai <= tb.rmax; ++ai) {
+    // ---- radius-and-topk graph (edge_build.cuh), compacted by receiver ----
+    sc.start();
+    node_rows<kThr>(d, HIST(), start, reinterpret_cast<bf16*>(smem + L.nr));
+    sc.mark(kGraphRows);
+    edges::radius_topk(frame(start + d.n_his - 1), VALID(), d.Np, d.N, d.n_p, d.K, tb.thresh,
+                       NBR(), CNT(), smem + kOffTiles, threadIdx.x + opaque_zero());
+    sc.mark(kGraphSelection);
+    // the relation weights (staged after the head, or the encoder), visible
+    // after the compaction's barriers
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    edges::compact_edges(CNT(), NBR(), d.Np, d.K, OFF(), ER(), nullptr,
+                         threadIdx.x + opaque_zero());
+    sc.mark(kGraphCompaction);
+    clk.mark(kGraph);
+    // ---- relation encoder + rel_base over real edges ----
+    relation_mlp(p, tb, smem, sc);
+    __syncthreads();  // rel_base is written; the relation weights and tiles are free
+    // round 1's recv (into AGG), send (into slot 1) and the effect's start
+    // (the particle encoding, into EFF), waited for by the first
+    // aggregation; Wb by its end
+    {
+      const bf16* rs = rs1();
+      const bf16* pe = penc();
+      bf16* const send = reinterpret_cast<bf16*>(SLOT1);
+      const int n = d.N * (kNF / 8);  // 16-byte chunks of a node matrix
+      for (int idx = threadIdx.x + opaque_zero(); idx < n; idx += kThr) {
+        const int r = idx / (kNF / 8), c = (idx % (kNF / 8)) * 8;
+        tc::cp_async16(AGG + tc::sw64(r, c, kNodeRows), rs + r * 2 * kNF + c, true);
+        tc::cp_async16(send + r * kSendLd + c, rs + r * 2 * kNF + kNF + c, true);
+        tc::cp_async16(EFF + tc::sw64(r, c, kNodeRows), pe + r * kNF + c, true);
+      }
+    }
+    tc::cp_async_commit();
+    stage(SLOT0, P[kPpWb], kNF, kNF);
+    tc::cp_async_commit();
+    clk.mark(kRelation);
+
+    // ---- pstep rounds of message passing ----
+    const int pstep = __shfl_sync(kFull, d.pstep, 0);
+    for (int s = 0; s < pstep; ++s) {
+      const bool last = s + 1 == pstep;
+      aggregate(tb, smem, relbase(), [&] {
+        if (s > 0) stage(SLOT0, P[kPpWb], kNF, kNF);  // slot 0 held W3, its products done
+        tc::cp_async_commit();
+      }, sc);
+      clk.mark(kAggregate);
+      // slot 1 is free: W2, or after the last round the head's nr0, in
+      // flight through the update
+      stage(SLOT1, last ? P[kNr0] : W2, kNF, kNF);
+      tc::cp_async_commit();
+      update(tb, smem, pbase(), sc);
+      __syncthreads();  // EFF holds the new effect; slot 0 is free
+      sc.mark(kNodeBarriers);
+      clk.mark(kUpdate);
+      if (!last) {  // recv = rnd(effect @ W2) into AGG, send = rnd(effect @ W3) into slot 1
+        stage(SLOT0, W3, kNF, kNF);
+        tc::cp_async_commit();
+        sc.start();
+        tc::cp_async_wait<1>();
+        tc::fence_proxy_async();
+        __syncthreads();  // W2 in
+        sc.mark(kNodeBarriers);
+        node_layer(smem, kOffEff, kOffSlot1, sc, [&](int r, int c, float v0, float v1) {
+          *pair_at(AGG, r, c) = pack_bf16(v0, v1);
+        });
+        sc.start();
+        sync_copies();  // W3 in; slot 1's products are done
+        sc.mark(kNodeBarriers);
+        bf16* const send = reinterpret_cast<bf16*>(SLOT1);
+        const int Np = d.Np;
+        node_layer(smem, kOffEff, kOffSlot0, sc, [&](int r, int c, float v0, float v1) {
+          if (r < Np) *reinterpret_cast<unsigned*>(send + r * kSendLd + c) = pack_bf16(v0, v1);
+        });
+        clk.mark(kProjection);
+      }
+    }
+
+    // ---- motion head on the object rows: nr0 (slot 1, EFF -> AGG), nr1
+    // (slot 0, staged meanwhile, AGG -> EFF), then the 3-wide layer on the
+    // CUDA cores; clamp; the predicted rows of the next frame ----
+    {
+      const float* bias = BIAS();
+      stage(SLOT0, P[kNr1], kNF, kNF);
+      tc::cp_async_commit();
+      sc.start();
+      tc::cp_async_wait<1>();
+      tc::fence_proxy_async();
+      __syncthreads();  // nr0 in
+      sc.mark(kNodeBarriers);
+      node_layer(smem, kOffEff, kOffSlot1, sc, [&](int r, int c, float v0, float v1) {
+        *pair_at(AGG, r, c) = bias_relu(bias + kBnr0, v0, v1, c);
+      });
+      sc.start();
+      sync_copies();  // nr1 in; AGG holds h1
+      sc.mark(kNodeBarriers);
+      node_layer(smem, kOffAgg, kOffSlot0, sc, [&](int r, int c, float v0, float v1) {
+        *pair_at(EFF, r, c) = bias_relu(bias + kBnr1, v0, v1, c);
+      });
+      __syncthreads();  // EFF holds h2
+      const float* last = frame(start + d.n_his - 1);
+      float* nxt = frame(start + d.n_his);
+      const float mc = p.motion_clamp;
+      for (int idx = threadIdx.x + opaque_zero(); idx < d.n_p * 3; idx += kThr) {
+        const int r = idx / 3, c = idx % 3;
+        const float* w = bias + kWnr2 + c * kW2Ld;
+        float acc = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < kNF / 8; ++q) {
+          const uint4 x = *reinterpret_cast<const uint4*>(EFF + tc::sw64(r, 8 * q, kNodeRows));
+          const float4 w0 = *reinterpret_cast<const float4*>(w + 8 * q);
+          const float4 w1 = *reinterpret_cast<const float4*>(w + 8 * q + 4);
+          acc = fmaf(__uint_as_float(x.x << 16), w0.x, acc);
+          acc = fmaf(__uint_as_float(x.x & 0xffff0000u), w0.y, acc);
+          acc = fmaf(__uint_as_float(x.y << 16), w0.z, acc);
+          acc = fmaf(__uint_as_float(x.y & 0xffff0000u), w0.w, acc);
+          acc = fmaf(__uint_as_float(x.z << 16), w1.x, acc);
+          acc = fmaf(__uint_as_float(x.z & 0xffff0000u), w1.y, acc);
+          acc = fmaf(__uint_as_float(x.w << 16), w1.z, acc);
+          acc = fmaf(__uint_as_float(x.w & 0xffff0000u), w1.w, acc);
+        }
+        const float m = rnd<bf16>(acc + bias[kBnr2 + c]);
+        nxt[r * 3 + c] = __fadd_rn(last[r * 3 + c], fminf(fmaxf(m, -mc), mc));
+      }
+      __syncthreads();  // the slots, EFF and AGG are free
+    }
+    clk.mark(kHead);
+    // the next substep's relation weights, in flight through the re-stick
+    // and the next graph build
+    if (ai < tb.rmax) stage_relation();
+
+    // ---- record at this sample's repeat; re-stick the eef rows ----
+    record_restick<kThr>(p, ai, tb.rep, frame(start + d.n_his - 1), frame(start + d.n_his),
+                         VALID(), ACT(), REC(), reinterpret_cast<float*>(smem + L.red));
+    start = (start + 1) % (d.n_his + 1);
+    clk.mark(kRestick);
+  }
+  tc::cp_async_wait<0>();  // the relation weights staged for a sample with no substep
+  sc.flush();
+
+  const float* rec = REC();
+  for (int idx = tid; idx < d.n_p * 3; idx += kThr) p.out[(size_t)b * d.n_p * 3 + idx] = rec[idx];
+}
+
+}  // namespace w160
+
 template <typename T>
 __global__ void __launch_bounds__(Cfg<T>::kThreads, 1) rollout_chunk_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1642,9 +2396,19 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, 1) rollout_chunk_kernel(cons
     rollout_f32(p, smem);
 }
 
+// bfloat16 at width 160 (w160::rollout); its own kernel, so that the 128
+// body's instance stays as it is
+template <typename T>
+__global__ void __launch_bounds__(w160::kThreads, 1) rollout_chunk_kernel_w160(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  w160::rollout(p, smem);
+}
+
 template <typename T> int smem_bytes(const Dims& d);
 template <> int smem_bytes<float>(const Dims& d) { return make_layout(d).total; }
-template <> int smem_bytes<bf16>(const Dims& d) { return make_tc_layout(d).total; }
+template <> int smem_bytes<bf16>(const Dims& d) {
+  return d.nf_e == w160::kNF ? w160::layout_of(d).total : make_tc_layout(d).total;
+}
 
 template <typename T>
 int launch(const Params& p, int B, int device, cudaStream_t stream) {
@@ -1652,6 +2416,15 @@ int launch(const Params& p, int B, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)smem_bytes<T>(p.d);
+  if constexpr (sizeof(T) == 2) {
+    if (p.d.nf_e == w160::kNF) {
+      err = cudaFuncSetAttribute(rollout_chunk_kernel_w160<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      if (B > 0) rollout_chunk_kernel_w160<T><<<B, w160::kThreads, smem, stream>>>(p);
+      return (int)cudaGetLastError();
+    }
+  }
   err = cudaFuncSetAttribute(rollout_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -30,10 +30,19 @@ kernels: products accumulate in float32 and every layer's output is rounded
 to ``compute_dtype`` (float32 or bfloat16) where the JAX kernel rounds it;
 positions, distances and ``pred = last + clamp(motion)`` stay float32.
 
+The rollout kernel computes bfloat16 models exactly 128 wide or 129 to 152
+wide at 160, and float32 ones at multiples of 4 (``k1_widths``); the wrapper
+pads a narrower model's weights to them with zeros (AdaptiGraph's published
+150 runs at 160 in bfloat16 and 152 in float32): in bfloat16 the
+tensor-core layers in their packing's gather (``pack_tc_weights``), the
+others in one small gather (``pad_weights``). That leaves the outputs as
+they are. ``fused_rollout_chunk.padded_launches`` counts those launches.
+
 Spans (``utils/profiling.py::span``, recorded only under ``torch.profiler``):
-``k1.inputs``, the chunk's kernel inputs (stream time too), and
-``k1.launch``, the kernel wrapper's checks, weight packing, allocations and
-launch (host only).
+``k1.inputs``, the chunk's kernel inputs (stream time too), ``k1.launch``,
+the kernel wrapper's checks, weight padding and packing, allocations and
+launch (host only), and inside it ``k1.pack``, the weights' padding and
+packing (stream time too).
 """
 
 import ctypes
@@ -46,6 +55,13 @@ from adaptigraph_tpu_torch.ops.graph import BIG, pairwise_sq_dists, smallest_k
 from adaptigraph_tpu_torch.utils.profiling import span
 
 N_WEIGHTS = 24
+RP_W23 = 13  # weight_list's index of the relation propagator's [W2 | W3]
+# the bfloat16 rollout kernel's widths (csrc/rollout_chunk.cu, see
+# k1_widths): the body at 128 computes models exactly 128 wide, w160's at
+# 160 models up to K1_BF16_WIDE_MODEL wide, since its rel_base rows and the
+# aggregation hold that many channels (w160::kRbLd)
+K1_BF16_WIDTHS = (128, 160)
+K1_BF16_WIDE_MODEL = 152
 _MAX_SMEM = 232448  # dynamic shared memory one block may use on Hopper
 _MAX_BF16_NODE_INPUTS = 32  # Dp the bf16 rollout kernel takes (csrc/rollout_chunk.cu: pe0)
 
@@ -120,44 +136,70 @@ def tf32_split(x):
     return hi, tf32_round(x - hi)
 
 
-_PACK_INDEX = {}  # (layer shapes, transpose, device) -> pack_tc_weights' gather index, offsets
+_GATHER_INDEX = {}  # (shapes, padded shapes, layout, [W2 | W3]'s place, device) -> index, offsets
 
 
-def _pack_index(shapes, transpose, device):
-    """Where each element of ``pack_tc_weights``' buffer comes from: its
-    position in the layers' weights (kin, nout) flattened one after another,
-    or one past their end (a zero) for the padding; and each layer's offset.
-    Made once per shapes, layout and device."""
-    key = (tuple(shapes), transpose, str(device))
-    if key not in _PACK_INDEX:
-        parts, offs, at = [], [0], 0
-        for k, n in shapes:
-            m = np.arange(at, at + k * n).reshape(k, n)
-            m = m.T if transpose else m
-            block = np.full((round_up(m.shape[0], 8), round_up(m.shape[1], 16)), -1, np.int64)
-            block[:m.shape[0], :m.shape[1]] = m
-            parts.append(block.reshape(-1))
-            offs.append(offs[-1] + block.size)
-            at += k * n
+def _gather_index(shapes, padded, pack, transpose, halves, device):
+    """Where each element of a gathered weight buffer comes from: its
+    position in the weights of ``shapes`` flattened one after another, or
+    one past their end (a zero). Weight i is zero-padded to ``padded[i]``
+    (the one at ``halves``, [W2 | W3], each column half on its own) and,
+    with ``pack``, laid out as ``pack_tc_weights`` gives it; each starts at a
+    multiple of 8 elements (16 bytes), its offset. Made once per shapes,
+    layout and device."""
+    key = (tuple(shapes), tuple(padded), pack, transpose, halves, str(device))
+    if key not in _GATHER_INDEX:
+        parts, offs, at, o = [], [], 0, 0
+        for i, (shape, pshape) in enumerate(zip(shapes, padded)):
+            src = np.arange(at, at + int(np.prod(shape))).reshape(shape)
+            at += src.size
+            block = np.full(pshape, -1, np.int64)
+            if i == halves:
+                h, ph = shape[1] // 2, pshape[1] // 2
+                block[:shape[0], :h], block[:shape[0], ph:ph + h] = src[:, :h], src[:, h:]
+            else:
+                block[tuple(slice(0, k) for k in shape)] = src
+            if pack:
+                m = block.T if transpose else block
+                block = np.full((round_up(m.shape[0], 8), round_up(m.shape[1], 16)), -1, np.int64)
+                block[:m.shape[0], :m.shape[1]] = m
+            size = round_up(block.size, 8)
+            parts += [block.reshape(-1), np.full(size - block.size, -1, np.int64)]
+            offs.append(o)
+            o += size
         idx = np.concatenate(parts)
         idx[idx < 0] = at
-        _PACK_INDEX[key] = (torch.from_numpy(idx).to(device), offs[:-1])
-    return _PACK_INDEX[key]
+        _GATHER_INDEX[key] = (torch.from_numpy(idx).to(device), offs)
+    return _GATHER_INDEX[key]
 
 
-def pack_tc_weights(weights, compute_dtype, transpose):
+def _padded_shapes(weights, widths):
+    """The shapes of ``weight_list``'s weights at the layer widths ``widths``
+    (nf_particle, nf_relation, nf_effect)."""
+    return _shapes(*widths, weights[6].shape[0], weights[0].shape[0])
+
+
+def pack_tc_weights(weights, compute_dtype, transpose, widths=None):
     """The tensor-core layers' weights (``TC_LAYERS`` of ``weight_list``'s
     output, in ``compute_dtype``) in the layout the kernels stage, in one flat
     buffer: per layer, the rows of its product's B^T zero-padded to a depth of
     a multiple of 16 (and to a multiple of 8 rows) — with ``transpose`` (K2's
     Y = X W) W^T, (nout, round16(kin)); without (K3's dX = dY W^T) W itself,
-    (round8(kin), round16(nout)). One gather from the concatenated weights
-    (``_pack_index``), so a launch's packing is a few device operations.
-    Returns (hi, lo, offsets): in bfloat16 hi holds the weights and lo is
-    None; in float32 hi and lo are the TF32 parts of ``tf32_split``.
-    ``offsets`` are each layer's first element (multiples of 16)."""
+    (round8(kin), round16(nout)). With ``widths`` (the rollout kernel's layer
+    widths) each layer is first zero-padded to them, as ``pad_weights`` pads.
+    One gather from the concatenated weights (``_gather_index``), so a
+    launch's packing is a few device operations. Returns (hi, lo, offsets):
+    in bfloat16 hi holds the weights and lo is None; in float32 hi and lo are
+    the TF32 parts of ``tf32_split``. ``offsets`` are each layer's first
+    element (multiples of 16)."""
     mats = [weights[i] for i in TC_LAYERS]
-    idx, offs = _pack_index([tuple(m.shape) for m in mats], transpose, mats[0].device)
+    shapes = [tuple(m.shape) for m in mats]
+    padded = shapes
+    if widths is not None:
+        at_widths = _padded_shapes(weights, widths)
+        padded = [at_widths[i] for i in TC_LAYERS]
+    idx, offs = _gather_index(shapes, padded, True, transpose, TC_LAYERS.index(RP_W23),
+                              mats[0].device)
     flat = torch.cat([m.reshape(-1) for m in mats] + [mats[0].new_zeros(1)])
     flat = flat.to(compute_dtype).index_select(0, idx)
     if compute_dtype == torch.bfloat16:
@@ -166,11 +208,11 @@ def pack_tc_weights(weights, compute_dtype, transpose):
     return hi, lo, offs
 
 
-def tc_pointers(weights, compute_dtype, transpose):
+def tc_pointers(weights, compute_dtype, transpose, widths=None):
     """Pack (``pack_tc_weights``) and return the kernels' pointer array: the
     hi pointer of every tensor-core layer, then the lo ones (null in bf16),
     and the packed tensors, which must outlive the launch."""
-    hi, lo, offs = pack_tc_weights(weights, compute_dtype, transpose)
+    hi, lo, offs = pack_tc_weights(weights, compute_dtype, transpose, widths)
     size = hi.element_size()
     ptrs = [hi.data_ptr() + o * size for o in offs]
     ptrs += [lo.data_ptr() + o * size for o in offs] if lo is not None else [None] * len(offs)
@@ -341,17 +383,11 @@ def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_r
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
     _check(expect, dev)
     bf16 = compute_dtype == torch.bfloat16
-    step = 16 if bf16 else 4  # a tensor-core k-step is 16 wide; a float4 load 4
-    for width in (cfg.nf_particle, cfg.nf_relation, nf):
-        if width % step:
-            raise ValueError(f"the {compute_dtype} kernel needs layer widths divisible by "
-                             f"{step}, got {width}")
-    if bf16 and ((cfg.nf_particle, cfg.nf_relation, nf) != (128, 128, 128)
-                 or cfg.relation_input_dim > 32):
-        # the tensor-core products are 128 wide, and re0's depth is two k16 steps
-        raise ValueError("the bfloat16 kernel needs nf_particle = nf_relation = nf_effect = 128 "
-                         f"and at most 32 relation inputs, got {cfg.nf_particle}, "
-                         f"{cfg.nf_relation}, {nf}, {cfg.relation_input_dim}")
+    widths = k1_widths(cfg, compute_dtype)
+    padded = widths != (cfg.nf_particle, cfg.nf_relation, nf)
+    if bf16 and cfg.relation_input_dim > 32:  # re0's depth is two k16 steps
+        raise ValueError(f"the bfloat16 kernel takes at most 32 relation inputs, got "
+                         f"{cfg.relation_input_dim}")
     if bf16 and Dp > _MAX_BF16_NODE_INPUTS:
         # the particle encoder's first layer reads its inputs and weight as
         # float from one 32 KB node matrix: (Np + 128) x Dp floats
@@ -363,22 +399,30 @@ def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_r
     if Np < N or Np > 128 or K > Np:
         raise ValueError(f"unsupported node padding Np={Np} for N={N}, K={K}")
     lib = kernels.library()
-    dims = (Np, N, n_p, K, cfg.n_his, cfg.pstep, Dp, cfg.nf_particle, cfg.nf_relation, nf,
-            cfg.relation_input_dim)
+    dims = (Np, N, n_p, K, cfg.n_his, cfg.pstep, Dp, *widths, cfg.relation_input_dim)
     smem = lib.rollout_chunk_smem_bytes(*dims, int(bf16))
     if smem > _MAX_SMEM:
-        raise ValueError(f"this config needs {smem} bytes of shared memory per block, "
-                         f"more than the {_MAX_SMEM} a Hopper block may use")
-    relbase = torch.empty(B, Np * K, nf, dtype=compute_dtype, device=dev)
-    penc = torch.empty(B, Np, nf, dtype=compute_dtype, device=dev)
-    pbase = torch.empty(B, Np, nf, dtype=compute_dtype, device=dev)
+        raise ValueError(f"this config (layer widths {widths} in the kernel) needs {smem} bytes "
+                         f"of shared memory per block, more than the {_MAX_SMEM} a Hopper block "
+                         f"may use")
+    knf = widths[2]
+    rb_ld = K1_BF16_WIDE_MODEL if bf16 and knf == K1_BF16_WIDTHS[1] else knf  # rel_base's rows
+    relbase = torch.empty(B, Np * K, rb_ld, dtype=compute_dtype, device=dev)
+    penc = torch.empty(B, Np, knf, dtype=compute_dtype, device=dev)
+    pbase = torch.empty(B, Np, knf, dtype=compute_dtype, device=dev)
     out = torch.empty(B, n_p, 3, dtype=torch.float32, device=dev)
-    wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[t.data_ptr() for t in weights])
-    if bf16:  # the tensor-core layers as W^T, and round 1's recv|send once per push
-        tcptrs, _packed = tc_pointers(weights, compute_dtype, transpose=True)
-        rs1 = torch.empty(B, Np, 2 * nf, dtype=compute_dtype, device=dev)
-    else:
-        tcptrs, _packed, rs1 = None, None, None
+    with span("k1.pack", stream=dev):
+        # the weights the kernel reads as they are (bf16: not the tensor-core
+        # layers) padded to its widths; the tensor-core layers (bf16) as W^T,
+        # padded in the same gather
+        kept = (pad_weights(weights, widths, skip=TC_LAYERS if bf16 else ()) if padded
+                else weights)
+        wptrs = (ctypes.c_void_p * N_WEIGHTS)(*[None if t is None else t.data_ptr()
+                                                for t in kept])
+        tcptrs, _packed = (tc_pointers(weights, compute_dtype, True, widths if padded else None)
+                           if bf16 else (None, None))
+    # bf16: round 1's recv|send, once per push
+    rs1 = torch.empty(B, Np, 2 * knf, dtype=compute_dtype, device=dev) if bf16 else None
     rc = lib.rollout_chunk_launch(
         pin.data_ptr(), sa.data_ptr(), repeat.data_ptr(), valid.data_ptr(), wptrs, tcptrs,
         relbase.data_ptr(), penc.data_ptr(), pbase.data_ptr(),
@@ -391,12 +435,56 @@ def rollout_chunk_cuda(pin, sa, repeat, valid, weights, cfg: GNNConfig, K, adj_r
         raise RuntimeError(f"rollout_chunk kernel launch failed: "
                            f"{lib.rollout_chunk_error_string(rc).decode()} ({rc})")
     fused_rollout_chunk.launches += 1
+    fused_rollout_chunk.padded_launches += int(padded)
+    return out
+
+
+def k1_widths(cfg: GNNConfig, compute_dtype):
+    """The layer widths (nf_particle, nf_relation, nf_effect) at which the
+    rollout kernel computes ``cfg``'s model: in bfloat16 all three at 128
+    (the body at 128 takes exactly that) or, where the widest lies in 129 ..
+    ``K1_BF16_WIDE_MODEL``, all three at 160 (the body at 160); in float32
+    each rounded up to a multiple of 4 (a float4 load). Raises for widths the
+    bfloat16 kernel does not compute."""
+    widths = (cfg.nf_particle, cfg.nf_relation, cfg.nf_effect)
+    if compute_dtype != torch.bfloat16:
+        return tuple(round_up(w, 4) for w in widths)
+    narrow, wide = K1_BF16_WIDTHS
+    if widths == (narrow,) * 3:
+        return widths
+    if narrow < max(widths) <= K1_BF16_WIDE_MODEL:
+        return (wide,) * 3
+    raise ValueError(f"the bfloat16 rollout kernel computes layer widths of {narrow} (all three) "
+                     f"or {narrow + 1} to {K1_BF16_WIDE_MODEL} (padded to {wide}), got {widths}")
+
+
+def pad_weights(weights, widths, skip=()):
+    """``weight_list``'s 24 weights zero-padded to the layer widths
+    ``widths`` (nf_particle, nf_relation, nf_effect, each at least the
+    model's): the rows and columns past a width zero, the two halves of the
+    recv|send weight [W2 | W3] each padded on its own; those at ``skip``
+    left out (None in their place). One gather from the concatenated
+    weights (``_gather_index``), the padded weights views of one buffer. A
+    padded channel computes relu(0 + 0) = 0 in every layer and adds nothing
+    to the next, so the model's outputs stay as they are."""
+    keep = [i for i in range(len(weights)) if i not in skip]
+    padded = _padded_shapes(weights, widths)
+    idx, offs = _gather_index([tuple(weights[i].shape) for i in keep], [padded[i] for i in keep],
+                              False, False, keep.index(RP_W23) if RP_W23 in keep else None,
+                              weights[0].device)
+    flat = torch.cat([weights[i].reshape(-1) for i in keep] + [weights[0].new_zeros(1)])
+    flat = flat.index_select(0, idx)
+    out = [None] * len(weights)
+    for i, o in zip(keep, offs):
+        out[i] = flat[o:o + int(np.prod(padded[i]))].view(padded[i])
     return out
 
 
 def _weight_shapes(cfg: GNNConfig, Dp):
-    nfp, nfr, nf = cfg.nf_particle, cfg.nf_relation, cfg.nf_effect
-    rin = cfg.relation_input_dim
+    return _shapes(cfg.nf_particle, cfg.nf_relation, cfg.nf_effect, cfg.relation_input_dim, Dp)
+
+
+def _shapes(nfp, nfr, nf, rin, Dp):
     return [(Dp, nfp), (nfp,), (nfp, nfp), (nfp,), (nfp, nf), (nf,),
             (rin, nfr), (nfr,), (nfr, nfr), (nfr,), (nfr, nf), (nf,),
             (nf, nf), (nf, 2 * nf), (nf,),
@@ -442,6 +530,7 @@ def fused_rollout_chunk(params, obj0, kp, delta, repeat, physics_param, cfg: GNN
 
 
 fused_rollout_chunk.launches = 0
+fused_rollout_chunk.padded_launches = 0  # launches whose weights the wrapper padded
 
 
 # ---------------------------------------------------------------------------

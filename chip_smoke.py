@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py          # needs one CUDA card
     python3 chip_smoke.py --k1     # phases 0-1, then what K1 (and K2e) move (``phase_k1``)
+    python3 chip_smoke.py --kernels  # phases 0-2: K1 against its plain version at every width
     python3 chip_smoke.py --k23    # phases 0-1, then what K2/K3 move (``phase_k23``)
     python3 chip_smoke.py --k3     # phases 0-1, then K3's checks at every batch and its times
     python3 chip_smoke.py --softbody  # phases 0-1 and 17: softbody, datagen to rollout
@@ -16,15 +17,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. build the CUDA kernels from the sources in this checkout (timed), with
      ptxas' register and spill report and each K1/K2/K3 instance's HGMMA and
      HMMA count (K3's: its cotangent chain and its batch-wide weight
-     gradients; every K2/K3 instance and bf16 K1 must run wgmma: HGMMA;
-     bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised the
+     gradients; every K2/K3 instance and bf16 K1 (its bodies at width 128
+     and 160) must run wgmma: HGMMA; bf16 K1 no mma.sync: no HMMA; ptxas must not have serialised the
      wgmma of any K1, K2 or K3 instance, and no instance may spill:
      ``build_gate``).
   2. the rollout kernel against its plain PyTorch version on the card, on the
      same inputs, in f32 and bf16 each (see ``phase_kernels``): rope width
-     (fixture weights, B 2000) and granular width (5-point board, K 20), each
-     in min-y and masked mean-y mode with per-sample masks and physics (B
-     512); then the kernel's time (CUDA events and device time) and, from
+     (fixture weights, B 2000), granular width (5-point board, K 20) and
+     rope at AdaptiGraph's published width, 150 (seeded weights: no
+     150-wide checkpoint; the wrapper pads it to the kernel's 160 in bf16
+     and 152 in f32), each in min-y and masked mean-y mode with per-sample
+     masks and physics (B 512); then the kernel's time (CUDA events and device time) and, from
      its profiling build, its cycles per phase and, in bf16, thread 0's in
      the parts of the relation MLP, the aggregation, the graph build and the
      node-sized products (``K1_SUB_PHASES``).
@@ -169,6 +172,7 @@ started that still run (``stop_processes``).
 
 import contextlib
 import ctypes
+import dataclasses
 import itertools
 import json
 import os
@@ -361,6 +365,21 @@ def median_ms(fn, make_inputs, reps):
 # set-up shared by the phases
 # ---------------------------------------------------------------------------
 
+def published_rope(dev, seed=0, width=150):
+    """Rope's task objects at AdaptiGraph's published width, 150 (or
+    ``width``), with seeded weights (``init_params``: no 150-wide checkpoint
+    exists), and the fixture's first recorded state, as ``material``."""
+    from adaptigraph_tpu_torch.models.gnn import init_params
+
+    tcfg, _, state, fixture = material("rope", dev)
+    gnn = dataclasses.replace(tcfg.dcfg.gnn, nf_particle=width, nf_relation=width,
+                              nf_effect=width)
+    tcfg = dataclasses.replace(tcfg, dcfg=dataclasses.replace(tcfg.dcfg, gnn=gnn))
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+    return tcfg, init_params(generator, gnn), state, fixture
+
+
 def material(name, dev):
     """Task objects, fixture weights and the first recorded state of a material."""
     from adaptigraph_tpu_torch.cli import _task_objects, load_params
@@ -436,8 +455,11 @@ KERNEL_FUNCTIONS = ("gnn_forward_kernel", "gnn_train_bwd_kernel", "wgrad_sum_sam
 
 def kernel_label(fn):
     """A template instance's name, e.g. ``rollout_chunk_kernel<bf16>``, from its
-    mangled name, or None for another function."""
+    mangled name, or None for another function; K1's bf16 body at width 160
+    is ``rollout_chunk_kernel_w160<bf16>``."""
     name = next((k for k in KERNEL_FUNCTIONS if k in fn), None)
+    if name == "rollout_chunk_kernel" and "rollout_chunk_kernel_w160" in fn:
+        name = "rollout_chunk_kernel_w160"
     return None if name is None else name + ("<bf16>" if "bfloat16" in fn else "<float>")
 
 
@@ -474,8 +496,11 @@ def instance_of(fn, source=None):
     belongs to: a kernel instance by its name (``kernel_label``); another
     function of a kernel's source file (a device function that ptxas
     compiled apart, which the instance calls) by its compute dtype in its
-    mangled name; else None."""
+    mangled name (one of K1's width-160 body, namespace w160, by that
+    body's); else None."""
     label = kernel_label(fn)
+    if label is None and source == "rollout_chunk.cu" and "w160" in fn:
+        return "rollout_chunk_kernel_w160<bf16>"  # K1's body at width 160, bf16 alone
     if label is None and source in SOURCE_KERNELS:
         label = SOURCE_KERNELS[source] + ("<bf16>" if "bfloat16" in fn else "<float>")
     return label
@@ -583,10 +608,11 @@ def phase_build(gate=True):
         report = f.read().splitlines()
     ptxas = [ln.strip() for ln in report if "registers" in ln or "spill" in ln]
     counts = sass_counts(path)
-    k1 = counts.get("rollout_chunk_kernel<bf16>", {"HGMMA": 0, "HMMA": 1})
-    ok = (len(counts) == 2 * len(KERNEL_FUNCTIONS) and "rollout_chunk_kernel<float>" in counts
+    k1 = [counts.get(k, {"HGMMA": 0, "HMMA": 1})
+          for k in ("rollout_chunk_kernel<bf16>", "rollout_chunk_kernel_w160<bf16>")]
+    ok = (len(counts) == 2 * len(KERNEL_FUNCTIONS) + 1 and "rollout_chunk_kernel<float>" in counts
           and all(c["HGMMA"] > 0 for k, c in counts.items() if not k.startswith("rollout"))
-          and k1["HGMMA"] > 0 and k1["HMMA"] == 0)
+          and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in k1))
     failed = build_gate(report)
     emit(phase="build", seconds=round(time.time() - t0, 2), library=os.path.relpath(path, ROOT),
          variants=[v for v in kernels.VARIANTS if v], ptxas=ptxas,
@@ -680,8 +706,10 @@ def graded(r):
 def phase_kernels(dev):
     """Every body of the kernel at each width: float32 and bfloat16 (separate
     code in the kernel), min-y and masked mean-y (per-sample masks and
-    physics), rope and granular. Masked cases run at B 512, the physics
-    optimizer's batch (pad_p 32 x pad_i 16).
+    physics), rope and granular, and rope at the published width 150 (bf16
+    runs the body at 160, ``w160``). Masked cases run at B 512, the physics
+    optimizer's batch (pad_p 32 x pad_i 16). bf16 also at the widest model
+    the body at 160 computes (152), at B 512.
 
     float32 is held to 2e-4 for one substep and to the graded bound for whole
     pushes. bf16 is held to 0.05 (the bf16 bound of tests/test_fused.py) for
@@ -689,27 +717,38 @@ def phase_kernels(dev):
     graph, relation MLP, aggregation, update, head, then the re-stick and the
     history shift, read by the second substep. Whole bf16 pushes are held by
     ``check_bf16_push``; the rope push of the main path also to 0.05."""
+    from adaptigraph_tpu_torch.ops.fused_gnn import K1_BF16_WIDE_MODEL
+
     rope = material("rope", dev)
     gran = material("granular", dev)
+    wide = published_rope(dev)
     f32, bf16 = torch.float32, torch.bfloat16
     masked = "masked mean-y"
     checks, main_err = [], None
     for name, mat, B, is_masked in (("rope", rope, B_CHUNK, False),
                                     (f"rope {masked}", rope, 512, True),
                                     ("granular", gran, B_CHUNK, False),
-                                    (f"granular {masked}", gran, 512, True)):
+                                    (f"granular {masked}", gran, 512, True),
+                                    ("rope 150", wide, B_CHUNK, False),
+                                    (f"rope 150 {masked}", wide, 512, True)):
         checks.append(check_kernel(name, mat, dev, f32, 2e-4, n_steps=1, masked=is_masked, B=B))
         checks.append(check_kernel(name, mat, dev, f32, graded, masked=is_masked, B=B))
         for n in (1, 2):
             checks.append(check_kernel(name, mat, dev, bf16, 0.05, n_steps=n, masked=is_masked,
                                        B=B))
         checks.append(check_bf16_push(name, mat, dev, masked=is_masked, B=B,
-                                      max_tol=0.05 if name == "rope" else None))
+                                      max_tol=0.05 if name in ("rope", "rope 150") else None))
         if name == "rope":  # the main path's shapes
             main_err = checks[-1][0]
+    # the widest model the 160 body computes: every channel of rel_base's
+    # rows and of the aggregation holds a weight
+    widest = published_rope(dev, width=K1_BF16_WIDE_MODEL)
+    for n in (1, 2):
+        checks.append(check_kernel(f"rope {K1_BF16_WIDE_MODEL}", widest, dev, bf16, 0.05,
+                                   n_steps=n, B=512))
     if not all(ok for _, ok in checks):
         fail("the rollout kernel disagrees with its plain version (see kernel_check lines)")
-    return rope, main_err
+    return rope, main_err, wide
 
 
 def time_kernel(rope, dev):
@@ -718,8 +757,8 @@ def time_kernel(rope, dev):
     the wrapper call (median of 7) and the kernel's device time under
     ``torch.profiler``; the bound, and the kernel's shared memory per block."""
     from adaptigraph_tpu_torch.ops import kernels
-    from adaptigraph_tpu_torch.ops.fused_gnn import (rollout_chunk_cuda, rollout_chunk_plain,
-                                                     weight_list)
+    from adaptigraph_tpu_torch.ops.fused_gnn import (k1_widths, rollout_chunk_cuda,
+                                                     rollout_chunk_plain, weight_list)
 
     tcfg, params, state, _ = rope
     dcfg, cd = tcfg.dcfg, torch.bfloat16
@@ -736,9 +775,9 @@ def time_kernel(rope, dev):
     dev_t = device_ms(rollout_chunk_cuda, inputs, 5, ["rollout_chunk_kernel"])
     plain_ms = median_ms(rollout_chunk_plain, inputs, 5)
     _, Np, Dp = inputs(0)[0].shape
-    smem = kernels.library().rollout_chunk_smem_bytes(
-        Np, gnn.n_nodes, gnn.max_nobj, dcfg.edge.topk, gnn.n_his, gnn.pstep, Dp, gnn.nf_particle,
-        gnn.nf_relation, gnn.nf_effect, gnn.relation_input_dim, 1)
+    smem = kernels.library().rollout_chunk_smem_bytes(  # at the widths the kernel runs
+        Np, gnn.n_nodes, gnn.max_nobj, dcfg.edge.topk, gnn.n_his, gnn.pstep, Dp,
+        *k1_widths(gnn, cd), gnn.relation_input_dim, 1)
     stats = {}
     pin, sa = inputs(100)[:2]
     out = rollout_chunk_plain(*inputs(100), stats=stats)
@@ -4890,6 +4929,11 @@ def main():
         phase_k1(dev)
         print(card, flush=True)
         return
+    if sys.argv[1:] == ["--kernels"]:
+        _, _, wide = phase_kernels(dev)
+        emit(phase="kernel_time_published", **time_kernel(wide, dev))
+        print(card, flush=True)
+        return
     if sys.argv[1:] == ["--k23"]:
         phase_k23(dev)
         print(card, flush=True)
@@ -4921,9 +4965,10 @@ def main():
         phase_public_names(material("rope", dev), dev)
         print(card, flush=True)
         return
-    rope, main_err = phase_kernels(dev)
+    rope, main_err, wide = phase_kernels(dev)
     timing = time_kernel(rope, dev)
     emit(phase="kernel_time", **timing)
+    emit(phase="kernel_time_published", **time_kernel(wide, dev))
     launches = phase_solve(rope, dev)
     phase_demo_ppo(dev)
 

@@ -33,6 +33,9 @@ MANGLED = {
     "rollout_chunk_kernel<bf16>":
         "_ZN49_GLOBAL__N__5c1e0f2a_16_rollout_chunk_cu_7d2e1b3c20rollout_chunk_kernelI13__nv_bfl"
         "oat16EEvNS_6ParamsE",
+    "rollout_chunk_kernel_w160<bf16>":
+        "_ZN49_GLOBAL__N__5c1e0f2a_16_rollout_chunk_cu_7d2e1b3c25rollout_chunk_kernel_w160I13__n"
+        "v_bfloat16EEvNS_6ParamsE",
 }
 # a function of the same library that is no kernel instance (a noinline helper)
 HELPER = "_ZN3gnnL6chain2EPK13__nv_bfloat16S2_iiRfS3_"
@@ -158,3 +161,15 @@ def test_build_gate_fails_on_a_k1_c75xx_note(code, dtype):
     lines = (["== rollout_chunk.cu"] + [note[0].replace(fn, helper)] + properties(fn)
              + properties(helper, registers=64))
     assert [k for k, _ in build_gate(lines)] == [instance]
+
+
+def test_build_gate_counts_a_w160_helper_to_the_w160_instance():
+    """A device function of K1's width-160 body (namespace w160) that ptxas
+    compiled apart belongs to that body's instance, not to the 128 body's."""
+    fn = MANGLED["rollout_chunk_kernel_w160<bf16>"]
+    helper = ("_ZN49_GLOBAL__N__5c1e0f2a_16_rollout_chunk_cu_7d2e1b3c4w16012relation_mlpERK6Para"
+              "msRKNS0_5BlockEPhR8SubClock")
+    lines = (["== rollout_chunk.cu"] + properties(MANGLED["rollout_chunk_kernel<bf16>"])
+             + properties(fn) + properties(helper, stores=12, loads=12, registers=168))
+    assert build_gate(lines) == [("rollout_chunk_kernel_w160<bf16>",
+                                  "spills: 12 bytes stored, 12 bytes loaded")]
